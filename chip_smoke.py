@@ -5,23 +5,41 @@ Drives ``repro_torch`` (never the JAX package) phase by phase; any failing
 phase raises, and the script exits nonzero:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions;
-  2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+  2. build    nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
+              (one nvcc per source, all started together);
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serve path's shapes (bf16 and fp32) and on small edge cases
-              (window, softcap, ragged lengths), with stated tolerances; then
-              kernel / plain / library (SDPA, a yardstick the port never
-              calls) times from CUDA events, inputs rotated through more
-              than the 50 MB L2 cache, beside the bound (bytes or operations
-              over the card's peak rates);
+              (window, softcap, ragged lengths; for paged decode: page 8 and
+              hd 128, softcap, a table slice narrower than the table,
+              length-0 rows and NaN pages past every row's length), with
+              stated tolerances; then kernel / plain / library (SDPA, a
+              yardstick the port never calls; none for paged decode) times
+              from CUDA events, inputs rotated through more than the 50 MB
+              L2 cache, beside the bound (bytes or operations over the
+              card's peak rates);
   4. model    full-width tinyllama-1.1b (22 layers, bf16): prefill of 8 x 512
-              tokens plus 8 decode steps with the kernels on and off, logits
-              held to a stated tolerance; a full-width 4-layer fp32 rung must
-              give identical greedy tokens either way;
+              tokens plus 8 decode steps with the kernels on and off, and
+              the same 8 steps through the page pool (``paged_admit`` +
+              ``decode_step_paged``) against the dense steps, logits held to
+              a stated tolerance; full-width 4-layer fp32 rungs must give
+              identical greedy tokens kernels on vs off and paged vs dense;
   5. serve    the InfAdapter loop (``launch.serve``: full-width ladder
               8/15/22 layers, calibrate, ``run_serving_loop`` with the
-              controller) for ~30 s; every request completes with its full
-              budget and both kernels' launch counters grow in this phase;
-  6. output   the ``{"kernels": [...]}`` line, then the ok line last.
+              controller) on the dense engine, then on the paged engine with
+              prefix sharing (``kv_cache="paged"``, page 16; the paged
+              backend has no pump path, so it runs on the profiles
+              calibrated on the dense engine of the same ladder and
+              geometry); every request completes with its full budget, every
+              pool ends empty and consistent, and each path's kernels'
+              launch counters grow in its own phase;
+  6. prefix   the shared-system-prompt study at full width: 24 staggered
+              512-token requests over a 384-token shared prefix, every
+              fourth an exact repeat (copy-on-write), sharing on vs off:
+              prefix hits, CoW copies and fewer prefilled tokens with
+              sharing on; bf16 token agreement printed; a 4-layer fp32 rung
+              must give identical tokens on vs off;
+  7. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve and prefix phases), then the ok line last.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
@@ -42,8 +60,12 @@ L2_BYTES = 50e6
 B, PROMPT, MAX_NEW, CHUNK = 8, 512, 64, 8
 H, KV, HD = 32, 4, 64
 CAP = PROMPT + MAX_NEW
+PAGE = 16
+WIDTH = CAP // PAGE         # block-table width: 36 pages per slot
 BF16_LOGIT_TOL = 5e-2       # ||on - off|| / ||off|| over the logits, bf16
-SERVE_SECONDS = 30
+SERVE_SECONDS = 20          # each of the dense and the paged serve loops
+# prefix phase: the reference's shared-system-prompt study at full width
+PS_N, PS_SHARED = 24, 384
 DEVICE = "cuda"
 
 
@@ -83,10 +105,65 @@ def check(name, got, want, dtype):
     return err
 
 
+def paged_inputs(torch, gen, b, kv, g, hd, ps, width, dtype, poison=False):
+    """A pool of b*width+1 pages shuffled across the rows' tables, ragged
+    lengths in 1..width*ps with the last row at 0. With ``poison``, page 0
+    holds NaN and every table entry past a row's live pages points at it."""
+    dev = torch.device(DEVICE)
+    P = b * width + 1
+    q = torch.randn((b, kv, g, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((kv, P, ps, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((kv, P, ps, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm.reshape(b, width).to(torch.int32)
+    lengths = torch.randint(1, width * ps + 1, (b,), generator=gen,
+                            device=dev).to(torch.int32)
+    lengths[-1] = 0
+    if poison:
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+        live = (lengths + ps - 1) // ps
+        cols = torch.arange(width, device=dev)[None, :]
+        tables = torch.where(cols >= live[:, None], 0, tables)
+    return q, kp, vp, tables, lengths
+
+
+def paged_kernel_checks(torch, pd, gen):
+    """paged_decode against its plain version; returns (bf16 serve-shape
+    error, serve-shape bf16 inputs)."""
+    G = H // KV
+    err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        args = paged_inputs(torch, gen, B, KV, G, HD, PAGE, WIDTH, dtype)
+        e = check(f"paged_decode serve shape {name}",
+                  pd.paged_flash_decode_bkhd(*args),
+                  pd.paged_flash_decode_plain(*args), dtype)
+        if dtype == torch.bfloat16:
+            err, serve_args = e, args
+        cases = (  # label, (b, kv, g, hd, ps, width), n_pages, softcap, poison
+            ("ps=8 hd=128", (3, 2, 4, 128, 8, 10), 10, 0.0, False),
+            ("softcap=30", (4, KV, G, HD, PAGE, 12), 12, 30.0, False),
+            ("n_pages 5 < width 12", (5, 2, 4, HD, PAGE, 12), 5, 0.0, False),
+            ("NaN pages past length", (6, KV, G, HD, PAGE, 9), 9, 0.0, True))
+        for label, shape, n_pages, sc, poison in cases:
+            q, kp, vp, t, ln = paged_inputs(torch, gen, *shape, dtype, poison)
+            t = t[:, :n_pages]               # a column slice, not a copy
+            got = pd.paged_flash_decode_bkhd(q, kp, vp, t, ln, softcap=sc)
+            want = pd.paged_flash_decode_plain(q, kp, vp, t, ln, softcap=sc)
+            if not (bool(torch.isfinite(got.float()).all())
+                    and bool((got[-1] == 0).all())):
+                raise AssertionError(f"paged_decode {label}: non-finite "
+                                     f"output or nonzero length-0 row")
+            check(f"paged_decode {label} {name}", got, want, dtype)
+    return err, serve_args
+
+
 def kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_decode as pd
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -129,6 +206,7 @@ def kernel_phase(torch):
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc),
                   dtype)
+    errs["paged"], paged_serve = paged_kernel_checks(torch, pd, gen)
     torch.cuda.synchronize()
 
     log("    timing at the serve shapes, bf16 (ms per call, inputs cold)")
@@ -172,15 +250,40 @@ def kernel_phase(torch):
                      replaces="src/repro/kernels/flash_prefill.py:88",
                      max_abs_err=errs[("prefill", dt)], ms=t_k, plain_ms=t_p,
                      bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    # paged decode at the serve shape: B=8 rows over 36-page tables of 16,
+    # ragged lengths (one row 0); the bound counts what these lengths need
+    q, kp, vp, tables, lengths = paged_serve
+    pag_bytes = sum(t.numel() * t.element_size() for t in paged_serve)
+    pags = [paged_serve] + [
+        paged_inputs(torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, dt)
+        for _ in range(int(3 * L2_BYTES // pag_bytes))]
+    pags = [(a[0], a[1], a[2], tables, lengths) for a in pags]
+    t_k = time_ms(torch, pd.paged_flash_decode_bkhd, pags)
+    t_p = time_ms(torch, pd.paged_flash_decode_plain, pags, iters=10)
+    # K/V of the positions below each row's length (not the tails of the
+    # last pages, which the kernel never loads), q, out, the table entries
+    # of the live pages and the lengths
+    live_pages = int(((lengths.long() + PAGE - 1) // PAGE).sum())
+    live_pos = int(lengths.long().sum())
+    nbytes = (esz * (2 * live_pos * KV * HD + 2 * B * H * HD)
+              + 4 * live_pages + 4 * B)
+    b_ms, b_by = bound(nbytes, 4 * H * live_pos * HD, dt)
+    rows.append(dict(name="paged_decode", route="cuda",
+                     source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                     replaces="src/repro/kernels/paged/decode.py:97",
+                     max_abs_err=errs["paged"], ms=t_k, plain_ms=t_p,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
+        lib = ("no single library call" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f}")
         log(f"  {r['name']:<14s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
-            f"  library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
-            f"({r['bound_by']})")
+            f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
 
 
 def model_phase(torch):
     from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
     from repro_torch.models.model import LM
     dev = torch.device(DEVICE)
     log("[4] model: full-width tinyllama-1.1b, kernels on vs off")
@@ -206,39 +309,87 @@ def model_phase(torch):
         t2 = time.time()
         return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8)
 
+    def run_paged(lm, params, feed=None):
+        """The same prefill, scattered into a page pool of B*WIDTH+1
+        shuffled pages (``paged_admit``), then 8 ``decode_step_paged``
+        steps over the full 36-page tables. Returns like ``run``."""
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, pref = lm.prefill(params, {"tokens": toks}, max_len=PROMPT)
+        cache = lm.init_paged_cache(B, B * WIDTH + 1, PAGE, WIDTH, dev)
+        perm = torch.randperm(B * WIDTH, device=dev,
+                              generator=torch.Generator(device=dev)
+                              .manual_seed(2)) + 1
+        lm.paged_admit(cache, pref, torch.zeros(B, dtype=torch.int64,
+                                                device=dev),
+                       torch.argmax(logits, -1), perm.reshape(B, WIDTH),
+                       torch.arange(B, device=dev))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        n0 = pd.paged_flash_decode_bkhd.launches
+        outs, seq = [logits], []
+        for i in range(8):
+            tok = torch.argmax(logits, -1) if feed is None else feed[i]
+            seq.append(tok)
+            logits, cache = lm.decode_step_paged(params, cache, tok,
+                                                 n_pages=WIDTH)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        per_step = (pd.paged_flash_decode_bkhd.launches - n0) / 8
+        return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8, per_step)
+
+    def rel_err(xs, ys):
+        return max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                   for a, b in zip(xs, ys))
+
     lm_off = LM(cfg)
     lm_on = LM(cfg.replace(use_kernels=True))
     params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
     run(lm_on, params)                                   # warm-up
+    run_paged(lm_on, params)
     off, seq, t_off = run(lm_off, params)
     on, _, t_on = run(lm_on, params, feed=seq)
-    rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
-              for a, b in zip(on, off))
-    finite = all(bool(torch.isfinite(a).all()) for a in on)
-    log(f"  L22 bf16: logits rel err (on vs off) {rel:.3e}  tol "
-        f"{BF16_LOGIT_TOL:.0e}  finite {finite}")
+    paged, _, t_pg = run_paged(lm_on, params, feed=seq)
+    rel = rel_err(on, off)
+    rel_pg = rel_err(paged, on)
+    finite = all(bool(torch.isfinite(a).all()) for a in on + paged)
+    log(f"  L22 bf16: logits rel err (on vs off) {rel:.3e}, (paged vs dense, "
+        f"kernels on) {rel_pg:.3e}  tol {BF16_LOGIT_TOL:.0e}  finite {finite}")
     log(f"  L22 bf16 B={B} S={PROMPT}: prefill ms on {t_on[0]:.2f} off "
-        f"{t_off[0]:.2f}; decode step ms on {t_on[1]:.2f} off {t_off[1]:.2f}")
-    if not (finite and rel <= BF16_LOGIT_TOL):
-        raise AssertionError(f"bf16 logits disagree: rel err {rel}")
-    del params, on, off
+        f"{t_off[0]:.2f}; decode step ms on {t_on[1]:.2f} off {t_off[1]:.2f}"
+        f" paged {t_pg[1]:.2f} (prefill + paged_admit {t_pg[0]:.2f}); "
+        f"paged_decode launches per paged step {t_pg[2]:g}")
+    if not (finite and rel <= BF16_LOGIT_TOL and rel_pg <= BF16_LOGIT_TOL):
+        raise AssertionError(f"bf16 logits disagree: rel err {rel} "
+                             f"(kernels), {rel_pg} (paged)")
+    del params, on, off, paged
     cfg32 = cfg.replace(num_layers=4, dtype="float32", name="tinyllama-L4-f32")
     lm_off, lm_on = LM(cfg32), LM(cfg32.replace(use_kernels=True))
     params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
     _, seq_off, _ = run(lm_off, params)
     _, seq_on, _ = run(lm_on, params)
+    _, seq_pg, _ = run_paged(lm_on, params)
     same = all(bool((a == b).all()) for a, b in zip(seq_on, seq_off))
-    log(f"  L4 fp32: greedy 8 tokens x {B} rows identical on vs off: {same}")
-    if not same:
-        raise AssertionError("fp32 greedy tokens differ with kernels on/off")
+    same_pg = all(bool((a == b).all()) for a, b in zip(seq_pg, seq_on))
+    log(f"  L4 fp32: greedy 8 tokens x {B} rows identical on vs off: {same};"
+        f" paged vs dense: {same_pg}")
+    if not (same and same_pg):
+        raise AssertionError("fp32 greedy tokens differ: kernels on/off "
+                             f"{same}, paged/dense {same_pg}")
     del params
     torch.cuda.empty_cache()
     return {"prefill_ms_on": t_on[0], "prefill_ms_off": t_off[0],
             "decode_step_ms_on": t_on[1], "decode_step_ms_off": t_off[1],
-            "logits_rel_err": rel}
+            "decode_step_ms_paged": t_pg[1], "paged_launches_per_step": t_pg[2],
+            "logits_rel_err": rel,
+            "paged_logits_rel_err": rel_pg}
 
 
-def serve_phase(torch):
+def serve_phase(torch, paged=False, profiles=None):
+    """The InfAdapter loop on the dense engine (calibrating the ladder's
+    profiles first), or on the paged engine with prefix sharing using the
+    given dense profiles. Returns (this phase's launch counts, profiles)."""
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
     from repro_torch.core.forecaster import MovingMaxForecaster
     from repro_torch.kernels import ops
@@ -246,25 +397,33 @@ def serve_phase(torch):
                                           calibrate)
     from repro_torch.serving.driver import rise_fall_load, run_serving_loop
     from repro_torch.serving.engine import InProcessServingEngine
-    log("[5] serve: InfAdapter loop, full-width ladder, kernels on")
+    kind = "paged + prefix sharing" if paged else "dense"
+    log(f"[5] serve ({kind}): InfAdapter loop, full-width ladder, kernels on")
     variants = build_ladder("tinyllama-1.1b", full_width=True)
     geo = GEOMETRY[True]
+    kv = dict(kv_cache="paged", kv_page_size=PAGE,
+              kv_prefix_sharing=True) if paged else {}
     engine = InProcessServingEngine(variants, use_kernels=True,
-                                    device=DEVICE, **geo)
-    profiles = calibrate(engine, variants, reps=2, max_new=geo["max_new"])
+                                    device=DEVICE, **geo, **kv)
+    if profiles is None:
+        profiles = calibrate(engine, variants, reps=2,
+                             max_new=geo["max_new"])
+    else:
+        log("  profiles: calibrated on the dense engine of this ladder and "
+            "geometry (the paged backend has no pump path to calibrate)")
     for n, p in profiles.items():
         log(f"  {n}: rt {p.rt:.3f}s  {p.th_slope:.2f} rps/unit  "
             f"p(1) {p.p99_ms(1):.0f} ms")
     slo_ms = 5000.0
     ctrl = InfAdapterController(
         profiles, MovingMaxForecaster(window=10),
-        ControllerConfig(interval_s=6.0, budget=3, slo_ms=slo_ms, beta=0.05,
+        ControllerConfig(interval_s=5.0, budget=3, slo_ms=slo_ms, beta=0.05,
                          gamma=0.05, reactive=True, queue_aware=True))
     vocab = next(iter(variants.values()))[0].vocab_size
     ops.reset_launch_counts()
     t0 = time.time()
     n_sub = run_serving_loop(engine, ctrl, seconds=SERVE_SECONDS,
-                             interval=6.0,
+                             interval=5.0,
                              load_fn=rise_fall_load(SERVE_SECONDS,
                                                     *LOAD[True]),
                              prompt_len=geo["prompt_len"],
@@ -282,22 +441,149 @@ def serve_phase(torch):
            or not ((r.output >= 0) & (r.output < vocab)).all()]
     if bad:
         raise AssertionError(f"requests with wrong outputs: {bad[:10]}")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel never ran in the serve phase: "
-                             f"{launches}")
-    summary = {"n_submitted": n_sub, "n_requests": s["n_requests"],
+    need = ("flash_prefill", "paged_decode" if paged else "flash_decode")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"a kernel of the {kind} path never ran in its "
+                             f"serve phase: {launches}")
+    summary = {"kv_cache": "paged" if paged else "dense",
+               "n_submitted": n_sub, "n_requests": s["n_requests"],
                "rejected": s["rejected"], "p99_ms": s["p99_ms"],
                "p50_ms": s["p50_ms"], "violation_rate": s["violation_rate"],
                "goodput": s["goodput"], "avg_cost_units": s["avg_cost_units"],
                "accuracy_loss": s["accuracy_loss"], "slo_ms": slo_ms,
-               "wall_s": wall,
-               "readiness_s": {n: p.rt for n, p in profiles.items()},
-               "launches": launches}
-    log("  serve summary " + json.dumps(summary))
+               "wall_s": wall, "launches": launches}
+    if paged:
+        for name, b in engine.backends.items():
+            b.pool.assert_invariants()
+            if b.pool.used_pages:
+                raise AssertionError(f"{name}: {b.pool.used_pages} pages "
+                                     f"still mapped after the drain")
+        summary["kv_pool"] = engine.kv_pool_stats()
+        summary["readiness_s"] = {n: b.readiness_s
+                                  for n, b in engine.backends.items()}
+    else:
+        summary["readiness_s"] = {n: p.rt for n, p in profiles.items()}
+    log(f"  serve summary ({kind}) " + json.dumps(summary))
+    del engine
+    torch.cuda.empty_cache()
+    return launches, profiles
+
+
+def prefix_phase(torch):
+    """The reference's shared-system-prompt study (benchmarks/bench_engine.py
+    prefix_sharing) at full width: the same staggered workload on a
+    sharing-on and a sharing-off paged engine. Returns the launch counts of
+    the bf16 runs."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    log(f"[6] prefix: {PS_N} staggered {PROMPT}-token requests over a "
+        f"{PS_SHARED}-token shared prefix, every 4th an exact repeat")
+    cfg = get_config("tinyllama-1.1b")
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, cfg.vocab_size, PS_SHARED)
+    prompts = []
+    for i in range(PS_N):
+        if i % 4 == 3:                       # an exact earlier prompt: CoW
+            prompts.append(prompts[int(rng.integers(i))].copy())
+        else:
+            prompts.append(np.concatenate([prefix, rng.integers(
+                0, cfg.vocab_size, PROMPT - PS_SHARED)]))
+
+    def serve(c, sharing):
+        eng = InProcessServingEngine(
+            {c.name: (c, 78.0)}, max_batch=B, prompt_len=PROMPT,
+            max_new=MAX_NEW, decode_chunk=CHUNK, queue_cap=1000,
+            kv_cache="paged", kv_page_size=PAGE, kv_prefix_sharing=sharing,
+            use_kernels=True, device=DEVICE)
+        eng.apply_allocation(0.0, {c.name: 1})
+        b = eng.backends[c.name]
+        ticks = {"fused": [0, 0.0, 0], "decode": [0, 0.0, 0]}
+
+        def timed(fn, kind):
+            """Count and time each tick kind that runs (the sync tick ends
+            in a host read of its tokens, so the host clock covers the
+            device work), with the paged kernel launches it made."""
+            def tick(now):
+                if not b.active_slots:
+                    return fn(now)
+                n0 = pd.paged_flash_decode_bkhd.launches
+                t = time.time()
+                out = fn(now)
+                rec = ticks[kind]
+                rec[0] += 1
+                rec[1] += time.time() - t
+                rec[2] += pd.paged_flash_decode_bkhd.launches - n0
+                return out
+            return tick
+
+        b.fused_chunk_step = timed(b.fused_chunk_step, "fused")
+        b.decode_step_batch = timed(b.decode_step_batch, "decode")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for i, p in enumerate(prompts):      # one arrival per tick
+            eng.submit(Request(rid=i, tokens=p, max_new=MAX_NEW,
+                               arrival=time.time()), c.name)
+            eng.step(0.0)
+        eng.drain(0.0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        b.pool.assert_invariants()
+        outs = {r.rid: r.output for r in eng.done}
+        if len(outs) != PS_N or b.pool.used_pages or any(
+                len(o) != MAX_NEW for o in outs.values()):
+            raise AssertionError(f"prefix phase (sharing={sharing}): "
+                                 f"{len(outs)}/{PS_N} complete, "
+                                 f"{b.pool.used_pages} pages still mapped")
+        stats = eng.kv_pool_stats()
+        stats.update(prefill_tokens=b.prefill_tokens_total,
+                     cow_copies=int(eng.metrics.value("kv.cow_copies")),
+                     makespan_s=wall, readiness_s=b.readiness_s)
+        for kind, (n, sec, launches) in ticks.items():
+            stats[f"{kind}_ticks"] = n
+            stats[f"{kind}_tick_ms"] = sec * 1e3 / max(n, 1)
+            stats[f"paged_launches_per_{kind}_tick"] = launches / max(n, 1)
+        del eng, b
+        torch.cuda.empty_cache()
+        return outs, stats
+
+    def study(c):
+        ops.reset_launch_counts()
+        on, s_on = serve(c, True)
+        launches = ops.launch_counts()
+        off, s_off = serve(c, False)
+        agree = sum(int((on[i] == off[i]).sum()) for i in on)
+        log(f"  {c.name}: sharing on {json.dumps(s_on)}")
+        log(f"  {c.name}: sharing off {json.dumps(s_off)}")
+        log(f"  {c.name}: prefill tokens off/on {s_off['prefill_tokens']}/"
+            f"{s_on['prefill_tokens']}; tokens agreeing on vs off "
+            f"{agree}/{PS_N * MAX_NEW}; launches with sharing on {launches}")
+        if not (s_on["prefix_hits"] > 0 and s_on["cow_copies"] > 0
+                and s_on["prefill_tokens"] < s_off["prefill_tokens"]):
+            raise AssertionError(f"{c.name}: prefix sharing did not engage "
+                                 f"(hits {s_on['prefix_hits']}, CoW "
+                                 f"{s_on['cow_copies']}, prefill tokens "
+                                 f"{s_on['prefill_tokens']} vs "
+                                 f"{s_off['prefill_tokens']})")
+        if min(launches["flash_prefill"], launches["paged_decode"]) < 1:
+            raise AssertionError(f"a kernel of the prefix path never ran: "
+                                 f"{launches}")
+        return agree, launches
+
+    _, launches = study(cfg.replace(name="tinyllama-1.1b-L22"))
+    agree, _ = study(cfg.replace(num_layers=4, dtype="float32",
+                                 name="tinyllama-L4-f32"))
+    if agree != PS_N * MAX_NEW:
+        raise AssertionError(f"fp32 tokens differ with sharing on vs off: "
+                             f"{agree}/{PS_N * MAX_NEW} agree")
     return launches
 
 
 def main():
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
@@ -325,11 +611,14 @@ def main():
 
     rows = kernel_phase(torch)
     model_phase(torch)
-    launches = serve_phase(torch)
+    dense, profiles = serve_phase(torch)
+    paged, _ = serve_phase(torch, paged=True, profiles=profiles)
+    prefix = prefix_phase(torch)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[7] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

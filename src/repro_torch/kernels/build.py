@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_prefill", "flash_decode")
+SOURCES = ("flash_prefill", "flash_decode", "paged_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -117,9 +117,12 @@ def dtype_code(t) -> int:
     return code
 
 
-def check_operand(name: str, t, device, dtype, ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned ``ndim``-d
-    ``dtype`` tensor on ``device`` — what the kernels' vector loads need."""
+def check_operand(name: str, t, device, dtype, ndim: int,
+                  aligned: bool = True) -> None:
+    """Raise unless ``t`` is a contiguous ``ndim``-d ``dtype`` tensor on
+    ``device``, 16-byte aligned unless ``aligned`` is False — what the
+    kernels' vector loads need (operands read one scalar at a time, such as
+    block tables and lengths, need no alignment)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -129,7 +132,7 @@ def check_operand(name: str, t, device, dtype, ndim: int) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 

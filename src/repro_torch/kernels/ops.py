@@ -14,10 +14,12 @@ import torch
 
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
+from repro_torch.kernels import paged_decode as pd
 
 # kernel name -> the wrapper carrying its ``launches`` counter
 WRAPPERS = {"flash_prefill": fp.flash_prefill_bshd,
-            "flash_decode": fd.flash_decode_bkhd}
+            "flash_decode": fd.flash_decode_bkhd,
+            "paged_decode": pd.paged_flash_decode_bkhd}
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,6 +46,23 @@ def flash_decode_bkchd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel-native layout: q (B,KV,G,hd); k,v (B,KV,C,hd); bias (B,C)
     -> (B,KV,G,hd). Any C: the kernel masks the ragged tail itself."""
     return fd.flash_decode_bkhd(q, k, v, bias, softcap=softcap)
+
+
+def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, tables: torch.Tensor,
+                       lengths: torch.Tensor, *, softcap: float = 0.0
+                       ) -> torch.Tensor:
+    """Paged decode in kernel-native layout: q (B,KV,G,hd); k/v_pages
+    (KV,P,page_size,hd); tables (B,n_pages) page ids; lengths (B,) live
+    tokens -> (B,KV,G,hd). The pool is the stored cache layout and is never
+    copied. This is where the kernel's operand rules are met: q is made
+    contiguous, and tables and lengths of any integer dtype become int32
+    (both no-ops when already so, which keeps a column slice of the
+    engine's int32 table a view: the kernel takes its row stride)."""
+    return pd.paged_flash_decode_bkhd(q.contiguous(), k_pages, v_pages,
+                                      tables.to(torch.int32),
+                                      lengths.to(torch.int32),
+                                      softcap=softcap)
 
 
 def launch_counts() -> Dict[str, int]:

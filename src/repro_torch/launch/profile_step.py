@@ -2,11 +2,14 @@
 
 Runs the full-width tinyllama-1.1b model (bf16, kernels on) at the serve
 geometry — one prefill of 8 x 512 tokens, then 8 decode steps against the
-576-slot ring cache — under ``torch.profiler``, and prints for each: wall
-time (host clock, device synchronised), device time summed over kernels,
-the device busy share (device time / wall), kernel launches, and device
-time split into the attention kernels, matrix products and everything
-else, plus the top kernels by device time.
+576-slot ring cache; the same prefill scattered into a page pool, then 8
+paged decode steps over 36-page tables of 16; then 3 prefill-continuation
+chunks of 16 tokens on every row through the pool (the fused tick's
+call) — under ``torch.profiler``, and prints for each: wall time (host
+clock, device synchronised), device time summed over kernels, the device
+busy share (device time / wall), kernel launches, and device time split
+into the attention kernels, matrix products and everything else, plus the
+top kernels by device time.
 
 Usage (on the machine with the card):
   PYTHONPATH=src python -m repro_torch.launch.profile_step [--layers 22]
@@ -24,11 +27,12 @@ from repro_torch.configs import get_config
 from repro_torch.models.model import LM
 
 B, PROMPT, CAP, STEPS = 8, 512, 576, 8
+PAGE, CHUNK, CHUNKS = 16, 16, 3
 
 
 def _classify(name: str) -> str:
     n = name.lower()
-    if "flash_prefill" in n or "flash_decode" in n:
+    if "flash_prefill" in n or "flash_decode" in n or "paged_decode" in n:
         return "attention_kernels"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "nvjet")):      # nvjet: cuBLAS's Hopper kernels
@@ -89,12 +93,48 @@ def main(argv=None):
             tok = torch.argmax(state["logits"], -1)
             state["logits"], _ = lm.decode_step(params, state["cache"], tok)
 
+    width = CAP // PAGE
+
+    def paged_admit():
+        logits, pref = lm.prefill(params, {"tokens": toks}, max_len=PROMPT)
+        state["plogits"] = logits
+        state["pcache"] = lm.init_paged_cache(B, B * width + 1, PAGE, width,
+                                              dev)
+        lm.paged_admit(state["pcache"], pref,
+                       torch.zeros(B, dtype=torch.int64, device=dev),
+                       torch.argmax(logits, -1),
+                       torch.arange(1, B * width + 1,
+                                    device=dev).reshape(B, width),
+                       torch.arange(B, device=dev))
+
+    def paged_decode():
+        for _ in range(STEPS):
+            tok = torch.argmax(state["plogits"], -1)
+            state["plogits"], _ = lm.decode_step_paged(
+                params, state["pcache"], tok, n_pages=width)
+
+    def fused_chunks():
+        cache = state["pcache"]
+        n_valid = torch.full((B,), CHUNK, device=dev)
+        for i in range(CHUNKS):
+            start = torch.full((B,), PROMPT + i * CHUNK, device=dev)
+            lm.prefill_chunk_paged(params, cache, toks[:, :CHUNK], start,
+                                   n_valid)
+
     prefill()
     decode()                                       # warm-up (builds, caches)
+    paged_admit()
+    paged_decode()
+    fused_chunks()
     print(f"tinyllama-1.1b L{args.layers} bf16, kernels on, "
           f"{torch.cuda.get_device_name(0)}")
     _region(prefill, f"prefill B={B} S={PROMPT}")
     _region(decode, f"decode {STEPS} steps B={B} C={CAP}")
+    paged_admit()
+    _region(paged_decode, f"paged decode {STEPS} steps B={B} "
+                          f"n_pages={width} page={PAGE}")
+    _region(fused_chunks, f"paged prefill chunks {CHUNKS} x {CHUNK} tokens "
+                          f"B={B}")
 
 
 if __name__ == "__main__":

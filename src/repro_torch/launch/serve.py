@@ -7,9 +7,16 @@ and the full-width form (``full_width=True``: published widths, depths
 8/15/22 — for tinyllama-1.1b the 22-layer rung is the published model, in
 bf16). Runs on ``cuda`` unless ``--device cpu``.
 
+With ``--kv-cache paged`` the loop serves on the paged KV pool
+(``--prefix-sharing`` adds the prefix index); the paged backend has no
+pump path, so the profiles come from a dense engine of the same ladder and
+geometry.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve --kv-cache paged \
+      --prefix-sharing --device cpu --seconds 5
 """
 from __future__ import annotations
 
@@ -90,6 +97,9 @@ def main(argv=None):
     ap.add_argument("--slo-ms", type=float, default=2000.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--kv-cache", choices=("dense", "paged"),
+                    default="dense")
+    ap.add_argument("--prefix-sharing", action="store_true")
     args = ap.parse_args(argv)
 
     variants = build_ladder(args.arch, full_width=args.full_width)
@@ -98,6 +108,10 @@ def main(argv=None):
                                     device=args.device, **geo)
     print("calibrating variants...")
     profiles = calibrate(engine, variants, max_new=geo["max_new"])
+    if args.kv_cache == "paged":        # calibrated dense, served paged
+        engine = InProcessServingEngine(
+            variants, use_kernels=True, device=args.device, kv_cache="paged",
+            kv_prefix_sharing=args.prefix_sharing, **geo)
     for n, p in profiles.items():
         print(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
 

@@ -6,7 +6,8 @@ maps leaves one to one; layers run in a Python loop over those stacks.
 
 Caches are updated **in place**: ``decode_step`` writes the new token's K/V
 into the cache tensors it is given and advances ``cache["pos"]``, where the
-reference rebuilds its cache functionally and donates the old buffers.
+reference rebuilds its cache functionally and donates the old buffers. The
+paged methods do the same to the page pool, the block table and ``pos``.
 
 Public methods:
   init(gen)                               -> params
@@ -14,9 +15,13 @@ Public methods:
   init_cache(batch_size, max_len, device) -> cache dict
   prefill(params, batch, max_len)         -> (last-token logits, cache)
   decode_step(params, cache, tokens)      -> (logits, cache)
+  init_paged_cache / paged_admit / paged_cow_copy / paged_retire
+  prefill_chunk_paged(params, cache, tokens, start, n_valid)
+  decode_step_paged(params, cache, tokens, n_pages)
 
-Other families (MoE, SSM/hybrid, encoder-decoder, VLM), the paged cache and
-chunked prefill are not ported yet.
+Other families (MoE, SSM/hybrid, encoder-decoder, VLM), dense chunked
+prefill (``prefill_chunk``) and speculative verification are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -214,6 +219,174 @@ class LM:
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             a, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
                                             cache["v"][i], pos, w)
+            x = self._ffn(lp, x + a)
+        pos.add_(1)
+        return self._logits(params, x)[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # paged KV cache (shared page pool + per-slot block tables)
+    # ------------------------------------------------------------------
+    def supports_paged_cache(self) -> bool:
+        """Paged decode covers the pure-attention KV families without a
+        sliding window (a window implies the ring discipline)."""
+        cfg = self.cfg
+        return (cfg.family in ("dense", "moe", "vlm")
+                and not cfg.is_encoder_decoder and not cfg.sliding_window)
+
+    def supports_chunked_prefill(self) -> bool:
+        """Prefill continuation needs positional KV state and the non-ring
+        slot == position discipline: the paged predicate."""
+        return self.supports_paged_cache()
+
+    def init_paged_cache(self, batch_size: int, pool_pages: int,
+                         page_size: int, max_pages_per_seq: int,
+                         device: torch.device) -> Dict:
+        """``kp``/``vp``: the shared page pool ``(L, KV, pool_pages,
+        page_size, hd)``; ``pt``: the per-slot block table, int32 (the
+        kernel's operand type), all rows the trash page 0; ``pos``: each
+        slot's next position. Which pages are free or owned is host-side
+        bookkeeping (``attention.PagedKVCache``)."""
+        cfg = self.cfg
+        assert self.supports_paged_cache(), \
+            f"paged KV cache unsupported for config {cfg.name!r}"
+        L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        shape = (L, KV, pool_pages, page_size, hd)
+        return {"pos": torch.zeros(batch_size, dtype=torch.int64,
+                                   device=device),
+                "kp": torch.zeros(shape, dtype=self.compute_dtype,
+                                  device=device),
+                "vp": torch.zeros(shape, dtype=self.compute_dtype,
+                                  device=device),
+                "pt": torch.zeros((batch_size, max_pages_per_seq),
+                                  dtype=torch.int32, device=device)}
+
+    def paged_admit(self, cache: Dict, prefill_cache: Dict,
+                    cur_tok: torch.Tensor, first_tok: torch.Tensor,
+                    page_ids: torch.Tensor, dest_slots: torch.Tensor
+                    ) -> Tuple[Dict, torch.Tensor]:
+        """Scatter ``b`` prefilled rows into the page pool, in place.
+
+        ``prefill_cache`` comes from ``prefill(..., max_len=prompt_len)``;
+        ``page_ids`` (b, max_pages_per_seq) are the block-table rows the
+        pool manager allocated; ``dest_slots`` (b,) the receiving slots.
+        Rows of a partly filled admission bucket carry out-of-bounds page
+        ids and slots: the reference drops them with ``mode="drop"``
+        scatters, here they are filtered out before the writes (an index
+        out of bounds raises in torch). Returns (cache, cur_tok)."""
+        kp, vp, pt, pos = cache["kp"], cache["vp"], cache["pt"], cache["pos"]
+        P, ps = kp.shape[2], kp.shape[3]
+        k_new, v_new = prefill_cache["k"], prefill_cache["v"]  # (L,b,KV,S,hd)
+        L, b, KV, S, hd = k_new.shape
+        pp = -(-S // ps)                       # pages holding the prompt
+        pad = pp * ps - S
+        if pad:
+            k_new = torch.nn.functional.pad(k_new, (0, 0, 0, pad))
+            v_new = torch.nn.functional.pad(v_new, (0, 0, 0, pad))
+        # (L, KV, b, pp, ps, hd): the pool's gather shape
+        k_new = k_new.reshape(L, b, KV, pp, ps, hd).transpose(1, 2)
+        v_new = v_new.reshape(L, b, KV, pp, ps, hd).transpose(1, 2)
+        page_ids = page_ids.to(pt.device)
+        dest = dest_slots.to(pt.device)
+        pages = page_ids[:, :pp]
+        live = (pages >= 0) & (pages < P)                      # (b, pp)
+        kp[:, :, pages[live]] = k_new[:, :, live].to(kp.dtype)
+        vp[:, :, pages[live]] = v_new[:, :, live].to(vp.dtype)
+        rows = (dest >= 0) & (dest < pt.shape[0])
+        pt[dest[rows]] = page_ids[rows].to(pt)
+        pos[dest[rows]] = prefill_cache["pos"][rows].to(pos)
+        cur_tok[dest[rows]] = first_tok[rows].to(cur_tok)
+        return cache, cur_tok
+
+    def paged_cow_copy(self, cache: Dict, src: int, dst: int) -> Dict:
+        """Copy one pool page's K/V across every layer, in place: the device
+        half of admission-time copy-on-write (a fully matched boundary
+        block is duplicated into the request's own fresh page, so its
+        writes never touch the shared original)."""
+        cache["kp"][:, :, dst] = cache["kp"][:, :, src]
+        cache["vp"][:, :, dst] = cache["vp"][:, :, src]
+        return cache
+
+    def paged_retire(self, cache: Dict, slot: int) -> Dict:
+        """Point a retiring slot's block-table row back at the trash page
+        and reset its position, so the batch row decodes harmlessly until
+        the next admission."""
+        cache["pt"][slot] = 0
+        cache["pos"][slot] = 0
+        return cache
+
+    # ------------------------------------------------------------------
+    # prefill continuation: one chunk of prompt tokens at an offset
+    # ------------------------------------------------------------------
+    def _finish_chunk(self, x: torch.Tensor, params: Dict,
+                      n_valid: torch.Tensor) -> torch.Tensor:
+        """Final norm + unembed at each row's last valid chunk position ->
+        logits (B, V) (garbage rows where n_valid == 0). The norm is
+        per-position, so selecting the row first is the same math."""
+        B, ck = x.shape[0], x.shape[1]
+        last = torch.clamp(n_valid - 1, 0, ck - 1)
+        rows = torch.arange(B, device=x.device)
+        return self._logits(params, x[rows, last][:, None])[:, 0]
+
+    def _chunk_trunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                     start: torch.Tensor, n_valid: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict]:
+        """Embed the (B, ck) chunk at per-row ``start`` offsets and run
+        every layer, writing the chunk's K/V into each row's block-table
+        pages; returns (pre-final-norm activations (B, ck, D), cache) with
+        ``pos`` advanced to ``start + n_valid`` on active rows. Rows with
+        ``n_valid == 0`` are inert. The reference's trunk also has a dense
+        form (``paged=False``), not ported yet (ROADMAP A5)."""
+        cfg = self.cfg
+        assert self.supports_chunked_prefill(), \
+            f"chunked prefill unsupported for config {cfg.name!r}"
+        x = embed(cfg, params["embed"], tokens, self.compute_dtype)
+        pt = cache["pt"]
+        for i, lp in enumerate(self._layers(params)):
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _, _ = attn.paged_chunk_prefill_attention(
+                cfg, lp["attn"], h, cache["kp"][i], cache["vp"][i], pt,
+                start, n_valid)
+            x = self._ffn(lp, x + a)
+        pos = cache["pos"]
+        pos.copy_(torch.where(n_valid > 0, start + n_valid, pos))
+        return x, cache
+
+    def prefill_chunk_paged(self, params: Dict, cache: Dict,
+                            tokens: torch.Tensor, start: torch.Tensor,
+                            n_valid: torch.Tensor
+                            ) -> Tuple[torch.Tensor, Dict]:
+        """Continue prompt prefill by one chunk against the paged pool.
+
+        tokens: (B, ck) — each prefilling row's next chunk, right-padded;
+        start: (B,) absolute position of tokens[:, 0]; n_valid: (B,) real
+        tokens this chunk (0 = row inert: no writes, no advance). A decode
+        step is a one-token continuation, so fused ticks run decoding rows
+        through here too. Returns (logits at each row's last valid token
+        (B, V), cache)."""
+        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid)
+        return self._finish_chunk(x, params, n_valid), cache
+
+    # ------------------------------------------------------------------
+    # one-token decode against the paged pool
+    # ------------------------------------------------------------------
+    def decode_step_paged(self, params: Dict, cache: Dict,
+                          tokens: torch.Tensor, *, n_pages: int
+                          ) -> Tuple[torch.Tensor, Dict]:
+        """tokens: (B,) -> (logits (B, V), cache). Paged counterpart of
+        ``decode_step``: per-layer attention runs against the shared pool
+        through each slot's block table, over its first ``n_pages`` columns
+        (the caller's live-page bucket); ``pt`` and ``pos`` are shared by
+        all layers. Pool writes and the ``pos`` advance happen in place."""
+        cfg = self.cfg
+        assert self.supports_paged_cache(), cfg.name
+        pos = cache["pos"]
+        x = embed(cfg, params["embed"], tokens[:, None], self.compute_dtype)
+        pt = cache["pt"]
+        for i, lp in enumerate(self._layers(params)):
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            a, _, _ = attn.paged_decode_attention(
+                cfg, lp["attn"], h, cache["kp"][i], cache["vp"][i], pt, pos,
+                n_pages=n_pages)
             x = self._ffn(lp, x + a)
         pos.add_(1)
         return self._logits(params, x)[:, 0], cache

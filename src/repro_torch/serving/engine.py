@@ -1,7 +1,8 @@
-"""In-process serving engine on PyTorch: the port of the dense, FIFO,
-sync-tick path of ``repro.serving.engine``. It implements the shared
-``ClusterAPI``/``ServingAPI`` (``repro_torch.serving.api``), so the
-InfAdapter controller and ``run_serving_loop`` drive it unchanged.
+"""In-process serving engine on PyTorch: the port of the FIFO, sync-tick
+path of ``repro.serving.engine``, on the dense KV ring or the paged pool
+with prefix sharing. It implements the shared ``ClusterAPI``/``ServingAPI``
+(``repro_torch.serving.api``), so the InfAdapter controller and
+``run_serving_loop`` drive it unchanged.
 
 Two execution modes per ``VariantBackend``, as in the reference:
 
@@ -11,7 +12,17 @@ Two execution modes per ``VariantBackend``, as in the reference:
     requests join free slots at any decode chunk and finished sequences
     retire immediately.
   * ``"pump"`` — the legacy micro-batching path (``generate``), which
-    ``launch.serve.calibrate`` also uses.
+    ``launch.serve.calibrate`` also uses (dense only).
+
+Two KV disciplines (``kv_cache=``): ``"dense"`` is the per-slot ring;
+``"paged"`` (``PagedVariantBackend``) is the shared page pool: right-sized
+prefill at batch buckets, decode bounded by the live-page bucket, pages
+allocated at admission and freed at retirement, so admission respects
+memory-true capacity. With ``kv_prefix_sharing`` a request whose prompt
+hits the prefix index maps the shared pages by reference (copy-on-write
+for a fully matched boundary block) and prefills only its novel tail in
+fused ticks: mid-prefill rows advance one ``prefill_chunk`` while decoding
+rows advance one token, in one call.
 
 Where the reference jits its steps and donates the cache, the port runs
 eagerly and updates preallocated device tensors in place: a decode step
@@ -23,15 +34,15 @@ synchronised before the clock stops. The CUDA kernels are built before the
 first clock starts, so no variant's readiness includes the build.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``kv_cache="paged"`` (ROADMAP A4), schedulers other than FIFO and
-``preemption`` (A5), ``async_tick`` (A6), ``speculative`` (A7), the replica
-fabric ``nodes=`` and tracing ``trace=``/``profile_dispatch=``/``obs=``
-(see ROADMAP).
+ignored: schedulers other than FIFO and ``preemption`` (ROADMAP A5),
+``async_tick`` (A6), ``speculative`` (A7), the replica fabric ``nodes=``
+and tracing ``trace=``/``profile_dispatch=``/``obs=`` (see ROADMAP).
 """
 from __future__ import annotations
 
 import time
 from collections import deque
+from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Mapping, Optional, Set, Tuple
 
 import numpy as np
@@ -40,15 +51,47 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as kbuild
+from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.model import build_model
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving.api import Request, summarize_requests
 from repro_torch.serving.sched import make_scheduler
 
-__all__ = ["Request", "VariantBackend", "InProcessServingEngine"]
+__all__ = ["Request", "VariantBackend", "PagedVariantBackend",
+           "InProcessServingEngine"]
 
 # Batch axis of each cache leaf (k/v carry a leading layer axis).
 _CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1}
+
+
+@dataclass
+class _PrefillJob:
+    """Host-side progress of one slot's chunked prefill: ``seq`` is what
+    must be in the cache before decode starts, ``pos`` the next index of
+    ``seq`` to feed. (The reference's resume fields belong to preemption,
+    ROADMAP A5.)"""
+    req: Request
+    seq: np.ndarray               # tokens to prefill (int64)
+    pos: int = 0
+
+
+@dataclass
+class _PendingExec:
+    """One dispatched exec phase, committed by ``commit_exec``. ``toks`` is
+    the device output — the decode chunk's ``(chunk, B)`` token matrix or
+    the fused tick's ``(B,)`` ``cur_tok``. Value-independent bookkeeping
+    (remaining counts, positions, prefill progress) happened at dispatch;
+    the commit applies token appends, completion and retirement, guarded
+    by the ``(request, slot_gen)`` pair of each item. The port's sync tick
+    commits in the same tick (the reference's async tick, ROADMAP A6,
+    commits one tick later)."""
+    kind: str                                  # "decode" | "fused"
+    toks: torch.Tensor
+    # (slot, req, slot_gen, take, finishing) — decode rows to append
+    decode_items: List[Tuple] = field(default_factory=list)
+    # (slot, req, slot_gen) — rows whose chunked prefill completed at
+    # dispatch; their first token is the fused argmax
+    fused_completions: List[Tuple] = field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -64,14 +107,27 @@ def prepare_kernels(use_kernels: bool, device: torch.device) -> None:
 
 
 class VariantBackend:
-    """One loaded model variant: params + prefill/decode + slot state
-    (dense KV ring cache; the paged discipline is not ported yet)."""
+    """One loaded model variant: params + prefill/decode + slot state.
+
+    This base class holds the dense per-slot ring cache;
+    ``PagedVariantBackend`` replaces it with the shared page pool. The slot
+    lifecycle, the chunked-prefill machinery (fused ticks) and retirement
+    are shared; subclasses override ``_build_state`` (cache + warm-up,
+    measured as readiness), ``_dispatch_chunk``, admission and the
+    ``_retire_slot`` hook."""
+
+    # The chunked-prefill machinery is built only where something needs a
+    # continuation that starts mid-sequence: in the port, prefix sharing
+    # on a paged backend (the chunked scheduler and preemption, its other
+    # users in the reference, are ROADMAP A5).
+    chunked = False
 
     def __init__(self, name: str, cfg: ModelConfig, accuracy: float,
                  max_batch: int = 8, prompt_len: int = 32, max_new: int = 16,
                  seed: int = 0, decode_chunk: int = 4,
                  use_kernels: bool = False, device=None,
                  params: Optional[Dict] = None,
+                 prefill_chunk_tokens: int = 16,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[MetricsRegistry] = None):
         self.name = name
@@ -86,6 +142,7 @@ class VariantBackend:
         self.max_new = max_new
         self.decode_chunk = max(1, min(decode_chunk, max_new))
         self.clock = clock       # every service/completion stamp uses this
+        self.prefill_chunk_tokens = max(1, prefill_chunk_tokens)
         self.model = build_model(cfg)
         self.units = 1
         self.slot_cap: Optional[int] = None   # units -> concurrency (enforced
@@ -93,6 +150,13 @@ class VariantBackend:
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_remaining = np.zeros((max_batch,), np.int64)
         self.slot_tokens: List[List[int]] = [[] for _ in range(max_batch)]
+        # per-slot bind counter: a commit applies only to the binding its
+        # dispatch saw
+        self.slot_gen = [0] * max_batch
+        # host mirror of each bound row's device position (the paged
+        # backend buckets on it; fused ticks feed it as the offset)
+        self.slot_pos = np.zeros((max_batch,), np.int64)
+        self._prefilling: Dict[int, _PrefillJob] = {}   # slot -> progress
         self.prefill_tokens_total = 0
         prepare_kernels(cfg.use_kernels, self.device)   # never in readiness
         _sync(self.device)
@@ -103,6 +167,8 @@ class VariantBackend:
         else:
             self.params = params
         self._build_state()                  # cache + warm-up = readiness
+        if self.chunked:
+            self._build_chunk_state()        # the fused-tick step too
         _sync(self.device)
         self.readiness_s = time.time() - t0
 
@@ -134,6 +200,14 @@ class VariantBackend:
                           np.zeros((B,), bool))
         self.slot_req = [None] * B                      # warm-up left no state
 
+    def _build_chunk_state(self) -> None:
+        """Warm the fused-tick step (part of readiness): one continuation
+        call with every row inert."""
+        B, ck, dev = self.max_batch, self.prefill_chunk_tokens, self.device
+        zeros = np.zeros((B,), np.int64)
+        self._prefill_chunk_step(np.zeros((B, ck), np.int64), zeros, zeros,
+                                 np.zeros((B,), bool), np.zeros((B,), bool))
+
     # ------------------------------------------------------------ device fns
     def _chunk_scan(self, cache: Dict, tok: torch.Tensor, step_fn):
         """``decode_chunk`` greedy steps of ``step_fn(cache, tok)``. Returns
@@ -150,6 +224,31 @@ class VariantBackend:
         self.cur_tok, toks = self._chunk_scan(self.cache, self.cur_tok,
                                               self._decode)
         return toks
+
+    def _model_prefill_chunk(self, tokens, start, n_valid):
+        """KV-discipline hook: the paged backend runs the pool form."""
+        raise NotImplementedError(
+            "dense chunk_prefill_attention is not ported (ROADMAP A5)")
+
+    def _prefill_chunk_step(self, tokens: np.ndarray, start: np.ndarray,
+                            n_valid: np.ndarray, set_mask: np.ndarray,
+                            feed_mask: np.ndarray) -> None:
+        """One prefill-continuation chunk for every mid-prefill row, plus
+        the next greedy token for rows whose prompt completes here
+        (``set_mask``). ``feed_mask`` rows (decodes riding the fused tick)
+        take their input token from the device-side ``cur_tok``, bitwise
+        the host's ``slot_tokens[s][-1]``. ``cur_tok`` is replaced, not
+        written in place, so a pending record may hold the old one."""
+        dev = self.device
+        toks = torch.as_tensor(tokens, device=dev)
+        feed = torch.as_tensor(feed_mask, device=dev)
+        toks[:, 0] = torch.where(feed, self.cur_tok, toks[:, 0])
+        logits, _ = self._model_prefill_chunk(
+            toks, torch.as_tensor(start, device=dev),
+            torch.as_tensor(n_valid, device=dev))
+        tok = torch.argmax(logits, dim=-1)
+        self.cur_tok = torch.where(torch.as_tensor(set_mask, device=dev),
+                                   tok, self.cur_tok)
 
     def _admit_merge(self, new_cache: Dict, new_tok: torch.Tensor,
                      src: np.ndarray, mask: np.ndarray) -> None:
@@ -218,6 +317,8 @@ class VariantBackend:
         return first, first.cpu().numpy(), new_cache
 
     def _count_prefill_tokens(self, n: int) -> None:
+        """The one increment site for prompt tokens this backend prefilled
+        (monolithic admits + continuation chunks)."""
         self.prefill_tokens_total += n
         self.metrics.inc("engine.prefill_tokens_total", n)
 
@@ -226,9 +327,11 @@ class VariantBackend:
         return min(r.max_new, self.max_new)
 
     def _bind_slot(self, r: Request, slot: int, tok0: int) -> None:
+        self.slot_gen[slot] += 1
         self.slot_req[slot] = r
         self.slot_remaining[slot] = self._budget(r) - 1
         self.slot_tokens[slot] = [tok0]
+        self.slot_pos[slot] = self.prompt_len     # device pos after prefill
 
     def admit(self, reqs: List[Request], now: float) -> List[Request]:
         """Prefill ``reqs`` (≤ free slots) and join them to the batch.
@@ -254,43 +357,166 @@ class VariantBackend:
         self._admit_merge(new_cache, first, src, mask)
         return finished
 
+    # ----------------------------------------------- chunked-prefill path
+    def admit_chunked(self, reqs: List[Request], now: float) -> List[Request]:
+        """Chunked admission: bind a slot and queue the prompt for prefill
+        continuation — no device work here beyond the KV-discipline hook;
+        the prefill advances one chunk per fused tick, interleaved with
+        decode. Returns [] — nothing finishes at bind time."""
+        free = self.free_slots
+        assert len(reqs) <= len(free)
+        t_service = self.clock()
+        for j, r in enumerate(reqs):
+            slot = free[j]
+            r.service_start = t_service
+            self.slot_gen[slot] += 1
+            self.slot_req[slot] = r
+            self.slot_remaining[slot] = 0      # set when prefill completes
+            self.slot_tokens[slot] = []
+            self.slot_pos[slot] = 0
+            self._prefilling[slot] = _PrefillJob(req=r,
+                                                 seq=self._effective_seq(r))
+            self._bind_chunked_slot(slot)      # paged: allocate pages now
+        return []
+
+    def _effective_seq(self, r: Request) -> np.ndarray:
+        """The sequence chunked admission puts in the cache for ``r``: the
+        prompt zero-padded to ``prompt_len``, exactly what monolithic
+        admission prefills, so both paths give bitwise-equal caches and the
+        prefix index hashes what either admits. (Right-sizing to the true
+        prompt belongs to the chunked scheduler, ROADMAP A5.)"""
+        toks = np.asarray(r.tokens[:self.prompt_len], np.int64)
+        seq = np.zeros((self.prompt_len,), np.int64)
+        seq[:len(toks)] = toks
+        return seq
+
+    def _bind_chunked_slot(self, slot: int) -> None:
+        """KV-discipline hook at chunked bind time (dense: nothing)."""
+
+    def _prefill_complete(self, slot: int, job: _PrefillJob) -> None:
+        """KV-discipline hook when a slot's chunked prefill finishes (paged
+        backends with prefix sharing publish the prompt blocks here)."""
+
+    def fused_chunk_step(self, now: float) -> List[Request]:
+        """One fused tick: dispatch, then commit."""
+        return self.commit_exec(self.dispatch_fused(now), now)
+
+    def dispatch_fused(self, now: float) -> _PendingExec:
+        """Dispatch one fused tick: every mid-prefill row advances by one
+        prompt chunk while every decoding row advances by exactly one token
+        (a decode step is a one-token prefill continuation), all in one
+        call. Only value-independent bookkeeping happens here: prefill
+        progress, position mirrors, remaining-budget counts and the
+        prefill-complete transition (including the prefix-index publish;
+        stream order puts the published pages' writes before any later
+        sharer's reads)."""
+        B, ck = self.max_batch, self.prefill_chunk_tokens
+        tokens = np.zeros((B, ck), np.int64)
+        start = np.zeros((B,), np.int64)
+        n_valid = np.zeros((B,), np.int64)
+        set_mask = np.zeros((B,), bool)
+        feed_mask = np.zeros((B,), bool)
+        for slot, job in self._prefilling.items():
+            nv = min(len(job.seq) - job.pos, ck)
+            tokens[slot, :nv] = job.seq[job.pos:job.pos + nv]
+            start[slot] = job.pos
+            n_valid[slot] = nv
+            # rows completing here take the chunk's argmax as first token
+            set_mask[slot] = job.pos + nv >= len(job.seq)
+        decode_rows = [s for s, r in enumerate(self.slot_req)
+                       if r is not None and s not in self._prefilling]
+        for s in decode_rows:
+            feed_mask[s] = True            # device-side cur_tok feed
+            start[s] = self.slot_pos[s]
+            n_valid[s] = 1
+            set_mask[s] = True                       # argmax = next token
+        self._prefill_chunk_step(tokens, start, n_valid, set_mask, feed_mask)
+        pend = _PendingExec(kind="fused", toks=self.cur_tok)
+        for slot, job in list(self._prefilling.items()):
+            nv = int(n_valid[slot])
+            job.pos += nv
+            self._count_prefill_tokens(nv)
+            self.slot_pos[slot] = job.pos
+            if job.pos < len(job.seq):
+                continue
+            del self._prefilling[slot]
+            self._prefill_complete(slot, job)
+            # chunked admission takes only budgets above one token
+            # (PagedVariantBackend.admit), so the first token never ends it
+            self.slot_remaining[slot] = self._budget(job.req) - 1
+            pend.fused_completions.append((slot, job.req,
+                                           self.slot_gen[slot]))
+        for s in decode_rows:
+            self.slot_pos[s] += 1
+            self.slot_remaining[s] -= 1
+            pend.decode_items.append((s, self.slot_req[s], self.slot_gen[s],
+                                      1, self.slot_remaining[s] <= 0))
+        return pend
+
     def decode_step_batch(self, now: float) -> List[Request]:
         """One decode chunk for every bound slot (sync: dispatch, then
-        commit the chunk's tokens)."""
+        commit the chunk's tokens). Never called with rows mid-prefill:
+        those ticks are fused (``fused_chunk_step``)."""
         if self.active_slots == 0:
             return []
         return self.commit_exec(self.dispatch_decode(now), now)
 
-    def dispatch_decode(self, now: float) -> Tuple:
+    def dispatch_decode(self, now: float) -> _PendingExec:
         """Run one decode chunk; value-independent bookkeeping (remaining
         counts, count-based completion) happens here. Returns the pending
-        record ``(tokens (chunk, B) device, items)`` for ``commit_exec``.
-        (The reference's async tick commits it one tick later, guarded by
-        per-slot bind counters; the port's sync tick commits at once.)"""
+        record for ``commit_exec``."""
+        assert not self._prefilling, "mid-prefill rows need the fused tick"
         items = []
         for slot, r in enumerate(self.slot_req):
             if r is None:
                 continue
             take = min(int(self.slot_remaining[slot]), self.decode_chunk)
             self.slot_remaining[slot] -= take
-            items.append((slot, r, take, self.slot_remaining[slot] <= 0))
-        return self._decode_chunk(), items
+            items.append((slot, r, self.slot_gen[slot], take,
+                          self.slot_remaining[slot] <= 0))
+        return _PendingExec(kind="decode", toks=self._dispatch_chunk(),
+                            decode_items=items)
 
-    def commit_exec(self, pending: Tuple, now: float) -> List[Request]:
-        """One batched D2H read of the chunk's tokens, then token appends,
-        completion stamping and slot retirement. Returns requests finished
-        here."""
-        toks_dev, items = pending
-        toks = toks_dev.cpu().numpy()
+    def _dispatch_chunk(self) -> torch.Tensor:
+        """Run one decode chunk; returns its tokens (chunk, B)."""
+        toks = self._decode_chunk()
+        self.slot_pos += self.decode_chunk   # device advanced every row
+        return toks
+
+    def commit_exec(self, pending: _PendingExec,
+                    now: float) -> List[Request]:
+        """One batched D2H read of the tick's tokens, then token appends,
+        completion stamping and slot retirement. An item whose slot was
+        rebound since its dispatch (``slot_gen``) is skipped. Returns
+        requests finished here."""
+        toks = pending.toks.cpu().numpy()
         finished: List[Request] = []
-        for slot, r, take, fin in items:
-            self.slot_tokens[slot].extend(int(t) for t in toks[:take, slot])
+        for slot, r, gen_id in pending.fused_completions:
+            if self.slot_req[slot] is r and self.slot_gen[slot] == gen_id:
+                self.slot_tokens[slot] = [int(toks[slot])]
+        for slot, r, gen_id, take, fin in pending.decode_items:
+            if self.slot_req[slot] is not r or self.slot_gen[slot] != gen_id:
+                continue
+            if pending.kind == "fused":
+                self.slot_tokens[slot].append(int(toks[slot]))
+            else:
+                self.slot_tokens[slot].extend(
+                    int(t) for t in toks[:take, slot])
             if fin:
                 self._finish(r, self.slot_tokens[slot], now)
                 finished.append(r)
-                self.slot_req[slot] = None
-                self.slot_tokens[slot] = []
+                self._release_slot(slot)
         return finished
+
+    def _release_slot(self, slot: int) -> None:
+        self.slot_req[slot] = None
+        self.slot_tokens[slot] = []
+        self._retire_slot(slot)
+
+    def _retire_slot(self, slot: int) -> None:
+        """Hook called when a slot's request completes (paged backends free
+        the slot's pages here); the dense cache needs no cleanup — stale
+        entries are masked by the validity bias."""
 
     def _finish(self, r: Request, tokens: List[int], now: float) -> None:
         r.output = np.asarray(tokens[:min(r.max_new, self.max_new)], np.int64)
@@ -311,15 +537,251 @@ class VariantBackend:
             m.inc("requests.goodput_ok")
 
     def drain_slots(self, now: float) -> List[Request]:
-        """Decode until every in-flight sequence completes (connection
-        draining before retirement — create-then-remove)."""
+        """Run prefill/decode until every in-flight sequence completes
+        (connection draining before retirement — create-then-remove)."""
         done: List[Request] = []
         steps = 0
         max_steps = self.max_new // self.decode_chunk + 2
+        if self.chunked:   # fused ticks: 1 decode token while chunks finish
+            max_steps += -(-(self.prompt_len + self.max_new)
+                           // self.prefill_chunk_tokens) + self.max_new + 2
         while self.active_slots and steps < max_steps:
-            done.extend(self.decode_step_batch(now))
+            if self._prefilling:
+                done.extend(self.fused_chunk_step(now))
+            else:
+                done.extend(self.decode_step_batch(now))
             steps += 1
         return done
+
+
+def _bucket_ladder(lo: int, hi: int) -> List[int]:
+    """Doubling ladder of sizes in [lo, hi], always ending at hi: the
+    warmed-up sizes of right-sized prefill batches and live-page bounds."""
+    sizes = []
+    n = max(1, lo)
+    while n < hi:
+        sizes.append(n)
+        n *= 2
+    sizes.append(hi)
+    return sizes
+
+
+class PagedVariantBackend(VariantBackend):
+    """``VariantBackend`` with a paged KV pool instead of the dense ring.
+
+    Three cost levers over the dense discipline (the reference's DESIGN.md
+    §Paged KV cache):
+
+      * **Right-sized prefill** — admission prefills a batch bucketed to the
+        number of joiners (1, 2, 4, …), never padded to ``max_batch``, and
+        only to ``prompt_len`` (decode tokens live in pages).
+      * **Length-aware decode** — each decode chunk runs at the smallest
+        live-page bucket covering the longest live sequence; with
+        ``use_kernels`` the paged kernel also skips each row's pages past
+        its length.
+      * **Memory-true capacity** — pages are allocated at admission (the
+        whole sequence budget, all or nothing) and freed at retirement;
+        ``free_slots`` admits only what the pool can hold.
+
+    With ``prefix_sharing``, admissions whose prompt hits the prefix index
+    map the shared pages by reference and prefill only the tail.
+    """
+
+    def __init__(self, name: str, cfg: ModelConfig, accuracy: float,
+                 page_size: int = 16, pool_pages: Optional[int] = None,
+                 prefix_sharing: bool = False, **kw):
+        self.page_size = page_size
+        self._pool_pages_arg = pool_pages
+        self.prefix_sharing = prefix_sharing
+        self.chunked = prefix_sharing    # the tail prefill is a continuation
+        super().__init__(name, cfg, accuracy, **kw)
+
+    def _build_state(self) -> None:
+        model, ps, B, dev = self.model, self.page_size, self.max_batch, \
+            self.device
+        # pages covering one slot's whole budget (prompt + decode tokens)
+        self.pages_per_slot = -(-(self.prompt_len + self.max_new) // ps)
+        pool_pages = self._pool_pages_arg or (
+            B * self.pages_per_slot + 1)               # +1: trash page 0
+        self.pool = PagedKVCache(pool_pages, ps, metrics=self.metrics)
+        self.cache = model.init_paged_cache(B, pool_pages, ps,
+                                            self.pages_per_slot, dev)
+        self.cur_tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.batch_buckets = _bucket_ladder(1, B)
+        first_pages = self.pool.pages_needed(self.prompt_len
+                                             + self.decode_chunk)
+        self.page_buckets = _bucket_ladder(first_pages, self.pages_per_slot)
+
+        # warm-up of every batch bucket and page bucket the backend runs —
+        # part of this backend's measured readiness rt_m
+        for bb in self.batch_buckets:
+            toks = torch.zeros((bb, self.prompt_len), dtype=torch.int64,
+                               device=dev)
+            logits, pref = self._prefill(toks)
+            first = torch.argmax(logits, dim=-1)
+            model.paged_admit(
+                self.cache, pref, self.cur_tok, first,
+                torch.full((bb, self.pages_per_slot), self.pool.total_pages,
+                           device=dev),                 # OOB page ids: drop
+                torch.full((bb,), B, device=dev))       # OOB slots: drop
+        for nb in self.page_buckets:
+            self._decode_chunk_paged(nb)
+        if self.prefix_sharing:
+            model.paged_cow_copy(self.cache, 0, 0)      # warm: trash->trash
+
+    def _prefill(self, tokens: torch.Tensor):
+        """Right-sized: the prefill cache holds the prompt alone."""
+        return self.model.prefill(self.params, {"tokens": tokens},
+                                  max_len=self.prompt_len)
+
+    def _decode_chunk_paged(self, n_pages: int) -> torch.Tensor:
+        """``decode_chunk`` paged decode steps at the live-page bucket
+        ``n_pages``; returns the emitted tokens (chunk, B)."""
+        self.cur_tok, toks = self._chunk_scan(
+            self.cache, self.cur_tok,
+            lambda c, t: self.model.decode_step_paged(self.params, c, t,
+                                                      n_pages=n_pages))
+        return toks
+
+    def _model_prefill_chunk(self, tokens, start, n_valid):
+        return self.model.prefill_chunk_paged(self.params, self.cache,
+                                              tokens, start, n_valid)
+
+    # ------------------------------------------------- continuous-batch path
+    @property
+    def free_slots(self) -> List[int]:
+        """Slots open for admission = free batch rows ∩ slot_cap (see base)
+        ∩ what the page pool can actually hold — memory-true capacity."""
+        free = super().free_slots
+        return free[:self.pool.free_pages // self.pages_per_slot]
+
+    @property
+    def kv_pool_occupancy(self) -> float:
+        return self.pool.occupancy
+
+    def admit(self, reqs: List[Request], now: float) -> List[Request]:
+        """Right-sized admission: prefill only the actual joiners
+        (bucketed), allocate each a full page budget, scatter the prefilled
+        KV into its pages. With prefix sharing, joiners whose prompt hits
+        the prefix index are peeled off onto the continuation path: their
+        indexed prefix is mapped by reference at bind and only the novel
+        tail is prefilled."""
+        if not self.prefix_sharing:
+            return self._admit_monolithic(reqs, now)
+        hits, misses = [], []
+        for r in reqs:
+            plan = self.pool.prefix_plan(self._effective_seq(r)) \
+                if self._budget(r) > 1 else None   # budget-1: no pages at all
+            if plan is not None and (plan.shared or plan.cow_src is not None):
+                hits.append(r)
+            else:
+                misses.append(r)
+        finished = self._admit_monolithic(misses, now)
+        if hits:                     # binds slots; nothing finishes at bind
+            self.admit_chunked(hits, now)
+        return finished
+
+    def _admit_monolithic(self, reqs: List[Request],
+                          now: float) -> List[Request]:
+        free = self.free_slots
+        assert len(reqs) <= len(free)
+        if not reqs:
+            return []
+        bb = next(b for b in self.batch_buckets if b >= len(reqs))
+        first, first_np, pref = self._admit_prefill(reqs, bb)
+        # out-of-bounds defaults: rows not joining a slot are dropped
+        page_ids = np.full((bb, self.pages_per_slot), self.pool.total_pages,
+                           np.int64)
+        dest = np.full((bb,), self.max_batch, np.int64)
+        finished = []
+        for j, r in enumerate(reqs):
+            slot = free[j]
+            tok0 = int(first_np[j])
+            if self._budget(r) <= 1:     # completes at admission: no pages
+                self._finish(r, [tok0], now)
+                finished.append(r)
+                continue
+            pages = self.pool.alloc(slot, self.pages_per_slot)
+            assert pages is not None     # free_slots gated on the pool
+            page_ids[j] = pages
+            dest[j] = slot
+            self._bind_slot(r, slot, tok0)   # slot_pos mirror set there
+        self.model.paged_admit(self.cache, pref, self.cur_tok, first,
+                               torch.as_tensor(page_ids, device=self.device),
+                               torch.as_tensor(dest, device=self.device))
+        if self.prefix_sharing:
+            # the scatter wrote every bound row's full prompt K/V, so those
+            # blocks are publishable to the prefix index at once
+            for j, r in enumerate(reqs):
+                if int(dest[j]) < self.max_batch:
+                    self.pool.publish_prefix(int(dest[j]),
+                                             self._effective_seq(r))
+        return finished
+
+    def _bind_chunked_slot(self, slot: int) -> None:
+        """Chunked admission owns the slot's full page budget up front
+        (``free_slots`` already gated the bind on worst-case capacity).
+        The plan's matched blocks are mapped by reference and only the rest
+        is allocated fresh; a fully matched boundary block is copied on
+        write into the first fresh page, so the re-fed final prompt
+        token's K/V write cannot touch the shared original. The prefill job
+        then starts at ``plan.tail_start``: shared tokens are never
+        recomputed."""
+        job = self._prefilling[slot]
+        # plan again against the *current* index: an earlier bind or
+        # monolithic alloc this tick may have reclaimed a retained page the
+        # admit-time plan used; that lookup already counted the hit
+        plan = self.pool.prefix_plan(job.seq, count=False)
+        shared, cow = tuple(plan.shared), plan.cow_src
+        # protect the CoW source from retained-tier reclaim within this
+        # very alloc — the copy below reads it after the pages are granted
+        fresh = self.pool.alloc(slot, self.pages_per_slot - len(shared),
+                                shared=shared,
+                                protect=() if cow is None else (cow,))
+        if fresh is None:
+            # retained-tier squeeze: the plan's keep-set blocked reclaim of
+            # the last pages; take the full budget fresh instead
+            plan, shared, cow = None, (), None
+            fresh = self.pool.alloc(slot, self.pages_per_slot)
+        assert fresh is not None
+        self.cache["pt"][slot] = torch.as_tensor(
+            list(shared) + list(fresh), dtype=torch.int32)
+        if plan is not None and plan.tail_start > 0:
+            if cow is not None:
+                self.model.paged_cow_copy(self.cache, cow, fresh[0])
+                self.metrics.inc("kv.cow_copies")
+            job.pos = plan.tail_start
+            self.slot_pos[slot] = plan.tail_start
+
+    def _prefill_complete(self, slot: int, job: _PrefillJob) -> None:
+        """Publish the slot's fully written prompt blocks to the prefix
+        index — only now, so a sharer never maps pages still being
+        written. (Only prefix sharing runs chunked prefill here.)"""
+        self.pool.publish_prefix(slot, job.seq)
+
+    def _dispatch_chunk(self) -> torch.Tensor:
+        """One decode chunk at the smallest page bucket covering the
+        longest live row (chosen on the host from ``slot_pos``)."""
+        live = [self.slot_pos[s] for s, r in enumerate(self.slot_req)
+                if r is not None]
+        need = self.pool.pages_needed(int(max(live)) + self.decode_chunk)
+        need = min(need, self.pages_per_slot)
+        nb = next(b for b in self.page_buckets if b >= need)
+        toks = self._decode_chunk_paged(nb)
+        self.slot_pos += self.decode_chunk   # device advanced every row
+        return toks
+
+    def _retire_slot(self, slot: int) -> None:
+        """Free the slot's pages and point its table row back at the trash
+        page so the dead batch row keeps decoding harmlessly."""
+        self.pool.free(slot)
+        self.model.paged_retire(self.cache, slot)
+        self.slot_pos[slot] = 0
+
+    # -------------------------------------------------------- pump-mode path
+    def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+        raise NotImplementedError(
+            "paged KV backends serve in continuous mode only")
 
 
 def _refuse(option: str, value, default, item: str) -> None:
@@ -349,13 +811,24 @@ class InProcessServingEngine:
                  weights: Optional[Mapping[str, Dict]] = None,
                  clock: Callable[[], float] = time.time,
                  nodes=None, kv_cache: str = "dense",
-                 scheduler="fifo", preemption: str = "none",
+                 kv_page_size: int = 16,
+                 kv_pool_pages: Optional[int] = None,
+                 kv_prefix_sharing: bool = False,
+                 scheduler="fifo", prefill_chunk: int = 16,
+                 preemption: str = "none",
                  trace: bool = False, obs=None, profile_dispatch: int = 0,
                  async_tick: bool = False,
                  speculative: Optional[str] = None):
         if mode not in ("continuous", "pump"):
             raise ValueError(f"mode must be continuous|pump, got {mode!r}")
-        _refuse("kv_cache", kv_cache, "dense", "A4")
+        if kv_cache not in ("dense", "paged"):
+            raise ValueError(f"kv_cache must be dense|paged, got {kv_cache!r}")
+        if kv_cache == "paged" and mode != "continuous":
+            raise ValueError("paged KV backends serve in continuous mode only")
+        if kv_prefix_sharing and kv_cache != "paged":
+            raise ValueError("kv_prefix_sharing requires kv_cache='paged' "
+                             "(the prefix index maps shared blocks onto "
+                             "pool pages)")
         _refuse("scheduler", scheduler, "fifo", "A5")
         _refuse("preemption", preemption, "none", "A5")
         _refuse("async_tick", async_tick, False, "A6")
@@ -377,6 +850,14 @@ class InProcessServingEngine:
         self.decode_chunk = decode_chunk
         self.queue_cap = queue_cap
         self.use_kernels = use_kernels
+        # KV discipline of every backend this engine creates: "dense" is the
+        # per-slot ring; "paged" the shared page pool (kv_page_size tokens
+        # per page, kv_pool_pages pages or full slot parity by default)
+        self.kv_cache = kv_cache
+        self.kv_page_size = kv_page_size
+        self.kv_pool_pages = kv_pool_pages
+        self.kv_prefix_sharing = kv_prefix_sharing
+        self.prefill_chunk = prefill_chunk
         self.enforce_units = enforce_units
         self.backends: Dict[str, VariantBackend] = {}
         self.units: Dict[str, int] = {}
@@ -388,14 +869,19 @@ class InProcessServingEngine:
 
     def _make_backend(self, variant: str) -> VariantBackend:
         cfg, acc = self.variant_defs[variant]
-        return VariantBackend(variant, cfg, acc, max_batch=self.max_batch,
-                              prompt_len=self.prompt_len,
-                              max_new=self.max_new,
-                              decode_chunk=self.decode_chunk,
-                              use_kernels=self.use_kernels,
-                              device=self.device,
-                              params=self.weights.get(variant),
-                              clock=self.clock, metrics=self.metrics)
+        kw = dict(max_batch=self.max_batch, prompt_len=self.prompt_len,
+                  max_new=self.max_new, decode_chunk=self.decode_chunk,
+                  use_kernels=self.use_kernels, device=self.device,
+                  params=self.weights.get(variant),
+                  prefill_chunk_tokens=self.prefill_chunk,
+                  clock=self.clock, metrics=self.metrics)
+        if self.kv_cache == "paged":
+            return PagedVariantBackend(variant, cfg, acc,
+                                       page_size=self.kv_page_size,
+                                       pool_pages=self.kv_pool_pages,
+                                       prefix_sharing=self.kv_prefix_sharing,
+                                       **kw)
+        return VariantBackend(variant, cfg, acc, **kw)
 
     # ------------------------------------------------------------ ClusterAPI
     def apply_allocation(self, t: float, units: Mapping[str, int]) -> None:
@@ -485,7 +971,8 @@ class InProcessServingEngine:
         return self._pump_legacy(now)
 
     def _tick(self, now: float) -> int:
-        """One FIFO tick per backend: admit into free slots, then decode."""
+        """One FIFO tick per backend: admit into free slots, then a fused
+        tick while any row is mid-prefill, else a decode chunk."""
         self._rebalance_queues()
         done_before = len(self.done)
         for name, b in self.backends.items():
@@ -497,7 +984,10 @@ class InProcessServingEngine:
                 q.clear()
                 q.extend(rest)
                 self.done.extend(b.admit(joiners, now))
-            self.done.extend(b.decode_step_batch(now))
+            if b._prefilling:   # fused tick: prefill chunks + 1-tok decodes
+                self.done.extend(b.fused_chunk_step(now))
+            else:               # pure decode: the bucket-aware chunk
+                self.done.extend(b.decode_step_batch(now))
         return len(self.done) - done_before
 
     def drain(self, now: float, max_ticks: int = 10_000) -> int:
@@ -543,6 +1033,36 @@ class InProcessServingEngine:
                     served += 1
         return served
 
+    def kv_pool_stats(self) -> Optional[Dict]:
+        """Aggregate page-pool usage across paged backends (None when the
+        engine runs dense caches). Levels are read off the live pools and
+        published as registry gauges; the cumulative counters (prefix
+        lookups and hits, fresh pages) are read from the registry, where
+        the pools increment them, so retired pools' history counts too."""
+        pools = [b.pool for b in self.backends.values()
+                 if isinstance(b, PagedVariantBackend)]
+        if not pools:
+            return None
+        m = self.metrics
+        used = sum(p.used_pages for p in pools)
+        usable = sum(p.usable_pages for p in pools)
+        shared = sum(p.shared_pages for p in pools)
+        retained = sum(p.retained_pages for p in pools)
+        occupancy = used / max(usable, 1)
+        m.set("kv.used_pages", used)
+        m.set("kv.usable_pages", usable)
+        m.set("kv.shared_pages", shared)
+        m.set("kv.retained_pages", retained)
+        m.set("kv.occupancy", occupancy)
+        lookups = int(m.value("kv.prefix_lookups"))
+        hits = int(m.value("kv.prefix_hits"))
+        return {"used_pages": used, "usable_pages": usable,
+                "occupancy": occupancy, "shared_pages": shared,
+                "retained_pages": retained,
+                "prefix_lookups": lookups, "prefix_hits": hits,
+                "prefix_hit_rate": hits / max(lookups, 1),
+                "fresh_pages_allocated": int(m.value("kv.pages_allocated"))}
+
     # ---------------------------------------------------------------- metrics
     def summarize(self, slo_ms: float, best_accuracy: float) -> Dict:
         out = summarize_requests(
@@ -560,4 +1080,9 @@ class InProcessServingEngine:
             # accepted but not yet served (queued + in flight)
             out["pending"] = int(sum(len(q) for q in self.queues.values())
                                  + self.in_flight())
+            pool = self.kv_pool_stats()
+            if pool is not None:
+                out["kv_pool_occupancy"] = pool["occupancy"]
+                out["kv_shared_pages"] = pool["shared_pages"]
+                out["kv_prefix_hit_rate"] = pool["prefix_hit_rate"]
         return out

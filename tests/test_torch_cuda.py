@@ -17,6 +17,7 @@ import torch
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode as pd
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -92,6 +93,60 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
                                rtol=TOL[dtype])
 
 
+def _paged_inputs(rng, B, KV, G, hd, ps, width, dtype, device,
+                  poison=False):
+    """A pool of B*width+1 pages shuffled across the rows' tables, ragged
+    lengths in 1..width*ps with the last row at 0. With ``poison``, page 0
+    holds NaN and every table entry past a row's live pages points at it."""
+    P = B * width + 1
+    q = _randn(rng, (B, KV, G, hd), dtype, device)
+    kp = _randn(rng, (KV, P, ps, hd), dtype, device)
+    vp = _randn(rng, (KV, P, ps, hd), dtype, device)
+    tables = rng.permutation(np.arange(1, P)).reshape(B, width)
+    lengths = rng.integers(1, width * ps + 1, B)
+    lengths[-1] = 0
+    if poison:
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+        for b in range(B):
+            tables[b, -(-int(lengths[b]) // ps):] = 0
+    return (q, kp, vp,
+            torch.as_tensor(tables, dtype=torch.int32, device=device),
+            torch.as_tensor(lengths, dtype=torch.int32, device=device))
+
+
+PAGED_CASES = [
+    # B, KV, G, hd, ps, width, n_pages, softcap, poison
+    (8, 4, 8, 64, 16, 36, 36, 0.0, False),   # serve path: 36 pages of 16
+    (3, 2, 4, 128, 8, 10, 10, 0.0, False),   # page 8, hd 128
+    (4, 4, 8, 64, 16, 12, 12, 30.0, False),  # softcap
+    (5, 2, 4, 64, 16, 12, 5, 0.0, False),    # n_pages < table width
+    (6, 4, 8, 64, 16, 9, 9, 0.0, True),      # NaN pages past each length
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,hd,ps,width,n_pages,softcap,poison",
+                         PAGED_CASES)
+def test_paged_decode_kernel_matches_plain(cuda, B, KV, G, hd, ps, width,
+                                           n_pages, softcap, poison, dtype):
+    rng = np.random.default_rng(3)
+    q, kp, vp, tables, lengths = _paged_inputs(rng, B, KV, G, hd, ps, width,
+                                               dtype, cuda, poison)
+    tables = tables[:, :n_pages]            # a column slice, not a copy
+    n0 = pd.paged_flash_decode_bkhd.launches
+    out = pd.paged_flash_decode_bkhd(q, kp, vp, tables, lengths,
+                                     softcap=softcap)
+    torch.cuda.synchronize()
+    assert pd.paged_flash_decode_bkhd.launches == n0 + 1
+    want = pd.paged_flash_decode_plain(q, kp, vp, tables, lengths,
+                                       softcap=softcap)
+    assert torch.isfinite(out.float()).all()
+    assert (out[-1] == 0).all()             # the length-0 row gives zeros
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     kv = torch.zeros((1, 8, 1, 64), device=cuda)
@@ -108,6 +163,21 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                torch.zeros((1, 1, 8, 64), device=cuda),
                                torch.zeros((1, 8), device=cuda,
                                            dtype=torch.bfloat16))
+    q = torch.zeros((2, 2, 4, 64), device=cuda)
+    pool = torch.zeros((2, 5, 16, 64), device=cuda)
+    tables = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    n0 = pd.paged_flash_decode_bkhd.launches
+    with pytest.raises(ValueError):              # int64 block table
+        pd.paged_flash_decode_bkhd(q, pool, pool, tables.long(), lengths)
+    with pytest.raises(TypeError):               # int64 lengths
+        pd.paged_flash_decode_bkhd(q, pool, pool, tables, lengths.long())
+    with pytest.raises(ValueError):              # non-contiguous pool
+        ops.paged_flash_decode(q, pool.transpose(2, 3).contiguous()
+                               .transpose(2, 3), pool, tables, lengths)
+    with pytest.raises(ValueError):              # pool on the CPU
+        ops.paged_flash_decode(q, pool.cpu(), pool, tables, lengths)
+    assert pd.paged_flash_decode_bkhd.launches == n0
 
 
 def test_model_greedy_tokens_kernels_on_equal_off(cuda):
@@ -131,3 +201,40 @@ def test_model_greedy_tokens_kernels_on_equal_off(cuda):
             logits, cache = lm.decode_step(params, cache, tok)
         outs.append(torch.stack(seq, 1).cpu().numpy())
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+def test_paged_engine_greedy_tokens_kernels_on_equal_off(cuda):
+    """fp32 smoke rung on the paged engine with prefix sharing: identical
+    per-request tokens with the kernels on (paged decode in decode steps
+    and, once per chunk token, in fused ticks) and off."""
+    import time
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = smoke_variant(get_config("tinyllama-1.1b")).replace(
+        d_model=128, num_layers=2, name="small")
+    rng = np.random.default_rng(9)
+    pre = rng.integers(0, cfg.vocab_size, 24)
+    prompts = [np.concatenate([pre, rng.integers(0, cfg.vocab_size, 8)])
+               for _ in range(3)]
+    prompts += [prompts[0], prompts[1]]          # exact repeats: CoW path
+    outs, hits = [], []
+    for on in (False, True):
+        eng = InProcessServingEngine(
+            {"small": (cfg, 70.0)}, max_batch=3, prompt_len=32, max_new=8,
+            decode_chunk=2, kv_cache="paged", kv_page_size=8,
+            kv_prefix_sharing=True, prefill_chunk=8, use_kernels=on,
+            device=cuda)
+        eng.apply_allocation(0.0, {"small": 1})
+        n0 = pd.paged_flash_decode_bkhd.launches
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new=8,
+                               arrival=time.time()), "small")
+            eng.step(0.0)
+        eng.drain(0.0)
+        assert (pd.paged_flash_decode_bkhd.launches > n0) == on
+        outs.append({r.rid: list(r.output) for r in eng.done})
+        hits.append(eng.kv_pool_stats()["prefix_hits"])
+        eng.backends["small"].pool.assert_invariants()
+    assert len(outs[0]) == len(prompts) and hits[0] > 0
+    assert outs[0] == outs[1]

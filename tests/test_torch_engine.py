@@ -141,7 +141,8 @@ def test_copied_solver_returns_the_reference_allocation(solver, seed):
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_cache="paged"), dict(scheduler="edf"), dict(scheduler="chunked"),
+    dict(kv_cache="paged", preemption="drop"), dict(scheduler="edf"),
+    dict(scheduler="chunked"),
     dict(preemption="requeue"), dict(async_tick=True),
     dict(speculative="small:big"), dict(nodes=[]), dict(trace=True),
     dict(profile_dispatch=4)])

@@ -15,6 +15,7 @@ from repro.kernels import ref
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_decode as pd
 
 ATOL = 1e-5
 
@@ -98,7 +99,22 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                          _decode_inputs(rng, 1, 2, 2, 64, 10, ()))
     torch.testing.assert_close(fd.flash_decode_bkhd(qd, kd, vd, bd),
                                fd.flash_decode_plain(qd, kd, vd, bd))
-    assert ops.launch_counts() == {"flash_prefill": 0, "flash_decode": 0}
+    pool = torch.as_tensor(rng.standard_normal((2, 5, 4, 64),
+                                               dtype=np.float32))
+    tables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+    lengths = torch.tensor([5, 0], dtype=torch.int32)
+    qp = torch.as_tensor(rng.standard_normal((2, 2, 2, 64),
+                                             dtype=np.float32))
+    want = pd.paged_flash_decode_plain(qp, pool, pool, tables, lengths)
+    torch.testing.assert_close(
+        ops.paged_flash_decode(qp, pool, pool, tables, lengths), want)
+    # ops meets the kernel's operand rules: int64 indices, a strided q
+    qs = qp.transpose(0, 1).contiguous().transpose(0, 1)
+    torch.testing.assert_close(
+        ops.paged_flash_decode(qs, pool, pool, tables.long(), lengths.long()),
+        want)
+    assert ops.launch_counts() == {"flash_prefill": 0, "flash_decode": 0,
+                                   "paged_decode": 0}
 
 
 def test_causal_window_mask():
