@@ -9,29 +9,38 @@ phase raises, and the script exits nonzero:
               (one nvcc per source, all started together);
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serve path's shapes (bf16 and fp32) and on small edge cases
-              (window, softcap, ragged lengths; for paged decode: page 8 and
-              hd 128, softcap, a table slice narrower than the table,
-              length-0 rows and NaN pages past every row's length), with
-              stated tolerances; then kernel / plain / library (SDPA, a
-              yardstick the port never calls; none for paged decode) times
-              from CUDA events, inputs rotated through more than the 50 MB
-              L2 cache, beside the bound (bytes or operations over the
-              card's peak rates);
+              (window, softcap, ragged lengths; hymba-1.5b's GQA group of 5
+              with a window that binds; for paged decode: page 8 and hd 128,
+              softcap, a table slice narrower than the table, length-0 rows
+              and NaN pages past every row's length; for the SSD scan:
+              mamba2-130m's and hymba-1.5b's heads with a nonzero initial
+              state, through the strided views the model passes, and a
+              ragged last chunk), with stated tolerances; then kernel /
+              plain / library (SDPA, a yardstick the port never calls; none
+              for paged decode and the SSD scan) times from CUDA events,
+              inputs rotated through more than the 50 MB L2 cache, beside
+              the bound (bytes or operations over the card's peak rates);
   4. model    full-width tinyllama-1.1b (22 layers, bf16): prefill of 8 x 512
               tokens plus 8 decode steps with the kernels on and off, and
               the same 8 steps through the page pool (``paged_admit`` +
               ``decode_step_paged``) against the dense steps, logits held to
               a stated tolerance; full-width 4-layer fp32 rungs must give
               identical greedy tokens kernels on vs off and paged vs dense;
+              then the same prefill and decode steps, kernels on vs off, for
+              full-width mamba2-130m (24 layers, bf16; a 4-layer fp32 rung
+              must give identical greedy tokens) and hymba-1.5b (32 layers,
+              bf16: ssd_scan beside flash_prefill / flash_decode with GQA
+              group 5 and per-layer windows);
   5. serve    the InfAdapter loop (``launch.serve``: full-width ladder
               8/15/22 layers, calibrate, ``run_serving_loop`` with the
               controller) on the dense engine, then on the paged engine with
               prefix sharing (``kv_cache="paged"``, page 16; the paged
               backend has no pump path, so it runs on the profiles
               calibrated on the dense engine of the same ladder and
-              geometry); every request completes with its full budget, every
-              pool ends empty and consistent, and each path's kernels'
-              launch counters grow in its own phase;
+              geometry), then on the dense engine over the full-width
+              mamba2-130m ladder 8/16/24; every request completes with its
+              full budget, every pool ends empty and consistent, and each
+              path's kernels' launch counters grow in its own phase;
   6. prefix   the shared-system-prompt study at full width: 24 staggered
               512-token requests over a 384-token shared prefix, every
               fourth an exact repeat (copy-on-write), sharing on vs off:
@@ -40,6 +49,10 @@ phase raises, and the script exits nonzero:
               must give identical tokens on vs off;
   7. output   the ``{"kernels": [...]}`` line (launches summed over the
               serve and prefix phases), then the ok line last.
+
+The SSD scan's outputs grow with the sequence, so it is held to a relative
+tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
+attention kernels take the absolute ``TOL``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
@@ -54,6 +67,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet, at 700 W
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
+# ssd_scan, relative to max |plain|: fp32 sums in other orders over 128-step
+# chunks; bf16 y is one rounding of the same fp32 value (2^-8); the final
+# state is fp32 in both dtypes
+SSD_REL_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-2}
 L2_BYTES = 50e6
 
 # serve path geometry (launch.serve GEOMETRY[True]) and model widths
@@ -63,6 +80,13 @@ CAP = PROMPT + MAX_NEW
 PAGE = 16
 WIDTH = CAP // PAGE         # block-table width: 36 pages per slot
 BF16_LOGIT_TOL = 5e-2       # ||on - off|| / ||off|| over the logits, bf16
+FP32_LOGIT_TOL = 1e-4       # the same in fp32: sums in other orders only
+BF16_VS_PLAIN = 1.1         # bf16 kernels' distance from the fp32 logits,
+#                             at most this times the plain bf16 path's
+SSD_CHUNK = 128
+# (h, p, n) of the SSD scan at the serve shape: mamba2-130m, hymba-1.5b
+SSD_HEADS = {"mamba2-130m": (24, 64, 128), "hymba-1.5b": (50, 64, 16)}
+HYMBA_H, HYMBA_KV = 25, 5   # hymba-1.5b attention heads: GQA group 5
 SERVE_SECONDS = 20          # each of the dense and the paged serve loops
 # prefix phase: the reference's shared-system-prompt study at full width
 PS_N, PS_SHARED = 24, 384
@@ -159,11 +183,75 @@ def paged_kernel_checks(torch, pd, gen):
     return err, serve_args
 
 
+def ssd_inputs(torch, gen, b, s, h, p, n, dtype, strided=True):
+    """x, dt, A, B, C, initial state of one SSD scan; with ``strided`` x, B
+    and C are views of one packed (b, s, h*p + 2n) tensor, as the model
+    passes its conv output."""
+    dev = torch.device(DEVICE)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = torch.nn.functional.softplus(randn(b, s, h))
+    A = -randn(h).abs()
+    init = randn(b, h, p, n) * 0.1
+    if strided:
+        xc = randn(b, s, h * p + 2 * n).to(dtype)
+        x = xc[..., :h * p].unflatten(-1, (h, p))
+        B, C = xc[..., h * p:h * p + n], xc[..., h * p + n:]
+    else:
+        x, B, C = (randn(b, s, h, p).to(dtype), randn(b, s, n).to(dtype),
+                   randn(b, s, n).to(dtype))
+    return x, dt, A, B, C, init
+
+
+def rel_check(name, got, want, tol):
+    """Hold max |got - want| / max |want| to ``tol``; returns max abs err."""
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    log(f"  {name:<44s} max_abs_err {err:.3e}  rel_err {rel:.3e}  "
+        f"tol {tol:.0e}")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: relative err {rel} > {tol}")
+    return err
+
+
+def ssd_kernel_checks(torch, ss, plain, gen):
+    """ssd_scan against its plain version at both serve geometries (bf16
+    and fp32, nonzero initial state, strided and packed operands) and on a
+    ragged last chunk; returns the max abs error of the bf16 mamba2-130m
+    y (held relative to max |y|)."""
+    err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        tol = SSD_REL_TOL[str(dtype)]
+        cases = [(f"{arch} serve shape", (B, PROMPT, *hpn), SSD_CHUNK,
+                  strided) for arch, hpn in SSD_HEADS.items()
+                 for strided in (True, False)]
+        cases.append(("ragged s=300", (2, 300, *SSD_HEADS["mamba2-130m"]),
+                      SSD_CHUNK, True))
+        for label, shape, chunk, strided in cases:
+            x, dt, A, Bm, Cm, init = ssd_inputs(torch, gen, *shape, dtype,
+                                                strided)
+            y, fin = ss.ssd_scan_chunked(x, dt, A, Bm, Cm, init, chunk=chunk)
+            wy, wfin = plain(x, dt, A, Bm, Cm, chunk, init)
+            lab = f"ssd_scan {label}{'' if strided else ' packed'} {name}"
+            e = rel_check(f"{lab} y", y, wy, tol)
+            rel_check(f"{lab} state", fin, wfin,
+                      SSD_REL_TOL["torch.float32"])
+            if dtype == torch.bfloat16 and label.startswith("mamba2") \
+                    and strided:
+                err = e
+    return err
+
+
 def kernel_phase(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssd import ssd_scan_plain
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -206,7 +294,19 @@ def kernel_phase(torch):
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc),
                   dtype)
+        # hymba-1.5b's heads: GQA group 5; a window that binds, and none
+        for w in (256, 0):
+            q, k, v = pre_inputs(B, PROMPT, HYMBA_H, HYMBA_KV, HD, dtype)
+            check(f"flash_prefill hymba heads window={w} {str(dtype)[6:]}",
+                  fp.flash_prefill_bshd(q, k, v, window=w),
+                  fp.flash_prefill_plain(q, k, v, window=w), dtype)
+        q, k, v, bias = dec_inputs(B, HYMBA_KV, HYMBA_H // HYMBA_KV, HD, CAP,
+                                   dtype, masked=True)
+        check(f"flash_decode hymba heads G=5 {str(dtype)[6:]}",
+              fd.flash_decode_bkhd(q, k, v, bias),
+              fd.flash_decode_plain(q, k, v, bias), dtype)
     errs["paged"], paged_serve = paged_kernel_checks(torch, pd, gen)
+    errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
     torch.cuda.synchronize()
 
     log("    timing at the serve shapes, bf16 (ms per call, inputs cold)")
@@ -273,12 +373,73 @@ def kernel_phase(torch):
                      replaces="src/repro/kernels/paged/decode.py:97",
                      max_abs_err=errs["paged"], ms=t_k, plain_ms=t_p,
                      bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # SSD scan at mamba2-130m's serve shape, bf16, strided views as the
+    # model passes them, nonzero initial state
+    h, p, n = SSD_HEADS["mamba2-130m"]
+    ssd_set = ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
+    x, dts, A, Bm, Cm, init = ssd_set
+    ssd_bytes = (esz * (2 * B * PROMPT * h * p + 2 * B * PROMPT * n)
+                 + 4 * (B * PROMPT * h + h + 2 * B * h * p * n))
+    ssds = [ssd_set] + [ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
+                        for _ in range(int(3 * L2_BYTES // ssd_bytes))]
+    t_k = time_ms(torch, lambda *a: ss.ssd_scan_chunked(*a, chunk=SSD_CHUNK),
+                  ssds, iters=20)
+    t_p = time_ms(torch, lambda *a: ssd_scan_plain(*a[:5], SSD_CHUNK, a[5]),
+                  ssds, iters=6)
+    # x and y; B and C; dt, A, the initial and the final state. Operations:
+    # per (row, chunk) C.B over the causal (l, s) pairs once (shared by the
+    # heads), then per head the diagonal product over those pairs and the
+    # carried-state and state-update products (q x p x n each), 2 flops/FMA
+    pairs = SSD_CHUNK * (SSD_CHUNK + 1) // 2
+    ssd_flops = 2 * B * (PROMPT // SSD_CHUNK) * (
+        pairs * n + h * (pairs * p + 2 * SSD_CHUNK * p * n))
+    b_ms, b_by = bound(ssd_bytes, ssd_flops, dt)
+    rows.append(dict(name="ssd_scan", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     replaces="src/repro/kernels/ssd_scan.py:79",
+                     max_abs_err=errs["ssd"], ms=t_k, plain_ms=t_p,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
         lib = ("no single library call" if r["library_ms"] is None
                else f"{r['library_ms']:.4f}")
         log(f"  {r['name']:<14s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
             f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
+
+
+def prefill_decode(torch, lm, params, toks, feed=None):
+    """Prefill + 8 decode steps; feeds ``feed`` tokens when given, else its
+    own greedy tokens. Returns (logits list, tokens, (prefill ms, decode
+    step ms))."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    outs, seq = [logits], []
+    for i in range(8):
+        tok = torch.argmax(logits, -1) if feed is None else feed[i]
+        seq.append(tok)
+        logits, cache = lm.decode_step(params, cache, tok)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8)
+
+
+def rel_err(xs, ys, vocab):
+    """Largest ||x - y|| / ||y|| over pairs of logits, over the real vocab
+    (the padded entries carry the -1e9 mask, which would swamp the norm)."""
+    return max(((a[..., :vocab].float() - b[..., :vocab].float()).norm()
+                / b[..., :vocab].float().norm()).item()
+               for a, b in zip(xs, ys))
+
+
+def _tree_float(tree):
+    """A params tree with every leaf in fp32."""
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def model_phase(torch):
@@ -292,22 +453,7 @@ def model_phase(torch):
                          generator=torch.Generator(device=dev).manual_seed(1))
 
     def run(lm, params, feed=None):
-        """Prefill + 8 decode steps; feeds ``feed`` tokens when given,
-        else its own greedy tokens. Returns (logits list, tokens, ms)."""
-        torch.cuda.synchronize()
-        t0 = time.time()
-        logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
-        torch.cuda.synchronize()
-        t1 = time.time()
-        outs, seq = [logits], []
-        for i in range(8):
-            tok = torch.argmax(logits, -1) if feed is None else feed[i]
-            seq.append(tok)
-            logits, cache = lm.decode_step(params, cache, tok)
-            outs.append(logits)
-        torch.cuda.synchronize()
-        t2 = time.time()
-        return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8)
+        return prefill_decode(torch, lm, params, toks, feed)
 
     def run_paged(lm, params, feed=None):
         """The same prefill, scattered into a page pool of B*WIDTH+1
@@ -339,10 +485,6 @@ def model_phase(torch):
         per_step = (pd.paged_flash_decode_bkhd.launches - n0) / 8
         return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8, per_step)
 
-    def rel_err(xs, ys):
-        return max(((a.float() - b.float()).norm() / b.float().norm()).item()
-                   for a, b in zip(xs, ys))
-
     lm_off = LM(cfg)
     lm_on = LM(cfg.replace(use_kernels=True))
     params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
@@ -351,8 +493,8 @@ def model_phase(torch):
     off, seq, t_off = run(lm_off, params)
     on, _, t_on = run(lm_on, params, feed=seq)
     paged, _, t_pg = run_paged(lm_on, params, feed=seq)
-    rel = rel_err(on, off)
-    rel_pg = rel_err(paged, on)
+    rel = rel_err(on, off, cfg.vocab_size)
+    rel_pg = rel_err(paged, on, cfg.vocab_size)
     finite = all(bool(torch.isfinite(a).all()) for a in on + paged)
     log(f"  L22 bf16: logits rel err (on vs off) {rel:.3e}, (paged vs dense, "
         f"kernels on) {rel_pg:.3e}  tol {BF16_LOGIT_TOL:.0e}  finite {finite}")
@@ -386,10 +528,101 @@ def model_phase(torch):
             "paged_logits_rel_err": rel_pg}
 
 
-def serve_phase(torch, paged=False, profiles=None):
+def ssm_model_phase(torch):
+    """Full-width mamba2-130m (L24) and hymba-1.5b (L32): prefill B x
+    PROMPT plus 8 decode steps, kernels on vs off, in bf16 and on the same
+    weights in fp32 (every ssd_scan launch accounted for); mamba2-130m L4
+    fp32 must give identical greedy tokens on and off.
+
+    Checks: the fp32 logits on vs off within FP32_LOGIT_TOL (the kernels'
+    correctness at full width); the bf16 kernels-on logits no farther from
+    the fp32 logits than BF16_VS_PLAIN times the bf16 plain path's own
+    distance (the kernels add no error beyond bf16 rounding); mamba2's bf16
+    on/off gap within BF16_LOGIT_TOL. hymba-1.5b's bf16 on/off gap is
+    printed, not held to BF16_LOGIT_TOL: over 32 layers of two mixers bf16
+    rounding alone moves its logits about that far from the fp32 logits
+    (the line prints both distances)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    dev = torch.device(DEVICE)
+    out = {}
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        cfg = get_config(arch)
+        V, L = cfg.vocab_size, cfg.num_layers
+        log(f"[4] model: full-width {arch} (L{L}), kernels on vs off")
+        toks = torch.randint(0, V, (B, PROMPT), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1))
+        lm_off, lm_on = LM(cfg), LM(cfg.replace(use_kernels=True))
+        params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+        prefill_decode(torch, lm_on, params, toks)          # warm-up
+        off, seq, t_off = prefill_decode(torch, lm_off, params, toks)
+        ops.reset_launch_counts()
+        on, _, t_on = prefill_decode(torch, lm_on, params, toks, feed=seq)
+        launches = ops.launch_counts()
+        # the same weights in fp32 (bf16-stored matrices widened exactly)
+        c32 = cfg.replace(dtype="float32")
+        p32 = _tree_float(params)
+        ref, _, _ = prefill_decode(torch, LM(c32), p32, toks, feed=seq)
+        on32, _, _ = prefill_decode(torch, LM(c32.replace(use_kernels=True)),
+                                    p32, toks, feed=seq)
+        rel = rel_err(on, off, V)
+        rel32 = rel_err(on32, ref, V)
+        d_on, d_off = rel_err(on, ref, V), rel_err(off, ref, V)
+        finite = all(bool(torch.isfinite(a).all()) for a in on)
+        log(f"  L{L} fp32: logits rel err (on vs off) {rel32:.3e}  tol "
+            f"{FP32_LOGIT_TOL:.0e}")
+        log(f"  L{L} bf16: logits rel err (on vs off) {rel:.3e}"
+            f"{f'  tol {BF16_LOGIT_TOL:.0e}' if arch == 'mamba2-130m' else ''}"
+            f"; from the fp32 logits: on {d_on:.3e}, off {d_off:.3e} (on "
+            f"within {BF16_VS_PLAIN:g} x off)  finite {finite}; launches "
+            f"{launches}")
+        log(f"  L{L} bf16 B={B} S={PROMPT}: prefill ms on {t_on[0]:.2f} off "
+            f"{t_off[0]:.2f}; decode step ms on {t_on[1]:.2f} off "
+            f"{t_off[1]:.2f}")
+        want = {"ssd_scan": L}                      # one per layer per prefill
+        if cfg.family == "hybrid":
+            want.update(flash_prefill=L, flash_decode=8 * L)
+        if not (finite and rel32 <= FP32_LOGIT_TOL
+                and d_on <= BF16_VS_PLAIN * d_off
+                and (arch != "mamba2-130m" or rel <= BF16_LOGIT_TOL)) or any(
+                launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"{arch}: fp32 rel err {rel32}, bf16 rel "
+                                 f"err {rel} (from fp32: on {d_on}, off "
+                                 f"{d_off}), finite {finite}, launches "
+                                 f"{launches} (want {want})")
+        out[arch] = {"prefill_ms_on": t_on[0], "prefill_ms_off": t_off[0],
+                     "decode_step_ms_on": t_on[1],
+                     "decode_step_ms_off": t_off[1], "logits_rel_err": rel,
+                     "fp32_logits_rel_err": rel32}
+        del params, p32, on, off, ref, on32
+        torch.cuda.empty_cache()
+    cfg32 = get_config("mamba2-130m").replace(num_layers=4, dtype="float32",
+                                              name="mamba2-L4-f32")
+    lm_off, lm_on = LM(cfg32), LM(cfg32.replace(use_kernels=True))
+    params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+    toks = torch.randint(0, cfg32.vocab_size, (B, PROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    _, seq_off, _ = prefill_decode(torch, lm_off, params, toks)
+    _, seq_on, _ = prefill_decode(torch, lm_on, params, toks)
+    same = all(bool((a == b).all()) for a, b in zip(seq_on, seq_off))
+    log(f"  mamba2-130m L4 fp32: greedy 8 tokens x {B} rows identical on vs "
+        f"off: {same}")
+    if not same:
+        raise AssertionError("mamba2-130m fp32 greedy tokens differ kernels "
+                             "on vs off")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
     profiles first), or on the paged engine with prefix sharing using the
-    given dense profiles. Returns (this phase's launch counts, profiles)."""
+    given dense profiles, over ``arch``'s full-width ladder. Returns (this
+    phase's launch counts, profiles)."""
+    from repro_torch.configs import get_config
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
     from repro_torch.core.forecaster import MovingMaxForecaster
     from repro_torch.kernels import ops
@@ -397,9 +630,9 @@ def serve_phase(torch, paged=False, profiles=None):
                                           calibrate)
     from repro_torch.serving.driver import rise_fall_load, run_serving_loop
     from repro_torch.serving.engine import InProcessServingEngine
-    kind = "paged + prefix sharing" if paged else "dense"
+    kind = f"{arch}, " + ("paged + prefix sharing" if paged else "dense")
     log(f"[5] serve ({kind}): InfAdapter loop, full-width ladder, kernels on")
-    variants = build_ladder("tinyllama-1.1b", full_width=True)
+    variants = build_ladder(arch, full_width=True)
     geo = GEOMETRY[True]
     kv = dict(kv_cache="paged", kv_page_size=PAGE,
               kv_prefix_sharing=True) if paged else {}
@@ -441,11 +674,14 @@ def serve_phase(torch, paged=False, profiles=None):
            or not ((r.output >= 0) & (r.output < vocab)).all()]
     if bad:
         raise AssertionError(f"requests with wrong outputs: {bad[:10]}")
-    need = ("flash_prefill", "paged_decode" if paged else "flash_decode")
+    if get_config(arch).family == "ssm":      # attention-free
+        need = ("ssd_scan",)
+    else:
+        need = ("flash_prefill", "paged_decode" if paged else "flash_decode")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {kind} path never ran in its "
                              f"serve phase: {launches}")
-    summary = {"kv_cache": "paged" if paged else "dense",
+    summary = {"arch": arch, "kv_cache": "paged" if paged else "dense",
                "n_submitted": n_sub, "n_requests": s["n_requests"],
                "rejected": s["rejected"], "p99_ms": s["p99_ms"],
                "p50_ms": s["p50_ms"], "violation_rate": s["violation_rate"],
@@ -611,11 +847,13 @@ def main():
 
     rows = kernel_phase(torch)
     model_phase(torch)
+    ssm_model_phase(torch)
     dense, profiles = serve_phase(torch)
     paged, _ = serve_phase(torch, paged=True, profiles=profiles)
     prefix = prefix_phase(torch)
+    ssm, _ = serve_phase(torch, arch="mamba2-130m")
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix))
+        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"[7] total wall time {time.time() - t_start:.1f}s")

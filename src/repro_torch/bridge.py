@@ -17,30 +17,51 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 
-_NORMS = ("ln1", "ln2", "final_norm")
+# Leaves kept in the param dtype: the reference uses them in fp32 whatever
+# the compute dtype (norm weights; the SSM's conv taps and bias, decay and
+# step parameters, skip and gated-norm weights; the hybrid's mix scales).
+# Every other leaf is a matrix, cast to the compute dtype before each
+# product in the reference and stored in it here.
+_PARAM_DTYPE_LEAVES = ("ln1", "ln2", "final_norm", "conv_w", "conv_b",
+                       "A_log", "D_skip", "dt_bias", "norm_w", "mix_scale")
 
 
 def expected_shapes(cfg: ModelConfig) -> Dict:
-    """Nested dict of leaf shapes of a dense-family ``LM.init``."""
+    """Nested dict of leaf shapes of a dense-, ssm- or hybrid-family
+    ``LM.init``."""
     D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.padded_vocab
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     emb: Dict[str, Tuple] = {"table": (V, D)}
     if not cfg.tie_embeddings:
         emb["unembed"] = (D, V)
-    ffn: Dict[str, Tuple] = {"wi": (L, D, F), "wo": (L, F, D)}
-    if cfg.mlp_type in ("swiglu", "geglu"):
-        ffn["wg"] = (L, D, F)
-    return {"embed": emb, "final_norm": (D,),
-            "layers": {"ln1": (L, D), "ln2": (L, D), "ffn": ffn,
-                       "attn": {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
-                                "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}}}
+    layers: Dict = {"ln1": (L, D)}
+    if cfg.family in ("dense", "hybrid"):
+        layers["attn"] = {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
+                          "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}
+    if cfg.family in ("ssm", "hybrid"):
+        di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        ch = di + 2 * N
+        layers["ssm"] = {"in_proj": (L, D, 2 * di + 2 * N + Hs),
+                         "conv_w": (L, cfg.conv_width, ch), "conv_b": (L, ch),
+                         "A_log": (L, Hs), "D_skip": (L, Hs),
+                         "dt_bias": (L, Hs), "norm_w": (L, di),
+                         "out_proj": (L, di, D)}
+    if cfg.family == "hybrid":
+        layers["mix_scale"] = (L, 2)
+    if cfg.family in ("dense", "hybrid"):
+        ffn: Dict[str, Tuple] = {"wi": (L, D, F), "wo": (L, F, D)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            ffn["wg"] = (L, D, F)
+        layers.update(ffn=ffn, ln2=(L, D))
+    return {"embed": emb, "final_norm": (D,), "layers": layers}
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
                     dtype: Optional[torch.dtype] = None) -> Dict:
     """Copy a reference params pytree onto ``device``. Matrices are stored
-    in ``dtype`` (default: the config's compute dtype), norm weights in the
-    config's param dtype — the port's ``LM.init`` storage."""
+    in ``dtype`` (default: the config's compute dtype), the leaves the
+    reference uses in fp32 (``_PARAM_DTYPE_LEAVES``) in the config's param
+    dtype — the port's ``LM.init`` storage."""
     wdt = dtype or torch_dtype(cfg.dtype)
     ndt = torch_dtype(cfg.param_dtype)
 
@@ -57,7 +78,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
         arr = np.asarray(node)
         if arr.shape != want:
             raise ValueError(f"{path}: shape {arr.shape}, expected {want}")
-        leaf_dt = ndt if path.split(".")[-1] in _NORMS else wdt
+        leaf_dt = (ndt if path.split(".")[-1] in _PARAM_DTYPE_LEAVES
+                   else wdt)
         return torch.tensor(arr, dtype=torch.float32).to(device=device,
                                                          dtype=leaf_dt)
 

@@ -2,12 +2,12 @@
 
 ``ModelConfig`` carries every field of the reference package's config, so
 one field dict builds both (the reference's ``use_pallas`` is
-``use_kernels`` here: it routes attention through the hand-written CUDA
-kernels). ``REGISTRY`` maps ``--arch <id>`` names to full published configs;
+``use_kernels`` here: it routes attention and the SSD scan through the
+hand-written CUDA kernels). ``REGISTRY`` maps ``--arch <id>`` names to full published configs;
 ``smoke_variant(cfg)`` derives the reduced CPU-testable config (<=2 layers,
-d_model<=512, <=4 experts) from the same family. Only the dense
-tinyllama-1.1b config is registered so far: other architectures come with
-their model families.
+d_model<=512, <=4 experts) from the same family. Registered so far: the
+architectures of the ported families (dense tinyllama-1.1b, SSM
+mamba2-130m, hybrid hymba-1.5b); the others come with their families.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ class ModelConfig:
     # --- numerics / execution ---
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    use_kernels: bool = False      # attention through the CUDA kernels
+    use_kernels: bool = False      # attention/SSD scan through CUDA kernels
     remat: bool = True
     scan_layers: bool = True   # False: unroll (dry-run cost analysis counts
     #                            a scan body once; unrolling keeps it honest)

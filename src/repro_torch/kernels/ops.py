@@ -1,5 +1,5 @@
-"""Public attention-kernel entry points, in the layouts of
-``repro/kernels/ops.py``, plus the launch counters of every kernel.
+"""Public kernel entry points (attention and the SSD scan), in the layouts
+of ``repro/kernels/ops.py``, plus the launch counters of every kernel.
 
 The reference wrappers relayout and pad for the TPU's tiling; here a
 kernel masks its own ragged edges, so only ``flash_decode`` (the
@@ -8,18 +8,20 @@ relayouts, to the cache's native (B,KV,C,hd).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.kernels import ssd_scan as ss
 
 # kernel name -> the wrapper carrying its ``launches`` counter
 WRAPPERS = {"flash_prefill": fp.flash_prefill_bshd,
             "flash_decode": fd.flash_decode_bkhd,
-            "paged_decode": pd.paged_flash_decode_bkhd}
+            "paged_decode": pd.paged_flash_decode_bkhd,
+            "ssd_scan": ss.ssd_scan_chunked}
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -63,6 +65,24 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                       tables.to(torch.int32),
                                       lengths.to(torch.int32),
                                       softcap=softcap)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *,
+             chunk: int = ss.DEFAULT_CHUNK,
+             initial_state: Optional[torch.Tensor] = None):
+    """x: (b,s,h,p); dt: (b,s,h); A: (h,); B,C: (b,s,n) -> (y, final state
+    (b,h,p,n) fp32). ``initial_state=None`` means zeros. Any s: where the
+    reference pads s to a chunk multiple, the kernel masks the ragged last
+    chunk. This is where the kernel's operand rules are met: dt, A and the
+    state become fp32 and contiguous (no-ops on the model's own tensors;
+    a slice along s of dt is not contiguous), while x, B and C go in as
+    strided views."""
+    if initial_state is not None:
+        initial_state = initial_state.float().contiguous()
+    return ss.ssd_scan_chunked(x, dt.float().contiguous(),
+                               A.float().contiguous(), B, C, initial_state,
+                               chunk=chunk)
 
 
 def launch_counts() -> Dict[str, int]:

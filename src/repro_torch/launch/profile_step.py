@@ -1,18 +1,20 @@
 """Where a serve-path step's time goes on the card.
 
-Runs the full-width tinyllama-1.1b model (bf16, kernels on) at the serve
-geometry — one prefill of 8 x 512 tokens, then 8 decode steps against the
-576-slot ring cache; the same prefill scattered into a page pool, then 8
-paged decode steps over 36-page tables of 16; then 3 prefill-continuation
+Runs a full-width model (``--arch``, default tinyllama-1.1b; bf16,
+kernels on) at the serve geometry — one prefill of 8 x 512 tokens, then 8
+decode steps against the 576-slot cache; for the families with a paged
+form (dense), also the same prefill scattered into a page pool, then 8
+paged decode steps over 36-page tables of 16, then 3 prefill-continuation
 chunks of 16 tokens on every row through the pool (the fused tick's
 call) — under ``torch.profiler``, and prints for each: wall time (host
 clock, device synchronised), device time summed over kernels, the device
 busy share (device time / wall), kernel launches, and device time split
-into the attention kernels, matrix products and everything else, plus the
+into the port's kernels, matrix products and everything else, plus the
 top kernels by device time.
 
 Usage (on the machine with the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_step [--layers 22]
+  PYTHONPATH=src python -m repro_torch.launch.profile_step \
+      [--arch mamba2-130m] [--layers N]   (default: the published depth)
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ PAGE, CHUNK, CHUNKS = 16, 16, 3
 
 def _classify(name: str) -> str:
     n = name.lower()
-    if "flash_prefill" in n or "flash_decode" in n or "paged_decode" in n:
-        return "attention_kernels"
+    if any(k in n for k in ("flash_prefill", "flash_decode", "paged_decode",
+                            "ssd_scan")):
+        return "port_kernels"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "nvjet")):      # nvjet: cuBLAS's Hopper kernels
         return "matmul"
@@ -48,7 +51,7 @@ def _region(fn, label: str, top: int = 8) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    split = {"attention_kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    split = {"port_kernels": 0.0, "matmul": 0.0, "other": 0.0}
     launches = 0
     rows = []
     for e in prof.key_averages():
@@ -71,13 +74,15 @@ def _region(fn, label: str, top: int = 8) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, default=22)
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA card")
     dev = torch.device("cuda")
-    cfg = get_config("tinyllama-1.1b").replace(num_layers=args.layers,
-                                               use_kernels=True)
+    cfg = get_config(args.arch)
+    cfg = cfg.replace(num_layers=args.layers or cfg.num_layers,
+                      use_kernels=True)
     lm = LM(cfg)
     params = lm.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
@@ -121,15 +126,19 @@ def main(argv=None):
             lm.prefill_chunk_paged(params, cache, toks[:, :CHUNK], start,
                                    n_valid)
 
+    paged = lm.supports_paged_cache()
     prefill()
     decode()                                       # warm-up (builds, caches)
-    paged_admit()
-    paged_decode()
-    fused_chunks()
-    print(f"tinyllama-1.1b L{args.layers} bf16, kernels on, "
+    if paged:
+        paged_admit()
+        paged_decode()
+        fused_chunks()
+    print(f"{args.arch} L{cfg.num_layers} bf16, kernels on, "
           f"{torch.cuda.get_device_name(0)}")
     _region(prefill, f"prefill B={B} S={PROMPT}")
     _region(decode, f"decode {STEPS} steps B={B} C={CAP}")
+    if not paged:
+        return
     paged_admit()
     _region(paged_decode, f"paged decode {STEPS} steps B={B} "
                           f"n_pages={width} page={PAGE}")

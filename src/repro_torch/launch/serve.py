@@ -3,9 +3,10 @@ with attention on the CUDA kernels.
 
 Two ladders of one architecture: the smoke form (``build_ladder``'s
 default, identical to the reference's ``repro.launch.serve.build_ladder``)
-and the full-width form (``full_width=True``: published widths, depths
-8/15/22 — for tinyllama-1.1b the 22-layer rung is the published model, in
-bf16). Runs on ``cuda`` unless ``--device cpu``.
+and the full-width form (``full_width=True``: published widths, depths per
+architecture in ``FULL_DEPTHS`` — tinyllama-1.1b 8/15/22, mamba2-130m
+8/16/24, the deepest rung being the published model — in bf16). Runs on
+``cuda`` unless ``--device cpu``.
 
 With ``--kv-cache paged`` the loop serves on the paged KV pool
 (``--prefix-sharing`` adds the prefix index); the paged backend has no
@@ -15,6 +16,8 @@ geometry.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --full-width --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-cache paged \
       --prefix-sharing --device cpu --seconds 5
 """
@@ -33,7 +36,8 @@ from repro_torch.serving.driver import rise_fall_load, run_serving_loop
 from repro_torch.serving.engine import InProcessServingEngine
 
 SMOKE_DEPTHS = (2, 4, 6)
-FULL_DEPTHS = (8, 15, 22)
+# full-width depths of each servable architecture (last = published depth)
+FULL_DEPTHS = {"tinyllama-1.1b": (8, 15, 22), "mamba2-130m": (8, 16, 24)}
 LADDER_ACCS = (70.0, 75.0, 78.0)
 
 # engine geometry and request shape of each form: smoke is the reference
@@ -50,11 +54,14 @@ LOAD = {False: (4.0, 32.0), True: (0.5, 2.5)}
 def build_ladder(arch: str, depths=None, accs=LADDER_ACCS,
                  full_width: bool = False):
     """name -> (config, proxy accuracy). Smoke: the reference's d_model=128
-    fp32 ladder at depths 2/4/6. Full width: the published config at depths
-    8/15/22, bf16 compute."""
+    fp32 ladder at depths 2/4/6. Full width: the published config at its
+    ``FULL_DEPTHS``, bf16 compute."""
     if full_width:
         base = get_config(arch)
-        depths = depths or FULL_DEPTHS
+        if depths is None and arch not in FULL_DEPTHS:
+            raise ValueError(f"no full-width ladder for {arch!r}; have "
+                             f"{sorted(FULL_DEPTHS)}")
+        depths = depths or FULL_DEPTHS[arch]
     else:
         base = smoke_variant(get_config(arch)).replace(d_model=128)
         depths = depths or SMOKE_DEPTHS

@@ -1,13 +1,20 @@
-"""Language model, dense family: the port of ``repro.models.model.LM``.
+"""Language model, dense, SSM and hybrid families: the port of
+``repro.models.model.LM``.
 
 Parameters are a plain dict with the reference's pytree keys and stacked
 layer leaves (``layers.attn.wq`` is ``(L, D, H·hd)``), so the weight bridge
 maps leaves one to one; layers run in a Python loop over those stacks.
 
+A layer's token mixer is attention (dense), the Mamba-2 SSM (``ssm``:
+no attention, no FFN) or both in parallel (``hybrid``: outputs mixed by
+``sigmoid(mix_scale)`` in fp32, then the FFN), as in the reference's
+``_block``.
+
 Caches are updated **in place**: ``decode_step`` writes the new token's K/V
-into the cache tensors it is given and advances ``cache["pos"]``, where the
-reference rebuilds its cache functionally and donates the old buffers. The
-paged methods do the same to the page pool, the block table and ``pos``.
+and the SSM's conv/SSD states into the cache tensors it is given and
+advances ``cache["pos"]``, where the reference rebuilds its cache
+functionally and donates the old buffers. The paged methods do the same to
+the page pool, the block table and ``pos``.
 
 Public methods:
   init(gen)                               -> params
@@ -19,9 +26,10 @@ Public methods:
   prefill_chunk_paged(params, cache, tokens, start, n_valid)
   decode_step_paged(params, cache, tokens, n_pages)
 
-Other families (MoE, SSM/hybrid, encoder-decoder, VLM), dense chunked
-prefill (``prefill_chunk``) and speculative verification are not ported
-yet.
+Other families (MoE, encoder-decoder, VLM), dense chunked prefill
+(``prefill_chunk``) and speculative verification are not ported yet. The
+paged and chunked forms cover the dense family only (SSM/hybrid state is
+not positional; the reference refuses them too).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import ssd
 from repro_torch.models.layers import (apply_mlp, embed, init_embed, init_mlp,
                                        rms_norm, unembed, vocab_mask)
 
@@ -61,10 +70,11 @@ def _stack_layers(dicts: List[Dict]) -> Dict:
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.frontend:
+        if cfg.family not in ("dense", "ssm", "hybrid") \
+                or cfg.is_encoder_decoder or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name!r}: only the dense family is ported (ROADMAP A8, "
-                f"A9 queue MoE, SSM/hybrid, encoder-decoder and VLM)")
+                f"{cfg.name!r}: only the dense, ssm and hybrid families are "
+                f"ported (ROADMAP A8, A9 queue MoE, encoder-decoder and VLM)")
         if cfg.rope_theta <= 0:
             raise NotImplementedError(
                 f"{cfg.name!r}: sinusoidal positions are not ported")
@@ -81,20 +91,27 @@ class LM:
     # ------------------------------------------------------------------
     def _init_layer(self, gen: torch.Generator, device) -> Dict:
         cfg = self.cfg
-        wdt = self.compute_dtype
-        return {"ln1": torch.zeros(cfg.d_model, dtype=self.param_dtype,
-                                   device=device),
-                "attn": attn.init_attention(gen, cfg, wdt, device),
-                "ffn": init_mlp(gen, cfg, wdt, device),
-                "ln2": torch.zeros(cfg.d_model, dtype=self.param_dtype,
-                                   device=device)}
+        wdt, pd = self.compute_dtype, self.param_dtype
+        p = {"ln1": torch.zeros(cfg.d_model, dtype=pd, device=device)}
+        if cfg.family in ("dense", "hybrid"):
+            p["attn"] = attn.init_attention(gen, cfg, wdt, device)
+        if cfg.family in ("ssm", "hybrid"):
+            p["ssm"] = ssd.init_ssm(gen, cfg, wdt, pd, device)
+        if cfg.family == "hybrid":   # learned attention/SSM fusion
+            p["mix_scale"] = torch.zeros(2, dtype=pd, device=device)
+        if cfg.family in ("dense", "hybrid"):
+            p["ffn"] = init_mlp(gen, cfg, wdt, device)
+            p["ln2"] = torch.zeros(cfg.d_model, dtype=pd, device=device)
+        return p
 
     def init(self, gen: torch.Generator) -> Dict:
         """Params on ``gen.device`` drawn from ``gen``: the reference's
         distributions (truncated normal, σ = 1/√fan_in; zero norms). Matrices
         are stored in the compute dtype — the reference casts its fp32
         params to it before every product, so the products are the same —
-        and norm weights in the param dtype."""
+        and the leaves it uses in fp32 (norms, the SSM's conv, decay, step,
+        skip and gate weights, the hybrid's mix scales) in the param
+        dtype."""
         cfg = self.cfg
         dev = gen.device
         params: Dict = {
@@ -128,9 +145,24 @@ class LM:
         return logits + self._vmask[key]
 
     def _ffn(self, lp: Dict, x: torch.Tensor) -> torch.Tensor:
+        """The FFN sub-block where the layer has one (not the SSM family)."""
+        if "ffn" not in lp:
+            return x
         cfg = self.cfg
         return x + apply_mlp(cfg, lp["ffn"], rms_norm(x, lp["ln2"],
                                                       cfg.norm_eps))
+
+    @staticmethod
+    def _mix(lp: Dict, x: torch.Tensor, a: Optional[torch.Tensor],
+             s: Optional[torch.Tensor]) -> torch.Tensor:
+        """Residual add of the token mixer: attention ``a``, SSM ``s``, or
+        the hybrid's ``sigmoid(mix_scale)``-weighted sum of both in fp32."""
+        if s is None:
+            return x + a
+        if a is None:
+            return x + s
+        sc = torch.sigmoid(lp["mix_scale"].float())
+        return x + (sc[0] * a.float() + sc[1] * s.float()).to(x.dtype)
 
     # ------------------------------------------------------------------
     # full-sequence forward (teacher forcing)
@@ -144,32 +176,51 @@ class LM:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         for lp, w in zip(self._layers(params), self._windows):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            x = self._ffn(lp, x + attn.attention_forward(cfg, lp["attn"], h,
-                                                         positions, w))
+            a = (attn.attention_forward(cfg, lp["attn"], h, positions, w)
+                 if "attn" in lp else None)
+            s = ssd.ssm_forward(cfg, lp["ssm"], h) if "ssm" in lp else None
+            x = self._ffn(lp, self._mix(lp, x, a, s))
         return self._logits(params, x), torch.zeros((), device=x.device)
 
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
     def cache_capacity(self, max_len: int) -> int:
+        """Ring capacity of the K/V cache. With a sliding window it is
+        ``min(max_len, window)`` for every layer — in the hybrid family
+        also for its global layers (window 0), which attend over the same
+        ring (reference ``model.py:270-276``)."""
         cfg = self.cfg
-        if cfg.sliding_window:
+        if cfg.sliding_window:        # every family and every layer
             return min(max_len, cfg.sliding_window)
         return max_len
 
     def init_cache(self, batch_size: int, max_len: int,
                    device: torch.device) -> Dict:
+        """``pos`` (B,); ``k``/``v`` (L,B,KV,C,hd) except for the SSM family;
+        for SSM and hybrid ``conv`` (L,B,cw-1,di+2N) in the compute dtype and
+        ``ssd`` (L,B,H,hp,N) in fp32."""
         cfg = self.cfg
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-        C = self.cache_capacity(max_len)
-        # (L, B, KV, C, hd): the decode kernel's native operand layout
-        shape = (L, batch_size, KV, C, hd)
-        return {"pos": torch.zeros(batch_size, dtype=torch.int64,
-                                   device=device),
-                "k": torch.zeros(shape, dtype=self.compute_dtype,
-                                 device=device),
-                "v": torch.zeros(shape, dtype=self.compute_dtype,
-                                 device=device)}
+        cache = {"pos": torch.zeros(batch_size, dtype=torch.int64,
+                                    device=device)}
+        if cfg.family != "ssm":
+            C = self.cache_capacity(max_len)
+            # (L, B, KV, C, hd): the decode kernel's native operand layout
+            shape = (L, batch_size, KV, C, hd)
+            cache["k"] = torch.zeros(shape, dtype=self.compute_dtype,
+                                     device=device)
+            cache["v"] = torch.zeros(shape, dtype=self.compute_dtype,
+                                     device=device)
+        if cfg.family in ("ssm", "hybrid"):
+            ch = cfg.d_inner + 2 * cfg.ssm_state
+            cache["conv"] = torch.zeros(
+                (L, batch_size, cfg.conv_width - 1, ch),
+                dtype=self.compute_dtype, device=device)
+            cache["ssd"] = torch.zeros(
+                (L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                 cfg.ssm_state), dtype=torch.float32, device=device)
+        return cache
 
     # ------------------------------------------------------------------
     # prefill: run the full prompt, build the cache
@@ -190,19 +241,30 @@ class LM:
         x = embed(cfg, params["embed"], tokens, self.compute_dtype)
         for i, (lp, w) in enumerate(zip(self._layers(params), self._windows)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a, k, v = attn.attention_forward(cfg, lp["attn"], h, positions, w,
-                                             return_kv=True)
-            # The reference recomputes K/V from the same normed input for
-            # its cache (model.py:609-617); the roped k and v attention just
-            # used are the same math, so they are written directly.
-            k, v = k.transpose(1, 2), v.transpose(1, 2)        # (B,KV,S,hd)
-            if S >= C:
-                cache["k"][i][:, :, slots] = k[:, :, S - C:]
-                cache["v"][i][:, :, slots] = v[:, :, S - C:]
-            else:
-                cache["k"][i][:, :, :S] = k
-                cache["v"][i][:, :, :S] = v
-            x = self._ffn(lp, x + a)
+            a = s = None
+            if "attn" in lp:
+                # The hybrid's windows differ per layer: the reference's scan
+                # then passes a traced window and takes its jnp path, while
+                # this loop passes each layer's static int (the flash_prefill
+                # kernel with use_kernels) — the same numbers.
+                a, k, v = attn.attention_forward(cfg, lp["attn"], h,
+                                                 positions, w, return_kv=True)
+                # The reference recomputes K/V from the same normed input for
+                # its cache (model.py:609-617); the roped k and v attention
+                # just used are the same math, so they are written directly.
+                k, v = k.transpose(1, 2), v.transpose(1, 2)    # (B,KV,S,hd)
+                if S >= C:
+                    cache["k"][i][:, :, slots] = k[:, :, S - C:]
+                    cache["v"][i][:, :, slots] = v[:, :, S - C:]
+                else:
+                    cache["k"][i][:, :, :S] = k
+                    cache["v"][i][:, :, :S] = v
+            if "ssm" in lp:
+                s, (conv_st, ssd_st) = ssd.ssm_forward(cfg, lp["ssm"], h,
+                                                       return_cache=True)
+                cache["conv"][i].copy_(conv_st)
+                cache["ssd"][i].copy_(ssd_st)
+            x = self._ffn(lp, self._mix(lp, x, a, s))
         return self._logits(params, x[:, -1:])[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -210,16 +272,26 @@ class LM:
     # ------------------------------------------------------------------
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
-        """tokens: (B,) -> (logits (B, V), cache): the token's K/V lands in
-        ``cache`` in place and ``cache["pos"]`` advances by one."""
+        """tokens: (B,) -> (logits (B, V), cache): the token's K/V and the
+        SSM's new conv/SSD states land in ``cache`` in place and
+        ``cache["pos"]`` advances by one."""
         cfg = self.cfg
         pos = cache["pos"]
         x = embed(cfg, params["embed"], tokens[:, None], self.compute_dtype)
         for i, (lp, w) in enumerate(zip(self._layers(params), self._windows)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
-                                            cache["v"][i], pos, w)
-            x = self._ffn(lp, x + a)
+            a = s = None
+            if "attn" in lp:
+                a, _, _ = attn.decode_attention(cfg, lp["attn"], h,
+                                                cache["k"][i], cache["v"][i],
+                                                pos, w)
+            if "ssm" in lp:
+                s, conv_st, ssd_st = ssd.ssm_decode(cfg, lp["ssm"], h,
+                                                    cache["conv"][i],
+                                                    cache["ssd"][i])
+                cache["conv"][i].copy_(conv_st)
+                cache["ssd"][i].copy_(ssd_st)
+            x = self._ffn(lp, self._mix(lp, x, a, s))
         pos.add_(1)
         return self._logits(params, x)[:, 0], cache
 

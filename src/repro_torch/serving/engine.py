@@ -60,8 +60,9 @@ from repro_torch.serving.sched import make_scheduler
 __all__ = ["Request", "VariantBackend", "PagedVariantBackend",
            "InProcessServingEngine"]
 
-# Batch axis of each cache leaf (k/v carry a leading layer axis).
-_CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1}
+# Batch axis of each cache leaf (k/v and the SSM's conv/ssd states carry a
+# leading layer axis).
+_CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1, "conv": 1, "ssd": 1}
 
 
 @dataclass

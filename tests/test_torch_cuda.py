@@ -8,7 +8,12 @@ no JAX, so it runs on the machine with the card:
 
 Tolerances: fp32 1e-5 (both sides accumulate in fp32, in different
 orders); bf16 1e-2 (both round an fp32 result to bf16, at most one bf16
-ulp apart for outputs of magnitude < 2).
+ulp apart for outputs of magnitude < 2). The SSD scan's outputs grow with
+the sequence (|y| in the hundreds at s = 512), so it is held relative to
+the plain version's largest magnitude: max |kernel - plain| / max |plain|
+<= SSD_REL_TOL (fp32 1e-4: fp32 sums in other orders over 128-step
+chunks; bf16 1e-2 for y, one bf16 rounding of the same fp32 value, 2^-8;
+the fp32 final state 1e-4 in both).
 """
 import numpy as np
 import pytest
@@ -18,8 +23,11 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.kernels import ssd_scan as ss
+from repro_torch.models.ssd import ssd_scan_plain
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+SSD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +246,122 @@ def test_paged_engine_greedy_tokens_kernels_on_equal_off(cuda):
         eng.backends["small"].pool.assert_invariants()
     assert len(outs[0]) == len(prompts) and hits[0] > 0
     assert outs[0] == outs[1]
+
+
+SSD_CASES = [
+    # b, s, h, p, n, chunk
+    (8, 512, 24, 64, 128, 128),   # serve path: mamba2-130m, 512 prompt
+    (8, 512, 50, 64, 16, 128),    # hymba-1.5b heads
+    (8, 16, 8, 32, 16, 16),       # smoke ladder (d_model 128), prompt 16
+    (2, 300, 4, 64, 128, 128),    # ragged last chunk (44 of 128)
+    (3, 45, 8, 32, 16, 16),       # ragged, chunk below one row tile
+    (1, 5, 2, 64, 32, 5),         # s below the conv width scale, n 32
+]
+
+
+def _ssd_inputs(rng, b, s, h, p, n, dtype, device, strided=False):
+    """x, dt, A, B, C, initial state; with ``strided`` x/B/C are views of
+    one packed (b, s, h*p + 2n) tensor, as ``ssm_forward`` passes them."""
+    f = lambda *shape: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(shape, dtype=np.float32)).to(device)
+    dt = torch.nn.functional.softplus(f(b, s, h))
+    A = -f(h).abs()
+    init = f(b, h, p, n) * 0.1
+    if strided:
+        xc = f(b, s, h * p + 2 * n).to(dtype)
+        x = xc[..., :h * p].unflatten(-1, (h, p))
+        B, C = xc[..., h * p:h * p + n], xc[..., h * p + n:]
+    else:
+        x, B, C = (f(b, s, h, p).to(dtype), f(b, s, n).to(dtype),
+                   f(b, s, n).to(dtype))
+    return x, dt, A, B, C, init
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, dtype):
+    rng = np.random.default_rng(s + n)
+    for strided in (False, True):
+        x, dt, A, B, C, init = _ssd_inputs(rng, b, s, h, p, n, dtype, cuda,
+                                           strided)
+        for st0 in (init, None):
+            n0 = ss.ssd_scan_chunked.launches
+            y, fin = ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=st0)
+            torch.cuda.synchronize()
+            assert ss.ssd_scan_chunked.launches == n0 + 1
+            wy, wfin = ssd_scan_plain(x, dt, A, B, C, chunk, st0)
+            assert y.dtype == dtype and fin.dtype == torch.float32
+            assert _rel_err(y, wy) <= SSD_REL_TOL[dtype]
+            assert _rel_err(fin, wfin) <= SSD_REL_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_state_chaining(cuda, dtype):
+    """Two halves with the carried state equal one call over the whole."""
+    x, dt, A, B, C, init = _ssd_inputs(np.random.default_rng(4), 2, 384, 24,
+                                       64, 128, dtype, cuda)
+    y, fin = ops.ssd_scan(x, dt, A, B, C, initial_state=init)
+    y1, f1 = ops.ssd_scan(x[:, :200], dt[:, :200], A, B[:, :200],
+                          C[:, :200], initial_state=init)
+    y2, f2 = ops.ssd_scan(x[:, 200:], dt[:, 200:], A, B[:, 200:],
+                          C[:, 200:], initial_state=f1)
+    assert _rel_err(torch.cat([y1, y2], 1), y) <= SSD_REL_TOL[dtype]
+    assert _rel_err(f2, fin) <= SSD_REL_TOL[torch.float32]
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C, init = _ssd_inputs(np.random.default_rng(5), 2, 32, 4,
+                                       64, 16, torch.float32, cuda)
+    n0 = ss.ssd_scan_chunked.launches
+    with pytest.raises(ValueError):              # p not built
+        ops.ssd_scan(x[..., :48], dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError):              # n not built
+        ops.ssd_scan(x, dt, A, B[..., :12], C[..., :12], chunk=16)
+    with pytest.raises(ValueError):              # chunk above 128
+        ops.ssd_scan(x, dt, A, B, C, chunk=256)
+    with pytest.raises(ValueError):              # x not packed in a row
+        ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                     B, C, chunk=16)
+    with pytest.raises(TypeError):               # B in another dtype
+        ops.ssd_scan(x, dt, A, B.to(torch.bfloat16), C, chunk=16)
+    with pytest.raises(ValueError):              # state on the CPU
+        ops.ssd_scan(x, dt, A, B, C, chunk=16, initial_state=init.cpu())
+    assert ss.ssd_scan_chunked.launches == n0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_ssm_models_greedy_tokens_kernels_on_equal_off(cuda, arch):
+    """fp32 smoke models of the SSM and hybrid families: identical greedy
+    continuations with the kernels on (ssd_scan in prefill; flash_prefill
+    and flash_decode for the hybrid's attention) and off, and every cache
+    leaf within 1e-4 of max |leaf| after the decode steps."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import LM
+    cfg = smoke_variant(get_config(arch)).replace(d_model=128)
+    outs, caches = [], []
+    for on in (False, True):
+        lm = LM(cfg.replace(use_kernels=on))
+        params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (4, 40)), device=cuda)
+        n0 = ss.ssd_scan_chunked.launches
+        logits, cache = lm.prefill(params, {"tokens": toks}, max_len=48)
+        assert (ss.ssd_scan_chunked.launches - n0) == (cfg.num_layers
+                                                       if on else 0)
+        seq = []
+        for _ in range(8):
+            tok = torch.argmax(logits, dim=-1)
+            seq.append(tok)
+            logits, cache = lm.decode_step(params, cache, tok)
+        outs.append(torch.stack(seq, 1).cpu().numpy())
+        caches.append(cache)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    for key in caches[0]:
+        if key != "pos":
+            assert _rel_err(caches[1][key], caches[0][key]) <= 1e-4, key

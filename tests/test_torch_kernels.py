@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.models.ssd import ssd_chunked
 
 ATOL = 1e-5
 
@@ -113,8 +114,16 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     torch.testing.assert_close(
         ops.paged_flash_decode(qs, pool, pool, tables.long(), lengths.long()),
         want)
+    xs = torch.as_tensor(rng.standard_normal((2, 12, 3, 16),
+                                             dtype=np.float32))
+    dts = torch.rand((2, 12, 3))
+    bcs = torch.as_tensor(rng.standard_normal((2, 12, 8), dtype=np.float32))
+    A = -torch.rand(3)
+    torch.testing.assert_close(
+        ops.ssd_scan(xs, dts, A, bcs, bcs, chunk=4),
+        ssd_chunked(xs, dts, A, bcs, bcs, 4))
     assert ops.launch_counts() == {"flash_prefill": 0, "flash_decode": 0,
-                                   "paged_decode": 0}
+                                   "paged_decode": 0, "ssd_scan": 0}
 
 
 def test_causal_window_mask():
