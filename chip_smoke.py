@@ -9,7 +9,11 @@ phase raises, and the script exits nonzero:
               (one nvcc per source, all started together);
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serve path's shapes (bf16 and fp32) and on small edge cases
-              (window, softcap, ragged lengths; hymba-1.5b's GQA group of 5
+              (window, softcap, ragged lengths; for flash_prefill S around
+              the 16-row warp and 64-row tile edges, a window of one tile
+              and one crossing a tile edge, hd 128; for flash_decode C = 1,
+              C below the split count, splits wholly under the -1e9 bias,
+              C not a multiple of the splits; hymba-1.5b's GQA group of 5
               with a window that binds; for paged decode: page 8 and hd 128,
               softcap, a table slice narrower than the table, length-0 rows
               and NaN pages past every row's length; for the SSD scan:
@@ -18,8 +22,12 @@ phase raises, and the script exits nonzero:
               ragged last chunk), with stated tolerances; then kernel /
               plain / library (SDPA, a yardstick the port never calls; none
               for paged decode and the SSD scan) times from CUDA events,
-              inputs rotated through more than the 50 MB L2 cache, beside
-              the bound (bytes or operations over the card's peak rates);
+              inputs rotated through more than the 50 MB L2 cache (``ms``:
+              back-to-back calls, so host-side launch cost counts where it
+              exceeds the device time), and device time alone from
+              ``torch.profiler`` (``device_ms``), beside the bound (bytes or
+              operations over the card's peak rates); flash_prefill and
+              flash_decode in fp32 as well as bf16;
   4. model    full-width tinyllama-1.1b (22 layers, bf16): prefill of 8 x 512
               tokens plus 8 decode steps with the kernels on and off, and
               the same 8 steps through the page pool (``paged_admit`` +
@@ -55,7 +63,13 @@ tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
 attention kernels take the absolute ``TOL``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
+``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
+flash_prefill and flash_decode of that checkout (event and device times,
+SDPA beside them, bf16 and fp32) and prints one JSON line, so a parent
+and a change compare in one call: unpack the parent with ``git archive
+<commit> | tar -x -C build/parent`` and run parent, change, change, parent.
 """
+import argparse
 import json
 import subprocess
 import sys
@@ -118,6 +132,22 @@ def time_ms(torch, fn, arg_sets, iters=40):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(torch, fn, arg_sets, iters=20):
+    """Device time per call from ``torch.profiler``: every kernel the calls
+    launched, summed (no host time, no gaps between launches)."""
+    from torch.profiler import ProfilerActivity, profile
+    for a in arg_sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3 / iters
 
 
 def check(name, got, want, dtype):
@@ -245,15 +275,64 @@ def ssd_kernel_checks(torch, ss, plain, gen):
     return err
 
 
-def kernel_phase(torch):
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_decode as fd
-    from repro_torch.kernels import flash_prefill as fp
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.models.ssd import ssd_scan_plain
+def attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs, errs, dt):
+    """flash_decode and flash_prefill at the serve shapes in ``dt``: kernel,
+    plain and SDPA (the yardstick the port never calls) times, inputs
+    rotated through more than 3x the L2 size, beside the bound. Returns
+    their two JSON rows, tagged with ``dtype``."""
+    esz = torch.tensor([], dtype=dt).element_size()
+    name = str(dt)[6:]
+    rows = []
+    dec_set = dec_inputs(B, KV, H // KV, HD, CAP, dt)
+    n_dec = int(3 * L2_BYTES // sum(t.numel() * t.element_size()
+                                    for t in dec_set)) + 1
+    decs = [dec_set] + [dec_inputs(B, KV, H // KV, HD, CAP, dt)
+                        for _ in range(n_dec - 1)]
+    sdpa_dec = [(q.reshape(B, H, 1, HD), k, v, bias[:, None, None, :])
+                for q, k, v, bias in decs]
+    sdpa = (lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=True))
+    t_k = time_ms(torch, fd.flash_decode_bkhd, decs)
+    t_p = time_ms(torch, fd.flash_decode_plain, decs, iters=20)
+    t_l = time_ms(torch, sdpa, sdpa_dec)
+    nbytes = esz * (2 * B * H * HD + 2 * B * KV * CAP * HD) + 4 * B * CAP
+    b_ms, b_by = bound(nbytes, 4 * B * H * CAP * HD, dt)
+    rows.append(dict(name="flash_decode", route="cuda", dtype=name,
+                     source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                     replaces="src/repro/kernels/flash_decode.py:81",
+                     max_abs_err=errs[("decode", dt)], ms=t_k, plain_ms=t_p,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+                     device_ms=device_ms(torch, fd.flash_decode_bkhd, decs),
+                     library_device_ms=device_ms(torch, sdpa, sdpa_dec)))
+    pre_set = pre_inputs(B, PROMPT, H, KV, HD, dt)
+    n_pre = int(3 * L2_BYTES // sum(t.numel() * t.element_size()
+                                    for t in pre_set)) + 1
+    pres = [pre_set] + [pre_inputs(B, PROMPT, H, KV, HD, dt)
+                        for _ in range(n_pre - 1)]
+    sdpa_pre = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                 v.transpose(1, 2).contiguous()) for q, k, v in pres]
+    sdpa = (lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    t_k = time_ms(torch, fp.flash_prefill_bshd, pres, iters=20)
+    t_p = time_ms(torch, fp.flash_prefill_plain, pres, iters=6)
+    t_l = time_ms(torch, sdpa, sdpa_pre)
+    nbytes = esz * (2 * B * PROMPT * H * HD + 2 * B * PROMPT * KV * HD)
+    pairs = PROMPT * (PROMPT + 1) // 2            # causal (query, key) pairs
+    b_ms, b_by = bound(nbytes, 4 * B * H * pairs * HD, dt)
+    rows.append(dict(name="flash_prefill", route="cuda", dtype=name,
+                     source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+                     replaces="src/repro/kernels/flash_prefill.py:88",
+                     max_abs_err=errs[("prefill", dt)], ms=t_k, plain_ms=t_p,
+                     bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
+                     device_ms=device_ms(torch, fp.flash_prefill_bshd, pres),
+                     library_device_ms=device_ms(torch, sdpa, sdpa_pre)))
+    return rows
+
+
+def attention_inputs(torch, gen):
+    """Input makers for flash_decode (q, k, v, bias; -1e9 on slots C//3 ..
+    when masked) and flash_prefill (q, k, v), drawn from ``gen``."""
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -269,87 +348,110 @@ def kernel_phase(torch):
         return (randn(b, s, h, hd, dtype=dtype), randn(b, s, kv, hd, dtype=dtype),
                 randn(b, s, kv, hd, dtype=dtype))
 
+    return dec_inputs, pre_inputs
+
+
+def ab_phase(torch):
+    """flash_decode and flash_prefill of the imported ``repro_torch`` alone
+    at the serve shapes, bf16 and fp32: held to their plain versions, then
+    timed beside SDPA and the bound (``--ab``: one checkout per process, so
+    a parent and a change compare in one call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    dec_inputs, pre_inputs = attention_inputs(
+        torch, torch.Generator(device=DEVICE).manual_seed(0))
+    errs, rows = {}, []
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, bias = dec_inputs(B, KV, H // KV, HD, CAP, dt)
+        errs[("decode", dt)] = check(
+            f"flash_decode serve shape {str(dt)[6:]}",
+            fd.flash_decode_bkhd(q, k, v, bias),
+            fd.flash_decode_plain(q, k, v, bias), dt)
+        q, k, v = pre_inputs(B, PROMPT, H, KV, HD, dt)
+        errs[("prefill", dt)] = check(
+            f"flash_prefill serve shape {str(dt)[6:]}",
+            fp.flash_prefill_bshd(q, k, v), fp.flash_prefill_plain(q, k, v),
+            dt)
+    for dt in (torch.bfloat16, torch.float32):
+        rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
+                                 errs, dt)
+    return rows
+
+
+def kernel_phase(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssd import ssd_scan_plain
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    dec_inputs, pre_inputs = attention_inputs(torch, gen)
+
     log("[3] kernels against their plain versions")
+    # edge cases, as in tests/test_torch_cuda.py: decode (label, (b, kv, g,
+    # hd, C), softcap, -1e9 bias on slots C//3 ..); prefill ((b, s, h, kv,
+    # hd), window, softcap)
+    dec_edges = (
+        ("C=100 softcap=0.0 hd128", (2, 2, 4, 128, 100), 0.0, True),
+        ("C=37 softcap=30.0 hd128", (2, 2, 4, 128, 37), 30.0, True),
+        ("C=1", (2, 2, 4, HD, 1), 0.0, False),
+        (f"C={fd.SPLITS - 3} below the split count",
+         (3, 2, 8, HD, fd.SPLITS - 3), 0.0, True),
+        ("serve shape, splits wholly under the bias",
+         (B, KV, H // KV, HD, CAP), 0.0, True),
+        ("C=203 not a multiple of the splits", (4, KV, H // KV, HD, 203),
+         0.0, False),
+        ("C=300 softcap=30.0 hd128", (2, 2, 8, 128, 300), 30.0, True),
+        ("hymba heads G=5", (B, HYMBA_KV, HYMBA_H // HYMBA_KV, HD, CAP), 0.0,
+         True))
+    pre_edges = tuple(((2, s, 8, 2, HD), 0, 0.0)
+                      for s in (1, 15, 16, 17, 40, 127, 129)) + (
+        ((2, 130, 8, 2, HD), 8, 30.0),
+        ((2, 200, 8, 2, HD), 64, 0.0),          # window of one tile
+        ((1, 300, 8, 2, HD), 100, 0.0),         # window crossing a tile edge
+        ((2, 200, 8, 2, 128), 48, 30.0),        # hd 128, window, softcap
+        # hymba-1.5b's heads: GQA group 5; a window that binds, and none
+        ((B, PROMPT, HYMBA_H, HYMBA_KV, HD), 256, 0.0),
+        ((B, PROMPT, HYMBA_H, HYMBA_KV, HD), 0, 0.0))
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
         q, k, v, bias = dec_inputs(B, KV, H // KV, HD, CAP, dtype)
         errs[("decode", dtype)] = check(
-            f"flash_decode serve shape {str(dtype)[6:]}",
+            f"flash_decode serve shape {name}",
             fd.flash_decode_bkhd(q, k, v, bias),
             fd.flash_decode_plain(q, k, v, bias), dtype)
         q, k, v = pre_inputs(B, PROMPT, H, KV, HD, dtype)
         errs[("prefill", dtype)] = check(
-            f"flash_prefill serve shape {str(dtype)[6:]}",
+            f"flash_prefill serve shape {name}",
             fp.flash_prefill_bshd(q, k, v), fp.flash_prefill_plain(q, k, v),
             dtype)
-        for c, sc in ((100, 0.0), (37, 30.0)):
-            q, k, v, bias = dec_inputs(2, 2, 4, 128, c, dtype, masked=True)
-            check(f"flash_decode C={c} softcap={sc} hd128 {str(dtype)[6:]}",
+        for label, shape, sc, masked in dec_edges:
+            q, k, v, bias = dec_inputs(*shape, dtype, masked=masked)
+            check(f"flash_decode {label} {name}",
                   fd.flash_decode_bkhd(q, k, v, bias, softcap=sc),
                   fd.flash_decode_plain(q, k, v, bias, softcap=sc), dtype)
-        for s, w, sc in ((40, 0, 0.0), (130, 8, 30.0), (200, 64, 0.0)):
-            q, k, v = pre_inputs(2, s, 8, 2, 64, dtype)
-            check(f"flash_prefill S={s} window={w} softcap={sc} "
-                  f"{str(dtype)[6:]}",
+        for (b, s, h, kv, hd), w, sc in pre_edges:
+            q, k, v = pre_inputs(b, s, h, kv, hd, dtype)
+            check(f"flash_prefill S={s} H/KV={h}/{kv} hd={hd} window={w} "
+                  f"softcap={sc} {name}",
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc),
                   dtype)
-        # hymba-1.5b's heads: GQA group 5; a window that binds, and none
-        for w in (256, 0):
-            q, k, v = pre_inputs(B, PROMPT, HYMBA_H, HYMBA_KV, HD, dtype)
-            check(f"flash_prefill hymba heads window={w} {str(dtype)[6:]}",
-                  fp.flash_prefill_bshd(q, k, v, window=w),
-                  fp.flash_prefill_plain(q, k, v, window=w), dtype)
-        q, k, v, bias = dec_inputs(B, HYMBA_KV, HYMBA_H // HYMBA_KV, HD, CAP,
-                                   dtype, masked=True)
-        check(f"flash_decode hymba heads G=5 {str(dtype)[6:]}",
-              fd.flash_decode_bkhd(q, k, v, bias),
-              fd.flash_decode_plain(q, k, v, bias), dtype)
     errs["paged"], paged_serve = paged_kernel_checks(torch, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
     torch.cuda.synchronize()
 
-    log("    timing at the serve shapes, bf16 (ms per call, inputs cold)")
-    dt = torch.bfloat16
-    esz = 2
-    dec_set = dec_inputs(B, KV, H // KV, HD, CAP, dt)
-    n_dec = int(3 * L2_BYTES // sum(t.numel() * t.element_size()
-                                    for t in dec_set)) + 1
-    decs = [dec_set] + [dec_inputs(B, KV, H // KV, HD, CAP, dt)
-                        for _ in range(n_dec - 1)]
-    sdpa_dec = [(q.reshape(B, H, 1, HD), k, v, bias[:, None, None, :])
-                for q, k, v, bias in decs]
+    log("    timing at the serve shapes (ms per call, inputs cold); the "
+        "JSON line carries bf16")
     rows = []
-    t_k = time_ms(torch, fd.flash_decode_bkhd, decs)
-    t_p = time_ms(torch, fd.flash_decode_plain, decs, iters=20)
-    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m, enable_gqa=True), sdpa_dec)
-    nbytes = esz * (2 * B * H * HD + 2 * B * KV * CAP * HD) + 4 * B * CAP
-    b_ms, b_by = bound(nbytes, 4 * B * H * CAP * HD, dt)
-    rows.append(dict(name="flash_decode", route="cuda",
-                     source="src/repro_torch/kernels/csrc/flash_decode.cu",
-                     replaces="src/repro/kernels/flash_decode.py:81",
-                     max_abs_err=errs[("decode", dt)], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
-    pre_set = pre_inputs(B, PROMPT, H, KV, HD, dt)
-    n_pre = int(3 * L2_BYTES // sum(t.numel() * t.element_size()
-                                    for t in pre_set)) + 1
-    pres = [pre_set] + [pre_inputs(B, PROMPT, H, KV, HD, dt)
-                        for _ in range(n_pre - 1)]
-    sdpa_pre = [(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                 v.transpose(1, 2).contiguous()) for q, k, v in pres]
-    t_k = time_ms(torch, fp.flash_prefill_bshd, pres, iters=20)
-    t_p = time_ms(torch, fp.flash_prefill_plain, pres, iters=6)
-    t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), sdpa_pre)
-    nbytes = esz * (2 * B * PROMPT * H * HD + 2 * B * PROMPT * KV * HD)
-    pairs = PROMPT * (PROMPT + 1) // 2            # causal (query, key) pairs
-    b_ms, b_by = bound(nbytes, 4 * B * H * pairs * HD, dt)
-    rows.append(dict(name="flash_prefill", route="cuda",
-                     source="src/repro_torch/kernels/csrc/flash_prefill.cu",
-                     replaces="src/repro/kernels/flash_prefill.py:88",
-                     max_abs_err=errs[("prefill", dt)], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=t_l))
+    for dt in (torch.bfloat16, torch.float32):
+        rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
+                                 errs, dt)
+    dt, esz = torch.bfloat16, 2
     # paged decode at the serve shape: B=8 rows over 36-page tables of 16,
     # ragged lengths (one row 0); the bound counts what these lengths need
     q, kp, vp, tables, lengths = paged_serve
@@ -372,7 +474,10 @@ def kernel_phase(torch):
                      source="src/repro_torch/kernels/csrc/paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
                      max_abs_err=errs["paged"], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     device_ms=device_ms(torch, pd.paged_flash_decode_bkhd,
+                                         pags),
+                     library_device_ms=None))
     # SSD scan at mamba2-130m's serve shape, bf16, strided views as the
     # model passes them, nonzero initial state
     h, p, n = SSD_HEADS["mamba2-130m"]
@@ -398,13 +503,19 @@ def kernel_phase(torch):
                      source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:79",
                      max_abs_err=errs["ssd"], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                     device_ms=device_ms(torch, lambda *a: ss.ssd_scan_chunked(
+                         *a, chunk=SSD_CHUNK), ssds),
+                     library_device_ms=None))
     for r in rows:
         lib = ("no single library call" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f}")
-        log(f"  {r['name']:<14s} kernel {r['ms']:.4f}  plain {r['plain_ms']:.4f}"
-            f"  library {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
-    return rows
+               else f"{r['library_ms']:.4f} (device "
+               f"{r['library_device_ms']:.4f})")
+        log(f"  {r['name']:<14s} {r.get('dtype', 'bfloat16'):<9s} kernel "
+            f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
+            f"{r['plain_ms']:.4f}  library {lib}  bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return [r for r in rows if r.get("dtype", "bfloat16") == "bfloat16"]
 
 
 def prefill_decode(torch, lm, params, toks, feed=None):
@@ -820,13 +931,20 @@ def prefix_phase(torch):
 
 def main():
     t_start = time.time()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", metavar="SRC", default=None,
+                    help="time only flash_prefill and flash_decode of the "
+                         "repro_torch under SRC (a checkout's src/) beside "
+                         "SDPA, print one JSON line and stop")
+    args = ap.parse_args()
+    src = Path(args.ab).resolve() if args.ab else ROOT / "src"
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
-    if not (ROOT / "src" / "repro_torch").is_dir():
+    if not (src / "repro_torch").is_dir():
         sys.exit("chip_smoke: run from a checkout of the repository "
-                 "(src/repro_torch is missing)")
-    sys.path.insert(0, str(ROOT / "src"))
+                 f"({src / 'repro_torch'} is missing)")
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -837,6 +955,13 @@ def main():
         f"{torch.cuda.device_count()}")
 
     from repro_torch.kernels import build
+    if args.ab:
+        if not Path(build.__file__).resolve().is_relative_to(src):
+            sys.exit(f"chip_smoke: imported {build.__file__}, not from {src}")
+        rows = ab_phase(torch)
+        print(smi)
+        print(json.dumps({"src": str(src), "kernels": rows}))
+        return
     t0 = time.time()
     build.ensure_built()
     log(f"[2] build: {time.time() - t0:.1f}s into {build.lib_dir()}")
@@ -855,7 +980,8 @@ def main():
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "library_device_ms")
     log(f"[7] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

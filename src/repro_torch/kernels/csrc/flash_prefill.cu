@@ -15,42 +15,575 @@
 // What bounds it on this card: bytes, at the serve path's shapes
 // (B=8, S=512, H=32, KV=4, hd=64, bf16): reading q, k, v and writing out
 // is ~37.7 MB (~11.3 us at 3.35 TB/s) against ~8.6 GFLOP of causal
-// products (~8.7 us on the bf16 tensor cores).
+// products (~8.7 us on the bf16 tensor cores). Both are near, so the
+// products have to run on the tensor cores for the bytes to set the pace.
 //
-// What the design does about it: one CTA per (b, head, 64-query tile)
-// walks 64-key tiles only from the window start to the causal frontier
-// (tiles the mask would zero are never loaded), keeps Q, the K/V tile and
-// the probabilities in shared memory and the 64 x hd output accumulator in
-// registers (4 rows x hd/8 columns per thread), so each q/k/v element is
-// read from device memory once per tile pass and the score matrix never
-// leaves the SM. The products run on the fp32 CUDA cores (register-tiled
-// 4x8 micro-tiles), so at these shapes the kernel is bound by fp32 issue
-// rate rather than by bytes; mma/wgmma on the tensor cores for the bf16
-// path, and sharing K/V tiles across the G heads of a group, are the next
-// steps.
+// bf16 at hd 64 (the serve path), FlashAttention-2-shaped on `wgmma`: one
+// CTA, one warpgroup of 4 warps, per (b, head, 64-query tile). QK^T runs as
+// `wgmma` m64n64k16 with Q and K read from shared memory; PV as m64n64k16
+// with P in registers (the QK^T accumulator layout is the A-fragment
+// layout, so the probabilities never return to shared memory) and V read
+// from shared memory, transposed by the tensor cores. Each warp keeps the
+// running (m, l) of its 16 rows and their 16 x 64 fp32 output slice in
+// registers. `wgmma` rather than `mma.sync`: with `mma.sync` every warp
+// reads the whole K and V tile from shared memory for its own 16 rows,
+// where the warpgroup reads it once; the `mma.sync` form of this kernel
+// took about a third longer at the serve shape on the H100.
+// Q, K and V stay bf16 in shared memory in the 128-byte swizzle, loaded
+// with `cp.async` into a double-buffered K/V ring: the next key tile's copy
+// is in flight while this one's products run. P enters PV as two bf16
+// terms, its rounding and the residual's (hi + lo, 16 mantissa bits; PV's
+// products double, QK^T's do not): a single bf16 P moves an output by up to
+// 2^-9 of its size, which at |out| in [2, 4) flips its bf16 rounding by one
+// ulp (0.0156) against the plain version's fp32 P, past the 1e-2 absolute
+// tolerance; two terms leave the error at fp32's order. Key tiles wholly
+// above the causal frontier or before the window are never loaded, and the
+// mask is evaluated only on tiles that cross the diagonal, the window edge
+// or the ragged end of S. The grid runs the q-tile index in reverse, so the
+// heaviest causal tiles start first and the light ones fill the tail. The
+// kernel keeps 4 CTAs on each SM at 128 registers a thread; a spill there
+// serialises the `wgmma`s, so it holds no more state than it needs. Tried
+// on the H100 and left out: K/V tiles shared by two heads of a GQA group
+// (no gain: one batch row's K/V, 0.5 MB at the serve shape, stays in the
+// 50 MB L2, so the repeated tile loads hit L2) and a persistent grid that
+// prefetches the next tile's Q (slower: its extra state spills).
+//
+// bf16 at hd 128 (off the serve path): the same design on
+// `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16 query rows
+// with its Q fragments in registers (a 128-element row does not fit one
+// 128-byte swizzle row).
+//
+// fp32 keeps fp32 products (no TF32: the fp32 checks hold the kernel to
+// 1e-5 of the plain version, and the fp32 model rungs must give the same
+// greedy tokens with the kernels on and off): one CTA per (b, head,
+// 64-query tile) walks the same key tiles on the CUDA cores, Q, K, V and
+// the probabilities in shared memory as fp32, register-tiled 4x8 micro
+// tiles, the same heaviest-first grid.
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 128;    // 16 row groups x 8 column groups
+constexpr int kThreads = 128;    // 4 warps
 constexpr int kBQ = 64;          // queries per CTA
 constexpr int kBK = 64;          // keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Whether any (query, key) pair of the tiles starting at q0 and k0 is
+// masked: the tile crosses the diagonal, the window edge or the end of S.
+__device__ __forceinline__ bool tile_needs_mask(int q0, int k0, int S,
+                                                int window) {
+  return k0 + kBK - 1 > q0 || k0 + kBK > S ||
+         (window > 0 && k0 <= q0 + kBQ - 1 - window);
+}
+
+__device__ __forceinline__ bool visible(int qi, int kj, int S, int window) {
+  return kj <= qi && kj < S && (window <= 0 || kj > qi - window);
+}
+
+// ============================================================ bf16: mma.sync (hd 128)
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values as a bf16 pair `hi` plus the bf16 pair of their rounding
+// residuals `lo`: hi + lo carries 16 mantissa bits (relative error <= 2^-18).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// bf16 elements per shared-memory row: hd plus 16 bytes, so the 8 rows an
+// `ldmatrix` reads start in 8 different 4-bank groups.
+template <int HD>
+__host__ __device__ constexpr int mma_ld() { return HD + 8; }
+
+template <int HD>
+constexpr size_t mma_smem_bytes() {  // Q | K ring (2) | V ring (2)
+  return 5 * (size_t)kBQ * mma_ld<HD>() * sizeof(__nv_bfloat16);
+}
+
+// Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab into a
+// shared tile; rows at or past S are zero-filled.
+template <int HD>
+__device__ __forceinline__ void issue_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* base,
+                                           size_t stride, int r0, int S) {
+  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * mma_ld<HD>() + c,
+               base + (size_t)(ok ? r0 + r : 0) * stride + c, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                         int window, float scale, float softcap) {
+  constexpr int LD = mma_ld<HD>();
+  constexpr int TILE = kBQ * LD;
+  constexpr int KS = HD / 16;        // k-steps of QK^T
+  constexpr int NO = HD / 8;         // 8-wide output column tiles
+  constexpr int NS = kBK / 8;        // 8-wide score column tiles
+  extern __shared__ uint4 smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + TILE;     // 2 tiles
+  __nv_bfloat16* Vs = Ks + 2 * TILE; // 2 tiles
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+
+  const int n_tiles = (S + kBK - 1) / kBK;
+  const int kt_end = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+
+  issue_tile<HD>(Qs, qb, q_stride, q0, S);
+  issue_tile<HD>(Ks, kb, kv_stride, kt_begin * kBK, S);
+  issue_tile<HD>(Vs, vb, kv_stride, kt_begin * kBK, S);
+  cp_async_commit();
+
+  // rows warp*16 + g (c = 0, 1) and + 8 (c = 2, 3) of the q tile
+  uint32_t qf[KS][4];
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {             // prefetch the next key tile
+      issue_tile<HD>(Ks + (buf ^ 1) * TILE, kb, kv_stride, (kt + 1) * kBK, S);
+      issue_tile<HD>(Vs + (buf ^ 1) * TILE, vb, kv_stride, (kt + 1) * kBK, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* Kt = Ks + buf * TILE;
+    const __nv_bfloat16* Vt = Vs + buf * TILE;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T: 16 x 64 per warp
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+      }
+    }
+
+    // softcap, mask; online softmax per row (4 lanes share a row). Scores
+    // stay in raw units (after the softcap); exp2 takes them times c.
+    const bool masked = tile_needs_mask(q0, k0, S, window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e];
+        if (softcap > 0.f) x = tanhf(x * cap_in) * softcap;
+        if (masked && !visible(q0 + warp * 16 + g + (e >> 1) * 8,
+                               k0 + n * 8 + 2 * t + (e & 1), S, window))
+          x = -INFINITY;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mc[2];                       // the new max, times c
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // a row with no visible key yet keeps alpha = p = 0
+      mc[i] = m_new == -INFINITY ? 0.f : m_new * c;
+      const float alpha = ex2(fmaf(m[i], c, -mc[i]));
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[n][e], c, -mc[e >> 1]));
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+
+    // O += P V: P's accumulators are PV's A fragments, as hi + lo bf16
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t a[4], a_lo[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], a[0], a_lo[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], a[1], a_lo[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], a[2], a_lo[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], a[3], a_lo[3]);
+      uint32_t r[NO / 2][4];
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np)
+        ldmatrix_x4_trans(r[np], Vt + (kk * 16 + (lane & 7) +
+                                       ((lane >> 3) & 1) * 8) * LD +
+                                     np * 16 + (lane >> 4) * 8);
+      // all hi products, then all lo: no accumulator is reused back to back
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        mma_bf16(o[2 * np], a, r[np][0], r[np][1]);
+        mma_bf16(o[2 * np + 1], a, r[np][2], r[np][3]);
+      }
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        mma_bf16(o[2 * np], a_lo, r[np][0], r[np][1]);
+        mma_bf16(o[2 * np + 1], a_lo, r[np][2], r[np][3]);
+      }
+    }
+    __syncthreads();                   // this buffer is refilled next round
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = 1.f / fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + warp * 16 + g + i * 8;
+    if (qi >= S) continue;
+    __nv_bfloat16* orow = out + (size_t)b * S * q_stride +
+                          (size_t)qi * q_stride + (size_t)h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(o[n][2 * i] * l[i], o[n][2 * i + 1] * l[i]);
+  }
+}
+
+// ============================================================ bf16: wgmma
+
+// One warpgroup (the CTA's 4 warps) issues each product: QK^T as
+// m64n64k16 with Q and K read from shared memory, PV as m64n64k16 with P
+// from registers and V from shared memory. Tiles are 64 rows of 64 bf16
+// (128 bytes) in the 128-byte swizzle: 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8), so the tensor cores read them without bank conflicts.
+constexpr int kWgTile = 64 * 128;            // bytes of one 64 x 64 tile
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), 128-byte swizzle. Rows of one tile are 128 bytes
+// apart, 8-row groups 1024 bytes apart (the stride offset). K-major tiles
+// (Q, K) leave the leading offset unused; for V, read MN-major (keys along
+// K, hd along N), it would step to a next 64-wide block of hd, which a
+// 64-wide tile does not have.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accesses to accumulators across a wait.
+__device__ __forceinline__ void wg_fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_D32_OPS(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64x64 fp32; scale_d 0 overwrites) += A (smem, K-major) * B (smem,
+// K-major)
+__device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32_OPS(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d += A (registers: this warp's 16 rows, the mma.sync A fragment) *
+// B (smem, MN-major)
+__device__ __forceinline__ void wg_rs(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab with 64
+// columns into a swizzled tile at shared address `dst`; rows at or past S
+// are zero-filled.
+__device__ __forceinline__ void issue_wg_tile(uint32_t dst,
+                                              const __nv_bfloat16* base,
+                                              size_t stride, int r0, int S) {
+  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
+    const int r = i / 8, c = i % 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
+               base + (size_t)(ok ? r0 + r : 0) * stride + c * 8, ok);
+  }
+}
+
+// Q | K ring (2) | V ring (2), plus room to align the base to 1024 bytes
+constexpr size_t kWgSmemBytes = 5 * kWgTile + 1024;
+
+__global__ void __launch_bounds__(kThreads, 4)
+flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ out, int S, int H,
+                           int KV, int window, float scale, float softcap) {
+  constexpr int HD = 64;
+  extern __shared__ uint4 smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t Ks = Qs + kWgTile;          // 2 tiles
+  const uint32_t Vs = Ks + 2 * kWgTile;      // 2 tiles
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+
+  const int n_tiles = (S + kBK - 1) / kBK;
+  const int kt_end = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+
+  issue_wg_tile(Qs, qb, q_stride, q0, S);
+  issue_wg_tile(Ks, kb, kv_stride, kt_begin * kBK, S);
+  issue_wg_tile(Vs, vb, kv_stride, kt_begin * kBK, S);
+  cp_async_commit();
+
+  // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
+  // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {             // prefetch the next key tile
+      issue_wg_tile(Ks + (buf ^ 1) * kWgTile, kb, kv_stride, (kt + 1) * kBK,
+                    S);
+      issue_wg_tile(Vs + (buf ^ 1) * kWgTile, vb, kv_stride, (kt + 1) * kBK,
+                    S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    // cp.async wrote the tiles through the generic proxy; wgmma reads them
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint32_t Kt = Ks + buf * kWgTile, Vt = Vs + buf * kWgTile;
+    const int k0 = kt * kBK;
+
+    // S = Q K^T (64 x 64): four k-steps of 16 along hd, 32 bytes each
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wg_ss(s, wg_desc(Qs + kk * 32), wg_desc(Kt + kk * 32), kk > 0);
+    wg_commit();
+    wg_wait0();
+    wg_fence_regs(s);
+
+    // softcap, mask; online softmax per row (4 lanes share a row)
+    const bool masked = tile_needs_mask(q0, k0, S, window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i];
+      if (softcap > 0.f) x = tanhf(x * cap_in) * softcap;
+      if (masked && !visible(q0 + warp * 16 + g + ((i >> 1) & 1) * 8,
+                             k0 + (i >> 2) * 8 + 2 * t + (i & 1), S, window))
+        x = -INFINITY;
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float mc[2];                       // the new max, times c
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps alpha = p = 0
+      mc[r] = m_new == -INFINITY ? 0.f : m_new * c;
+      const float alpha = ex2(fmaf(m[r], c, -mc[r]));
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n + 2 * r] *= alpha;
+        o[4 * n + 2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
+      s[i] = p;
+      l[(i >> 1) & 1] += p;
+    }
+
+    // O += P V, P as hi + lo bf16 A fragments; k-step kk covers keys
+    // 16kk .. 16kk+15: 16 rows of V, 2048 bytes
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* p0 = s + 8 * kk;      // 8-column block 2kk
+      const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
+      split_bf16(p0[0], p0[1], ph[kk][0], pl[kk][0]);
+      split_bf16(p0[2], p0[3], ph[kk][1], pl[kk][1]);
+      split_bf16(p1[0], p1[1], ph[kk][2], pl[kk][2]);
+      split_bf16(p1[2], p1[3], ph[kk][3], pl[kk][3]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));
+    wg_commit();
+    wg_wait0();
+    wg_fence_regs(o);
+    __syncthreads();                   // this buffer is refilled next round
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    const int qi = q0 + warp * 16 + g + r * 8;
+    if (qi >= S) continue;
+    __nv_bfloat16* orow = out + (size_t)b * S * q_stride +
+                          (size_t)qi * q_stride + (size_t)h * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          pack_bf16(o[4 * n + 2 * r] * l[r], o[4 * n + 2 * r + 1] * l[r]);
+  }
+}
+
+// ============================================================ fp32: CUDA cores
 
 // Shared layout (floats): Qt (HD, BQ) | Kt (HD, BK) | Vs (BK, HD) | Pt (BK, BQ)
 template <int HD>
-constexpr size_t smem_floats() {
-  return (size_t)HD * kBQ + (size_t)HD * kBK + (size_t)kBK * HD +
-         (size_t)kBK * kBQ;
+constexpr size_t simt_smem_bytes() {
+  return sizeof(float) * ((size_t)HD * kBQ + (size_t)HD * kBK +
+                          (size_t)kBK * HD + (size_t)kBK * kBQ);
 }
 
-// Copy rows [r0, r0+n) of a (rows, HD) slab with row stride `stride`
+// Copy rows [r0, r0+n) of a (rows, HD) fp32 slab with row stride `stride`
 // (elements) into shared memory, transposed (dst[d * ld + r]) or not
 // (dst[r * ld + d]); rows at or past `limit` are zero-filled.
-template <typename T, int HD, bool kTranspose>
-__device__ void load_tile(const T* __restrict__ base, size_t stride, int r0,
-                          int n, int limit, float* dst, int ld) {
-  constexpr int V = Vec<T>::n;
+template <int HD, bool kTranspose>
+__device__ void load_tile(const float* __restrict__ base, size_t stride,
+                          int r0, int n, int limit, float* dst, int ld) {
+  constexpr int V = Vec<float>::n;
   constexpr int per_row = HD / V;
   for (int i = threadIdx.x; i < n * per_row; i += blockDim.x) {
     const int r = i / per_row, c = (i % per_row) * V;
@@ -69,11 +602,13 @@ __device__ void load_tile(const T* __restrict__ base, size_t stride, int r0,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int S,
-                     int H, int KV, int window, float scale, float softcap) {
+flash_prefill_simt_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ out,
+                          int S, int H, int KV, int window, float scale,
+                          float softcap) {
   constexpr int NC = HD / 32;            // 4-wide output column chunks
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -82,18 +617,17 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Kt + HD * kBK;             // (BK, HD)
   float* Pt = Vs + kBK * HD;             // (BK, BQ)
 
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
   const int rg = tid / 8, cg = tid % 8;  // rows rg*4..+3; cols cg*4+{0..3}, +32
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const float* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
+  const float* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const float* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
 
-  load_tile<T, HD, true>(qb, q_stride, q0, kBQ, S, Qt, kBQ);
+  load_tile<HD, true>(qb, q_stride, q0, kBQ, S, Qt, kBQ);
 
   float m[4], l[4], acc[4][NC * 4];
 #pragma unroll
@@ -112,8 +646,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                     // previous tile fully consumed
-    load_tile<T, HD, true>(kb, kv_stride, k0, kBK, S, Kt, kBK);
-    load_tile<T, HD, false>(vb, kv_stride, k0, kBK, S, Vs, HD);
+    load_tile<HD, true>(kb, kv_stride, k0, kBK, S, Kt, kBK);
+    load_tile<HD, false>(vb, kv_stride, k0, kBK, S, Vs, HD);
     __syncthreads();
 
     // S micro-tile: rows rg*4+i, columns cg*4+u and 32+cg*4+u
@@ -145,8 +679,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kj = k0 + (j < 4 ? cg * 4 + j : 32 + cg * 4 + j - 4);
         float x = s[i][j] * scale;
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const bool ok = kj <= qi && kj < S && (window <= 0 || kj > qi - window);
-        s[i][j] = ok ? x : kNegInf;
+        s[i][j] = visible(qi, kj, S, window) ? x : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -200,42 +733,32 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + rg * 4 + i;
     if (qi >= S) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = out + (size_t)b * S * q_stride + (size_t)qi * q_stride +
-              (size_t)h * HD;
+    float* orow = out + (size_t)b * S * q_stride + (size_t)qi * q_stride +
+                  (size_t)h * HD;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        store(orow + c * 32 + cg * 4 + u, acc[i][c * 4 + u] * inv);
+        orow[c * 32 + cg * 4 + u] = acc[i][c * 4 + u] * inv;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int KV, int window, float softcap,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<HD>();
+// ============================================================ launch
+
+template <typename T, typename Kernel>
+cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
+                   const void* v, void* out, int B, int S, int H, int KV,
+                   int hd, int window, float softcap, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  // q tiles slowest, so the whole grid runs the heaviest tiles first
+  dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, window,
-      1.0f / sqrtf((float)HD), softcap);
+      1.0f / sqrtf((float)hd), softcap);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
-                        void* out, int B, int S, int H, int KV, int hd,
-                        int window, float softcap, cudaStream_t stream) {
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, out, B, S, H, KV, window, softcap, stream);
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, out, B, S, H, KV, window, softcap, stream);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -247,13 +770,26 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     int H, int KV, int hd, int window,
                                     float softcap, int dtype, void* stream) {
   using namespace repro_torch;
-  if (S <= 0 || KV <= 0 || H % KV != 0) return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  if (S <= 0 || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535 ||
+      (S + kBQ - 1) / kBQ > 65535)
+    return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return (int)dispatch_hd<float>(q, k, v, out, B, S, H, KV, hd, window,
-                                   softcap, s);
-  if (dtype == kBFloat16)
-    return (int)dispatch_hd<__nv_bfloat16>(q, k, v, out, B, S, H, KV, hd,
-                                           window, softcap, s);
+  if (dtype == kBFloat16 && hd == 64)
+    return (int)launch<bf16>(flash_prefill_wgmma_kernel, kWgSmemBytes,
+                             q, k, v, out, B, S, H, KV, hd, window, softcap,
+                             s);
+  if (dtype == kBFloat16 && hd == 128)
+    return (int)launch<bf16>(flash_prefill_mma_kernel<128>,
+                             mma_smem_bytes<128>(), q, k, v, out, B, S, H, KV,
+                             hd, window, softcap, s);
+  if (dtype == kFloat32 && hd == 64)
+    return (int)launch<float>(flash_prefill_simt_kernel<64>,
+                              simt_smem_bytes<64>(), q, k, v, out, B, S, H,
+                              KV, hd, window, softcap, s);
+  if (dtype == kFloat32 && hd == 128)
+    return (int)launch<float>(flash_prefill_simt_kernel<128>,
+                              simt_smem_bytes<128>(), q, k, v, out, B, S, H,
+                              KV, hd, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,10 @@ PyTorch version.
 ``flash_prefill_bshd`` is the wrapper, in the model layout (B,S,H,hd): the
 TPU wrapper's relayout to (B,KV,G,S,hd) and padding of S exist only for
 the TPU's tiling and are gone. CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise. ``flash_prefill_bshd.launches`` counts
+tensors launch the kernel or raise. The kernel dispatches on dtype and
+head size: bf16 runs its products on the tensor cores with fp32
+accumulation (``wgmma`` at hd 64, ``mma.sync`` at hd 128), fp32 keeps
+fp32 products on the CUDA cores. ``flash_prefill_bshd.launches`` counts
 kernel launches (never plain-version calls).
 """
 from __future__ import annotations

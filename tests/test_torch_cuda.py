@@ -47,11 +47,17 @@ def _randn(rng, shape, dtype, device):
 
 
 DECODE_CASES = [
-    # B, KV, G, hd, C, softcap, masked_rows
+    # B, KV, G, hd, C, softcap, masked_rows (-1e9 bias on slots C//2 ..)
     (8, 4, 8, 64, 576, 0.0, False),   # serve path: tinyllama at C = 512+64
     (2, 2, 4, 64, 100, 0.0, True),    # ragged C, -1e9 bias on some slots
     (3, 1, 8, 128, 64, 30.0, False),  # MQA, hd 128, softcap
     (1, 4, 1, 64, 7, 0.0, True),      # G 1, C below one tile
+    (2, 2, 4, 64, 1, 0.0, False),     # C = 1: one split sees a position
+    (3, 2, 8, 64, fd.SPLITS - 3, 0.0, True),  # C below the split count
+    (2, 4, 8, 64, 576, 0.0, True),    # splits 4..7 wholly under the bias
+    (4, 4, 8, 64, 203, 0.0, False),   # C not a multiple of the splits
+    (8, 5, 5, 64, 576, 0.0, True),    # hymba-1.5b's group of 5 at C = 576
+    (2, 2, 8, 128, 300, 30.0, True),  # hd 128 with softcap, ragged, biased
 ]
 
 
@@ -75,12 +81,45 @@ def test_flash_decode_kernel_matches_plain(cuda, B, KV, G, hd, C, softcap,
                                rtol=TOL[dtype])
 
 
+def test_flash_decode_workspace_is_left_clean(cuda):
+    """The last split of each (b, kv-head) sets its arrival counter back to
+    zero, so the reused workspace serves the next call: two calls on other
+    shapes and a repeat give the plain version's answers."""
+    rng = np.random.default_rng(2)
+    outs = []
+    for B, KV, G, C in ((8, 4, 8, 576), (2, 5, 5, 100), (8, 4, 8, 576)):
+        q = _randn(rng, (B, KV, G, 64), torch.bfloat16, cuda)
+        k = _randn(rng, (B, KV, C, 64), torch.bfloat16, cuda)
+        v = _randn(rng, (B, KV, C, 64), torch.bfloat16, cuda)
+        bias = torch.zeros((B, C), device=cuda)
+        out = fd.flash_decode_bkhd(q, k, v, bias)
+        torch.testing.assert_close(out.float(),
+                                   fd.flash_decode_plain(q, k, v, bias).float(),
+                                   atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16])
+        outs.append(out)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    _, arrivals = fd._WORKSPACE[(torch.cuda.current_device(), stream)]
+    assert int(arrivals.abs().sum()) == 0
+
+
 PREFILL_CASES = [
     # B, S, H, KV, hd, window, softcap
     (8, 512, 32, 4, 64, 0, 0.0),      # serve path: tinyllama, 512 prompt
     (2, 40, 4, 1, 64, 0, 0.0),        # ragged S (not a tile multiple)
     (1, 130, 8, 2, 64, 8, 30.0),      # sliding window + softcap
     (2, 96, 4, 4, 128, 0, 0.0),       # hd 128, G 1
+    (2, 1, 4, 2, 64, 0, 0.0),         # S = 1
+    (2, 15, 8, 2, 64, 0, 0.0),        # S around a warp's 16 query rows
+    (2, 16, 8, 2, 64, 0, 0.0),
+    (2, 17, 8, 2, 64, 0, 0.0),
+    (2, 127, 4, 2, 64, 0, 0.0),       # S around two 64-row tiles
+    (2, 129, 4, 2, 64, 0, 0.0),
+    (1, 200, 8, 2, 64, 64, 0.0),      # window of exactly one tile
+    (1, 300, 8, 2, 64, 100, 0.0),     # window crossing a tile edge
+    (2, 200, 8, 2, 128, 48, 30.0),    # hd 128 with G 4, window, softcap
+    (8, 512, 25, 5, 64, 256, 0.0),    # hymba-1.5b's heads, window 256
 ]
 
 
