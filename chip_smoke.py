@@ -53,8 +53,10 @@ phase raises, and the script exits nonzero:
               512-token requests over a 384-token shared prefix, every
               fourth an exact repeat (copy-on-write), sharing on vs off:
               prefix hits, CoW copies and fewer prefilled tokens with
-              sharing on; bf16 token agreement printed; a 4-layer fp32 rung
-              must give identical tokens on vs off;
+              sharing on; paged_decode launches per tick must be one per
+              layer in a fused tick (the chunk form) and one per layer per
+              step in a decode tick; bf16 token agreement printed; a
+              4-layer fp32 rung must give identical tokens on vs off;
   7. output   the ``{"kernels": [...]}`` line (launches summed over the
               serve and prefix phases), then the ok line last.
 
@@ -65,9 +67,12 @@ attention kernels take the absolute ``TOL``.
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 ``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
 flash_prefill and flash_decode of that checkout (event and device times,
-SDPA beside them, bf16 and fp32) and prints one JSON line, so a parent
-and a change compare in one call: unpack the parent with ``git archive
-<commit> | tar -x -C build/parent`` and run parent, change, change, parent.
+SDPA beside them, bf16 and fp32) and paged_decode (the decode step's call,
+and one layer of the fused tick's ``paged_chunk_prefill_attention`` with
+the paged kernels' device time inside it) and prints one JSON line, so a
+parent and a change compare in one call: unpack the parent with ``git
+archive <commit> | tar -x -C build/parent`` and run parent, change, change,
+parent.
 """
 import argparse
 import json
@@ -93,6 +98,7 @@ H, KV, HD = 32, 4, 64
 CAP = PROMPT + MAX_NEW
 PAGE = 16
 WIDTH = CAP // PAGE         # block-table width: 36 pages per slot
+CK = 16                     # the engine's prefill chunk: tokens per fused tick
 BF16_LOGIT_TOL = 5e-2       # ||on - off|| / ||off|| over the logits, bf16
 FP32_LOGIT_TOL = 1e-4       # the same in fp32: sums in other orders only
 BF16_VS_PLAIN = 1.1         # bf16 kernels' distance from the fp32 logits,
@@ -134,9 +140,10 @@ def time_ms(torch, fn, arg_sets, iters=40):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(torch, fn, arg_sets, iters=20):
+def device_ms(torch, fn, arg_sets, iters=20, only=None):
     """Device time per call from ``torch.profiler``: every kernel the calls
-    launched, summed (no host time, no gaps between launches)."""
+    launched (or those whose name holds ``only``), summed (no host time, no
+    gaps between launches)."""
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:2]:
         fn(*a)
@@ -147,7 +154,8 @@ def device_ms(torch, fn, arg_sets, iters=20):
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / 1e3 / iters
+               if e.device_type == cuda
+               and (only is None or only in e.key)) / 1e3 / iters
 
 
 def check(name, got, want, dtype):
@@ -182,9 +190,53 @@ def paged_inputs(torch, gen, b, kv, g, hd, ps, width, dtype, poison=False):
     return q, kp, vp, tables, lengths
 
 
+def chunk_inputs(torch, gen, b, kv, g, hd, ps, width, n_pages, ck, dtype,
+                 poison=False, start_range=None):
+    """The chunk form's operands: q (b, ck, kv, g, hd), a shuffled pool,
+    tables sliced to n_pages of width columns, lengths clip(start + j + 1,
+    1, T) with start drawn from ``start_range`` (default: the whole table,
+    row 0 crossing the 64-position tile border, row 1 all 1, row 2 clipped
+    at T, row 3 zero at every other token). With ``poison``, page 0 holds
+    NaN and every table entry past a row's largest length points at it."""
+    dev = torch.device(DEVICE)
+    P, T = b * width + 1, n_pages * ps
+    q = torch.randn((b, ck, kv, g, hd), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((kv, P, ps, hd), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((kv, P, ps, hd), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    tables = perm.reshape(b, width).to(torch.int32)
+    lo, hi = start_range or (0, T - 1)
+    start = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev)
+    if start_range is None:
+        start[0] = min(64 - ck // 2, T - 1)
+        start[2 % b] = T - 2
+    lengths = (start[:, None] + torch.arange(ck, device=dev)[None, :] + 1
+               ).clamp(1, T).to(torch.int32)
+    if start_range is None:
+        lengths[1 % b] = 1
+        if b > 3:
+            lengths[3, ::2] = 0
+    if poison:
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+        live = (lengths.max(1).values + ps - 1) // ps
+        cols = torch.arange(width, device=dev)[None, :]
+        tables = torch.where(cols >= live[:, None], 0, tables)
+    return q, kp, vp, tables[:, :n_pages], lengths
+
+
+def fused_inputs(torch, gen, dtype):
+    """The fused tick's chunk in the shared-prefix study: B rows of CK
+    tokens at positions past the 384-token shared prefix of 512-token
+    prompts, over full 36-page tables of 16."""
+    return chunk_inputs(torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, WIDTH,
+                        CK, dtype, start_range=(PS_SHARED, PROMPT - CK))
+
+
 def paged_kernel_checks(torch, pd, gen):
-    """paged_decode against its plain version; returns (bf16 serve-shape
-    error, serve-shape bf16 inputs)."""
+    """paged_decode, both forms, against their plain versions; returns
+    (bf16 decode serve-shape error, its inputs, bf16 fused-shape chunk
+    error, its inputs)."""
     G = H // KV
     err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -195,6 +247,57 @@ def paged_kernel_checks(torch, pd, gen):
                   pd.paged_flash_decode_plain(*args), dtype)
         if dtype == torch.bfloat16:
             err, serve_args = e, args
+        cargs = fused_inputs(torch, gen, dtype)
+        got = pd.paged_flash_decode_chunk(*cargs)
+        e = check(f"paged_decode chunk fused shape {name}", got,
+                  pd.paged_flash_decode_chunk_plain(*cargs), dtype)
+        per_token = torch.stack([pd.paged_flash_decode_bkhd(
+            cargs[0][:, j].contiguous(), *cargs[1:4],
+            cargs[4][:, j].contiguous()) for j in range(CK)], 1)
+        check(f"paged_decode chunk vs {CK} single-query launches {name}",
+              got, per_token, dtype)
+        if dtype == torch.bfloat16:
+            chunk_err, chunk_args = e, cargs
+        chunk_cases = (  # label, (b, kv, g, hd, ps, width, n_pages, ck),
+            #              softcap, poison
+            ("fused shape NaN pages", (B, KV, G, HD, PAGE, WIDTH, WIDTH, CK),
+             0.0, True),
+            ("hd=128 ps=8", (3, 2, 4, 128, 8, 10, 10, 5), 0.0, False),
+            ("softcap=30", (4, KV, G, HD, PAGE, 12, 12, CK), 30.0, True),
+            ("G=1 n_pages 12 < width 20", (5, 2, 1, HD, 8, 20, 12, 5), 0.0,
+             True),
+            ("ck=1", (4, 1, G, HD, PAGE, 9, 9, 1), 0.0, False),
+            ("hymba G=5", (4, 2, 5, HD, PAGE, 12, 12, CK), 0.0, True))
+        for label, shape, sc, poison in chunk_cases:
+            q, kp, vp, t, ln = chunk_inputs(torch, gen, *shape, dtype,
+                                            poison)
+            got = pd.paged_flash_decode_chunk(q, kp, vp, t, ln, softcap=sc)
+            want = pd.paged_flash_decode_chunk_plain(q, kp, vp, t, ln,
+                                                     softcap=sc)
+            if not (bool(torch.isfinite(got.float()).all())
+                    and bool((got.float()[ln == 0] == 0).all())):
+                raise AssertionError(f"paged_decode chunk {label}: "
+                                     f"non-finite output or nonzero "
+                                     f"length-0 query")
+            check(f"paged_decode chunk {label} {name}", got, want, dtype)
+        # the decode form's split: lengths 0, below the split count, not a
+        # multiple of it, full; a one-page table; poisoned pages past each
+        for label, shape, lens in (
+                ("split edges", (4, 2, G, HD, PAGE, WIDTH), (0, 3, 203, 576)),
+                ("one-page table", (3, 2, 4, HD, PAGE, 1), (1, 16, 7))):
+            q, kp, vp, t, _ = paged_inputs(torch, gen, *shape, dtype)
+            kp[:, 0] = float("nan")
+            vp[:, 0] = float("nan")
+            ln = torch.tensor(lens, dtype=torch.int32, device=q.device)
+            t = torch.where(torch.arange(t.shape[1], device=q.device)[None]
+                            >= (ln[:, None] + PAGE - 1) // PAGE, 0, t)
+            got = pd.paged_flash_decode_bkhd(q, kp, vp, t, ln)
+            if not (bool(torch.isfinite(got.float()).all())
+                    and bool((got[ln == 0] == 0).all())):
+                raise AssertionError(f"paged_decode {label}: non-finite "
+                                     f"output or nonzero length-0 row")
+            check(f"paged_decode {label} {name}", got,
+                  pd.paged_flash_decode_plain(q, kp, vp, t, ln), dtype)
         cases = (  # label, (b, kv, g, hd, ps, width), n_pages, softcap, poison
             ("ps=8 hd=128", (3, 2, 4, 128, 8, 10), 10, 0.0, False),
             ("softcap=30", (4, KV, G, HD, PAGE, 12), 12, 30.0, False),
@@ -210,7 +313,7 @@ def paged_kernel_checks(torch, pd, gen):
                 raise AssertionError(f"paged_decode {label}: non-finite "
                                      f"output or nonzero length-0 row")
             check(f"paged_decode {label} {name}", got, want, dtype)
-    return err, serve_args
+    return err, serve_args, chunk_err, chunk_args
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, dtype, strided=True):
@@ -273,6 +376,62 @@ def ssd_kernel_checks(torch, ss, plain, gen):
                     and strided:
                 err = e
     return err
+
+
+def rotated(first, make, shared):
+    """``first`` plus enough sets from ``make()`` to exceed 3x the L2 size,
+    each taking the arguments at indices ``shared`` from ``first`` (so
+    every call has the same lengths and tables, which the bound counts)."""
+    nbytes = sum(t.numel() * t.element_size() for t in first)
+    sets = [first] + [make() for _ in range(int(3 * L2_BYTES // nbytes))]
+    return [tuple(first[i] if i in shared else a for i, a in enumerate(st))
+            for st in sets]
+
+
+def paged_decode_timing(torch, pd, gen, serve_args):
+    """The decode form at the serve shape (bf16): B=8 rows over 36-page
+    tables of 16, ragged lengths (one row 0); kernel, plain and device
+    times beside the bound, which counts what these lengths need."""
+    dt, esz = torch.bfloat16, 2
+    q, kp, vp, tables, lengths = serve_args
+    pags = rotated(serve_args, lambda: paged_inputs(
+        torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, dt), (3, 4))
+    # K/V of the positions below each row's length (not the tails of the
+    # last pages, which the kernel never loads), q, out, the table entries
+    # of the live pages and the lengths
+    live_pages = int(((lengths.long() + PAGE - 1) // PAGE).sum())
+    live_pos = int(lengths.long().sum())
+    nbytes = (esz * (2 * live_pos * KV * HD + 2 * B * H * HD)
+              + 4 * live_pages + 4 * B)
+    b_ms, b_by = bound(nbytes, 4 * H * live_pos * HD, dt)
+    return dict(ms=time_ms(torch, pd.paged_flash_decode_bkhd, pags),
+                plain_ms=time_ms(torch, pd.paged_flash_decode_plain, pags,
+                                 iters=10),
+                bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms(torch, pd.paged_flash_decode_bkhd, pags))
+
+
+def paged_chunk_timing(torch, pd, gen, chunk_args):
+    """The chunk form at the fused tick's shape (bf16; ``fused_inputs``):
+    kernel, plain and device times beside the bound, under ``chunk_*``
+    keys. The bound reads each row's K/V below its largest length once,
+    q, out, the live table entries and the lengths; its operations are
+    QK^T and PV over each query's own length on the bf16 tensor cores."""
+    dt, esz = torch.bfloat16, 2
+    lengths = chunk_args[4]
+    sets = rotated(chunk_args, lambda: fused_inputs(torch, gen, dt),
+                   (3, 4))
+    lmax = lengths.long().max(1).values
+    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * CK * H * HD)
+              + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK)
+    b_ms, b_by = bound(nbytes, 4 * H * HD * int(lengths.long().sum()), dt)
+    return dict(chunk_ms=time_ms(torch, pd.paged_flash_decode_chunk, sets),
+                chunk_plain_ms=time_ms(torch,
+                                       pd.paged_flash_decode_chunk_plain,
+                                       sets, iters=4),
+                chunk_bound_ms=b_ms, chunk_bound_by=b_by,
+                chunk_device_ms=device_ms(torch, pd.paged_flash_decode_chunk,
+                                          sets))
 
 
 def attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs, errs, dt):
@@ -351,11 +510,70 @@ def attention_inputs(torch, gen):
     return dec_inputs, pre_inputs
 
 
+def paged_ab(torch, gen):
+    """paged_decode of the imported ``repro_torch`` in bf16 (``--ab``): the
+    decode form at the serve shape through ``paged_flash_decode_bkhd``, held
+    to its plain version and timed; then the fused tick's chunk through one
+    layer of ``paged_chunk_prefill_attention`` with the kernels on (the same
+    signature in every checkout since the paged engine was ported), held to
+    the layer with the kernels off, timed with CUDA events (the whole layer)
+    and by the profiler (the paged kernels inside it alone)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models.attention import (init_attention,
+                                              paged_chunk_prefill_attention)
+    dev, dt = torch.device(DEVICE), torch.bfloat16
+    serve = paged_inputs(torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, dt)
+    err = check("paged_decode serve shape bfloat16",
+                pd.paged_flash_decode_bkhd(*serve),
+                pd.paged_flash_decode_plain(*serve), dt)
+    rows = [dict(name="paged_decode", shape="decode", max_abs_err=err,
+                 **paged_decode_timing(torch, pd, gen, serve))]
+    cfg = get_config("tinyllama-1.1b").replace(use_kernels=True)
+    p = init_attention(gen, cfg, dt, dev)
+    P = B * WIDTH + 1
+    table = (torch.randperm(P - 1, generator=gen, device=dev) + 1
+             ).reshape(B, WIDTH).to(torch.int32)
+    start = torch.randint(PS_SHARED, PROMPT - CK + 1, (B,), generator=gen,
+                          device=dev)
+    n_valid = torch.full((B,), CK, device=dev)
+
+    def layer_inputs():
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        return (randn(B, CK, cfg.d_model), randn(KV, P, PAGE, HD),
+                randn(KV, P, PAGE, HD))
+
+    def layer(x, kp, vp, c=cfg):
+        return paged_chunk_prefill_attention(c, p, x, kp, vp, table, start,
+                                             n_valid)[0]
+
+    sets = rotated(layer_inputs(), layer_inputs, ())
+    n0 = pd.paged_flash_decode_bkhd.launches
+    on = layer(*sets[0])
+    per_call = pd.paged_flash_decode_bkhd.launches - n0
+    off = layer(*sets[0], c=cfg.replace(use_kernels=False))
+    rel = ((on.float() - off.float()).norm() / off.float().norm()).item()
+    log(f"  paged chunk layer (fused shape B={B} ck={CK}) kernels on vs off: "
+        f"rel err {rel:.3e}  tol {BF16_LOGIT_TOL:.0e}; paged launches per "
+        f"call {per_call}")
+    if not rel <= BF16_LOGIT_TOL:
+        raise AssertionError(f"paged chunk layer: rel err {rel}")
+    rows.append(dict(name="paged_decode", shape="fused chunk layer",
+                     layer_rel_err=rel, launches_per_call=per_call,
+                     layer_ms=time_ms(torch, layer, sets),
+                     paged_device_ms=device_ms(torch, layer, sets,
+                                               only="paged_"),
+                     layer_device_ms=device_ms(torch, layer, sets)))
+    return rows
+
+
 def ab_phase(torch):
     """flash_decode and flash_prefill of the imported ``repro_torch`` alone
     at the serve shapes, bf16 and fp32: held to their plain versions, then
-    timed beside SDPA and the bound (``--ab``: one checkout per process, so
-    a parent and a change compare in one call)."""
+    timed beside SDPA and the bound; then paged_decode's two forms
+    (``paged_ab``) (``--ab``: one checkout per process, so a parent and a
+    change compare in one call)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
@@ -376,7 +594,7 @@ def ab_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
-    return rows
+    return rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
 
 
 def kernel_phase(torch):
@@ -441,7 +659,8 @@ def kernel_phase(torch):
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc),
                   dtype)
-    errs["paged"], paged_serve = paged_kernel_checks(torch, pd, gen)
+    errs["paged"], paged_serve, errs["chunk"], chunk_args = \
+        paged_kernel_checks(torch, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
     torch.cuda.synchronize()
 
@@ -452,32 +671,14 @@ def kernel_phase(torch):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
     dt, esz = torch.bfloat16, 2
-    # paged decode at the serve shape: B=8 rows over 36-page tables of 16,
-    # ragged lengths (one row 0); the bound counts what these lengths need
-    q, kp, vp, tables, lengths = paged_serve
-    pag_bytes = sum(t.numel() * t.element_size() for t in paged_serve)
-    pags = [paged_serve] + [
-        paged_inputs(torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, dt)
-        for _ in range(int(3 * L2_BYTES // pag_bytes))]
-    pags = [(a[0], a[1], a[2], tables, lengths) for a in pags]
-    t_k = time_ms(torch, pd.paged_flash_decode_bkhd, pags)
-    t_p = time_ms(torch, pd.paged_flash_decode_plain, pags, iters=10)
-    # K/V of the positions below each row's length (not the tails of the
-    # last pages, which the kernel never loads), q, out, the table entries
-    # of the live pages and the lengths
-    live_pages = int(((lengths.long() + PAGE - 1) // PAGE).sum())
-    live_pos = int(lengths.long().sum())
-    nbytes = (esz * (2 * live_pos * KV * HD + 2 * B * H * HD)
-              + 4 * live_pages + 4 * B)
-    b_ms, b_by = bound(nbytes, 4 * H * live_pos * HD, dt)
     rows.append(dict(name="paged_decode", route="cuda",
                      source="src/repro_torch/kernels/csrc/paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
-                     max_abs_err=errs["paged"], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     device_ms=device_ms(torch, pd.paged_flash_decode_bkhd,
-                                         pags),
-                     library_device_ms=None))
+                     max_abs_err=errs["paged"], library_ms=None,
+                     library_device_ms=None,
+                     chunk_max_abs_err=errs["chunk"],
+                     **paged_decode_timing(torch, pd, gen, paged_serve),
+                     **paged_chunk_timing(torch, pd, gen, chunk_args)))
     # SSD scan at mamba2-130m's serve shape, bf16, strided views as the
     # model passes them, nonzero initial state
     h, p, n = SSD_HEADS["mamba2-130m"]
@@ -515,6 +716,12 @@ def kernel_phase(torch):
             f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
             f"{r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        if "chunk_ms" in r:
+            log(f"  {'paged chunk':<14s} {'bfloat16':<9s} kernel "
+                f"{r['chunk_ms']:.4f} (device {r['chunk_device_ms']:.4f})  "
+                f"plain {r['chunk_plain_ms']:.4f}  bound "
+                f"{r['chunk_bound_ms']:.4f} ({r['chunk_bound_by']}); "
+                f"fused shape B={B} ck={CK}")
     return [r for r in rows if r.get("dtype", "bfloat16") == "bfloat16"]
 
 
@@ -918,6 +1125,13 @@ def prefix_phase(torch):
         if min(launches["flash_prefill"], launches["paged_decode"]) < 1:
             raise AssertionError(f"a kernel of the prefix path never ran: "
                                  f"{launches}")
+        # one chunk launch per layer per fused tick; one decode launch per
+        # layer per step, CHUNK steps per decode tick
+        want = {"fused": c.num_layers, "decode": CHUNK * c.num_layers}
+        got = {k: s_on[f"paged_launches_per_{k}_tick"] for k in want}
+        if got != want:
+            raise AssertionError(f"{c.name}: paged launches per tick {got}, "
+                                 f"want {want}")
         return agree, launches
 
     _, launches = study(cfg.replace(name="tinyllama-1.1b-L22"))
@@ -933,9 +1147,10 @@ def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
     ap.add_argument("--ab", metavar="SRC", default=None,
-                    help="time only flash_prefill and flash_decode of the "
-                         "repro_torch under SRC (a checkout's src/) beside "
-                         "SDPA, print one JSON line and stop")
+                    help="time only flash_prefill and flash_decode (beside "
+                         "SDPA) and paged_decode (its decode step and one "
+                         "fused-tick layer) of the repro_torch under SRC (a "
+                         "checkout's src/), print one JSON line and stop")
     args = ap.parse_args()
     src = Path(args.ab).resolve() if args.ab else ROOT / "src"
     import torch
@@ -979,12 +1194,17 @@ def main():
     ssm, _ = serve_phase(torch, arch="mamba2-130m")
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm))
+    # paged_decode's row also carries its chunk form at the fused tick's
+    # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "library_device_ms")
+            "device_ms", "library_device_ms", "chunk_max_abs_err",
+            "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",
+            "chunk_device_ms")
     log(f"[7] total wall time {time.time() - t_start:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

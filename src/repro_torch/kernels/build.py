@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_prefill", "flash_decode", "paged_decode", "ssd_scan")
@@ -140,3 +140,26 @@ def check_launch(name: str, err: int) -> None:
     """Raise on a nonzero ``cudaGetLastError()`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+# (device index, stream) -> (partials fp32, arrival counters int32): the
+# scratch of the kernels that split a row over CTAs and combine in the last
+# to arrive (flash_decode, paged_decode). Launches on one stream run in
+# order, so they never share it while in flight, and every launch leaves
+# its counters at zero.
+_WORKSPACE: Dict[Tuple[int, int], Tuple["torch.Tensor", "torch.Tensor"]] = {}
+
+
+def workspace(dev, stream: int, n_partials: int, n_rows: int):
+    """Partials of at least ``n_partials`` floats and ``n_rows`` arrival
+    counters (zero) for launches on ``stream``; grown, never shrunk."""
+    import torch
+    key = (dev.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < n_partials or ws[1].numel() < n_rows:
+        n_partials = max(n_partials, ws[0].numel() if ws else 0)
+        n_rows = max(n_rows, ws[1].numel() if ws else 0)
+        ws = _WORKSPACE[key] = (
+            torch.empty(n_partials, dtype=torch.float32, device=dev),
+            torch.zeros(n_rows, dtype=torch.int32, device=dev))
+    return ws

@@ -59,7 +59,7 @@
 // 64-query tile) walks the same key tiles on the CUDA cores, Q, K, V and
 // the probabilities in shared memory as fp32, register-tiled 4x8 micro
 // tiles, the same heaviest-first grid.
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace repro_torch {
 namespace {
@@ -67,7 +67,6 @@ namespace {
 constexpr int kThreads = 128;    // 4 warps
 constexpr int kBQ = 64;          // queries per CTA
 constexpr int kBK = 64;          // keys per tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Whether any (query, key) pair of the tiles starting at q0 and k0 is
 // masked: the tile crosses the diagonal, the window edge or the end of S.
@@ -106,27 +105,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x on the special-function unit (results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two fp32 values as a bf16 pair `hi` plus the bf16 pair of their rounding
-// residuals `lo`: hi + lo carries 16 mantissa bits (relative error <= 2^-18).
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
 // bf16 elements per shared-memory row: hd plus 16 bytes, so the 8 rows an
@@ -332,76 +310,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ============================================================ bf16: wgmma
-
-// One warpgroup (the CTA's 4 warps) issues each product: QK^T as
-// m64n64k16 with Q and K read from shared memory, PV as m64n64k16 with P
-// from registers and V from shared memory. Tiles are 64 rows of 64 bf16
-// (128 bytes) in the 128-byte swizzle: 16-byte chunk c of row r sits at
-// chunk c ^ (r % 8), so the tensor cores read them without bank conflicts.
-constexpr int kWgTile = 64 * 128;            // bytes of one 64 x 64 tile
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), 128-byte swizzle. Rows of one tile are 128 bytes
-// apart, 8-row groups 1024 bytes apart (the stride offset). K-major tiles
-// (Q, K) leave the leading offset unused; for V, read MN-major (keys along
-// K, hd along N), it would step to a next 64-wide block of hd, which a
-// 64-wide tile does not have.
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving accesses to accumulators across a wait.
-__device__ __forceinline__ void wg_fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WG_D32_OPS(d)                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-
-// d (64x64 fp32; scale_d 0 overwrites) += A (smem, K-major) * B (smem,
-// K-major)
-__device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                      int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32_OPS(d)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d += A (registers: this warp's 16 rows, the mma.sync A fragment) *
-// B (smem, MN-major)
-__device__ __forceinline__ void wg_rs(float (&d)[32], const uint32_t (&a)[4],
-                                      uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// (the products and their descriptors are in wgmma.cuh)
 
 // Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab with 64
 // columns into a swizzled tile at shared address `dst`; rows at or past S

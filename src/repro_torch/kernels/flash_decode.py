@@ -8,16 +8,16 @@ CUDA tensors launch the kernel or raise. One launch splits the cache axis
 over ``SPLITS`` CTAs per (b, kv-head); each writes its partial softmax
 sums to a scratch workspace and the last to arrive combines them, counted
 on a per-(b, kv-head) arrival counter that it leaves at zero. The
-workspace (partials and counters) is allocated once per device and stream
-and reused: launches on one stream run in order, so they never share it
-while in flight. ``flash_decode_bkhd.launches`` counts kernel launches
-(never plain-version calls).
+workspace (partials and counters, ``build.workspace``) is allocated once
+per device and stream and shared with paged_decode: launches on one stream
+run in order, so they never share it while in flight.
+``flash_decode_bkhd.launches`` counts kernel launches (never plain-version
+calls).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
 
 import torch
 
@@ -30,9 +30,6 @@ _ARGTYPES = [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, ctypes.c_float,
 MAX_GROUP_WIDTH = 4096          # G * hd accumulators per CTA (csrc kMaxAcc)
 SPLITS = 8                      # CTAs per (b, kv-head) (csrc kSplits)
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
-
-# (device index, stream) -> (partials fp32, arrival counters int32)
-_WORKSPACE: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def smem_bytes(G: int, hd: int, esize: int) -> int:
@@ -52,19 +49,6 @@ def _launch_fn():
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
-
-
-def _workspace(dev: torch.device, stream: int, n_partials: int, n_rows: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Partials of at least ``n_partials`` floats and ``n_rows`` arrival
-    counters (zero) for launches on ``stream``; grown, never shrunk."""
-    key = (dev.index, stream)
-    ws = _WORKSPACE.get(key)
-    if ws is None or ws[0].numel() < n_partials or ws[1].numel() < n_rows:
-        ws = _WORKSPACE[key] = (
-            torch.empty(n_partials, dtype=torch.float32, device=dev),
-            torch.zeros(n_rows, dtype=torch.int32, device=dev))
-    return ws
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,8 +91,8 @@ def flash_decode_bkhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _launch_fn()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    partials, arrivals = _workspace(dev, stream,
-                                    B * KV * SPLITS * (G * hd + 2 * G), B * KV)
+    partials, arrivals = build.workspace(
+        dev, stream, B * KV * SPLITS * (G * hd + 2 * G), B * KV)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
             G, C, hd, float(softcap), build.dtype_code(q), stream)

@@ -67,6 +67,22 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                                       softcap=softcap)
 
 
+def paged_flash_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor, tables: torch.Tensor,
+                             lengths: torch.Tensor, *, softcap: float = 0.0
+                             ) -> torch.Tensor:
+    """Paged attention for ck query tokens per row in one call: q
+    (B,ck,KV,G,hd); k/v_pages (KV,P,page_size,hd); tables (B,n_pages);
+    lengths (B,ck) live tokens per query -> (B,ck,KV,G,hd), the stack over
+    j of ``paged_flash_decode(q[:, j], ..., lengths[:, j])``. The operand
+    rules are met as there: q and lengths contiguous, tables and lengths
+    int32 (no-ops when already so)."""
+    return pd.paged_flash_decode_chunk(q.contiguous(), k_pages, v_pages,
+                                       tables.to(torch.int32),
+                                       lengths.to(torch.int32).contiguous(),
+                                       softcap=softcap)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *,
              chunk: int = ss.DEFAULT_CHUNK,

@@ -35,7 +35,7 @@ PAGE, CHUNK, CHUNKS = 16, 16, 3
 def _classify(name: str) -> str:
     n = name.lower()
     if any(k in n for k in ("flash_prefill", "flash_decode", "paged_decode",
-                            "ssd_scan")):
+                            "paged_chunk", "ssd_scan")):
         return "port_kernels"
     if any(s in n for s in ("gemm", "gemv", "cutlass", "xmma", "cublas",
                             "nvjet")):      # nvjet: cuBLAS's Hopper kernels

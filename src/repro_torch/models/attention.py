@@ -649,8 +649,9 @@ def paged_chunk_prefill_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     decode writes already use (no live row maps it, and no live output
     reads it), which keeps the write free of a host sync. Attention runs
     over the row's full block table with per-query masking ``t <= start +
-    j``; with the kernels, as in the reference, one paged-decode call per
-    chunk token with per-token lengths ``clip(pos + 1, 1, T)``.
+    j``; with the kernels, one paged-decode launch for the whole chunk
+    (``ops.paged_flash_decode_chunk``: the reference's one call per chunk
+    token, with per-token lengths ``clip(pos + 1, 1, T)``, in one kernel).
 
     Returns (attn_out (B, ck, D), k_pages, v_pages) — the same pool tensors.
     """
@@ -674,16 +675,10 @@ def paged_chunk_prefill_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     v_pages[:, page, off] = v.permute(2, 0, 1, 3).to(v_pages.dtype)
 
     if cfg.use_kernels:
-        # one relayout and one int32 cast for the whole chunk, so the ck
-        # calls below take views and pay no per-call copies
-        qt = q.reshape(B, ck, KV, H // KV, hd).transpose(0, 1).contiguous()
-        lengths = torch.clamp(positions + 1, 1, T).to(torch.int32).T \
-            .contiguous()                                      # (ck, B)
-        outs = [kops.paged_flash_decode(qt[j], k_pages, v_pages, page_table,
-                                        lengths[j],
-                                        softcap=cfg.attn_logit_softcap)
-                for j in range(ck)]
-        out = torch.stack(outs, dim=1).reshape(B, ck, H, hd)
+        lengths = torch.clamp(positions + 1, 1, T)             # (B, ck)
+        out = kops.paged_flash_decode_chunk(
+            q.reshape(B, ck, KV, H // KV, hd), k_pages, v_pages, page_table,
+            lengths, softcap=cfg.attn_logit_softcap).reshape(B, ck, H, hd)
     else:
         kg = k_pages[:, page_table].movedim(1, 0).reshape(B, KV, T, hd)
         vg = v_pages[:, page_table].movedim(1, 0).reshape(B, KV, T, hd)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import flash_prefill as fp
 from repro_torch.kernels import ops
@@ -99,9 +100,14 @@ def test_flash_decode_workspace_is_left_clean(cuda):
                                    rtol=TOL[torch.bfloat16])
         outs.append(out)
     torch.cuda.synchronize()
-    stream = torch.cuda.current_stream(cuda).cuda_stream
-    _, arrivals = fd._WORKSPACE[(torch.cuda.current_device(), stream)]
-    assert int(arrivals.abs().sum()) == 0
+    assert int(_arrivals(cuda).abs().sum()) == 0
+
+
+def _arrivals(device):
+    """The arrival counters of the split kernels' workspace on the current
+    stream (shared by flash_decode and paged_decode)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return build._WORKSPACE[(torch.cuda.current_device(), stream)][1]
 
 
 PREFILL_CASES = [
@@ -194,6 +200,151 @@ def test_paged_decode_kernel_matches_plain(cuda, B, KV, G, hd, ps, width,
                                rtol=TOL[dtype])
 
 
+PAGED_EDGES = [
+    # B, KV, G, hd, ps, width, lengths (NaN pages past each length)
+    (4, 2, 8, 64, 16, 36, (0, 3, 203, 576)),  # 0; below the split count;
+    #                                           not a multiple of it; full
+    (3, 2, 4, 64, 16, 1, (1, 16, 7)),         # a one-page table
+    (2, 1, 8, 128, 8, 1, (8, 5)),             # one page of 8, hd 128
+    (3, 4, 8, 64, 16, 36, (9, 1, 65)),        # lengths shorter than a split
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,hd,ps,width,lens", PAGED_EDGES)
+def test_paged_decode_split_edges(cuda, B, KV, G, hd, ps, width, lens,
+                                  dtype):
+    """The decode form's split over positions: empty splits (a length of 0,
+    or below the split count), a length not a multiple of the splits, a
+    one-page table; poisoned pages past every length."""
+    rng = np.random.default_rng(7)
+    q, kp, vp, tables, _ = _paged_inputs(rng, B, KV, G, hd, ps, width, dtype,
+                                         cuda)
+    lengths = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("nan")
+    for b, n in enumerate(lens):
+        tables[b, -(-n // ps):] = 0
+    out = pd.paged_flash_decode_bkhd(q, kp, vp, tables, lengths)
+    want = pd.paged_flash_decode_plain(q, kp, vp, tables, lengths)
+    assert torch.isfinite(out.float()).all()
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert (out[b] == 0).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def _chunk_inputs(rng, B, KV, G, hd, ps, width, n_pages, ck, dtype, device,
+                  poison=False):
+    """Chunk-form operands: q (B, ck, KV, G, hd), a shuffled pool, tables
+    sliced to n_pages columns of width, and lengths clip(start + j + 1, 1,
+    T) with row 0 crossing the 64-position tile border, row 1 all 1, row 2
+    clipped at T and row 3 zero at every other token. With ``poison``,
+    page 0 holds NaN and every table entry past a row's largest length
+    points at it."""
+    P = B * width + 1
+    T = n_pages * ps
+    q = _randn(rng, (B, ck, KV, G, hd), dtype, device)
+    kp = _randn(rng, (KV, P, ps, hd), dtype, device)
+    vp = _randn(rng, (KV, P, ps, hd), dtype, device)
+    tables = rng.permutation(np.arange(1, P)).reshape(B, width)
+    start = rng.integers(0, T, B)
+    start[0] = min(64 - ck // 2, T - 1)
+    if B > 2:
+        start[2] = T - 2
+    lengths = np.clip(start[:, None] + np.arange(ck)[None, :] + 1, 1, T)
+    lengths[1] = 1
+    if B > 3:
+        lengths[3, ::2] = 0
+    if poison:
+        kp[:, 0] = float("nan")
+        vp[:, 0] = float("nan")
+        for b in range(B):
+            tables[b, -(-int(lengths[b].max()) // ps):] = 0
+    tables = torch.as_tensor(tables, dtype=torch.int32, device=device)
+    return (q, kp, vp, tables[:, :n_pages],
+            torch.as_tensor(lengths, dtype=torch.int32, device=device))
+
+
+CHUNK_CASES = [
+    # B, KV, G, hd, ps, width, n_pages, ck, softcap, poison
+    (8, 4, 8, 64, 16, 36, 36, 16, 0.0, False),  # the fused tick's shape
+    (8, 4, 8, 64, 16, 36, 36, 16, 0.0, True),   # NaN pages past each row
+    (3, 2, 4, 128, 8, 10, 10, 5, 0.0, False),   # hd 128, page 8
+    (4, 4, 8, 64, 16, 12, 12, 16, 30.0, True),  # softcap
+    (5, 2, 1, 64, 8, 20, 12, 5, 0.0, True),     # G 1, a narrower slice
+    (4, 1, 8, 64, 16, 9, 9, 1, 0.0, False),     # ck 1
+    (4, 2, 5, 64, 16, 12, 12, 16, 0.0, True),   # G 5: 80 rows, 2 blocks
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KV,G,hd,ps,width,n_pages,ck,softcap,poison",
+                         CHUNK_CASES)
+def test_paged_chunk_kernel_matches_plain(cuda, B, KV, G, hd, ps, width,
+                                          n_pages, ck, softcap, poison,
+                                          dtype):
+    rng = np.random.default_rng(11)
+    q, kp, vp, tables, lengths = _chunk_inputs(
+        rng, B, KV, G, hd, ps, width, n_pages, ck, dtype, cuda, poison)
+    n0 = pd.paged_flash_decode_bkhd.launches
+    out = pd.paged_flash_decode_chunk(q, kp, vp, tables, lengths,
+                                      softcap=softcap)
+    torch.cuda.synchronize()
+    assert pd.paged_flash_decode_bkhd.launches == n0 + 1
+    want = pd.paged_flash_decode_chunk_plain(q, kp, vp, tables, lengths,
+                                             softcap=softcap)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float()[lengths == 0] == 0).all()   # a length of 0: zeros
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_chunk_kernel_equals_single_query_kernels(cuda, dtype):
+    """One chunk launch against ck launches of the single-query kernel at
+    each token's lengths (the reference's per-token loop), at the fused
+    tick's shape."""
+    q, kp, vp, tables, lengths = _chunk_inputs(
+        np.random.default_rng(12), 8, 4, 8, 64, 16, 36, 36, 16, dtype, cuda)
+    out = pd.paged_flash_decode_chunk(q, kp, vp, tables, lengths)
+    per_token = torch.stack([
+        pd.paged_flash_decode_bkhd(q[:, j].contiguous(), kp, vp, tables,
+                                   lengths[:, j].contiguous())
+        for j in range(q.shape[1])], dim=1)
+    torch.testing.assert_close(out.float(), per_token.float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_paged_decode_workspace_is_left_clean(cuda):
+    """The last split of each block sets its arrival counter back to zero:
+    chunk and decode launches of other shapes, interleaved with
+    flash_decode on the same workspace, give the plain versions' answers
+    and leave every counter at zero."""
+    rng = np.random.default_rng(13)
+    for shape in ((8, 4, 8, 64, 16, 36, 36, 16), (3, 2, 4, 128, 8, 10, 10, 5),
+                  (8, 4, 8, 64, 16, 36, 36, 16)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kp, vp, tables, lengths = _chunk_inputs(rng, *shape, dtype,
+                                                       cuda)
+            torch.testing.assert_close(
+                pd.paged_flash_decode_chunk(q, kp, vp, tables, lengths)
+                .float(),
+                pd.paged_flash_decode_chunk_plain(q, kp, vp, tables, lengths)
+                .float(), atol=TOL[dtype], rtol=TOL[dtype])
+            qd, ld = q[:, 0].contiguous(), lengths[:, -1].contiguous()
+            torch.testing.assert_close(
+                pd.paged_flash_decode_bkhd(qd, kp, vp, tables, ld).float(),
+                pd.paged_flash_decode_plain(qd, kp, vp, tables, ld).float(),
+                atol=TOL[dtype], rtol=TOL[dtype])
+        qf = _randn(rng, (8, 4, 8, 64), torch.bfloat16, cuda)
+        kf = _randn(rng, (8, 4, 576, 64), torch.bfloat16, cuda)
+        fd.flash_decode_bkhd(qf, kf, kf, torch.zeros((8, 576), device=cuda))
+    torch.cuda.synchronize()
+    assert int(_arrivals(cuda).abs().sum()) == 0
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     q = torch.zeros((1, 8, 2, 64), device=cuda)
     kv = torch.zeros((1, 8, 1, 64), device=cuda)
@@ -224,6 +375,21 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                .transpose(2, 3), pool, tables, lengths)
     with pytest.raises(ValueError):              # pool on the CPU
         ops.paged_flash_decode(q, pool.cpu(), pool, tables, lengths)
+    qc = torch.zeros((2, 3, 2, 4, 64), device=cuda)
+    lc = torch.ones((2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):              # lengths not (B, ck)
+        pd.paged_flash_decode_chunk(qc, pool, pool, tables, lengths)
+    with pytest.raises(TypeError):               # int64 lengths
+        pd.paged_flash_decode_chunk(qc, pool, pool, tables, lc.long())
+    with pytest.raises(ValueError):              # non-contiguous q
+        pd.paged_flash_decode_chunk(qc.transpose(1, 2).contiguous()
+                                    .transpose(1, 2), pool, pool, tables, lc)
+    with pytest.raises(TypeError):               # pool in another dtype
+        ops.paged_flash_decode_chunk(qc, pool.to(torch.bfloat16),
+                                     pool.to(torch.bfloat16), tables, lc)
+    with pytest.raises(ValueError):              # hd not a multiple of 8
+        ops.paged_flash_decode_chunk(qc[..., :60], pool[..., :60],
+                                     pool[..., :60], tables, lc)
     assert pd.paged_flash_decode_bkhd.launches == n0
 
 
@@ -253,7 +419,7 @@ def test_model_greedy_tokens_kernels_on_equal_off(cuda):
 def test_paged_engine_greedy_tokens_kernels_on_equal_off(cuda):
     """fp32 smoke rung on the paged engine with prefix sharing: identical
     per-request tokens with the kernels on (paged decode in decode steps
-    and, once per chunk token, in fused ticks) and off."""
+    and its chunk form, once per layer, in fused ticks) and off."""
     import time
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.serving.api import Request
