@@ -21,7 +21,8 @@ phase raises, and the script exits nonzero:
               state, through the strided views the model passes, and a
               ragged last chunk), with stated tolerances; then kernel /
               plain / library (SDPA, a yardstick the port never calls; none
-              for paged decode and the SSD scan) times from CUDA events,
+              for paged decode and the SSD scan, timed at mamba2-130m's and
+              hymba-1.5b's heads) times from CUDA events,
               inputs rotated through more than the 50 MB L2 cache (``ms``:
               back-to-back calls, so host-side launch cost counts where it
               exceeds the device time), and device time alone from
@@ -67,12 +68,13 @@ attention kernels take the absolute ``TOL``.
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 ``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
 flash_prefill and flash_decode of that checkout (event and device times,
-SDPA beside them, bf16 and fp32) and paged_decode (the decode step's call,
+SDPA beside them, bf16 and fp32), paged_decode (the decode step's call,
 and one layer of the fused tick's ``paged_chunk_prefill_attention`` with
-the paged kernels' device time inside it) and prints one JSON line, so a
-parent and a change compare in one call: unpack the parent with ``git
-archive <commit> | tar -x -C build/parent`` and run parent, change, change,
-parent.
+the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
+hymba-1.5b's serve shapes, bf16, strided views, nonzero initial state,
+held to the plain version) and prints one JSON line, so a parent and a
+change compare in one call: unpack the parent with ``git archive <commit>
+| tar -x -C build/parent`` and run parent, change, change, parent.
 """
 import argparse
 import json
@@ -378,6 +380,64 @@ def ssd_kernel_checks(torch, ss, plain, gen):
     return err
 
 
+def ssd_timing(torch, ss, plain, gen, arch, iters=20):
+    """ssd_scan at ``arch``'s serve shape (B x PROMPT, bf16, the strided
+    views the model passes, nonzero initial state), inputs rotated through
+    more than 3x the L2 size: kernel, plain and device times beside the
+    bound. The bound reads x, B, C, dt, A and the initial state once and
+    writes y and the final state once; its operations are, per (row,
+    chunk), C.B over the causal (l, s) pairs once (shared by the heads),
+    then per head the diagonal product over those pairs and the
+    carried-state and state-update products (q x p x n each), 2 flops per
+    multiply-add."""
+    dt, esz = torch.bfloat16, 2
+    h, p, n = SSD_HEADS[arch]
+    nbytes = (esz * (2 * B * PROMPT * h * p + 2 * B * PROMPT * n)
+              + 4 * (B * PROMPT * h + h + 2 * B * h * p * n))
+    sets = [ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
+            for _ in range(int(3 * L2_BYTES // nbytes) + 1)]
+    pairs = SSD_CHUNK * (SSD_CHUNK + 1) // 2
+    flops = 2 * B * (PROMPT // SSD_CHUNK) * (
+        pairs * n + h * (pairs * p + 2 * SSD_CHUNK * p * n))
+    b_ms, b_by = bound(nbytes, flops, dt)
+
+    def kern(*a):
+        return ss.ssd_scan_chunked(*a, chunk=SSD_CHUNK)
+    # device time of each of the kernel's launches (kernel names holding
+    # these; an older single-launch kernel matches none of them)
+    per_launch = {k: device_ms(torch, kern, sets, only=k) for k in (
+        "ssd_scan_chunk", "ssd_scan_pass", "ssd_scan_out")}
+    return dict(ms=time_ms(torch, kern, sets, iters=iters),
+                plain_ms=time_ms(torch, lambda *a: plain(*a[:5], SSD_CHUNK,
+                                                         a[5]),
+                                 sets, iters=6),
+                bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms(torch, kern, sets),
+                launch_device_ms=per_launch)
+
+
+def ssd_ab(torch, gen):
+    """ssd_scan of the imported ``repro_torch`` (``--ab``) at mamba2-130m's
+    and hymba-1.5b's serve shapes in bf16, through the strided views the
+    model passes with a nonzero initial state: y and the final state held
+    to the plain version under SSD_REL_TOL, then timed (``ssd_timing``)."""
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models.ssd import ssd_scan_plain
+    rows = []
+    for arch, hpn in SSD_HEADS.items():
+        x, dt, A, Bm, Cm, init = ssd_inputs(torch, gen, B, PROMPT, *hpn,
+                                            torch.bfloat16)
+        y, fin = ss.ssd_scan_chunked(x, dt, A, Bm, Cm, init, chunk=SSD_CHUNK)
+        wy, wfin = ssd_scan_plain(x, dt, A, Bm, Cm, SSD_CHUNK, init)
+        err = rel_check(f"ssd_scan {arch} serve shape bfloat16 y", y, wy,
+                        SSD_REL_TOL["torch.bfloat16"])
+        rel_check(f"ssd_scan {arch} serve shape bfloat16 state", fin, wfin,
+                  SSD_REL_TOL["torch.float32"])
+        rows.append(dict(name="ssd_scan", shape=arch, max_abs_err=err,
+                         **ssd_timing(torch, ss, ssd_scan_plain, gen, arch)))
+    return rows
+
+
 def rotated(first, make, shared):
     """``first`` plus enough sets from ``make()`` to exceed 3x the L2 size,
     each taking the arguments at indices ``shared`` from ``first`` (so
@@ -572,8 +632,9 @@ def ab_phase(torch):
     """flash_decode and flash_prefill of the imported ``repro_torch`` alone
     at the serve shapes, bf16 and fp32: held to their plain versions, then
     timed beside SDPA and the bound; then paged_decode's two forms
-    (``paged_ab``) (``--ab``: one checkout per process, so a parent and a
-    change compare in one call)."""
+    (``paged_ab``) and ssd_scan at both SSM serve shapes (``ssd_ab``)
+    (``--ab``: one checkout per process, so a parent and a change compare
+    in one call)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
@@ -594,7 +655,8 @@ def ab_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
-    return rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
+    return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
+            + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
 
 def kernel_phase(torch):
@@ -670,7 +732,6 @@ def kernel_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
-    dt, esz = torch.bfloat16, 2
     rows.append(dict(name="paged_decode", route="cuda",
                      source="src/repro_torch/kernels/csrc/paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
@@ -679,35 +740,17 @@ def kernel_phase(torch):
                      chunk_max_abs_err=errs["chunk"],
                      **paged_decode_timing(torch, pd, gen, paged_serve),
                      **paged_chunk_timing(torch, pd, gen, chunk_args)))
-    # SSD scan at mamba2-130m's serve shape, bf16, strided views as the
-    # model passes them, nonzero initial state
-    h, p, n = SSD_HEADS["mamba2-130m"]
-    ssd_set = ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
-    x, dts, A, Bm, Cm, init = ssd_set
-    ssd_bytes = (esz * (2 * B * PROMPT * h * p + 2 * B * PROMPT * n)
-                 + 4 * (B * PROMPT * h + h + 2 * B * h * p * n))
-    ssds = [ssd_set] + [ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
-                        for _ in range(int(3 * L2_BYTES // ssd_bytes))]
-    t_k = time_ms(torch, lambda *a: ss.ssd_scan_chunked(*a, chunk=SSD_CHUNK),
-                  ssds, iters=20)
-    t_p = time_ms(torch, lambda *a: ssd_scan_plain(*a[:5], SSD_CHUNK, a[5]),
-                  ssds, iters=6)
-    # x and y; B and C; dt, A, the initial and the final state. Operations:
-    # per (row, chunk) C.B over the causal (l, s) pairs once (shared by the
-    # heads), then per head the diagonal product over those pairs and the
-    # carried-state and state-update products (q x p x n each), 2 flops/FMA
-    pairs = SSD_CHUNK * (SSD_CHUNK + 1) // 2
-    ssd_flops = 2 * B * (PROMPT // SSD_CHUNK) * (
-        pairs * n + h * (pairs * p + 2 * SSD_CHUNK * p * n))
-    b_ms, b_by = bound(ssd_bytes, ssd_flops, dt)
+    ssd = {arch: ssd_timing(torch, ss, ssd_scan_plain, gen, arch)
+           for arch in SSD_HEADS}
+    hy = ssd["hymba-1.5b"]
     rows.append(dict(name="ssd_scan", route="cuda",
                      source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                      replaces="src/repro/kernels/ssd_scan.py:79",
-                     max_abs_err=errs["ssd"], ms=t_k, plain_ms=t_p,
-                     bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                     device_ms=device_ms(torch, lambda *a: ss.ssd_scan_chunked(
-                         *a, chunk=SSD_CHUNK), ssds),
-                     library_device_ms=None))
+                     max_abs_err=errs["ssd"], library_ms=None,
+                     library_device_ms=None, **ssd["mamba2-130m"],
+                     hymba_ms=hy["ms"], hymba_device_ms=hy["device_ms"],
+                     hymba_plain_ms=hy["plain_ms"],
+                     hymba_bound_ms=hy["bound_ms"]))
     for r in rows:
         lib = ("no single library call" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} (device "
@@ -716,6 +759,14 @@ def kernel_phase(torch):
             f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
             f"{r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        if "hymba_ms" in r:
+            log(f"  {'ssd_scan':<14s} {'bfloat16':<9s} kernel "
+                f"{r['hymba_ms']:.4f} (device {r['hymba_device_ms']:.4f})  "
+                f"plain {r['hymba_plain_ms']:.4f}  bound "
+                f"{r['hymba_bound_ms']:.4f}; hymba-1.5b's heads")
+            for arch, t in ssd.items():
+                log(f"  ssd_scan device ms by launch, {arch}: "
+                    + json.dumps(t["launch_device_ms"]))
         if "chunk_ms" in r:
             log(f"  {'paged chunk':<14s} {'bfloat16':<9s} kernel "
                 f"{r['chunk_ms']:.4f} (device {r['chunk_device_ms']:.4f})  "
@@ -1148,9 +1199,11 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--ab", metavar="SRC", default=None,
                     help="time only flash_prefill and flash_decode (beside "
-                         "SDPA) and paged_decode (its decode step and one "
-                         "fused-tick layer) of the repro_torch under SRC (a "
-                         "checkout's src/), print one JSON line and stop")
+                         "SDPA), paged_decode (its decode step and one "
+                         "fused-tick layer) and ssd_scan (mamba2-130m's and "
+                         "hymba-1.5b's serve shapes) of the repro_torch "
+                         "under SRC (a checkout's src/), print one JSON line "
+                         "and stop")
     args = ap.parse_args()
     src = Path(args.ab).resolve() if args.ab else ROOT / "src"
     import torch
@@ -1200,7 +1253,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms", "chunk_max_abs_err",
             "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",
-            "chunk_device_ms")
+            "chunk_device_ms", "hymba_ms", "hymba_device_ms",
+            "hymba_plain_ms", "hymba_bound_ms")
     log(f"[7] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -144,8 +144,9 @@ def check_launch(name: str, err: int) -> None:
 
 # (device index, stream) -> (partials fp32, arrival counters int32): the
 # scratch of the kernels that split a row over CTAs and combine in the last
-# to arrive (flash_decode, paged_decode). Launches on one stream run in
-# order, so they never share it while in flight, and every launch leaves
+# to arrive (flash_decode, paged_decode), and of ssd_scan's three launches
+# (chunk states, C.B, chunk decays; no counters). Launches on one stream run
+# in order, so they never share it while in flight, and every launch leaves
 # its counters at zero.
 _WORKSPACE: Dict[Tuple[int, int], Tuple["torch.Tensor", "torch.Tensor"]] = {}
 

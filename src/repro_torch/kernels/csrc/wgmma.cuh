@@ -1,6 +1,7 @@
-// Hopper tensor-core helpers shared by the kernels that run `wgmma`
-// (flash_prefill.cu, paged_decode.cu): fast exp2, bf16 packing with the
-// hi + lo split, and warpgroup matrix multiply from 128-byte-swizzled shared
+// Hopper tensor-core helpers shared by the kernels that run `wgmma` or
+// `mma.sync` (flash_prefill.cu, paged_decode.cu, ssd_scan.cu): fast exp2,
+// bf16 packing with the hi + lo split, warp-level `mma.sync` fed by
+// `ldmatrix`, and warpgroup matrix multiply from 128-byte-swizzled shared
 // memory.
 #pragma once
 
@@ -29,6 +30,32 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   hi = *reinterpret_cast<uint32_t*>(&h);
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// ---- warp-level tensor-core products (mma.sync) fed by ldmatrix
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One warpgroup (the CTA's 4 warps) issues each product: QK^T as

@@ -461,6 +461,9 @@ SSD_CASES = [
     (2, 300, 4, 64, 128, 128),    # ragged last chunk (44 of 128)
     (3, 45, 8, 32, 16, 16),       # ragged, chunk below one row tile
     (1, 5, 2, 64, 32, 5),         # s below the conv width scale, n 32
+    (2, 2048, 24, 64, 128, 128),  # sixteen chunks through the state pass
+    (4, 512, 24, 64, 128, 64),    # chunk 64
+    (2, 129, 8, 64, 128, 128),    # a one-step last chunk
 ]
 
 
@@ -520,6 +523,29 @@ def test_ssd_scan_kernel_state_chaining(cuda, dtype):
     assert _rel_err(f2, fin) <= SSD_REL_TOL[torch.float32]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_decay_underflow(cuda, dtype):
+    """Large dt |A| (~4.5 a step): cs falls to -370 .. -740 over a
+    128-step chunk, so exp(-cs_s) alone would overflow and exp(cs_l - cs_s)
+    underflows to 0 some 25 steps below the diagonal; outputs and state
+    stay finite and match the plain version. (Much larger |cs| is no test
+    of the kernel: both sides form cs_l - cs_s from fp32 cumsums, whose
+    rounding, ulp(|cs|), then moves the dominant decays by more than
+    1e-4.)"""
+    rng = np.random.default_rng(6)
+    x, dt, A, B, C, init = _ssd_inputs(rng, 2, 300, 8, 64, 128, dtype, cuda,
+                                       strided=True)
+    dt = dt + 1.0
+    A = A * 2.0 - 1.0
+    y, fin = ops.ssd_scan(x, dt, A, B, C, initial_state=init)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all())
+    assert bool(torch.isfinite(fin).all())
+    wy, wfin = ssd_scan_plain(x, dt, A, B, C, 128, init)
+    assert _rel_err(y, wy) <= SSD_REL_TOL[dtype]
+    assert _rel_err(fin, wfin) <= SSD_REL_TOL[torch.float32]
+
+
 def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
     x, dt, A, B, C, init = _ssd_inputs(np.random.default_rng(5), 2, 32, 4,
                                        64, 16, torch.float32, cuda)
@@ -537,6 +563,13 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
         ops.ssd_scan(x, dt, A, B.to(torch.bfloat16), C, chunk=16)
     with pytest.raises(ValueError):              # state on the CPU
         ops.ssd_scan(x, dt, A, B, C, chunk=16, initial_state=init.cpu())
+    # x, B and C as views one element off 16 bytes (base and row stride)
+    xc = torch.zeros((2, 32, 4 * 64 + 2 * 16 + 1), device=cuda)
+    with pytest.raises(ValueError):              # x not 16-byte aligned
+        ops.ssd_scan(xc[..., 1:257].unflatten(-1, (4, 64)), dt, A, B, C,
+                     chunk=16)
+    with pytest.raises(ValueError):              # B, C not 16-byte aligned
+        ops.ssd_scan(x, dt, A, xc[..., 257:273], xc[..., 273:289], chunk=16)
     assert ss.ssd_scan_chunked.launches == n0
 
 
