@@ -40,17 +40,30 @@ phase raises, and the script exits nonzero:
               must give identical greedy tokens) and hymba-1.5b (32 layers,
               bf16: ssd_scan beside flash_prefill / flash_decode with GQA
               group 5 and per-layer windows);
-  5. serve    the InfAdapter loop (``launch.serve``: full-width ladder
+  5. graphs   the engine's steps replayed as CUDA graphs against the same
+              steps run op by op (``step_graphs=False``), at full width on
+              shared weights: tinyllama-1.1b L22 dense (decode step) and
+              paged with prefix sharing (fused tick with every row
+              prefilling, paged decode step), mamba2-130m L24 (prefill,
+              decode step), hymba-1.5b L32 (decode step); tokens and every
+              cache leaf bitwise equal, port kernel launches per step
+              equal; wall ms, stream span (CUDA events), device ms and
+              kernels per step for both paths, and each backend's
+              readiness (captures included);
+  6. serve    the InfAdapter loop (``launch.serve``: full-width ladder
               8/15/22 layers, calibrate, ``run_serving_loop`` with the
               controller) on the dense engine, then on the paged engine with
               prefix sharing (``kv_cache="paged"``, page 16; the paged
               backend has no pump path, so it runs on the profiles
               calibrated on the dense engine of the same ladder and
               geometry), then on the dense engine over the full-width
-              mamba2-130m ladder 8/16/24; every request completes with its
+              mamba2-130m ladder 8/16/24, every step replayed as a CUDA
+              graph (the engine's default) and the readiness of every
+              variant load printed; every request completes with its
               full budget, every pool ends empty and consistent, and each
-              path's kernels' launch counters grow in its own phase;
-  6. prefix   the shared-system-prompt study at full width: 24 staggered
+              path's kernels' launch counters (replays add their captured
+              launches) grow in its own phase;
+  7. prefix   the shared-system-prompt study at full width: 24 staggered
               512-token requests over a 384-token shared prefix, every
               fourth an exact repeat (copy-on-write), sharing on vs off:
               prefix hits, CoW copies and fewer prefilled tokens with
@@ -58,7 +71,7 @@ phase raises, and the script exits nonzero:
               layer in a fused tick (the chunk form) and one per layer per
               step in a decode tick; bf16 token agreement printed; a
               4-layer fp32 rung must give identical tokens on vs off;
-  7. output   the ``{"kernels": [...]}`` line (launches summed over the
+  8. output   the ``{"kernels": [...]}`` line (launches summed over the
               serve and prefix phases), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
@@ -986,6 +999,166 @@ def ssm_model_phase(torch):
     return out
 
 
+def profiled(torch, fn):
+    """(device ms, kernels) of one call of ``fn`` from ``torch.profiler``:
+    every kernel it ran, a graph replay's included."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = [e for e in prof.key_averages()
+           if e.device_type == cuda and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in evs) / 1e3,
+            sum(e.count for e in evs))
+
+
+def graph_drive(torch, b, prompts, paged):
+    """Drive one backend through the serve path's steps and time them:
+    the prefill step alone, then B requests of ``prompts`` — admitted into
+    the dense ring, or on the paged backend bound for chunked prefill so
+    every row advances one CK-token chunk per fused tick — and decode ticks
+    until all finish. Each timed call ends in a host read or a
+    synchronise; CUDA events around it give its span on the stream (first
+    to last work enqueued: kernels plus the gaps between them); the second
+    call of each kind runs under the profiler instead. Returns ({kind:
+    {wall_ms, span_ms, device_ms, kernels, port_launches, steps}} per step,
+    outputs, cache leaves and cur_tok)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import Request
+    out = {}
+
+    def timed(kind, fn, calls, steps):
+        walls, spans, port = [], [], 0
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        for i in range(calls):
+            if i == 1:
+                dev_ms, kern = profiled(torch, fn)
+                continue
+            n0 = sum(ops.launch_counts().values())
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ev0.record()
+            fn()
+            ev1.record()
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3)
+            spans.append(ev0.elapsed_time(ev1))
+            port = sum(ops.launch_counts().values()) - n0
+        out[kind] = dict(wall_ms=float(np.median(walls)) / steps,
+                         span_ms=float(np.median(spans)) / steps,
+                         device_ms=dev_ms / steps, kernels=kern / steps,
+                         port_launches=port / steps, steps=steps)
+
+    tokens = b._host(prompts)
+    timed("prefill", lambda: b._step("prefill", B, tokens=tokens), 4, 1)
+    reqs = [Request(rid=i, tokens=prompts[i], max_new=b.max_new,
+                    arrival=time.time()) for i in range(B)]
+    if paged:
+        b.admit_chunked(reqs, 0.0)
+        timed("fused", lambda: b.fused_chunk_step(0.0), PROMPT // CK, 1)
+    else:
+        b.admit(reqs, 0.0)
+    ticks = -(-(b.max_new - 1) // CHUNK)
+    timed("decode", lambda: b.decode_step_batch(0.0), ticks, CHUNK)
+    if b.active_slots:
+        raise AssertionError(f"{b.name}: {b.active_slots} rows still live")
+    state = {**{k: t.clone() for k, t in b.cache.items()},
+             "cur_tok": b.cur_tok.clone()}
+    return out, {r.rid: r.output for r in reqs}, state
+
+
+def graph_phase(torch):
+    """Replays against the eager steps at full width (bf16, kernels on),
+    through the engine's backends on shared weights, one replaying CUDA
+    graphs and one op by op (``step_graphs=False``), fed the same requests:
+    tinyllama-1.1b L22 on the dense engine (decode step) and on the paged
+    engine with prefix sharing (fused tick, every row prefilling; paged
+    decode step), mamba2-130m L24 (prefill, decode step) and hymba-1.5b
+    L32 (decode step). Per-request tokens and every cache leaf must be
+    bitwise equal, and the port's kernel launches per step equal. Prints
+    wall ms per step (host clock, device synchronised), span ms (CUDA
+    events around the call), device ms and kernels per step
+    (``torch.profiler``), and each backend's readiness
+    (the replaying one's includes its captures)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import PagedVariantBackend, VariantBackend
+    dev = torch.device(DEVICE)
+    log("[5] graphs: full-width steps replayed vs eager, bf16, kernels on")
+    summary = {}
+    for arch, max_new, engines in (
+            ("tinyllama-1.1b", MAX_NEW, ("dense", "paged")),
+            ("mamba2-130m", 2 * CHUNK, ("dense",)),
+            ("hymba-1.5b", 2 * CHUNK, ("dense",))):
+        cfg = get_config(arch).replace(use_kernels=True)
+        params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                    (B, PROMPT))
+        for engine in engines:
+            paged = engine == "paged"
+            runs = {}
+            for path in ("eager", "replay"):
+                kw = dict(page_size=PAGE, prefix_sharing=True) if paged \
+                    else {}
+                cls = PagedVariantBackend if paged else VariantBackend
+                b = cls(f"{arch}-{engine}-{path}", cfg, 0.0, max_batch=B,
+                        prompt_len=PROMPT, max_new=max_new,
+                        decode_chunk=CHUNK, use_kernels=True, device=DEVICE,
+                        params=params, prefill_chunk_tokens=CK,
+                        step_graphs=path == "replay", **kw)
+                steps, outs, state = graph_drive(torch, b, prompts, paged)
+                runs[path] = (steps, outs, state, b.readiness_s)
+                b.close()
+                del b
+            (e_steps, e_outs, e_state, e_rt), (r_steps, r_outs, r_state,
+                                                r_rt) = runs["eager"], \
+                runs["replay"]
+            same_tok = all(np.array_equal(e_outs[i], r_outs[i])
+                           for i in e_outs)
+            # the pool's trash page 0 takes colliding writes of inert rows
+            # in scatter order on either path, and no live row reads it
+            cut = {k: (lambda t: t[:, :, 1:]) if k in ("kp", "vp")
+                   else (lambda t: t) for k in e_state}
+            diff = {k: float((cut[k](r_state[k]).float()
+                              - cut[k](e_state[k]).float()).abs().max())
+                    for k in e_state
+                    if not torch.equal(cut[k](r_state[k]),
+                                       cut[k](e_state[k]))}
+            name = f"{arch} L{cfg.num_layers} {engine}"
+            log(f"  {name}: readiness eager {e_rt:.3f}s, replay {r_rt:.3f}s;"
+                f" tokens equal {same_tok}; cache leaves differing "
+                f"{diff or 'none'}")
+            for kind, e in e_steps.items():
+                r = r_steps[kind]
+                log(f"    {kind:<8s} per step: eager wall {e['wall_ms']:.3f}"
+                    f" ms, span {e['span_ms']:.3f}, device "
+                    f"{e['device_ms']:.3f}, {e['kernels']:g} kernels "
+                    f"({e['port_launches']:g} port); replay wall "
+                    f"{r['wall_ms']:.3f} ms, span {r['span_ms']:.3f}, "
+                    f"device {r['device_ms']:.3f}, {r['kernels']:g} kernels "
+                    f"({r['port_launches']:g} port)")
+                if r["port_launches"] != e["port_launches"]:
+                    raise AssertionError(f"{name} {kind}: port launches per "
+                                         f"step {r['port_launches']} "
+                                         f"replayed, {e['port_launches']} "
+                                         f"eager")
+            if not same_tok or diff:
+                raise AssertionError(f"{name}: replay differs from eager "
+                                     f"(tokens equal {same_tok}, cache "
+                                     f"leaves {diff})")
+            summary[name] = {"readiness_s": {"eager": e_rt, "replay": r_rt},
+                             "eager": e_steps, "replay": r_steps}
+        del params
+        torch.cuda.empty_cache()
+    log("  graph summary " + json.dumps(summary))
+    return summary
+
+
 def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
     profiles first), or on the paged engine with prefix sharing using the
@@ -1000,13 +1173,24 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
     from repro_torch.serving.driver import rise_fall_load, run_serving_loop
     from repro_torch.serving.engine import InProcessServingEngine
     kind = f"{arch}, " + ("paged + prefix sharing" if paged else "dense")
-    log(f"[5] serve ({kind}): InfAdapter loop, full-width ladder, kernels on")
+    log(f"[6] serve ({kind}): InfAdapter loop, full-width ladder, kernels "
+        f"on, steps replayed as CUDA graphs")
     variants = build_ladder(arch, full_width=True)
     geo = GEOMETRY[True]
     kv = dict(kv_cache="paged", kv_page_size=PAGE,
               kv_prefix_sharing=True) if paged else {}
     engine = InProcessServingEngine(variants, use_kernels=True,
                                     device=DEVICE, **geo, **kv)
+    loads = []                 # (variant, readiness s) of every load
+    make = engine._make_backend
+
+    def make_logged(name):
+        b = make(name)
+        loads.append((name, b.readiness_s))
+        log(f"  loaded {name}: readiness {b.readiness_s:.3f}s "
+            f"({len(b.graphs)} step graphs)")
+        return b
+    engine._make_backend = make_logged
     if profiles is None:
         profiles = calibrate(engine, variants, reps=2,
                              max_new=geo["max_new"])
@@ -1056,7 +1240,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
                "p50_ms": s["p50_ms"], "violation_rate": s["violation_rate"],
                "goodput": s["goodput"], "avg_cost_units": s["avg_cost_units"],
                "accuracy_loss": s["accuracy_loss"], "slo_ms": slo_ms,
-               "wall_s": wall, "launches": launches}
+               "wall_s": wall, "launches": launches, "loads": loads}
     if paged:
         for name, b in engine.backends.items():
             b.pool.assert_invariants()
@@ -1085,7 +1269,7 @@ def prefix_phase(torch):
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.serving.api import Request
     from repro_torch.serving.engine import InProcessServingEngine
-    log(f"[6] prefix: {PS_N} staggered {PROMPT}-token requests over a "
+    log(f"[7] prefix: {PS_N} staggered {PROMPT}-token requests over a "
         f"{PS_SHARED}-token shared prefix, every 4th an exact repeat")
     cfg = get_config("tinyllama-1.1b")
     rng = np.random.default_rng(23)
@@ -1241,6 +1425,7 @@ def main():
     rows = kernel_phase(torch)
     model_phase(torch)
     ssm_model_phase(torch)
+    graph_phase(torch)
     dense, profiles = serve_phase(torch)
     paged, _ = serve_phase(torch, paged=True, profiles=profiles)
     prefix = prefix_phase(torch)
@@ -1255,7 +1440,7 @@ def main():
             "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",
             "chunk_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[7] total wall time {time.time() - t_start:.1f}s")
+    log(f"[8] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -147,20 +147,37 @@ def check_launch(name: str, err: int) -> None:
 # to arrive (flash_decode, paged_decode), and of ssd_scan's three launches
 # (chunk states, C.B, chunk decays; no counters). Launches on one stream run
 # in order, so they never share it while in flight, and every launch leaves
-# its counters at zero.
+# its counters at zero: a captured graph's replays rely on that.
+# A CUDA graph bakes in these buffers' addresses, so a buffer must have its
+# final size before any graph captures against it (warm every step shape on
+# the capture stream first, ``serving.graphs``); growing it during a capture
+# raises, and a graph keeps the buffers it captured against alive.
 _WORKSPACE: Dict[Tuple[int, int], Tuple["torch.Tensor", "torch.Tensor"]] = {}
 
 
 def workspace(dev, stream: int, n_partials: int, n_rows: int):
     """Partials of at least ``n_partials`` floats and ``n_rows`` arrival
-    counters (zero) for launches on ``stream``; grown, never shrunk."""
+    counters (zero) for launches on ``stream``; grown, never shrunk, and
+    never while ``stream`` is capturing a graph."""
     import torch
     key = (dev.index, stream)
     ws = _WORKSPACE.get(key)
     if ws is None or ws[0].numel() < n_partials or ws[1].numel() < n_rows:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"kernel workspace of stream {stream:#x} would grow to "
+                f"{n_partials} partials / {n_rows} counters during a CUDA "
+                f"graph capture: warm every step shape on the capture stream "
+                f"before capturing any")
         n_partials = max(n_partials, ws[0].numel() if ws else 0)
         n_rows = max(n_rows, ws[1].numel() if ws else 0)
         ws = _WORKSPACE[key] = (
             torch.empty(n_partials, dtype=torch.float32, device=dev),
             torch.zeros(n_rows, dtype=torch.int32, device=dev))
     return ws
+
+
+def workspace_buffers(dev, stream: int):
+    """The (partials, counters) pair launches on ``stream`` use now, or
+    None before the first."""
+    return _WORKSPACE.get((dev.index, stream))

@@ -8,7 +8,7 @@ relayouts, to the cache's native (B,KV,C,hd).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -108,3 +108,10 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for w in WRAPPERS.values():
         w.launches = 0
+
+
+def add_launch_counts(counts: Mapping[str, int]) -> None:
+    """Add per-kernel launches made outside the wrappers: a graph replay
+    runs the launches its capture recorded."""
+    for n, c in counts.items():
+        WRAPPERS[n].launches += c

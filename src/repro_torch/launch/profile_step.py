@@ -1,4 +1,5 @@
-"""Where a serve-path step's time goes on the card.
+"""Where a serve-path step's time goes on the card, run op by op and
+replayed as a CUDA graph.
 
 Runs a full-width model (``--arch``, default tinyllama-1.1b; bf16,
 kernels on) at the serve geometry — one prefill of 8 x 512 tokens, then 8
@@ -6,11 +7,14 @@ decode steps against the 576-slot cache; for the families with a paged
 form (dense), also the same prefill scattered into a page pool, then 8
 paged decode steps over 36-page tables of 16, then 3 prefill-continuation
 chunks of 16 tokens on every row through the pool (the fused tick's
-call) — under ``torch.profiler``, and prints for each: wall time (host
-clock, device synchronised), device time summed over kernels, the device
-busy share (device time / wall), kernel launches, and device time split
-into the port's kernels, matrix products and everything else, plus the
-top kernels by device time.
+call) — under ``torch.profiler``. Each region runs twice: eagerly, op by
+op, and as the replay of a CUDA graph captured from the same calls
+(``serving.graphs.StepGraph``, as the engine runs its steps; the 8 decode
+steps are one graph, as the engine's decode chunk is). It prints for
+each: wall time (host clock, device synchronised), device time summed over
+kernels, the device busy share (device time / wall), kernel launches, and
+device time split into the port's kernels, matrix products and everything
+else, plus the top kernels by device time.
 
 Usage (on the machine with the card):
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
@@ -27,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models.model import LM
+from repro_torch.serving.graphs import StepGraph, tensor_leaves
 
 B, PROMPT, CAP, STEPS = 8, 512, 576, 8
 PAGE, CHUNK, CHUNKS = 16, 16, 3
@@ -90,13 +95,16 @@ def main(argv=None):
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = lm.prefill(
-            params, {"tokens": toks}, max_len=CAP)
+        return lm.prefill(params, {"tokens": toks}, max_len=CAP)
+
+    def decode_steps(tok):
+        for _ in range(STEPS):
+            logits, _ = lm.decode_step(params, state["cache"], tok)
+            tok = torch.argmax(logits, -1)
+        return logits
 
     def decode():
-        for _ in range(STEPS):
-            tok = torch.argmax(state["logits"], -1)
-            state["logits"], _ = lm.decode_step(params, state["cache"], tok)
+        state["logits"] = decode_steps(torch.argmax(state["logits"], -1))
 
     width = CAP // PAGE
 
@@ -112,38 +120,86 @@ def main(argv=None):
                                     device=dev).reshape(B, width),
                        torch.arange(B, device=dev))
 
-    def paged_decode():
+    def paged_steps(tok):
         for _ in range(STEPS):
-            tok = torch.argmax(state["plogits"], -1)
-            state["plogits"], _ = lm.decode_step_paged(
-                params, state["pcache"], tok, n_pages=width)
+            logits, _ = lm.decode_step_paged(params, state["pcache"], tok,
+                                             n_pages=width)
+            tok = torch.argmax(logits, -1)
+        return logits
+
+    def paged_decode():
+        state["plogits"] = paged_steps(torch.argmax(state["plogits"], -1))
+
+    def chunk(tokens, start, n_valid):
+        return lm.prefill_chunk_paged(params, state["pcache"], tokens, start,
+                                      n_valid)[0]
+
+    n_valid = torch.full((B,), CHUNK, device=dev)
+    starts = [torch.full((B,), PROMPT + i * CHUNK, device=dev)
+              for i in range(CHUNKS)]
 
     def fused_chunks():
-        cache = state["pcache"]
-        n_valid = torch.full((B,), CHUNK, device=dev)
-        for i in range(CHUNKS):
-            start = torch.full((B,), PROMPT + i * CHUNK, device=dev)
-            lm.prefill_chunk_paged(params, cache, toks[:, :CHUNK], start,
-                                   n_valid)
+        for start in starts:
+            chunk(toks[:, :CHUNK], start, n_valid)
 
     paged = lm.supports_paged_cache()
-    prefill()
+    state["logits"], state["cache"] = prefill()
     decode()                                       # warm-up (builds, caches)
     if paged:
         paged_admit()
         paged_decode()
         fused_chunks()
+
+    # the same calls captured: warm all on the capture stream, then capture
+    stream = torch.cuda.Stream(dev)
+    tok = torch.argmax(state["logits"], -1)
+
+    def captured():
+        return (tensor_leaves(params) + tensor_leaves(state["cache"])
+                + tensor_leaves(state.get("pcache")))
+
+    graphs = {
+        "prefill": StepGraph("prefill", lambda tokens: lm.prefill(
+            params, {"tokens": tokens}, max_len=CAP), {"tokens": toks},
+            captured, stream),
+        "decode": StepGraph("decode", decode_steps, {"tok": tok}, captured,
+                            stream)}
+    if paged:
+        graphs["paged"] = StepGraph("paged decode", paged_steps,
+                                    {"tok": tok}, captured, stream)
+        graphs["chunk"] = StepGraph("chunk", chunk, {
+            "tokens": toks[:, :CHUNK], "start": starts[0],
+            "n_valid": n_valid}, captured, stream)
+    pool = torch.cuda.graph_pool_handle()
+    for g in graphs.values():                   # after every warm-up
+        g.capture(pool)
+
+    def replay(name, **inputs):
+        return lambda: graphs[name].run(**inputs)
+
+    def fused_replays():
+        for start in starts:
+            graphs["chunk"].run(tokens=toks[:, :CHUNK], start=start,
+                                n_valid=n_valid)
+
     print(f"{args.arch} L{cfg.num_layers} bf16, kernels on, "
           f"{torch.cuda.get_device_name(0)}")
-    _region(prefill, f"prefill B={B} S={PROMPT}")
-    _region(decode, f"decode {STEPS} steps B={B} C={CAP}")
-    if not paged:
-        return
-    paged_admit()
-    _region(paged_decode, f"paged decode {STEPS} steps B={B} "
-                          f"n_pages={width} page={PAGE}")
-    _region(fused_chunks, f"paged prefill chunks {CHUNKS} x {CHUNK} tokens "
-                          f"B={B}")
+    regions = [(prefill, replay("prefill", tokens=toks),
+                f"prefill B={B} S={PROMPT}"),
+               (decode, replay("decode", tok=tok),
+                f"decode {STEPS} steps B={B} C={CAP}")]
+    if paged:
+        regions += [(paged_decode, replay("paged", tok=tok),
+                     f"paged decode {STEPS} steps B={B} n_pages={width} "
+                     f"page={PAGE}"),
+                    (fused_chunks, fused_replays,
+                     f"paged prefill chunks {CHUNKS} x {CHUNK} tokens B={B}")]
+    for eager_fn, replay_fn, label in regions:
+        e = _region(eager_fn, f"{label}, eager")
+        r = _region(replay_fn, f"{label}, graph replay")
+        print(f"  replay/eager: wall {r['wall_ms'] / e['wall_ms']:.3f}, "
+              f"kernels seen by the profiler {r['kernel_launches']} / "
+              f"{e['kernel_launches']}")
 
 
 if __name__ == "__main__":

@@ -24,22 +24,43 @@ for a fully matched boundary block) and prefills only its novel tail in
 fused ticks: mid-prefill rows advance one ``prefill_chunk`` while decoding
 rows advance one token, in one call.
 
-Where the reference jits its steps and donates the cache, the port runs
-eagerly and updates preallocated device tensors in place: a decode step
-writes K/V into the resident cache, and admission copies only the masked
-slots from the freshly prefilled cache. Variant loading (weights + a
-warm-up of prefill, decode, the decode chunk and admission) happens on
-first use and IS the readiness time rt_m, measured with the device
-synchronised before the clock stops. The CUDA kernels are built before the
-first clock starts, so no variant's readiness includes the build.
+Where the reference jits each step and donates the cache, the port
+captures each step at its static shape as one CUDA graph
+(``serving.graphs.StepGraph``) and replays it, updating preallocated
+device tensors in place: the resident cache, the current tokens
+``cur_tok`` (one buffer, never replaced) and, for the dense backend, the
+"fresh" cache its prefill writes. The steps captured, as in the
+reference: the dense prefill at (max_batch, prompt_len), the pump path's
+one-token decode on the fresh cache (``generate``, which ``calibrate``
+times), the decode chunk on the resident cache; the paged prefill per
+batch bucket, the paged decode chunk per page bucket and the fused tick.
+Admission's merge (``_admit_merge``, ``paged_admit``) and the
+copy-on-write page copy stay eager, where the reference jits them too:
+their rows and pages are chosen on the host per call and they launch only
+a few copies. A step's outputs are static buffers that its next replay
+overwrites, so a pending record holds a copy of its tokens.
+
+``step_graphs=False`` runs the same steps directly, op by op: the eager
+path the card tests and chip_smoke compare replays against. On CPU tensors
+(the tests) a ``StepGraph`` runs its step eagerly on its static buffers.
+On a card there is no quiet way back to eager: a capture that fails, a
+step shape with no graph and a captured tensor that was replaced each
+raise.
+
+Variant loading (weights + one warm-up of every step, then the captures)
+happens on first use and IS the readiness time rt_m, measured with the
+device synchronised before the clock stops. The CUDA kernels are built
+before the first clock starts, so no variant's readiness includes the
+build.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 ignored: schedulers other than FIFO and ``preemption`` (ROADMAP A5),
 ``async_tick`` (A6), ``speculative`` (A7), the replica fabric ``nodes=``
-and tracing ``trace=``/``profile_dispatch=``/``obs=`` (see ROADMAP).
+and tracing ``trace=``/``profile_dispatch=``/``obs=`` (A3).
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -52,9 +73,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.models.attention import PagedKVCache
-from repro_torch.models.model import build_model
+from repro_torch.models.model import LM
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving.api import Request, summarize_requests
+from repro_torch.serving.graphs import StepGraph, StepGraphError, tensor_leaves
 from repro_torch.serving.sched import make_scheduler
 
 __all__ = ["Request", "VariantBackend", "PagedVariantBackend",
@@ -79,9 +101,11 @@ class _PrefillJob:
 @dataclass
 class _PendingExec:
     """One dispatched exec phase, committed by ``commit_exec``. ``toks`` is
-    the device output — the decode chunk's ``(chunk, B)`` token matrix or
-    the fused tick's ``(B,)`` ``cur_tok``. Value-independent bookkeeping
-    (remaining counts, positions, prefill progress) happened at dispatch;
+    a device copy of the step's tokens — the decode chunk's ``(chunk, B)``
+    token matrix or the fused tick's ``(B,)`` ``cur_tok`` — never the
+    step's static buffer, which a later tick overwrites.
+    Value-independent bookkeeping (remaining counts, positions, prefill
+    progress) happened at dispatch;
     the commit applies token appends, completion and retirement, guarded
     by the ``(request, slot_gen)`` pair of each item. The port's sync tick
     commits in the same tick (the reference's async tick, ROADMAP A6,
@@ -113,9 +137,13 @@ class VariantBackend:
     This base class holds the dense per-slot ring cache;
     ``PagedVariantBackend`` replaces it with the shared page pool. The slot
     lifecycle, the chunked-prefill machinery (fused ticks) and retirement
-    are shared; subclasses override ``_build_state`` (cache + warm-up,
-    measured as readiness), ``_dispatch_chunk``, admission and the
-    ``_retire_slot`` hook."""
+    are shared; subclasses override ``_build_state`` (cache + the steps
+    warmed and captured, measured as readiness), ``_dispatch_chunk``,
+    admission and the ``_retire_slot`` hook.
+
+    Every device step runs through ``_step(name, shape, **inputs)``: a
+    graph replay (``step_graphs``, the default), or with
+    ``step_graphs=False`` the step itself, op by op."""
 
     # The chunked-prefill machinery is built only where something needs a
     # continuation that starts mid-sequence: in the port, prefix sharing
@@ -130,7 +158,9 @@ class VariantBackend:
                  params: Optional[Dict] = None,
                  prefill_chunk_tokens: int = 16,
                  clock: Callable[[], float] = time.time,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None,
+                 step_graphs: bool = True,
+                 graph_stream: Optional["torch.cuda.Stream"] = None):
         self.name = name
         self.device = resolve_device(device)
         if use_kernels and not cfg.use_kernels:
@@ -144,7 +174,20 @@ class VariantBackend:
         self.decode_chunk = max(1, min(decode_chunk, max_new))
         self.clock = clock       # every service/completion stamp uses this
         self.prefill_chunk_tokens = max(1, prefill_chunk_tokens)
-        self.model = build_model(cfg)
+        # the backend's own model object: its per-layer views of the params
+        # go with the backend when it is retired
+        self.model = LM(cfg)
+        self.step_graphs = step_graphs
+        on_card = step_graphs and self.device.type == "cuda"
+        # the capture stream and the memory pool shared by this backend's
+        # graphs (an engine passes one capture stream to all its backends)
+        self._graph_stream = (graph_stream or torch.cuda.Stream(self.device)
+                              ) if on_card else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if on_card \
+            else None
+        self.graphs: Dict[Tuple[str, Optional[int]], StepGraph] = {}
+        self._steps: Dict[Tuple[str, Optional[int]], Callable] = {}
+        self._fresh: Optional[Dict] = None    # the dense prefill's cache
         self.units = 1
         self.slot_cap: Optional[int] = None   # units -> concurrency (enforced
         # only when the engine runs with enforce_units; see free_slots)
@@ -167,9 +210,7 @@ class VariantBackend:
             self.params = self.model.init(gen)
         else:
             self.params = params
-        self._build_state()                  # cache + warm-up = readiness
-        if self.chunked:
-            self._build_chunk_state()        # the fused-tick step too
+        self._build_state()        # cache + warm-up + captures = readiness
         _sync(self.device)
         self.readiness_s = time.time() - t0
 
@@ -184,30 +225,97 @@ class VariantBackend:
     def _decode(self, cache: Dict, tok: torch.Tensor):
         return self.model.decode_step(self.params, cache, tok)
 
+    # ---------------------------------------------------------- step capture
+    def _resident(self) -> List[torch.Tensor]:
+        """The device state the steps write in place: the cache,
+        ``cur_tok`` and the dense backend's fresh cache."""
+        return (tensor_leaves(self.cache) + [self.cur_tok]
+                + tensor_leaves(self._fresh))
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """What the steps read or write besides their inputs."""
+        return tensor_leaves(self.params) + self._resident()
+
+    def _build_steps(self, steps: Dict[Tuple[str, Optional[int]],
+                                       Tuple[Callable, Dict]]) -> None:
+        """Warm every step once (``(name, shape) -> (fn, example
+        inputs)``), then capture each (``step_graphs``) or keep it to call
+        directly, then zero the resident state the warm-up wrote to: every
+        path starts serving from the same state."""
+        if self.step_graphs:
+            self.graphs = {
+                key: StepGraph(f"{self.name}:{key[0]}@{key[1]}", fn, inputs,
+                               self._state_tensors, self._graph_stream)
+                for key, (fn, inputs) in steps.items()}
+            for g in self.graphs.values():      # after every warm-up
+                g.capture(self._graph_pool)
+            self._steps = {key: g.run for key, g in self.graphs.items()}
+        else:
+            for fn, inputs in steps.values():
+                fn(**inputs)
+            self._steps = {key: fn for key, (fn, _) in steps.items()}
+        for t in self._resident():
+            t.zero_()
+
+    def _step(self, name: str, shape: Optional[int], **inputs: torch.Tensor):
+        """Run step ``name`` at ``shape``; a shape with no step raises."""
+        step = self._steps.get((name, shape))
+        if step is None:
+            raise StepGraphError(f"{self.name}: no {name} step at shape "
+                                 f"{shape} (have {list(self._steps)})")
+        if not self.step_graphs:
+            inputs = {k: v.to(self.device, non_blocking=True)
+                      for k, v in inputs.items()}
+        return step(**inputs)
+
+    def _host(self, a: np.ndarray) -> torch.Tensor:
+        """A step input from the host: pinned on a card, so the copy into
+        the step's device buffer is asynchronous (the pinned block is
+        reused only after that copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def close(self) -> None:
+        """Drop the captured graphs and their memory pool (``apply_allocation``
+        calls this when it retires the variant)."""
+        self.graphs, self._steps = {}, {}
+
+    # ------------------------------------------------------------- the steps
+    def _prefill_step(self, tokens: torch.Tensor):
+        """Prefill ``tokens`` (max_batch, prompt_len) into the fresh cache;
+        returns (greedy first tokens, fresh cache)."""
+        logits, cache = self._prefill(tokens)
+        for k, t in self._fresh.items():
+            t.copy_(cache[k])
+        return torch.argmax(logits, dim=-1), self._fresh
+
+    def _decode_step(self, tok: torch.Tensor) -> torch.Tensor:
+        """The pump path's step: one token on the fresh cache -> the next
+        greedy tokens."""
+        logits, _ = self._decode(self._fresh, tok)
+        return torch.argmax(logits, dim=-1)
+
+    def _chunk_step(self) -> torch.Tensor:
+        """``decode_chunk`` steps on the resident cache from ``cur_tok``
+        (advanced in place); returns the emitted tokens (chunk, B)."""
+        tok, toks = self._chunk_scan(self.cache, self.cur_tok, self._decode)
+        self.cur_tok.copy_(tok)
+        return toks
+
     def _build_state(self) -> None:
-        """Dense KV discipline: one resident ``(max_batch, C)`` cache, plus a
-        warm-up of every step the engine runs (part of readiness)."""
+        """Dense KV discipline: one resident ``(max_batch, C)`` cache, the
+        fresh cache admission prefills into, and every step the engine
+        runs, warmed and captured (part of readiness)."""
         B, dev = self.max_batch, self.device
+        self.cache = self.model.init_cache(B, self._max_len, dev)
+        self._fresh = self.model.init_cache(B, self._max_len, dev)
+        self.cur_tok = torch.zeros((B,), dtype=torch.int64, device=dev)
         toks = torch.zeros((B, self.prompt_len), dtype=torch.int64,
                            device=dev)
-        logits, cache = self._prefill(toks)
-        first = torch.argmax(logits, dim=-1)
-        self._decode(cache, torch.zeros(B, dtype=torch.int64, device=dev))
-        self.cache, self.cur_tok = cache, first.clone()
-        self._decode_chunk()
-        self.cur_tok = first              # the reference keeps this feed
-        _, fresh = self._prefill(toks)
-        self._admit_merge(fresh, self.cur_tok, np.zeros((B,), np.int64),
-                          np.zeros((B,), bool))
-        self.slot_req = [None] * B                      # warm-up left no state
-
-    def _build_chunk_state(self) -> None:
-        """Warm the fused-tick step (part of readiness): one continuation
-        call with every row inert."""
-        B, ck, dev = self.max_batch, self.prefill_chunk_tokens, self.device
-        zeros = np.zeros((B,), np.int64)
-        self._prefill_chunk_step(np.zeros((B, ck), np.int64), zeros, zeros,
-                                 np.zeros((B,), bool), np.zeros((B,), bool))
+        self._build_steps({
+            ("prefill", B): (self._prefill_step, {"tokens": toks}),
+            ("decode", B): (self._decode_step, {"tok": self.cur_tok}),
+            ("chunk", None): (self._chunk_step, {})})
 
     # ------------------------------------------------------------ device fns
     def _chunk_scan(self, cache: Dict, tok: torch.Tensor, step_fn):
@@ -221,35 +329,44 @@ class VariantBackend:
             toks.append(tok)
         return tok, torch.stack(toks)
 
-    def _decode_chunk(self) -> torch.Tensor:
-        self.cur_tok, toks = self._chunk_scan(self.cache, self.cur_tok,
-                                              self._decode)
-        return toks
-
     def _model_prefill_chunk(self, tokens, start, n_valid):
         """KV-discipline hook: the paged backend runs the pool form."""
         raise NotImplementedError(
             "dense chunk_prefill_attention is not ported (ROADMAP A5)")
 
+    def _fused_step(self, tokens: torch.Tensor, start: torch.Tensor,
+                    n_valid: torch.Tensor, set_mask: torch.Tensor,
+                    feed_mask: torch.Tensor) -> None:
+        """The fused tick's step: one prefill-continuation chunk for every
+        mid-prefill row, plus the next greedy token for rows whose prompt
+        completes here (``set_mask``), written into ``cur_tok`` in place.
+        ``feed_mask`` rows (decodes riding the fused tick) take their input
+        token from the device-side ``cur_tok``, bitwise the host's
+        ``slot_tokens[s][-1]``."""
+        tokens[:, 0] = torch.where(feed_mask, self.cur_tok, tokens[:, 0])
+        logits, _ = self._model_prefill_chunk(tokens, start, n_valid)
+        tok = torch.argmax(logits, dim=-1)
+        self.cur_tok.copy_(torch.where(set_mask, tok, self.cur_tok))
+
     def _prefill_chunk_step(self, tokens: np.ndarray, start: np.ndarray,
                             n_valid: np.ndarray, set_mask: np.ndarray,
                             feed_mask: np.ndarray) -> None:
-        """One prefill-continuation chunk for every mid-prefill row, plus
-        the next greedy token for rows whose prompt completes here
-        (``set_mask``). ``feed_mask`` rows (decodes riding the fused tick)
-        take their input token from the device-side ``cur_tok``, bitwise
-        the host's ``slot_tokens[s][-1]``. ``cur_tok`` is replaced, not
-        written in place, so a pending record may hold the old one."""
-        dev = self.device
-        toks = torch.as_tensor(tokens, device=dev)
-        feed = torch.as_tensor(feed_mask, device=dev)
-        toks[:, 0] = torch.where(feed, self.cur_tok, toks[:, 0])
-        logits, _ = self._model_prefill_chunk(
-            toks, torch.as_tensor(start, device=dev),
-            torch.as_tensor(n_valid, device=dev))
-        tok = torch.argmax(logits, dim=-1)
-        self.cur_tok = torch.where(torch.as_tensor(set_mask, device=dev),
-                                   tok, self.cur_tok)
+        """Run the fused tick's step on these host arrays ((B, ck) int64
+        tokens; (B,) int64 start and n_valid; (B,) bool masks)."""
+        self._step("fused", self.max_batch, tokens=self._host(tokens),
+                   start=self._host(start), n_valid=self._host(n_valid),
+                   set_mask=self._host(set_mask),
+                   feed_mask=self._host(feed_mask))
+
+    def _fused_inputs(self) -> Dict[str, torch.Tensor]:
+        """Example inputs of the fused step: every row inert."""
+        B, ck, dev = self.max_batch, self.prefill_chunk_tokens, self.device
+        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+        no = torch.zeros((B,), dtype=torch.bool, device=dev)
+        return {"tokens": torch.zeros((B, ck), dtype=torch.int64,
+                                      device=dev),
+                "start": zeros, "n_valid": zeros, "set_mask": no,
+                "feed_mask": no}
 
     def _admit_merge(self, new_cache: Dict, new_tok: torch.Tensor,
                      src: np.ndarray, mask: np.ndarray) -> None:
@@ -271,18 +388,16 @@ class VariantBackend:
     def generate(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
         """Legacy pump path: per-token decode loop over a micro-batch.
 
-        prompts: (b, prompt_len), padded to max_batch internally."""
+        prompts: (b, prompt_len), padded to max_batch internally: the
+        prefill step, then ``max_new`` one-token steps on its cache."""
         b = prompts.shape[0]
-        toks = torch.zeros((self.max_batch, prompts.shape[1]),
-                           dtype=torch.int64, device=self.device)
-        toks[:b] = torch.as_tensor(prompts, dtype=torch.int64)
-        logits, cache = self._prefill(toks)
+        toks = np.zeros((self.max_batch, prompts.shape[1]), np.int64)
+        toks[:b] = prompts
+        tok, _ = self._step("prefill", self.max_batch, tokens=self._host(toks))
         outs = []
-        tok = torch.argmax(logits, dim=-1)
         for _ in range(max_new):
-            outs.append(tok)
-            logits, cache = self._decode(cache, tok)
-            tok = torch.argmax(logits, dim=-1)
+            outs.append(tok.clone())       # the step's buffer is reused
+            tok = self._step("decode", self.max_batch, tok=tok)
         return torch.stack(outs, dim=1)[:b].cpu().numpy()
 
     # ------------------------------------------------- continuous-batch path
@@ -312,9 +427,8 @@ class VariantBackend:
         for j, r in enumerate(reqs):
             prompts[j, :len(r.tokens)] = r.tokens[:self.prompt_len]
         self._count_prefill_tokens(len(reqs) * self.prompt_len)
-        logits, new_cache = self._prefill(
-            torch.as_tensor(prompts, device=self.device))
-        first = torch.argmax(logits, dim=-1)
+        first, new_cache = self._step("prefill", rows,
+                                      tokens=self._host(prompts))
         return first, first.cpu().numpy(), new_cache
 
     def _count_prefill_tokens(self, n: int) -> None:
@@ -432,7 +546,7 @@ class VariantBackend:
             n_valid[s] = 1
             set_mask[s] = True                       # argmax = next token
         self._prefill_chunk_step(tokens, start, n_valid, set_mask, feed_mask)
-        pend = _PendingExec(kind="fused", toks=self.cur_tok)
+        pend = _PendingExec(kind="fused", toks=self.cur_tok.clone())
         for slot, job in list(self._prefilling.items()):
             nv = int(n_valid[slot])
             job.pos += nv
@@ -480,7 +594,7 @@ class VariantBackend:
 
     def _dispatch_chunk(self) -> torch.Tensor:
         """Run one decode chunk; returns its tokens (chunk, B)."""
-        toks = self._decode_chunk()
+        toks = self._step("chunk", None).clone()
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
@@ -613,20 +727,18 @@ class PagedVariantBackend(VariantBackend):
                                              + self.decode_chunk)
         self.page_buckets = _bucket_ladder(first_pages, self.pages_per_slot)
 
-        # warm-up of every batch bucket and page bucket the backend runs —
-        # part of this backend's measured readiness rt_m
-        for bb in self.batch_buckets:
-            toks = torch.zeros((bb, self.prompt_len), dtype=torch.int64,
-                               device=dev)
-            logits, pref = self._prefill(toks)
-            first = torch.argmax(logits, dim=-1)
-            model.paged_admit(
-                self.cache, pref, self.cur_tok, first,
-                torch.full((bb, self.pages_per_slot), self.pool.total_pages,
-                           device=dev),                 # OOB page ids: drop
-                torch.full((bb,), B, device=dev))       # OOB slots: drop
+        # every batch bucket, page bucket and the fused tick, warmed and
+        # captured — part of this backend's measured readiness rt_m
+        steps = {("prefill", bb): (self._prefill_step, {
+            "tokens": torch.zeros((bb, self.prompt_len), dtype=torch.int64,
+                                  device=dev)})
+            for bb in self.batch_buckets}
         for nb in self.page_buckets:
-            self._decode_chunk_paged(nb)
+            steps[("chunk", nb)] = (
+                functools.partial(self._paged_chunk_step, nb), {})
+        if self.chunked:
+            steps[("fused", B)] = (self._fused_step, self._fused_inputs())
+        self._build_steps(steps)
         if self.prefix_sharing:
             model.paged_cow_copy(self.cache, 0, 0)      # warm: trash->trash
 
@@ -635,13 +747,22 @@ class PagedVariantBackend(VariantBackend):
         return self.model.prefill(self.params, {"tokens": tokens},
                                   max_len=self.prompt_len)
 
-    def _decode_chunk_paged(self, n_pages: int) -> torch.Tensor:
+    def _prefill_step(self, tokens: torch.Tensor):
+        """Prefill one batch bucket; returns (greedy first tokens, the
+        right-sized prefill cache)."""
+        logits, cache = self._prefill(tokens)
+        return torch.argmax(logits, dim=-1), cache
+
+    def _paged_chunk_step(self, n_pages: int) -> torch.Tensor:
         """``decode_chunk`` paged decode steps at the live-page bucket
-        ``n_pages``; returns the emitted tokens (chunk, B)."""
-        self.cur_tok, toks = self._chunk_scan(
+        ``n_pages`` (the first ``n_pages`` columns of the block table) from
+        ``cur_tok`` (advanced in place); returns the emitted tokens
+        (chunk, B)."""
+        tok, toks = self._chunk_scan(
             self.cache, self.cur_tok,
             lambda c, t: self.model.decode_step_paged(self.params, c, t,
                                                       n_pages=n_pages))
+        self.cur_tok.copy_(tok)
         return toks
 
     def _model_prefill_chunk(self, tokens, start, n_valid):
@@ -768,7 +889,7 @@ class PagedVariantBackend(VariantBackend):
         need = self.pool.pages_needed(int(max(live)) + self.decode_chunk)
         need = min(need, self.pages_per_slot)
         nb = next(b for b in self.page_buckets if b >= need)
-        toks = self._decode_chunk_paged(nb)
+        toks = self._step("chunk", nb).clone()
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
@@ -801,6 +922,9 @@ class InProcessServingEngine:
     ``weights`` (variant -> params, e.g. from ``repro_torch.bridge``)
     replaces a variant's seeded init, so tests can run the reference's own
     weights. ``use_kernels`` routes attention through the CUDA kernels.
+    ``step_graphs`` (default) replays each backend's steps as CUDA graphs on
+    a card (``VariantBackend``); ``False`` runs them op by op, the eager
+    path replays are held against.
     """
 
     def __init__(self, variants: Mapping[str, Tuple[ModelConfig, float]],
@@ -819,7 +943,8 @@ class InProcessServingEngine:
                  preemption: str = "none",
                  trace: bool = False, obs=None, profile_dispatch: int = 0,
                  async_tick: bool = False,
-                 speculative: Optional[str] = None):
+                 speculative: Optional[str] = None,
+                 step_graphs: bool = True):
         if mode not in ("continuous", "pump"):
             raise ValueError(f"mode must be continuous|pump, got {mode!r}")
         if kv_cache not in ("dense", "paged"):
@@ -834,10 +959,10 @@ class InProcessServingEngine:
         _refuse("preemption", preemption, "none", "A5")
         _refuse("async_tick", async_tick, False, "A6")
         _refuse("speculative", speculative, None, "A7")
-        _refuse("nodes", nodes, None, "C: replica fabric")
-        _refuse("trace", trace, False, "C: tracing")
-        _refuse("obs", obs, None, "C: tracing")
-        _refuse("profile_dispatch", profile_dispatch, 0, "C: tracing")
+        _refuse("nodes", nodes, None, "A3")
+        _refuse("trace", trace, False, "A3")
+        _refuse("obs", obs, None, "A3")
+        _refuse("profile_dispatch", profile_dispatch, 0, "A3")
         self.device = resolve_device(device)
         self.sched = make_scheduler(scheduler)
         self.clock = clock   # every arrival/service/completion stamp source
@@ -860,6 +985,11 @@ class InProcessServingEngine:
         self.kv_prefix_sharing = kv_prefix_sharing
         self.prefill_chunk = prefill_chunk
         self.enforce_units = enforce_units
+        self.step_graphs = step_graphs
+        # one capture stream for every backend's graphs (each keeps its own
+        # memory pool, retired with it)
+        self._graph_stream = torch.cuda.Stream(self.device) if (
+            step_graphs and self.device.type == "cuda") else None
         self.backends: Dict[str, VariantBackend] = {}
         self.units: Dict[str, int] = {}
         self.queues: Dict[str, Deque[Request]] = {}
@@ -875,7 +1005,9 @@ class InProcessServingEngine:
                   use_kernels=self.use_kernels, device=self.device,
                   params=self.weights.get(variant),
                   prefill_chunk_tokens=self.prefill_chunk,
-                  clock=self.clock, metrics=self.metrics)
+                  clock=self.clock, metrics=self.metrics,
+                  step_graphs=self.step_graphs,
+                  graph_stream=self._graph_stream)
         if self.kv_cache == "paged":
             return PagedVariantBackend(variant, cfg, acc,
                                        page_size=self.kv_page_size,
@@ -900,6 +1032,7 @@ class InProcessServingEngine:
                 # stay queued and are rebalanced onto survivors at the next
                 # tick — an accepted request is never dropped by a switch
                 self.done.extend(b.drain_slots(t))
+                b.close()        # its graphs and their pool go with it
         self._rebalance_queues()
         self.units = dict(target)
         self.cost_log.append((t, sum(target.values())))

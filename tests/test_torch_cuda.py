@@ -603,3 +603,200 @@ def test_ssm_models_greedy_tokens_kernels_on_equal_off(cuda, arch):
     for key in caches[0]:
         if key != "pos":
             assert _rel_err(caches[1][key], caches[0][key]) <= 1e-4, key
+
+
+# ---------------------------------------------------------------- step capture
+
+def _smoke(arch, **kw):
+    from repro_torch.configs import get_config, smoke_variant
+    return smoke_variant(get_config(arch)).replace(d_model=128, **kw)
+
+
+def _shared_prompts(vocab, n=6):
+    """Prompts of 32 over one 24-token prefix, two exact repeats."""
+    rng = np.random.default_rng(9)
+    pre = rng.integers(0, vocab, 24)
+    prompts = [np.concatenate([pre, rng.integers(0, vocab, 8)])
+               for _ in range(n - 2)]
+    return prompts + [prompts[0], prompts[1]]
+
+
+def _serve_engine(cuda, cfg, step_graphs, engine_kw, mode="continuous"):
+    """Serve six requests (staggered one per tick in continuous mode, so
+    paged prefix hits take the fused tick) on a fresh engine, kernels on.
+    Returns (outputs, every backend's cache leaves and cur_tok, kernel
+    launches counted from before the engine was built, engine)."""
+    import time
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    ops.reset_launch_counts()
+    eng = InProcessServingEngine(
+        {"v": (cfg, 70.0)}, max_batch=3, prompt_len=32, max_new=8,
+        decode_chunk=2, prefill_chunk=8, use_kernels=True, device=cuda,
+        mode=mode, step_graphs=step_graphs, **engine_kw)
+    eng.apply_allocation(0.0, {"v": 1})
+    for i, p in enumerate(_shared_prompts(cfg.vocab_size)):
+        eng.submit(Request(rid=i, tokens=p, max_new=8, arrival=time.time()),
+                   "v")
+        if mode == "continuous":
+            eng.step(0.0)
+    eng.drain(0.0) if mode == "continuous" else eng.pump(0.0)
+    torch.cuda.synchronize()
+    b = eng.backends["v"]
+    state = {**{k: t.clone() for k, t in b.cache.items()},
+             "cur_tok": b.cur_tok.clone()}
+    return ({r.rid: list(r.output) for r in eng.done}, state,
+            ops.launch_counts(), eng)
+
+
+GRAPH_ENGINES = [
+    # label, arch, config overrides, engine kwargs, mode
+    ("dense fp32", "tinyllama-1.1b", dict(num_layers=2), {}, "continuous"),
+    ("dense bf16", "tinyllama-1.1b", dict(num_layers=2, dtype="bfloat16"),
+     {}, "continuous"),
+    ("dense pump", "tinyllama-1.1b", dict(num_layers=2), {}, "pump"),
+    ("paged", "tinyllama-1.1b", dict(num_layers=2),
+     dict(kv_cache="paged", kv_page_size=8), "continuous"),
+    ("paged sharing, fused tick", "tinyllama-1.1b", dict(num_layers=2),
+     dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True),
+     "continuous"),
+    ("mamba2", "mamba2-130m", {}, {}, "continuous"),
+    ("mamba2 pump", "mamba2-130m", {}, {}, "pump"),
+    ("hymba", "hymba-1.5b", {}, {}, "continuous"),
+]
+
+
+@pytest.mark.parametrize("label,arch,over,engine_kw,mode", GRAPH_ENGINES)
+def test_step_graph_replays_equal_eager_steps(cuda, label, arch, over,
+                                             engine_kw, mode):
+    """The engine replaying captured steps against the same engine run op
+    by op (``step_graphs=False``), kernels on: bitwise-equal per-request
+    tokens and every cache leaf, the same kernel launches counted (warm-up
+    included: the capture's own counts are taken back), and the arrival
+    counters of the capture stream's workspace back at zero. The page
+    pool's trash page 0 is the one exception: inert rows and padded chunk
+    tokens all write into it at the same offsets, so which write lands
+    there depends on scatter order on either path; no live row reads it."""
+    cfg = _smoke(arch, **over)
+    got, state, launches, eng = _serve_engine(cuda, cfg, True, engine_kw,
+                                              mode)
+    want, ref_state, ref_launches, _ = _serve_engine(cuda, cfg, False,
+                                                     engine_kw, mode)
+    assert len(want) == 6 and got == want
+    assert state.keys() == ref_state.keys()
+    for k in state:
+        if k in ("kp", "vp"):       # pool (L, KV, P, page, hd): by page
+            diff = (state[k] != ref_state[k]).flatten(3).any(-1).any(1)
+            assert set(diff.any(0).nonzero().flatten().tolist()) <= {0}, k
+        else:
+            assert torch.equal(state[k], ref_state[k]), k
+    assert launches == ref_launches and sum(launches.values()) > 0
+    b = eng.backends["v"]
+    assert b.graphs and all(g.graph is not None for g in b.graphs.values())
+    if engine_kw.get("kv_prefix_sharing"):
+        assert eng.kv_pool_stats()["prefix_hits"] > 0
+        assert ("fused", 3) in b.graphs
+    ws = build.workspace_buffers(eng._graph_stream.device,
+                                 eng._graph_stream.cuda_stream)
+    assert ws is not None and int(ws[1].abs().sum()) == 0
+
+
+def test_step_graph_raises_on_a_moved_tensor_and_a_missing_shape(cuda):
+    from repro_torch.serving.engine import VariantBackend
+    from repro_torch.serving.graphs import StepGraphError
+    cfg = _smoke("tinyllama-1.1b", num_layers=2)
+    b = VariantBackend("v", cfg, 70.0, max_batch=2, prompt_len=16,
+                       max_new=4, decode_chunk=2, use_kernels=True,
+                       device=cuda)
+    with pytest.raises(StepGraphError):          # no graph at this length
+        b.generate(np.zeros((2, 17), np.int64), 2)
+    b._step("chunk", None)
+    b.cache["k"] = b.cache["k"].clone()          # replaced, not in place
+    with pytest.raises(StepGraphError, match="replaced"):
+        b._step("chunk", None)
+
+
+def test_a_capture_runs_with_the_cyclic_collector_off(cuda):
+    """A collection inside a capture could free a dead engine's graph held
+    by a reference cycle, and destroying a graph invalidates the capture in
+    progress (the replay test above once failed so); the step runs with
+    the collector off while it is captured, and it is back on after."""
+    import gc
+    from repro_torch.serving.graphs import StepGraph
+    x = torch.ones(4, device=cuda)
+    seen = []
+
+    def step(a):
+        seen.append(gc.isenabled())
+        return a + 1
+
+    g = StepGraph("gc", step, {"a": x}, lambda: [], torch.cuda.Stream(cuda))
+    g.capture(torch.cuda.graph_pool_handle())
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(g.run(a=x), x + 1)
+
+
+def test_workspace_refuses_to_grow_during_capture(cuda):
+    """A kernel workspace that would have to grow inside a capture raises
+    (the graph would bake in a buffer the growth frees)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    s = torch.cuda.Stream(dev)
+    ws = build.workspace_buffers(dev, s.cuda_stream)
+    rows = (ws[1].numel() if ws else 0) + 1
+    with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=s):
+            build.workspace(dev, s.cuda_stream, 1, rows)
+    B = rows // 4 + 1                            # B * KV arrival counters
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (B, 4, 8, 64), torch.bfloat16, dev)
+    k = _randn(rng, (B, 4, 16, 64), torch.bfloat16, dev)
+    bias = torch.zeros((B, 16), device=dev)
+    with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=s):
+            fd.flash_decode_bkhd(q, k, k, bias)
+
+
+def test_a_retired_variant_leaves_no_device_memory(cuda):
+    """Load a variant, serve, retire it: after the first cycle (which makes
+    what the process keeps: cuBLAS's and the kernels' workspaces on the
+    capture stream), three more cycles end at the same allocated bytes —
+    the graphs, their pool, the caches and the weights go with it."""
+    import gc
+    import time
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = _smoke("tinyllama-1.1b", num_layers=2)
+    eng = InProcessServingEngine(
+        {"v": (cfg, 70.0)}, max_batch=3, prompt_len=32, max_new=8,
+        decode_chunk=2, kv_cache="paged", kv_page_size=8,
+        kv_prefix_sharing=True, prefill_chunk=8, use_kernels=True,
+        device=cuda)
+
+    def cycle():
+        eng.apply_allocation(0.0, {"v": 1})
+        for i, p in enumerate(_shared_prompts(cfg.vocab_size)):
+            eng.submit(Request(rid=i, tokens=p, max_new=8,
+                               arrival=time.time()), "v")
+            eng.step(0.0)
+        eng.drain(0.0)
+        eng.apply_allocation(0.0, {})
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    base = cycle()
+    assert [cycle() for _ in range(3)] == [base] * 3
+
+
+def test_a_failed_capture_raises(cuda):
+    """A step that syncs with the host cannot be captured: the capture
+    raises and the step stays unusable (no eager fallback). Last in the
+    file: a failed capture may leave its stream's pool routing behind."""
+    from repro_torch.serving.graphs import StepGraph, StepGraphError
+    x = torch.ones(4, device=cuda)
+    g = StepGraph("sync", lambda a: a.sum().item(), {"a": x}, lambda: [],
+                  torch.cuda.Stream(cuda))
+    with pytest.raises(RuntimeError):
+        g.capture(torch.cuda.graph_pool_handle())
+    with pytest.raises(StepGraphError, match="never captured"):
+        g.run(a=x)
