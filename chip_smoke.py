@@ -19,8 +19,13 @@ phase raises, and the script exits nonzero:
               and NaN pages past every row's length; for the SSD scan:
               mamba2-130m's and hymba-1.5b's heads with a nonzero initial
               state, through the strided views the model passes, and a
-              ragged last chunk), with stated tolerances; then kernel /
-              plain / library (SDPA, a yardstick the port never calls; none
+              ragged last chunk; for flash_decode's chunk form, the dense
+              fused tick's shape B 8, ck 16, C 576 and softcap, C below the
+              split count, hymba-1.5b's group of 5, hd 128, ragged starts
+              with an inert row, queries that see only the first key), with
+              stated tolerances; then kernel /
+              plain / library (SDPA, a yardstick the port never calls; for
+              the chunk form SDPA with a (B, H, ck, C) float mask; none
               for paged decode and the SSD scan, timed at mamba2-130m's and
               hymba-1.5b's heads) times from CUDA events,
               inputs rotated through more than the 50 MB L2 cache (``ms``:
@@ -44,10 +49,14 @@ phase raises, and the script exits nonzero:
               steps run op by op (``step_graphs=False``), at full width on
               shared weights: tinyllama-1.1b L22 dense (decode step) and
               paged with prefix sharing (fused tick with every row
-              prefilling, paged decode step), mamba2-130m L24 (prefill,
-              decode step), hymba-1.5b L32 (decode step); tokens and every
-              cache leaf bitwise equal, port kernel launches per step
-              equal; wall ms, stream span (CUDA events), device ms and
+              prefilling, paged decode step), dense with the chunked
+              machinery (the dense fused tick, rows finishing their
+              prefill at different ticks and then decoding in it: one
+              flash_decode_chunk launch per layer per tick, 22, where the
+              reference's per-token route makes 352), mamba2-130m L24
+              (prefill, decode step), hymba-1.5b L32 (decode step); tokens
+              and every cache leaf bitwise equal, port kernel launches per
+              step equal; wall ms, stream span (CUDA events), device ms and
               kernels per step for both paths, and each backend's
               readiness (captures included);
   6. serve    the InfAdapter loop (``launch.serve``: full-width ladder
@@ -62,7 +71,9 @@ phase raises, and the script exits nonzero:
               variant load printed; every request completes with its
               full budget, every pool ends empty and consistent, and each
               path's kernels' launch counters (replays add their captured
-              launches) grow in its own phase;
+              launches) grow in its own phase; P99, violation rate and
+              goodput are printed only over TAIL_MIN_REQUESTS requests
+              (a short loop is a path smoke);
   7. prefix   the shared-system-prompt study at full width: 24 staggered
               512-token requests over a 384-token shared prefix, every
               fourth an exact repeat (copy-on-write), sharing on vs off:
@@ -71,8 +82,23 @@ phase raises, and the script exits nonzero:
               layer in a fused tick (the chunk form) and one per layer per
               step in a decode tick; bf16 token agreement printed; a
               4-layer fp32 rung must give identical tokens on vs off;
-  8. output   the ``{"kernels": [...]}`` line (launches summed over the
-              serve and prefix phases), then the ok line last.
+  8. async    the dispatch/commit tick at full width on shared weights
+              (tinyllama-1.1b L22, fp32, kernels on, steps replayed): one
+              fixed list of 12 staggered 512-token requests (half over a
+              shared prefix, tight deadlines on half) on a fake clock,
+              through the dense engine and the paged engine with prefix
+              sharing, each as sync and async FIFO and as sync and async
+              ``chunked`` + ``preemption="requeue"``: sync and async
+              outputs bitwise equal, every request complete, every pool
+              empty and consistent, preemption fired; wall ms per tick,
+              hidden host ms and commit_wait_ms printed sync against
+              async; a 4-layer fp32 rung, chunked dense against monolithic
+              dense, identical greedy tokens; then a 10 s serve loop of the
+              InfAdapter loop (phase 6) on the dense ladder with
+              ``async_tick=True, scheduler="chunked",
+              preemption="requeue"``;
+  9. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve loops and the prefix phase), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -81,7 +107,9 @@ attention kernels take the absolute ``TOL``.
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 ``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
 flash_prefill and flash_decode of that checkout (event and device times,
-SDPA beside them, bf16 and fp32), paged_decode (the decode step's call,
+SDPA beside them, bf16 and fp32), flash_decode's chunk form where the
+checkout has it (the dense fused tick's shape, SDPA with a float mask
+beside it), paged_decode (the decode step's call,
 and one layer of the fused tick's ``paged_chunk_prefill_attention`` with
 the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
 hymba-1.5b's serve shapes, bf16, strided views, nonzero initial state,
@@ -125,6 +153,13 @@ HYMBA_H, HYMBA_KV = 25, 5   # hymba-1.5b attention heads: GQA group 5
 SERVE_SECONDS = 20          # each of the dense and the paged serve loops
 # prefix phase: the reference's shared-system-prompt study at full width
 PS_N, PS_SHARED = 24, 384
+AS_N = 12                   # async phase: requests in its fixed list
+ASYNC_SERVE_SECONDS = 10    # the async + chunked + requeue serve loop
+# A serve loop reports its P99, violation rate and goodput only over this
+# many requests: over the 10-30 a short loop serves, the P99 is the slowest
+# request and one request moves the rate by several points. Short loops
+# are path smokes (completions, preemptions, launches).
+TAIL_MIN_REQUESTS = 100
 DEVICE = "cuda"
 
 
@@ -158,19 +193,32 @@ def time_ms(torch, fn, arg_sets, iters=40):
 def device_ms(torch, fn, arg_sets, iters=20, only=None):
     """Device time per call from ``torch.profiler``: every kernel the calls
     launched (or those whose name holds ``only``), summed (no host time, no
-    gaps between launches)."""
+    gaps between launches). The profiler now and then records no kernel at
+    all: such a trace is taken again, and after three empty traces the
+    time is None (not measured), never 0."""
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == cuda
-               and (only is None or only in e.key)) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == cuda
+                    and (only is None or only in e.key))
+        if total > 0:
+            return total / 1e3 / iters
+    log("  device time not measured: three traces recorded no kernel")
+    return None
+
+
+def ms4(x):
+    """A time for the log: 4 decimals, or "not measured" for None."""
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def check(name, got, want, dtype):
@@ -246,6 +294,99 @@ def fused_inputs(torch, gen, dtype):
     prompts, over full 36-page tables of 16."""
     return chunk_inputs(torch, gen, B, KV, H // KV, HD, PAGE, WIDTH, WIDTH,
                         CK, dtype, start_range=(PS_SHARED, PROMPT - CK))
+
+
+def dense_chunk_inputs(torch, gen, b, ck, kv, g, hd, c, dtype, kind="fused"):
+    """flash_decode's chunk form operands: q (b, ck, kv, g, hd), k/v
+    (b, kv, c, hd) and the bias (b, ck, c). ``kind`` "fused": the dense
+    fused tick's causal bias (t <= start + j) with every row at a chunk
+    border of a 512-token prompt (row 1 inert at 0, where a padded query
+    still sees key 0, as in the engine); "ragged": starts anywhere, one
+    row running past c; "first": every key but the first under -1e9."""
+    dev = torch.device(DEVICE)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = randn(b, ck, kv, g, hd), randn(b, kv, c, hd), randn(b, kv, c, hd)
+    if kind == "first":
+        bias = torch.full((b, ck, c), -1e9, device=dev)
+        bias[..., 0] = 0.0
+        return q, k, v, bias
+    if kind == "fused":
+        start = ck * torch.randint(0, max(1, PROMPT // ck), (b,),
+                                   generator=gen, device=dev)
+    else:
+        start = torch.randint(0, c, (b,), generator=gen, device=dev)
+        start[-1] = max(c - ck // 2, 0)
+    start[min(1, b - 1)] = 0
+    pos = start[:, None] + torch.arange(ck, device=dev)[None, :]
+    valid = torch.arange(c, device=dev)[None, None, :] <= pos[:, :, None]
+    return q, k, v, torch.where(valid, 0.0, -1e9).float()
+
+
+def dense_chunk_checks(torch, fd, gen):
+    """flash_decode's chunk form against its plain version (the stack of
+    single-query plain calls): the dense fused tick's shape in bf16 and
+    fp32, then the edges. Returns (bf16 fused-shape error, its inputs)."""
+    G = H // KV
+    edges = (("softcap=30.0", (B, CK, KV, G, HD, CAP), 30.0, "fused"),
+             (f"C={fd.SPLITS - 3} below the split count",
+              (3, 5, 2, 8, HD, fd.SPLITS - 3), 0.0, "ragged"),
+             ("hymba heads G=5", (B, CK, HYMBA_KV, HYMBA_H // HYMBA_KV, HD,
+                                  CAP), 0.0, "fused"),
+             ("hd 128 ragged", (2, CK, 2, 8, 128, 300), 0.0, "ragged"),
+             ("hd 128 softcap, first key only", (2, 7, 2, 4, 128, 100),
+              30.0, "first"),
+             ("first key only", (B, CK, KV, G, HD, CAP), 0.0, "first"))
+    err = args = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        a = dense_chunk_inputs(torch, gen, B, CK, KV, G, HD, CAP, dtype)
+        e = check(f"flash_decode_chunk fused shape {name}",
+                  fd.flash_decode_chunk(*a), fd.flash_decode_chunk_plain(*a),
+                  dtype)
+        if dtype == torch.bfloat16:
+            err, args = e, a
+        for label, (b, ck, kv, g, hd, c), sc, kind in edges:
+            a = dense_chunk_inputs(torch, gen, b, ck, kv, g, hd, c, dtype,
+                                   kind)
+            out = fd.flash_decode_chunk(*a, softcap=sc)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"flash_decode_chunk {label}: non-finite")
+            check(f"flash_decode_chunk {label} {name}", out,
+                  fd.flash_decode_chunk_plain(*a, softcap=sc), dtype)
+    return err, args
+
+
+def dense_chunk_timing(torch, F, fd, gen, args):
+    """The chunk form at the dense fused tick's shape (bf16): kernel,
+    plain, device and SDPA-with-a-(B, H, ck, C)-float-mask times (SDPA: the
+    yardstick the port never calls), inputs rotated through more than 3x
+    the L2 size, each set with its own chunk starts. The bound reads q,
+    out, the bias and each row's K/V below its largest query length once;
+    its operations are QK^T and PV over each query's own valid keys on the
+    bf16 tensor cores."""
+    dt, esz, G = torch.bfloat16, 2, H // KV
+    sets = rotated(args, lambda: dense_chunk_inputs(
+        torch, gen, B, CK, KV, G, HD, CAP, dt), ())
+    bias = args[3]
+    valid = (bias == 0).sum(-1)                       # (B, ck) keys per query
+    lmax = valid.max(1).values
+    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * CK * H * HD)
+              + 4 * B * CK * CAP)
+    b_ms, b_by = bound(nbytes, 4 * H * HD * int(valid.sum()), dt)
+    sdpa_sets = [(q.reshape(B, CK, H, HD).transpose(1, 2), k, v,
+                  m[:, None]) for q, k, v, m in sets]
+    sdpa = (lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m, enable_gqa=True))
+    return dict(ms=time_ms(torch, fd.flash_decode_chunk, sets),
+                plain_ms=time_ms(torch, fd.flash_decode_chunk_plain, sets,
+                                 iters=4),
+                bound_ms=b_ms, bound_by=b_by,
+                device_ms=device_ms(torch, fd.flash_decode_chunk, sets),
+                library_ms=time_ms(torch, sdpa, sdpa_sets),
+                library_device_ms=device_ms(torch, sdpa, sdpa_sets))
 
 
 def paged_kernel_checks(torch, pd, gen):
@@ -668,6 +809,15 @@ def ab_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
+    if hasattr(fd, "flash_decode_chunk"):      # the chunk form's checkouts
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        args = dense_chunk_inputs(torch, gen, B, CK, KV, H // KV, HD, CAP,
+                                  torch.bfloat16)
+        err = check("flash_decode_chunk fused shape bfloat16",
+                    fd.flash_decode_chunk(*args),
+                    fd.flash_decode_chunk_plain(*args), torch.bfloat16)
+        rows.append(dict(name="flash_decode_chunk", max_abs_err=err,
+                         **dense_chunk_timing(torch, F, fd, gen, args)))
     return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
             + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
@@ -734,6 +884,8 @@ def kernel_phase(torch):
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc),
                   dtype)
+    errs["dense_chunk"], dense_chunk_args = dense_chunk_checks(torch, fd,
+                                                              gen)
     errs["paged"], paged_serve, errs["chunk"], chunk_args = \
         paged_kernel_checks(torch, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
@@ -745,6 +897,12 @@ def kernel_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
+    rows.append(dict(name="flash_decode_chunk", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                     replaces="src/repro/kernels/flash_decode.py:81",
+                     max_abs_err=errs["dense_chunk"],
+                     **dense_chunk_timing(torch, F, fd, gen,
+                                          dense_chunk_args)))
     rows.append(dict(name="paged_decode", route="cuda",
                      source="src/repro_torch/kernels/csrc/paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
@@ -767,22 +925,26 @@ def kernel_phase(torch):
     for r in rows:
         lib = ("no single library call" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} (device "
-               f"{r['library_device_ms']:.4f})")
+               f"{ms4(r['library_device_ms'])})")
         log(f"  {r['name']:<14s} {r.get('dtype', 'bfloat16'):<9s} kernel "
-            f"{r['ms']:.4f} (device {r['device_ms']:.4f})  plain "
+            f"{r['ms']:.4f} (device {ms4(r['device_ms'])})  plain "
             f"{r['plain_ms']:.4f}  library {lib}  bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
         if "hymba_ms" in r:
             log(f"  {'ssd_scan':<14s} {'bfloat16':<9s} kernel "
-                f"{r['hymba_ms']:.4f} (device {r['hymba_device_ms']:.4f})  "
+                f"{r['hymba_ms']:.4f} (device {ms4(r['hymba_device_ms'])})  "
                 f"plain {r['hymba_plain_ms']:.4f}  bound "
                 f"{r['hymba_bound_ms']:.4f}; hymba-1.5b's heads")
             for arch, t in ssd.items():
                 log(f"  ssd_scan device ms by launch, {arch}: "
                     + json.dumps(t["launch_device_ms"]))
+        if r["name"] == "flash_decode_chunk":
+            log(f"  {'':<14s} the dense fused tick's chunk: B={B} ck={CK} "
+                f"C={CAP}, one launch for the reference's {CK} per-token "
+                f"calls; library = SDPA with a (B, H, ck, C) float mask")
         if "chunk_ms" in r:
             log(f"  {'paged chunk':<14s} {'bfloat16':<9s} kernel "
-                f"{r['chunk_ms']:.4f} (device {r['chunk_device_ms']:.4f})  "
+                f"{r['chunk_ms']:.4f} (device {ms4(r['chunk_device_ms'])})  "
                 f"plain {r['chunk_plain_ms']:.4f}  bound "
                 f"{r['chunk_bound_ms']:.4f} ({r['chunk_bound_by']}); "
                 f"fused shape B={B} ck={CK}")
@@ -1014,31 +1176,35 @@ def profiled(torch, fn):
             sum(e.count for e in evs))
 
 
-def graph_drive(torch, b, prompts, paged):
+def graph_drive(torch, b, prompts, engine):
     """Drive one backend through the serve path's steps and time them:
     the prefill step alone, then B requests of ``prompts`` — admitted into
-    the dense ring, or on the paged backend bound for chunked prefill so
-    every row advances one CK-token chunk per fused tick — and decode ticks
-    until all finish. Each timed call ends in a host read or a
-    synchronise; CUDA events around it give its span on the stream (first
-    to last work enqueued: kernels plus the gaps between them); the second
-    call of each kind runs under the profiler instead. Returns ({kind:
-    {wall_ms, span_ms, device_ms, kernels, port_launches, steps}} per step,
-    outputs, cache leaves and cur_tok)."""
+    the dense ring ("dense"); on the paged backend bound for chunked
+    prefill so every row advances one CK-token chunk per fused tick
+    ("paged"); or on the dense backend with the chunked machinery
+    ("dense-chunked"), row i right-sized to its first PROMPT - 32 i tokens,
+    so rows finish prefilling at different fused ticks and then decode
+    riding the fused tick — and decode ticks until all finish. Each timed
+    call ends in a host read or a synchronise; CUDA events around it give
+    its span on the stream (first to last work enqueued: kernels plus the
+    gaps between them); the second call of each kind runs under the
+    profiler instead. Returns ({kind: {wall_ms, span_ms, device_ms,
+    kernels, port_launches, launches, steps}} per step, outputs, cache
+    leaves and cur_tok)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Request
     out = {}
 
     def timed(kind, fn, calls, steps):
-        walls, spans, port = [], [], 0
+        walls, spans, port = [], [], {}
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
         for i in range(calls):
             if i == 1:
                 dev_ms, kern = profiled(torch, fn)
                 continue
-            n0 = sum(ops.launch_counts().values())
+            n0 = ops.launch_counts()
             torch.cuda.synchronize()
             t0 = time.time()
             ev0.record()
@@ -1047,21 +1213,27 @@ def graph_drive(torch, b, prompts, paged):
             torch.cuda.synchronize()
             walls.append((time.time() - t0) * 1e3)
             spans.append(ev0.elapsed_time(ev1))
-            port = sum(ops.launch_counts().values()) - n0
+            port = {k: (c - n0[k]) / steps
+                    for k, c in ops.launch_counts().items() if c != n0[k]}
         out[kind] = dict(wall_ms=float(np.median(walls)) / steps,
                          span_ms=float(np.median(spans)) / steps,
                          device_ms=dev_ms / steps, kernels=kern / steps,
-                         port_launches=port / steps, steps=steps)
+                         port_launches=sum(port.values()), launches=port,
+                         steps=steps)
 
     tokens = b._host(prompts)
     timed("prefill", lambda: b._step("prefill", B, tokens=tokens), 4, 1)
-    reqs = [Request(rid=i, tokens=prompts[i], max_new=b.max_new,
-                    arrival=time.time()) for i in range(B)]
-    if paged:
+    cut = 32 if engine == "dense-chunked" else 0
+    reqs = [Request(rid=i, tokens=prompts[i][:PROMPT - cut * i],
+                    max_new=b.max_new, arrival=time.time())
+            for i in range(B)]
+    if engine == "dense":
+        b.admit(reqs, 0.0)
+    else:
         b.admit_chunked(reqs, 0.0)
         timed("fused", lambda: b.fused_chunk_step(0.0), PROMPT // CK, 1)
-    else:
-        b.admit(reqs, 0.0)
+        if b._prefilling:
+            raise AssertionError(f"{b.name}: rows still prefilling")
     ticks = -(-(b.max_new - 1) // CHUNK)
     timed("decode", lambda: b.decode_step_batch(0.0), ticks, CHUNK)
     if b.active_slots:
@@ -1075,11 +1247,14 @@ def graph_phase(torch):
     """Replays against the eager steps at full width (bf16, kernels on),
     through the engine's backends on shared weights, one replaying CUDA
     graphs and one op by op (``step_graphs=False``), fed the same requests:
-    tinyllama-1.1b L22 on the dense engine (decode step) and on the paged
+    tinyllama-1.1b L22 on the dense engine (decode step), on the paged
     engine with prefix sharing (fused tick, every row prefilling; paged
-    decode step), mamba2-130m L24 (prefill, decode step) and hymba-1.5b
-    L32 (decode step). Per-request tokens and every cache leaf must be
-    bitwise equal, and the port's kernel launches per step equal. Prints
+    decode step) and on the dense engine with the chunked machinery (the
+    dense fused tick: all 8 rows prefilling, then decode riding it; one
+    flash_decode_chunk launch per layer per tick), mamba2-130m L24
+    (prefill, decode step) and hymba-1.5b L32 (decode step). Per-request
+    tokens and every cache leaf must be bitwise equal, and the port's
+    kernel launches per step equal, kernel by kernel. Prints
     wall ms per step (host clock, device synchronised), span ms (CUDA
     events around the call), device ms and kernels per step
     (``torch.profiler``), and each backend's readiness
@@ -1092,7 +1267,7 @@ def graph_phase(torch):
     log("[5] graphs: full-width steps replayed vs eager, bf16, kernels on")
     summary = {}
     for arch, max_new, engines in (
-            ("tinyllama-1.1b", MAX_NEW, ("dense", "paged")),
+            ("tinyllama-1.1b", MAX_NEW, ("dense", "paged", "dense-chunked")),
             ("mamba2-130m", 2 * CHUNK, ("dense",)),
             ("hymba-1.5b", 2 * CHUNK, ("dense",))):
         cfg = get_config(arch).replace(use_kernels=True)
@@ -1104,14 +1279,14 @@ def graph_phase(torch):
             runs = {}
             for path in ("eager", "replay"):
                 kw = dict(page_size=PAGE, prefix_sharing=True) if paged \
-                    else {}
+                    else dict(chunked=engine == "dense-chunked")
                 cls = PagedVariantBackend if paged else VariantBackend
                 b = cls(f"{arch}-{engine}-{path}", cfg, 0.0, max_batch=B,
                         prompt_len=PROMPT, max_new=max_new,
                         decode_chunk=CHUNK, use_kernels=True, device=DEVICE,
                         params=params, prefill_chunk_tokens=CK,
                         step_graphs=path == "replay", **kw)
-                steps, outs, state = graph_drive(torch, b, prompts, paged)
+                steps, outs, state = graph_drive(torch, b, prompts, engine)
                 runs[path] = (steps, outs, state, b.readiness_s)
                 b.close()
                 del b
@@ -1142,11 +1317,17 @@ def graph_phase(torch):
                     f"{r['wall_ms']:.3f} ms, span {r['span_ms']:.3f}, "
                     f"device {r['device_ms']:.3f}, {r['kernels']:g} kernels "
                     f"({r['port_launches']:g} port)")
-                if r["port_launches"] != e["port_launches"]:
+                if r["launches"] != e["launches"]:
                     raise AssertionError(f"{name} {kind}: port launches per "
-                                         f"step {r['port_launches']} "
-                                         f"replayed, {e['port_launches']} "
-                                         f"eager")
+                                         f"step {r['launches']} replayed, "
+                                         f"{e['launches']} eager")
+                if engine == "dense-chunked" and kind == "fused" and \
+                        r["launches"] != {"flash_decode_chunk":
+                                          cfg.num_layers}:
+                    raise AssertionError(
+                        f"{name}: launches per dense fused tick "
+                        f"{r['launches']}, want one flash_decode_chunk per "
+                        f"layer ({cfg.num_layers})")
             if not same_tok or diff:
                 raise AssertionError(f"{name}: replay differs from eager "
                                      f"(tokens equal {same_tok}, cache "
@@ -1159,20 +1340,29 @@ def graph_phase(torch):
     return summary
 
 
-def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
+def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
+                engine_kw=None, seconds=SERVE_SECONDS):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
     profiles first), or on the paged engine with prefix sharing using the
-    given dense profiles, over ``arch``'s full-width ladder. Returns (this
-    phase's launch counts, profiles)."""
+    given dense profiles, over ``arch``'s full-width ladder; ``engine_kw``
+    adds engine options (the async tick, a scheduler, preemption: the
+    engine then stamps requests on the loop's elapsed clock, which its
+    deadlines are read against) and ``seconds`` sets the loop's length.
+    Returns (this phase's launch counts, profiles)."""
     from repro_torch.configs import get_config
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
     from repro_torch.core.forecaster import MovingMaxForecaster
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import (GEOMETRY, LOAD, build_ladder,
                                           calibrate)
-    from repro_torch.serving.driver import rise_fall_load, run_serving_loop
+    from repro_torch.serving.driver import (ElapsedClock, rise_fall_load,
+                                            run_serving_loop)
     from repro_torch.serving.engine import InProcessServingEngine
     kind = f"{arch}, " + ("paged + prefix sharing" if paged else "dense")
+    engine_kw = dict(engine_kw or {})
+    if engine_kw:
+        kind += ", " + ", ".join(f"{k}={v}" for k, v in engine_kw.items())
+        engine_kw["clock"] = ElapsedClock()
     log(f"[6] serve ({kind}): InfAdapter loop, full-width ladder, kernels "
         f"on, steps replayed as CUDA graphs")
     variants = build_ladder(arch, full_width=True)
@@ -1180,7 +1370,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
     kv = dict(kv_cache="paged", kv_page_size=PAGE,
               kv_prefix_sharing=True) if paged else {}
     engine = InProcessServingEngine(variants, use_kernels=True,
-                                    device=DEVICE, **geo, **kv)
+                                    device=DEVICE, **geo, **kv, **engine_kw)
     loads = []                 # (variant, readiness s) of every load
     make = engine._make_backend
 
@@ -1195,8 +1385,8 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
         profiles = calibrate(engine, variants, reps=2,
                              max_new=geo["max_new"])
     else:
-        log("  profiles: calibrated on the dense engine of this ladder and "
-            "geometry (the paged backend has no pump path to calibrate)")
+        log("  profiles: calibrated on the plain dense engine of this ladder "
+            "and geometry")
     for n, p in profiles.items():
         log(f"  {n}: rt {p.rt:.3f}s  {p.th_slope:.2f} rps/unit  "
             f"p(1) {p.p99_ms(1):.0f} ms")
@@ -1208,12 +1398,12 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
     vocab = next(iter(variants.values()))[0].vocab_size
     ops.reset_launch_counts()
     t0 = time.time()
-    n_sub = run_serving_loop(engine, ctrl, seconds=SERVE_SECONDS,
+    n_sub = run_serving_loop(engine, ctrl, seconds=seconds,
                              interval=5.0,
-                             load_fn=rise_fall_load(SERVE_SECONDS,
-                                                    *LOAD[True]),
+                             load_fn=rise_fall_load(seconds, *LOAD[True]),
                              prompt_len=geo["prompt_len"],
-                             max_new=geo["max_new"], vocab=vocab, log=log)
+                             max_new=geo["max_new"], vocab=vocab,
+                             slo_ms=slo_ms if engine_kw else 0.0, log=log)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = ops.launch_counts()
@@ -1229,6 +1419,9 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
         raise AssertionError(f"requests with wrong outputs: {bad[:10]}")
     if get_config(arch).family == "ssm":      # attention-free
         need = ("ssd_scan",)
+    elif engine_kw.get("scheduler") == "chunked":   # prefill in chunks only
+        need = ("paged_decode",) if paged else ("flash_decode_chunk",
+                                                "flash_decode")
     else:
         need = ("flash_prefill", "paged_decode" if paged else "flash_decode")
     if min(launches[k] for k in need) < 1:
@@ -1236,11 +1429,19 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
                              f"serve phase: {launches}")
     summary = {"arch": arch, "kv_cache": "paged" if paged else "dense",
                "n_submitted": n_sub, "n_requests": s["n_requests"],
-               "rejected": s["rejected"], "p99_ms": s["p99_ms"],
-               "p50_ms": s["p50_ms"], "violation_rate": s["violation_rate"],
-               "goodput": s["goodput"], "avg_cost_units": s["avg_cost_units"],
+               "rejected": s["rejected"], "p50_ms": s["p50_ms"],
+               "avg_cost_units": s["avg_cost_units"],
                "accuracy_loss": s["accuracy_loss"], "slo_ms": slo_ms,
-               "wall_s": wall, "launches": launches, "loads": loads}
+               "wall_s": wall, "launches": launches, "loads": loads,
+               "options": {k: v for k, v in engine_kw.items()
+                           if k != "clock"},
+               "preempted": int(engine.metrics.value("requests.preempted"))}
+    if s["n_requests"] >= TAIL_MIN_REQUESTS:
+        summary.update(p99_ms=s["p99_ms"], goodput=s["goodput"],
+                       violation_rate=s["violation_rate"])
+    else:
+        summary["tail"] = (f"not reported: {s['n_requests']} requests, "
+                           f"under {TAIL_MIN_REQUESTS}")
     if paged:
         for name, b in engine.backends.items():
             b.pool.assert_invariants()
@@ -1252,6 +1453,9 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b"):
                                   for n, b in engine.backends.items()}
     else:
         summary["readiness_s"] = {n: p.rt for n, p in profiles.items()}
+    for name, b in engine.backends.items():
+        if b._pending is not None or b._uncommitted_done or b.active_slots:
+            raise AssertionError(f"{name}: uncommitted work after the drain")
     log(f"  serve summary ({kind}) " + json.dumps(summary))
     del engine
     torch.cuda.empty_cache()
@@ -1378,6 +1582,173 @@ def prefix_phase(torch):
     return launches
 
 
+def async_requests(vocab, n=AS_N, seed=31):
+    """The async phase's fixed request list: ``n`` prompts of PROMPT tokens,
+    every other one over a shared PS_SHARED-token prefix (the paged
+    engine's prefix hits), budgets 8..40 tokens, 30 ms SLOs on even rids
+    (hopeless a tick after arrival on the fake clock, so EDF preemption
+    fires) and 1e6 ms on odd ones. Returns [(tokens, max_new, slo_ms)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, PS_SHARED)
+    out = []
+    for i in range(n):
+        if i % 2:
+            toks = np.concatenate([prefix, rng.integers(
+                0, vocab, PROMPT - PS_SHARED)])
+        else:
+            toks = rng.integers(0, vocab, PROMPT)
+        out.append((toks, int(rng.integers(8, 41)),
+                    30.0 if i % 2 == 0 else 1e6))
+    return out
+
+
+def async_serve(torch, cfg, params, reqs, engine_kw):
+    """One engine of ``cfg`` (kernels on, steps replayed) on a fake clock
+    that advances 50 ms a tick: a request arrives per tick, then ticks until
+    every queue and slot is empty. Returns (rid -> tokens, stats: ticks,
+    wall ms per tick (host clock, device synchronised at the end only, as a
+    serving loop runs), mean hidden host ms and commit_wait_ms per tick,
+    preemptions, launches)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    t = [0.0]
+    eng = InProcessServingEngine(
+        {cfg.name: (cfg, 78.0)}, max_batch=B, prompt_len=PROMPT,
+        max_new=MAX_NEW, decode_chunk=CHUNK, prefill_chunk=CK,
+        queue_cap=1000, use_kernels=True, device=DEVICE,
+        weights={cfg.name: params}, clock=lambda: t[0], **engine_kw)
+    eng.apply_allocation(0.0, {cfg.name: 1})
+    b = eng.backends[cfg.name]
+    waits, hidden = [], []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0, ticks = time.time(), 0
+
+    def tick():
+        eng.step(t[0])
+        t[0] += 0.05
+        if b.commit_wait_ms == b.commit_wait_ms:         # not NaN
+            waits.append(b.commit_wait_ms)
+            b.commit_wait_ms = float("nan")
+        if b.hidden_host_ms == b.hidden_host_ms:
+            hidden.append(b.hidden_host_ms)
+            b.hidden_host_ms = float("nan")
+
+    for i, (toks, max_new, slo) in enumerate(reqs):
+        eng.submit(Request(rid=i, tokens=toks, max_new=max_new,
+                           arrival=t[0], slo_ms=slo), cfg.name)
+        tick()
+        ticks += 1
+    while eng.backlog(t[0]) or eng.in_flight():
+        tick()
+        ticks += 1
+        if ticks > 5000:
+            raise AssertionError(f"{engine_kw}: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    outs = {r.rid: np.asarray(r.output) for r in eng.done}
+    if sorted(outs) != list(range(len(reqs))) or any(
+            len(outs[i]) != min(reqs[i][1], MAX_NEW) for i in outs):
+        raise AssertionError(f"{engine_kw}: {len(outs)}/{len(reqs)} requests "
+                             f"complete with their budgets")
+    if b._pending is not None or b._uncommitted_done or b.active_slots:
+        raise AssertionError(f"{engine_kw}: uncommitted work after the drain")
+    if hasattr(b, "pool"):
+        b.pool.assert_invariants()
+        if b.pool.used_pages:
+            raise AssertionError(f"{engine_kw}: {b.pool.used_pages} pages "
+                                 f"still mapped")
+    stats = dict(ticks=ticks, wall_ms_per_tick=wall * 1e3 / ticks,
+                 commit_wait_ms=float(np.mean(waits)),
+                 hidden_host_ms=float(np.mean(hidden)) if hidden else None,
+                 preempted=int(eng.metrics.value("requests.preempted")),
+                 launches=ops.launch_counts())
+    for bk in eng.backends.values():
+        bk.close()
+    del eng, b
+    torch.cuda.empty_cache()
+    return outs, stats
+
+
+def async_phase(torch):
+    """The async dispatch/commit tick at full width on shared weights:
+    tinyllama-1.1b L22 in fp32 (kernels on, steps replayed) on the dense
+    engine and on the paged engine with prefix sharing, each run four ways
+    over one fixed request list (``async_requests``) on a fake clock: sync
+    and async FIFO, sync and async ``chunked`` + ``preemption="requeue"``.
+    Sync and async outputs of each configuration must be bitwise equal
+    (fp32: the async FIFO tick admits through the chunked prefill, a
+    different sum order than the monolithic prefill, which bf16 rounding
+    would turn into different greedy tokens); every request completes
+    with its budget and every pool ends empty and consistent. Prints wall
+    ms per tick, hidden host ms (host work overlapped with the device) and
+    commit_wait_ms, sync against async. Then a full-width 4-layer fp32
+    rung: chunked dense against monolithic dense, identical tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = torch.device(DEVICE)
+    log(f"[8] async: the dispatch/commit tick at full width, fp32, "
+        f"{AS_N} requests, fake clock")
+    base = get_config("tinyllama-1.1b").replace(dtype="float32",
+                                                use_kernels=True)
+    summary = {}
+    for layers in (22, 4):
+        cfg = base.replace(num_layers=layers,
+                           name=f"tinyllama-1.1b-L{layers}-f32")
+        params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        reqs = async_requests(cfg.vocab_size)
+        if layers == 4:
+            mono, _ = async_serve(torch, cfg, params, reqs, {})
+            chunk, st = async_serve(torch, cfg, params, reqs,
+                                    dict(scheduler="chunked"))
+            same = all(np.array_equal(mono[i], chunk[i]) for i in mono)
+            log(f"  {cfg.name}: chunked dense vs monolithic dense greedy "
+                f"tokens identical {same}; flash_decode_chunk launches "
+                f"{st['launches']['flash_decode_chunk']}")
+            if not same or st["launches"]["flash_decode_chunk"] < 1:
+                raise AssertionError(f"{cfg.name}: chunked dense differs "
+                                     f"from monolithic dense")
+            summary[cfg.name] = {"chunked_equals_monolithic": same}
+            continue
+        for kv in ("dense", "paged"):
+            kvkw = dict(kv_cache="paged", kv_page_size=PAGE,
+                        kv_prefix_sharing=True) if kv == "paged" else {}
+            for mode in ("fifo", "chunked+requeue"):
+                mkw = dict(scheduler="chunked", preemption="requeue") \
+                    if mode != "fifo" else {}
+                runs = {}
+                for tick in ("sync", "async"):
+                    runs[tick] = async_serve(
+                        torch, cfg, params, reqs,
+                        dict(kvkw, **mkw, async_tick=tick == "async"))
+                (so, ss), (ao, as_) = runs["sync"], runs["async"]
+                same = all(np.array_equal(so[i], ao[i]) for i in so)
+                name = f"L{layers} {kv} {mode}"
+                log(f"  {name}: sync vs async tokens bitwise equal {same}; "
+                    f"ticks {ss['ticks']}/{as_['ticks']}; wall ms per tick "
+                    f"sync {ss['wall_ms_per_tick']:.3f}, async "
+                    f"{as_['wall_ms_per_tick']:.3f}; commit_wait_ms sync "
+                    f"{ss['commit_wait_ms']:.3f}, async "
+                    f"{as_['commit_wait_ms']:.3f}; hidden host ms (async) "
+                    f"{as_['hidden_host_ms']:.3f}; preempted "
+                    f"{ss['preempted']}/{as_['preempted']}")
+                if not same:
+                    raise AssertionError(f"{name}: async outputs differ from "
+                                         f"sync")
+                if mode != "fifo" and not (ss["preempted"]
+                                           and as_["preempted"]):
+                    raise AssertionError(f"{name}: preemption never fired")
+                summary[name] = {"sync": ss, "async": as_}
+        del params
+        torch.cuda.empty_cache()
+    log("  async summary " + json.dumps(summary))
+    return summary
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -1430,8 +1801,13 @@ def main():
     paged, _ = serve_phase(torch, paged=True, profiles=profiles)
     prefix = prefix_phase(torch)
     ssm, _ = serve_phase(torch, arch="mamba2-130m")
+    async_phase(torch)
+    chunked, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
+        async_tick=True, scheduler="chunked", preemption="requeue"),
+        seconds=ASYNC_SERVE_SECONDS)
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm))
+        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm,
+                                                   chunked))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -1440,7 +1816,7 @@ def main():
             "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",
             "chunk_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[8] total wall time {time.time() - t_start:.1f}s")
+    log(f"[9] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -1,23 +1,30 @@
-"""One-token GQA decode attention over a dense KV cache: the CUDA kernel
+"""GQA decode attention over a dense KV cache: the CUDA kernel
 ``csrc/flash_decode.cu`` (replacing the TPU kernel
 ``repro/kernels/flash_decode.py:flash_decode_bkhd``) and its plain PyTorch
-version.
+version, in two forms:
 
-``flash_decode_bkhd`` is the wrapper: CPU tensors take the plain version;
-CUDA tensors launch the kernel or raise. One launch splits the cache axis
-over ``SPLITS`` CTAs per (b, kv-head); each writes its partial softmax
-sums to a scratch workspace and the last to arrive combines them, counted
-on a per-(b, kv-head) arrival counter that it leaves at zero. The
+- ``flash_decode_bkhd``: one query token per row (the decode step);
+- ``flash_decode_chunk``: ``ck`` query tokens per row with a bias row each
+  (the dense fused tick's prefill chunk), defined as the stack over j of the
+  single form at ``bias[:, j]`` — the reference's per-token loop
+  (``repro/models/attention.py:758-765``), in one launch.
+
+Each is the wrapper of its form: CPU tensors take the plain version; CUDA
+tensors launch the kernel or raise. A launch splits the cache axis over
+``SPLITS`` CTAs per (b, kv-head, block of query rows); each writes its
+partial softmax sums to a scratch workspace and the last to arrive combines
+them, counted on a per-block arrival counter that it leaves at zero. The
 workspace (partials and counters, ``build.workspace``) is allocated once
 per device and stream and shared with paged_decode: launches on one stream
 run in order, so they never share it while in flight.
-``flash_decode_bkhd.launches`` counts kernel launches (never plain-version
-calls).
+``flash_decode_bkhd.launches`` and ``flash_decode_chunk.launches`` count
+each form's kernel launches (never plain-version calls).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -25,22 +32,32 @@ from repro_torch.kernels import build
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_C, _C, _C, _C, _C, _C, _C, _I, _I, _I, _I, _I, ctypes.c_float,
-             _I, _C]
-MAX_GROUP_WIDTH = 4096          # G * hd accumulators per CTA (csrc kMaxAcc)
-SPLITS = 8                      # CTAs per (b, kv-head) (csrc kSplits)
+_ARGTYPES = [_C] * 7 + [_I] * 7 + [ctypes.c_float, _I, _C]
+MAX_GROUP_WIDTH = 4096          # rows * hd accumulators per CTA (csrc kMaxAcc)
+SPLITS = 8                      # CTAs per (b, kv-head, row block) (kSplits)
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
 
 
-def smem_bytes(G: int, hd: int, esize: int) -> int:
-    """Dynamic shared memory of one CTA for elements of ``esize`` bytes
-    (csrc ``smem_bytes``): the K ring (rows padded by 16 bytes) and the V
-    ring, two tiles of 128 (bf16) or 64 (fp32) positions each, then in
-    fp32 the biases of both tiles, q, the tile's probabilities and
-    (m, l, alpha)."""
-    rows = 128 if esize == 2 else 64
-    return (esize * 2 * rows * (2 * hd + 16 // esize)
-            + 4 * (2 * rows + G * hd + G * rows + 3 * G))
+def chunk_rows(ck: int, G: int, hd: int) -> int:
+    """Query rows of one CTA: whole groups of G rows (a chunk token's G
+    heads share its bias row), as many tokens as the accumulators hold
+    (rows * hd <= ``MAX_GROUP_WIDTH``), at most all ck of them. The decode
+    step (ck = 1) takes its G rows. Above the accumulators even one group
+    (G * hd > 4096) gives G rows, which the wrapper refuses."""
+    return G * max(1, min(ck, MAX_GROUP_WIDTH // (G * hd)))
+
+
+def smem_bytes(G: int, hd: int, esize: int, rows: int = 0) -> int:
+    """Dynamic shared memory of one CTA for a block of ``rows`` query rows
+    (default G: the decode step) and elements of ``esize`` bytes (csrc
+    ``smem_bytes``): the K ring (rows padded by 16 bytes) and the V ring,
+    two tiles of 128 (bf16) or 64 (fp32) positions each, then in fp32 the
+    biases of both tiles for each of the block's rows / G chunk tokens, q,
+    the tile's probabilities and (m, l, alpha)."""
+    rows = rows or G
+    tr = 128 if esize == 2 else 64
+    return (esize * 2 * tr * (2 * hd + 16 // esize)
+            + 4 * (2 * (rows // G) * tr + rows * hd + rows * tr + 3 * rows))
 
 
 def _launch_fn():
@@ -65,37 +82,67 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bkgt,bkth->bkgh", p, v.float()).to(q.dtype)
 
 
-def flash_decode_bkhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      bias: torch.Tensor, *, softcap: float = 0.0
-                      ) -> torch.Tensor:
-    """q (B,KV,G,hd); k, v (B,KV,C,hd); bias (B,C) float32 -> like q.
-    Any C: the kernel masks the ragged tail itself (nothing is padded)."""
-    if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, bias, softcap=softcap)
+def flash_decode_chunk_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, bias: torch.Tensor, *,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """q (B,ck,KV,G,hd); k, v (B,KV,C,hd); bias (B,ck,C) -> like q: the
+    single form's plain version per chunk token j at bias[:, j], stacked
+    (its definition)."""
+    return torch.stack([flash_decode_plain(q[:, j], k, v, bias[:, j],
+                                           softcap=softcap)
+                        for j in range(q.shape[1])], dim=1)
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: torch.Tensor, chunk: bool) -> Tuple[int, int]:
+    """Raise on what the kernel does not take, before any launch: q
+    (B,ck,KV,G,hd) and bias (B,ck,C) with ``chunk``, else q (B,KV,G,hd)
+    and bias (B,C); k, v (B,KV,C,hd) of q's dtype; every operand
+    contiguous, 16-byte aligned and on q's device, the bias fp32; hd a
+    multiple of 8, a group of G rows within the accumulators and the
+    block's shared memory within one H100 block. Returns (ck, rows per
+    CTA)."""
     dev, dt = q.device, q.dtype
-    B, KV, G, hd = q.shape
-    for name, t, tdt, nd in (("q", q, dt, 4), ("k", k, dt, 4), ("v", v, dt, 4),
-                             ("bias", bias, torch.float32, 2)):
+    for name, t, tdt, nd in (("q", q, dt, 5 if chunk else 4),
+                             ("k", k, dt, 4), ("v", v, dt, 4),
+                             ("bias", bias, torch.float32,
+                              3 if chunk else 2)):
         build.check_operand(name, t, dev, tdt, nd)
+    if chunk:
+        B, ck, KV, G, hd = q.shape
+    else:
+        (B, KV, G, hd), ck = q.shape, 1
     C = k.shape[2]
-    if k.shape != (B, KV, C, hd) or v.shape != k.shape or \
-            bias.shape != (B, C) or C == 0:
+    if k.shape != (B, KV, C, hd) or v.shape != k.shape or C == 0 \
+            or ck == 0 or bias.shape != ((B, ck, C) if chunk else (B, C)):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
-    smem = smem_bytes(G, hd, q.element_size())
-    if hd % 8 or G * hd > MAX_GROUP_WIDTH or smem > MAX_SMEM_BYTES:
+    rows = chunk_rows(ck, G, hd)
+    smem = smem_bytes(G, hd, q.element_size(), rows)
+    if hd % 8 or rows * hd > MAX_GROUP_WIDTH or smem > MAX_SMEM_BYTES:
         raise ValueError(f"flash_decode needs hd % 8 == 0, G*hd <= "
                          f"{MAX_GROUP_WIDTH} and {smem} bytes of shared "
                          f"memory <= {MAX_SMEM_BYTES}, got G={G} hd={hd}")
+    return ck, rows
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor, softcap: float, chunk: bool) -> torch.Tensor:
+    """Check the operands (``check_args``), launch, return out like q."""
+    ck, rows = check_args(q, k, v, bias, chunk)
+    dev = q.device
+    B, KV, C = k.shape[0], k.shape[1], k.shape[2]
+    G, hd = q.shape[-2], q.shape[-1]
+    n_blocks = B * KV * -(-ck * G // rows)
     fn = _launch_fn()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partials, arrivals = build.workspace(
-        dev, stream, B * KV * SPLITS * (G * hd + 2 * G), B * KV)
+        dev, stream, n_blocks * SPLITS * (rows * hd + 2 * rows), n_blocks)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
-            G, C, hd, float(softcap), build.dtype_code(q), stream)
+            G, C, hd, ck, rows, float(softcap), build.dtype_code(q), stream)
     # The decode step calls this once per layer and is bound by host time:
     # switch devices only when the call needs it.
     if dev.index == torch.cuda.current_device():
@@ -104,8 +151,36 @@ def flash_decode_bkhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         with torch.cuda.device(dev):
             err = fn(*args)
     build.check_launch("flash_decode", err)
+    return out
+
+
+def flash_decode_bkhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor, *, softcap: float = 0.0
+                      ) -> torch.Tensor:
+    """q (B,KV,G,hd); k, v (B,KV,C,hd); bias (B,C) float32 -> like q.
+    Any C: the kernel masks the ragged tail itself (nothing is padded)."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, bias, softcap=softcap)
+    out = _launch(q, k, v, bias, softcap, chunk=False)
     flash_decode_bkhd.launches += 1
     return out
 
 
+def flash_decode_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: torch.Tensor, *, softcap: float = 0.0
+                       ) -> torch.Tensor:
+    """q (B,ck,KV,G,hd); k, v (B,KV,C,hd); bias (B,ck,C) float32 -> like
+    q: query token j of row b attends under the bias row (b, j), exactly as
+    ``flash_decode_bkhd(q[:, j], k, v, bias[:, j])`` would, in one launch.
+    Every position of a query row whose bias is -1e9 still enters its sums
+    with a zero weight, so the cache must be finite there (in the engine it
+    holds stale but finite entries)."""
+    if q.device.type == "cpu":
+        return flash_decode_chunk_plain(q, k, v, bias, softcap=softcap)
+    out = _launch(q, k, v, bias, softcap, chunk=True)
+    flash_decode_chunk.launches += 1
+    return out
+
+
 flash_decode_bkhd.launches = 0
+flash_decode_chunk.launches = 0

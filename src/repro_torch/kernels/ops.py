@@ -20,6 +20,7 @@ from repro_torch.kernels import ssd_scan as ss
 # kernel name -> the wrapper carrying its ``launches`` counter
 WRAPPERS = {"flash_prefill": fp.flash_prefill_bshd,
             "flash_decode": fd.flash_decode_bkhd,
+            "flash_decode_chunk": fd.flash_decode_chunk,
             "paged_decode": pd.paged_flash_decode_bkhd,
             "ssd_scan": ss.ssd_scan_chunked}
 
@@ -48,6 +49,18 @@ def flash_decode_bkchd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel-native layout: q (B,KV,G,hd); k,v (B,KV,C,hd); bias (B,C)
     -> (B,KV,G,hd). Any C: the kernel masks the ragged tail itself."""
     return fd.flash_decode_bkhd(q, k, v, bias, softcap=softcap)
+
+
+def flash_decode_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: torch.Tensor, *, softcap: float = 0.0
+                       ) -> torch.Tensor:
+    """Dense attention for ck query tokens per row in one call: q
+    (B,ck,KV,G,hd); k,v (B,KV,C,hd); bias (B,ck,C) -> (B,ck,KV,G,hd), the
+    stack over j of ``flash_decode_bkchd(q[:, j], k, v, bias[:, j])``. The
+    operand rules are met here: q and bias contiguous, bias fp32 (no-ops
+    on the model's own tensors)."""
+    return fd.flash_decode_chunk(q.contiguous(), k, v,
+                                 bias.float().contiguous(), softcap=softcap)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,

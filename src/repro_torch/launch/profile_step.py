@@ -6,8 +6,10 @@ kernels on) at the serve geometry — one prefill of 8 x 512 tokens, then 8
 decode steps against the 576-slot cache; for the families with a paged
 form (dense), also the same prefill scattered into a page pool, then 8
 paged decode steps over 36-page tables of 16, then 3 prefill-continuation
-chunks of 16 tokens on every row through the pool (the fused tick's
-call) — under ``torch.profiler``. Each region runs twice: eagerly, op by
+chunks of 16 tokens on every row through the pool (the paged fused tick's
+call), then 3 such chunks against the dense cache (the dense fused tick's
+call: one flash_decode chunk-form launch per layer) — under
+``torch.profiler``. Each region runs twice: eagerly, op by
 op, and as the replay of a CUDA graph captured from the same calls
 (``serving.graphs.StepGraph``, as the engine runs its steps; the 8 decode
 steps are one graph, as the engine's decode chunk is). It prints for
@@ -142,6 +144,14 @@ def main(argv=None):
         for start in starts:
             chunk(toks[:, :CHUNK], start, n_valid)
 
+    def dense_chunk(tokens, start, n_valid):
+        return lm.prefill_chunk(params, state["cache"], tokens, start,
+                                n_valid)[0]
+
+    def dense_chunks():
+        for start in starts:
+            dense_chunk(toks[:, :CHUNK], start, n_valid)
+
     paged = lm.supports_paged_cache()
     state["logits"], state["cache"] = prefill()
     decode()                                       # warm-up (builds, caches)
@@ -149,6 +159,7 @@ def main(argv=None):
         paged_admit()
         paged_decode()
         fused_chunks()
+        dense_chunks()
 
     # the same calls captured: warm all on the capture stream, then capture
     stream = torch.cuda.Stream(dev)
@@ -170,6 +181,9 @@ def main(argv=None):
         graphs["chunk"] = StepGraph("chunk", chunk, {
             "tokens": toks[:, :CHUNK], "start": starts[0],
             "n_valid": n_valid}, captured, stream)
+        graphs["dense chunk"] = StepGraph("dense chunk", dense_chunk, {
+            "tokens": toks[:, :CHUNK], "start": starts[0],
+            "n_valid": n_valid}, captured, stream)
     pool = torch.cuda.graph_pool_handle()
     for g in graphs.values():                   # after every warm-up
         g.capture(pool)
@@ -177,10 +191,12 @@ def main(argv=None):
     def replay(name, **inputs):
         return lambda: graphs[name].run(**inputs)
 
-    def fused_replays():
-        for start in starts:
-            graphs["chunk"].run(tokens=toks[:, :CHUNK], start=start,
-                                n_valid=n_valid)
+    def chunk_replays(name):
+        def run():
+            for start in starts:
+                graphs[name].run(tokens=toks[:, :CHUNK], start=start,
+                                 n_valid=n_valid)
+        return run
 
     print(f"{args.arch} L{cfg.num_layers} bf16, kernels on, "
           f"{torch.cuda.get_device_name(0)}")
@@ -192,8 +208,11 @@ def main(argv=None):
         regions += [(paged_decode, replay("paged", tok=tok),
                      f"paged decode {STEPS} steps B={B} n_pages={width} "
                      f"page={PAGE}"),
-                    (fused_chunks, fused_replays,
-                     f"paged prefill chunks {CHUNKS} x {CHUNK} tokens B={B}")]
+                    (fused_chunks, chunk_replays("chunk"),
+                     f"paged prefill chunks {CHUNKS} x {CHUNK} tokens B={B}"),
+                    (dense_chunks, chunk_replays("dense chunk"),
+                     f"dense prefill chunks {CHUNKS} x {CHUNK} tokens B={B} "
+                     f"C={CAP}")]
     for eager_fn, replay_fn, label in regions:
         e = _region(eager_fn, f"{label}, eager")
         r = _region(replay_fn, f"{label}, graph replay")

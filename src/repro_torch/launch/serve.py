@@ -9,9 +9,14 @@ architecture in ``FULL_DEPTHS`` — tinyllama-1.1b 8/15/22, mamba2-130m
 ``cuda`` unless ``--device cpu``.
 
 With ``--kv-cache paged`` the loop serves on the paged KV pool
-(``--prefix-sharing`` adds the prefix index); the paged backend has no
-pump path, so the profiles come from a dense engine of the same ladder and
-geometry.
+(``--prefix-sharing`` adds the prefix index). ``--scheduler``
+(fifo|edf|chunked|chunked-fifo), ``--preemption``
+(none|requeue|drop|migrate) and ``--async-tick`` (the two-phase
+dispatch/commit tick) set the serving engine's scheduling, as the
+reference's ``examples/serve_autoscale.py`` exposes them; requests then
+carry the ``--slo-ms`` deadline the schedulers read, on the loop's elapsed
+clock. The profiles always come from the pump path of a plain dense engine
+of the same ladder and geometry (the paged backend has none).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --seconds 30
@@ -20,6 +25,8 @@ Usage:
       --full-width --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-cache paged \
       --prefix-sharing --device cpu --seconds 5
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
+      --scheduler chunked --preemption requeue --async-tick --seconds 30
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.adapter import ControllerConfig, InfAdapterController
 from repro_torch.core.forecaster import MovingMaxForecaster
 from repro_torch.core.profiles import VariantProfile
-from repro_torch.serving.driver import rise_fall_load, run_serving_loop
+from repro_torch.serving.driver import (ElapsedClock, rise_fall_load,
+                                        run_serving_loop)
 from repro_torch.serving.engine import InProcessServingEngine
 
 SMOKE_DEPTHS = (2, 4, 6)
@@ -107,6 +115,19 @@ def main(argv=None):
     ap.add_argument("--kv-cache", choices=("dense", "paged"),
                     default="dense")
     ap.add_argument("--prefix-sharing", action="store_true")
+    ap.add_argument("--scheduler", default="fifo",
+                    choices=("fifo", "edf", "chunked", "chunked-fifo"),
+                    help="queue-to-slot scheduling discipline")
+    ap.add_argument("--preemption", default="none",
+                    choices=("none", "requeue", "drop", "migrate"),
+                    help="retire deadline-hopeless residents for feasible "
+                         "waiters (requeue resumes them with their tokens; "
+                         "migrate resumes them on a cheaper variant)")
+    ap.add_argument("--async-tick", action="store_true",
+                    help="two-phase dispatch/commit tick: each tick "
+                         "dispatches its step before committing the "
+                         "previous tick's tokens (greedy outputs equal "
+                         "the sync tick's)")
     args = ap.parse_args(argv)
 
     variants = build_ladder(args.arch, full_width=args.full_width)
@@ -115,10 +136,12 @@ def main(argv=None):
                                     device=args.device, **geo)
     print("calibrating variants...")
     profiles = calibrate(engine, variants, max_new=geo["max_new"])
-    if args.kv_cache == "paged":        # calibrated dense, served paged
-        engine = InProcessServingEngine(
-            variants, use_kernels=True, device=args.device, kv_cache="paged",
-            kv_prefix_sharing=args.prefix_sharing, **geo)
+    # calibrated on the plain dense engine, served on the configured one
+    engine = InProcessServingEngine(
+        variants, use_kernels=True, device=args.device, clock=ElapsedClock(),
+        kv_cache=args.kv_cache, kv_prefix_sharing=args.prefix_sharing,
+        scheduler=args.scheduler, preemption=args.preemption,
+        async_tick=args.async_tick, **geo)
     for n, p in profiles.items():
         print(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
 
@@ -132,7 +155,8 @@ def main(argv=None):
                      load_fn=rise_fall_load(max(args.seconds, 1),
                                             *LOAD[args.full_width]),
                      prompt_len=geo["prompt_len"], max_new=geo["max_new"],
-                     vocab=vocab if args.full_width else 256)
+                     vocab=vocab if args.full_width else 256,
+                     slo_ms=args.slo_ms)
     s = engine.summarize(args.slo_ms,
                          max(p.accuracy for p in profiles.values()))
     if not s:

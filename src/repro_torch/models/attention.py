@@ -1,7 +1,8 @@
 """GQA attention: full-sequence causal attention (prefill), one-token
 decode against the dense per-slot ring cache or the paged pool
 (``PagedKVCache`` + ``paged_decode_attention``), and prefill continuation
-against the paged pool (``paged_chunk_prefill_attention``) — the port of
+against the dense cache (``chunk_prefill_attention``) or the paged pool
+(``paged_chunk_prefill_attention``) — the port of
 ``repro.models.attention``.
 
 Two execution paths, as in the reference:
@@ -10,8 +11,7 @@ Two execution paths, as in the reference:
 
 Not ported yet: the reference's ``flash_attend_qblocks`` (its jnp path
 above 2048 tokens, which bounds memory by attending in query blocks; the
-plain path here attends over the full (S, S) score matrix at any S) and
-the dense ``chunk_prefill_attention`` (ROADMAP A5).
+plain path here attends over the full (S, S) score matrix at any S).
 """
 from __future__ import annotations
 
@@ -628,6 +628,80 @@ def _chunk_attend(cfg: ModelConfig, q: torch.Tensor, kg: torch.Tensor,
     out = torch.einsum("bkgjt,bkth->bjkgh", probs.to(vg.dtype).float(),
                        vg.float())
     return out.reshape(B, ck, H, hd).to(q.dtype)
+
+
+def chunk_bias(start: torch.Tensor, ck: int, C: int) -> torch.Tensor:
+    """Validity bias (B, ck, C) fp32 of a dense chunk at per-row ``start``:
+    chunk token j sees cache slots ``t <= start + j`` (0), not later ones
+    (-1e9). The same for every layer of a tick."""
+    positions = start[:, None] + torch.arange(ck, device=start.device)
+    valid = (torch.arange(C, device=start.device)[None, None, :]
+             <= positions[:, :, None])
+    return torch.where(valid, 0.0, -1e9).to(torch.float32)
+
+
+def chunk_prefill_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor,
+                            start: torch.Tensor, n_valid: torch.Tensor,
+                            bias: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Prefill-continuation attention for the dense discipline.
+
+    x: (B, ck, D) — the next ``ck`` tokens of each row, right-padded;
+    ``n_valid`` (B,) counts the real ones (0 = row inert); k/v_cache:
+    (B, KV, C, hd); start: (B,) absolute position of x[:, 0]. The cache is
+    not a ring here (slot == absolute position; the engine enables chunked
+    prefill only without a sliding window). Each valid token's K/V is
+    written in place at slot ``start + j``; then every chunk query attends
+    over the cache with ``t <= start + j`` valid — the written prefix plus
+    the chunk itself. Padded queries (j >= n_valid) read stale but finite
+    entries and their outputs are discarded by the caller.
+
+    The reference drops the padded and inert entries with an out-of-range
+    scatter (``mode="drop"``), which torch's indexing refuses; clamping the
+    index instead would write over a stale but later position, and a ring
+    index ``% C`` would land a padded position on a valid one when ck > C.
+    Here the write keeps ck entries per row, a static shape with no host
+    sync (so the step captures as a CUDA graph), and makes every duplicate
+    index carry one value: a padded position of an active row repeats the
+    row's first token (its slot and its new K/V), and every position of an
+    inert row (n_valid == 0) writes back the value gathered from the row's
+    start slot. Valid positions are distinct slots, so every cache leaf
+    equals the reference's. With the kernels, one flash_decode launch
+    attends the whole chunk (``ops.flash_decode_chunk``: the reference's one
+    call per chunk token, each with its bias row, in one kernel).
+
+    ``bias`` is ``chunk_bias(start, ck, C)``, which ``LM`` builds once per
+    tick for all layers (the reference builds it in each layer).
+
+    Returns (attn_out (B, ck, D), k_cache, v_cache) — the same tensors.
+    """
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    B, ck = x.shape[0], x.shape[1]
+    C = k_cache.shape[2]
+    dev = x.device
+    offs = torch.arange(ck, device=dev)
+    positions = start[:, None] + offs[None, :]                 # (B, ck)
+    q, k, v = qkv_project(cfg, p, x, positions)   # the reference's _chunk_qkv
+
+    rows = torch.arange(B, device=dev)[:, None]
+    src = torch.where(offs[None, :] < n_valid[:, None], offs[None, :], 0)
+    slot = positions[rows, src] % C                            # (B, ck)
+    active = (n_valid > 0)[:, None, None, None]
+    for cache, new in ((k_cache, k), (v_cache, v)):            # (B,ck,KV,hd)
+        cache[rows, :, slot] = torch.where(
+            active, new[rows, src].to(cache.dtype), cache[rows, :, slot])
+
+    if cfg.use_kernels:
+        out = kops.flash_decode_chunk(
+            q.reshape(B, ck, KV, H // KV, hd), k_cache, v_cache, bias,
+            softcap=cfg.attn_logit_softcap).reshape(B, ck, H, hd)
+    else:
+        out = _chunk_attend(cfg, q, k_cache, v_cache, bias)
+    out = out.reshape(B, ck, H * hd)
+    return out @ p["wo"].to(dt), k_cache, v_cache
 
 
 def paged_chunk_prefill_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,

@@ -22,14 +22,15 @@ Public methods:
   init_cache(batch_size, max_len, device) -> cache dict
   prefill(params, batch, max_len)         -> (last-token logits, cache)
   decode_step(params, cache, tokens)      -> (logits, cache)
+  prefill_chunk(params, cache, tokens, start, n_valid)
   init_paged_cache / paged_admit / paged_cow_copy / paged_retire
   prefill_chunk_paged(params, cache, tokens, start, n_valid)
   decode_step_paged(params, cache, tokens, n_pages)
 
-Other families (MoE, encoder-decoder, VLM), dense chunked prefill
-(``prefill_chunk``) and speculative verification are not ported yet. The
-paged and chunked forms cover the dense family only (SSM/hybrid state is
-not positional; the reference refuses them too).
+Other families (MoE, encoder-decoder, VLM) and speculative verification
+(``verify_chunk``, ROADMAP A7) are not ported yet. The paged and chunked
+forms cover the dense family only (SSM/hybrid state is not positional; the
+reference refuses them too).
 """
 from __future__ import annotations
 
@@ -400,42 +401,63 @@ class LM:
         return self._logits(params, x[rows, last][:, None])[:, 0]
 
     def _chunk_trunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                     start: torch.Tensor, n_valid: torch.Tensor
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     start: torch.Tensor, n_valid: torch.Tensor, *,
+                     paged: bool) -> Tuple[torch.Tensor, Dict]:
         """Embed the (B, ck) chunk at per-row ``start`` offsets and run
-        every layer, writing the chunk's K/V into each row's block-table
-        pages; returns (pre-final-norm activations (B, ck, D), cache) with
-        ``pos`` advanced to ``start + n_valid`` on active rows. Rows with
-        ``n_valid == 0`` are inert. The reference's trunk also has a dense
-        form (``paged=False``), not ported yet (ROADMAP A5)."""
+        every layer, writing the chunk's K/V into the dense cache
+        (``paged=False``) or each row's block-table pages (``paged=True``);
+        returns (pre-final-norm activations (B, ck, D), cache) with ``pos``
+        advanced to ``start + n_valid`` on active rows. Rows with
+        ``n_valid == 0`` are inert: no writes, no advance."""
         cfg = self.cfg
         assert self.supports_chunked_prefill(), \
             f"chunked prefill unsupported for config {cfg.name!r}"
         x = embed(cfg, params["embed"], tokens, self.compute_dtype)
-        pt = cache["pt"]
+        if not paged:          # one validity bias for every layer
+            bias = attn.chunk_bias(start, tokens.shape[1],
+                                   cache["k"][0].shape[2])
         for i, lp in enumerate(self._layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a, _, _ = attn.paged_chunk_prefill_attention(
-                cfg, lp["attn"], h, cache["kp"][i], cache["vp"][i], pt,
-                start, n_valid)
+            if paged:
+                a, _, _ = attn.paged_chunk_prefill_attention(
+                    cfg, lp["attn"], h, cache["kp"][i], cache["vp"][i],
+                    cache["pt"], start, n_valid)
+            else:
+                a, _, _ = attn.chunk_prefill_attention(
+                    cfg, lp["attn"], h, cache["k"][i], cache["v"][i], start,
+                    n_valid, bias)
             x = self._ffn(lp, x + a)
         pos = cache["pos"]
         pos.copy_(torch.where(n_valid > 0, start + n_valid, pos))
         return x, cache
 
+    def prefill_chunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                      start: torch.Tensor, n_valid: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """Continue prompt prefill by one chunk against the dense cache.
+
+        tokens: (B, ck) — each prefilling row's next chunk, right-padded;
+        start: (B,) absolute position of tokens[:, 0]; n_valid: (B,) real
+        tokens this chunk (0 = row inert: no writes, no advance). The
+        chunk's K/V lands at cache slots ``start..start+n_valid`` and every
+        chunk query attends over the cached prefix plus the chunk itself:
+        run over a whole prompt in chunks this reproduces ``prefill``. A
+        decode step is a one-token continuation, so fused ticks run decoding
+        rows through here too. Returns (logits at each row's last valid
+        token (B, V), cache), updated in place."""
+        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid,
+                                     paged=False)
+        return self._finish_chunk(x, params, n_valid), cache
+
     def prefill_chunk_paged(self, params: Dict, cache: Dict,
                             tokens: torch.Tensor, start: torch.Tensor,
                             n_valid: torch.Tensor
                             ) -> Tuple[torch.Tensor, Dict]:
-        """Continue prompt prefill by one chunk against the paged pool.
-
-        tokens: (B, ck) — each prefilling row's next chunk, right-padded;
-        start: (B,) absolute position of tokens[:, 0]; n_valid: (B,) real
-        tokens this chunk (0 = row inert: no writes, no advance). A decode
-        step is a one-token continuation, so fused ticks run decoding rows
-        through here too. Returns (logits at each row's last valid token
-        (B, V), cache)."""
-        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid)
+        """``prefill_chunk`` against the paged pool: the chunk's K/V lands
+        in each row's block-table pages (allocated at admission). Same
+        contract and return shape as the dense form."""
+        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid,
+                                     paged=True)
         return self._finish_chunk(x, params, n_valid), cache
 
     # ------------------------------------------------------------------

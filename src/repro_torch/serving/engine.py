@@ -1,8 +1,9 @@
-"""In-process serving engine on PyTorch: the port of the FIFO, sync-tick
-path of ``repro.serving.engine``, on the dense KV ring or the paged pool
-with prefix sharing. It implements the shared ``ClusterAPI``/``ServingAPI``
-(``repro_torch.serving.api``), so the InfAdapter controller and
-``run_serving_loop`` drive it unchanged.
+"""In-process serving engine on PyTorch: the port of
+``repro.serving.engine`` — continuous batching on the dense KV ring or the
+paged pool with prefix sharing, the FIFO, EDF and chunked schedulers,
+preemption and the async dispatch/commit tick. It implements the shared
+``ClusterAPI``/``ServingAPI`` (``repro_torch.serving.api``), so the
+InfAdapter controller and ``run_serving_loop`` drive it unchanged.
 
 Two execution modes per ``VariantBackend``, as in the reference:
 
@@ -20,9 +21,27 @@ prefill at batch buckets, decode bounded by the live-page bucket, pages
 allocated at admission and freed at retirement, so admission respects
 memory-true capacity. With ``kv_prefix_sharing`` a request whose prompt
 hits the prefix index maps the shared pages by reference (copy-on-write
-for a fully matched boundary block) and prefills only its novel tail in
-fused ticks: mid-prefill rows advance one ``prefill_chunk`` while decoding
-rows advance one token, in one call.
+for a fully matched boundary block) and prefills only its novel tail.
+
+Scheduling (``scheduler=``, ``repro_torch.serving.sched``): ``"fifo"``
+(arrival order, monolithic prefill), ``"edf"`` (earliest-deadline-first
+admission over ``Request.deadline``) and ``"chunked"``/``"chunked-fifo"``
+(EDF or FIFO admission plus chunked prefill: prompts, right-sized to their
+true length, prefill one ``prefill_chunk`` per fused tick while decoding
+rows advance one token in the same call). ``preemption=`` retires
+deadline-hopeless residents for feasible waiters: ``"requeue"`` resumes
+them later through a prefill continuation over prompt + preserved tokens,
+``"drop"`` completes them early as ``dropped``, ``"migrate"`` resumes them
+on the cheapest cheaper variant. Both KV disciplines serve every mode.
+
+The async tick (``async_tick=True``): each tick dispatches its exec phase,
+then commits the previous tick's, so the token read-back and per-slot
+bookkeeping run while the device works; greedy outputs equal the sync
+tick's. A commit waits on the CUDA event recorded after its own tokens'
+copy into a pinned host buffer, never on the stream. Where the model
+supports prefill continuation, admission goes through the same pipeline
+(chunked admission of the zero-padded prompt); SSM and hybrid variants
+stay monolithic and pipeline only their decode chunks.
 
 Where the reference jits each step and donates the cache, the port
 captures each step at its static shape as one CUDA graph
@@ -32,13 +51,15 @@ device tensors in place: the resident cache, the current tokens
 "fresh" cache its prefill writes. The steps captured, as in the
 reference: the dense prefill at (max_batch, prompt_len), the pump path's
 one-token decode on the fresh cache (``generate``, which ``calibrate``
-times), the decode chunk on the resident cache; the paged prefill per
-batch bucket, the paged decode chunk per page bucket and the fused tick.
-Admission's merge (``_admit_merge``, ``paged_admit``) and the
-copy-on-write page copy stay eager, where the reference jits them too:
-their rows and pages are chosen on the host per call and they launch only
-a few copies. A step's outputs are static buffers that its next replay
-overwrites, so a pending record holds a copy of its tokens.
+times), the decode chunk on the resident cache and, with the chunked
+machinery, the dense fused tick; the paged prefill per batch bucket, the
+paged decode chunk per page bucket and the fused tick. Admission's merge
+(``_admit_merge``, ``paged_admit``), the copy-on-write page copy and a
+resume's token write into ``cur_tok`` stay eager, where the reference jits
+them too: their rows and pages are chosen on the host per call and they
+launch only a few copies. A step's outputs are static buffers that its
+next replay overwrites; a pending record reads them back before then
+(stream order).
 
 ``step_graphs=False`` runs the same steps directly, op by op: the eager
 path the card tests and chip_smoke compare replays against. On CPU tensors
@@ -54,9 +75,8 @@ before the first clock starts, so no variant's readiness includes the
 build.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: schedulers other than FIFO and ``preemption`` (ROADMAP A5),
-``async_tick`` (A6), ``speculative`` (A7), the replica fabric ``nodes=``
-and tracing ``trace=``/``profile_dispatch=``/``obs=`` (A3).
+ignored: ``speculative`` (ROADMAP A7), the replica fabric ``nodes=`` and
+tracing ``trace=``/``profile_dispatch=``/``obs=`` (A3).
 """
 from __future__ import annotations
 
@@ -77,7 +97,7 @@ from repro_torch.models.model import LM
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.serving.api import Request, summarize_requests
 from repro_torch.serving.graphs import StepGraph, StepGraphError, tensor_leaves
-from repro_torch.serving.sched import make_scheduler
+from repro_torch.serving.sched import make_scheduler, migration_target
 
 __all__ = ["Request", "VariantBackend", "PagedVariantBackend",
            "InProcessServingEngine"]
@@ -90,33 +110,80 @@ _CACHE_BATCH_AXIS = {"pos": 0, "k": 1, "v": 1, "conv": 1, "ssd": 1}
 @dataclass
 class _PrefillJob:
     """Host-side progress of one slot's chunked prefill: ``seq`` is what
-    must be in the cache before decode starts, ``pos`` the next index of
-    ``seq`` to feed. (The reference's resume fields belong to preemption,
-    ROADMAP A5.)"""
+    must be in the cache before decode resumes — the prompt for a fresh
+    request, prompt + all-but-last generated token for a preempted one
+    (``resume_tok`` is that last token, fed to decode instead of the
+    prefill argmax; ``gen`` seeds ``slot_tokens`` so no generated token is
+    lost or duplicated); ``pos`` is the next index of ``seq`` to feed."""
     req: Request
     seq: np.ndarray               # tokens to prefill (int64)
     pos: int = 0
+    resume_tok: Optional[int] = None
+    gen: List[int] = field(default_factory=list)
 
 
 @dataclass
 class _PendingExec:
-    """One dispatched exec phase, committed by ``commit_exec``. ``toks`` is
-    a device copy of the step's tokens — the decode chunk's ``(chunk, B)``
-    token matrix or the fused tick's ``(B,)`` ``cur_tok`` — never the
-    step's static buffer, which a later tick overwrites.
-    Value-independent bookkeeping (remaining counts, positions, prefill
-    progress) happened at dispatch;
-    the commit applies token appends, completion and retirement, guarded
-    by the ``(request, slot_gen)`` pair of each item. The port's sync tick
-    commits in the same tick (the reference's async tick, ROADMAP A6,
-    commits one tick later)."""
+    """One dispatched exec phase, committed by ``commit_exec`` — in the same
+    tick (sync) or one tick later (the async tick). ``toks`` holds the
+    step's tokens — the decode chunk's ``(chunk, B)`` token matrix or the
+    fused tick's ``(B,)`` ``cur_tok`` — read back without waiting for later
+    work: on a card a pinned host buffer that a non-blocking copy fills,
+    ``ready`` the CUDA event recorded after that copy; on the CPU a copy of
+    the tokens. Value-independent bookkeeping (remaining counts, positions,
+    prefill progress) happened at dispatch; the commit applies token
+    appends, completion and retirement, guarded by the ``(request,
+    slot_gen)`` pair of each item, so a slot preempted or rebound inside
+    the gap never absorbs stale tokens."""
     kind: str                                  # "decode" | "fused"
     toks: torch.Tensor
+    ready: Optional["torch.cuda.Event"]
+    dispatched_at: float                       # perf_counter at dispatch
     # (slot, req, slot_gen, take, finishing) — decode rows to append
     decode_items: List[Tuple] = field(default_factory=list)
-    # (slot, req, slot_gen) — rows whose chunked prefill completed at
-    # dispatch; their first token is the fused argmax
+    # (slot, req, slot_gen, resume_tok, gen_before, finishing) — rows whose
+    # chunked prefill completed at dispatch; their first token is the fused
+    # argmax (or the preserved resume token) read at commit
     fused_completions: List[Tuple] = field(default_factory=list)
+
+
+# Pinned read-back buffers per step shape. The async tick holds at most two
+# reads uncommitted (tick t-1's pending exec while tick t dispatches), so a
+# buffer reused three reads later has always been committed.
+_READBACK_BUFFERS = 3
+
+
+class _TokenReadback:
+    """Reads a step's tokens back to the host without synchronising the
+    stream. On a card each read enqueues a non-blocking copy into one of
+    ``_READBACK_BUFFERS`` pinned host buffers of that shape, taken in
+    rotation, and records an event after it: a commit waits on that event
+    alone, never on work dispatched after it (the next tick's replay). On
+    the CPU a read is a copy."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs: Dict[Tuple[int, ...], List[torch.Tensor]] = {}
+        self._next: Dict[Tuple[int, ...], int] = {}
+
+    def start(self, t: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+        if self.device.type != "cuda":
+            return t.clone(), None
+        key = tuple(t.shape)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = [
+                torch.empty(key, dtype=t.dtype, pin_memory=True)
+                for _ in range(_READBACK_BUFFERS)]
+            self._next[key] = 0
+        i = self._next[key]
+        self._next[key] = (i + 1) % _READBACK_BUFFERS
+        buf = bufs[i]
+        buf.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return buf, ev
 
 
 def _sync(device: torch.device) -> None:
@@ -145,18 +212,14 @@ class VariantBackend:
     graph replay (``step_graphs``, the default), or with
     ``step_graphs=False`` the step itself, op by op."""
 
-    # The chunked-prefill machinery is built only where something needs a
-    # continuation that starts mid-sequence: in the port, prefix sharing
-    # on a paged backend (the chunked scheduler and preemption, its other
-    # users in the reference, are ROADMAP A5).
-    chunked = False
-
     def __init__(self, name: str, cfg: ModelConfig, accuracy: float,
                  max_batch: int = 8, prompt_len: int = 32, max_new: int = 16,
                  seed: int = 0, decode_chunk: int = 4,
                  use_kernels: bool = False, device=None,
                  params: Optional[Dict] = None,
-                 prefill_chunk_tokens: int = 16,
+                 chunked: bool = False,
+                 prefill_chunk_tokens: int = 16, preemption: str = "none",
+                 prefix_sharing: bool = False, build_chunked: bool = False,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[MetricsRegistry] = None,
                  step_graphs: bool = True,
@@ -177,6 +240,29 @@ class VariantBackend:
         # the backend's own model object: its per-layer views of the params
         # go with the backend when it is retired
         self.model = LM(cfg)
+        # The chunked-prefill machinery (the fused tick) is built when the
+        # scheduler interleaves prefill chunks with decode, when preemption
+        # is on (a resume is a prefill continuation over prompt + preserved
+        # tokens) or with prefix sharing (a shared-prefix admission prefills
+        # only its novel tail); admission is right-sized (the true prompt,
+        # not padded) only under the chunked scheduler itself — a resume
+        # under monolithic admission must rebuild the padded cache it
+        # preempted (see ``admit_chunked``).
+        self.preemption = preemption
+        self.prefix_sharing = prefix_sharing   # honoured by paged backends
+        self.right_sized = chunked
+        self.chunked = chunked or preemption != "none" or prefix_sharing
+        if self.chunked:
+            assert self.model.supports_chunked_prefill(), \
+                (f"scheduler needs prefill continuation, unsupported for "
+                 f"config {cfg.name!r} (needs a pure-attention family "
+                 f"without sliding window)")
+        elif build_chunked and self.model.supports_chunked_prefill():
+            # opportunistic: the async tick wants the continuation machinery
+            # (admission through the dispatch/commit pipeline) but nothing
+            # requires it — right_sized stays False, so admission still
+            # prefills the zero-padded prompt
+            self.chunked = True
         self.step_graphs = step_graphs
         on_card = step_graphs and self.device.type == "cuda"
         # the capture stream and the memory pool shared by this backend's
@@ -194,9 +280,20 @@ class VariantBackend:
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_remaining = np.zeros((max_batch,), np.int64)
         self.slot_tokens: List[List[int]] = [[] for _ in range(max_batch)]
-        # per-slot bind counter: a commit applies only to the binding its
-        # dispatch saw
+        # async tick: the engine parks the dispatched-but-uncommitted exec
+        # here between ticks; slot_gen is a per-slot bind counter so a
+        # commit applies only to the binding its dispatch saw;
+        # _uncommitted_done marks slots finished by count at dispatch whose
+        # tokens have not been read back yet (excluded from further
+        # dispatch and from preemption, still holding their slot, so
+        # admission headroom lags exactly one tick)
+        self._pending: Optional[_PendingExec] = None
         self.slot_gen = [0] * max_batch
+        self._uncommitted_done: Set[int] = set()
+        self._readback = _TokenReadback(self.device)
+        self.commit_wait_ms = float("nan")   # blocked in the commit's read
+        self.commit_gap_ms = float("nan")    # dispatch -> commit-read gap
+        self.hidden_host_ms = float("nan")   # async: host work overlapped
         # host mirror of each bound row's device position (the paged
         # backend buckets on it; fused ticks feed it as the offset)
         self.slot_pos = np.zeros((max_batch,), np.int64)
@@ -305,17 +402,21 @@ class VariantBackend:
     def _build_state(self) -> None:
         """Dense KV discipline: one resident ``(max_batch, C)`` cache, the
         fresh cache admission prefills into, and every step the engine
-        runs, warmed and captured (part of readiness)."""
+        runs, warmed and captured (part of readiness): with the chunked
+        machinery also the fused tick (the reference warms its
+        ``_prefill_chunk`` as part of readiness too)."""
         B, dev = self.max_batch, self.device
         self.cache = self.model.init_cache(B, self._max_len, dev)
         self._fresh = self.model.init_cache(B, self._max_len, dev)
         self.cur_tok = torch.zeros((B,), dtype=torch.int64, device=dev)
         toks = torch.zeros((B, self.prompt_len), dtype=torch.int64,
                            device=dev)
-        self._build_steps({
-            ("prefill", B): (self._prefill_step, {"tokens": toks}),
-            ("decode", B): (self._decode_step, {"tok": self.cur_tok}),
-            ("chunk", None): (self._chunk_step, {})})
+        steps = {("prefill", B): (self._prefill_step, {"tokens": toks}),
+                 ("decode", B): (self._decode_step, {"tok": self.cur_tok}),
+                 ("chunk", None): (self._chunk_step, {})}
+        if self.chunked:
+            steps[("fused", B)] = (self._fused_step, self._fused_inputs())
+        self._build_steps(steps)
 
     # ------------------------------------------------------------ device fns
     def _chunk_scan(self, cache: Dict, tok: torch.Tensor, step_fn):
@@ -331,8 +432,8 @@ class VariantBackend:
 
     def _model_prefill_chunk(self, tokens, start, n_valid):
         """KV-discipline hook: the paged backend runs the pool form."""
-        raise NotImplementedError(
-            "dense chunk_prefill_attention is not ported (ROADMAP A5)")
+        return self.model.prefill_chunk(self.params, self.cache, tokens,
+                                        start, n_valid)
 
     def _fused_step(self, tokens: torch.Tensor, start: torch.Tensor,
                     n_valid: torch.Tensor, set_mask: torch.Tensor,
@@ -477,43 +578,65 @@ class VariantBackend:
         """Chunked admission: bind a slot and queue the prompt for prefill
         continuation — no device work here beyond the KV-discipline hook;
         the prefill advances one chunk per fused tick, interleaved with
-        decode. Returns [] — nothing finishes at bind time."""
+        decode. A preempted request's preserved tokens extend the prefill
+        sequence (see ``_PrefillJob``). Returns [] — nothing finishes at
+        bind time.
+
+        The sequence is right-sized to the true prompt under the chunked
+        scheduler; where this machinery serves only preemption resume or
+        the async tick under monolithic admission it is zero-padded to
+        ``prompt_len``, so the cache bit-matches the padded prefill and the
+        greedy tokens cannot diverge (``_effective_seq``)."""
         free = self.free_slots
         assert len(reqs) <= len(free)
         t_service = self.clock()
         for j, r in enumerate(reqs):
             slot = free[j]
-            r.service_start = t_service
+            if r.service_start <= 0.0:   # a resume keeps its first stamp
+                r.service_start = t_service
+            seq = self._effective_seq(r)
+            resume_tok: Optional[int] = None
+            gen: List[int] = []
+            if r.resume_tokens:
+                gen = [int(t) for t in r.resume_tokens[:-1]]
+                resume_tok = int(r.resume_tokens[-1])
+                seq = np.concatenate([seq, np.asarray(gen, np.int64)])
             self.slot_gen[slot] += 1
             self.slot_req[slot] = r
             self.slot_remaining[slot] = 0      # set when prefill completes
             self.slot_tokens[slot] = []
             self.slot_pos[slot] = 0
-            self._prefilling[slot] = _PrefillJob(req=r,
-                                                 seq=self._effective_seq(r))
+            self._prefilling[slot] = _PrefillJob(req=r, seq=seq,
+                                                 resume_tok=resume_tok,
+                                                 gen=gen)
             self._bind_chunked_slot(slot)      # paged: allocate pages now
         return []
 
     def _effective_seq(self, r: Request) -> np.ndarray:
-        """The sequence chunked admission puts in the cache for ``r``: the
-        prompt zero-padded to ``prompt_len``, exactly what monolithic
-        admission prefills, so both paths give bitwise-equal caches and the
-        prefix index hashes what either admits. (Right-sizing to the true
-        prompt belongs to the chunked scheduler, ROADMAP A5.)"""
+        """The sequence chunked admission puts in the cache for ``r``'s
+        prompt: right-sized to the true prompt under the chunked scheduler,
+        else zero-padded to ``prompt_len`` (what monolithic admission
+        prefills, so both paths give bitwise-equal caches). The prefix
+        index hashes exactly this sequence."""
         toks = np.asarray(r.tokens[:self.prompt_len], np.int64)
+        if self.right_sized:
+            return toks if len(toks) else np.zeros((1,), np.int64)
         seq = np.zeros((self.prompt_len,), np.int64)
         seq[:len(toks)] = toks
         return seq
 
     def _bind_chunked_slot(self, slot: int) -> None:
-        """KV-discipline hook at chunked bind time (dense: nothing)."""
+        """KV-discipline hook at chunked bind time (dense: nothing — the
+        resident cache rows are permanent)."""
 
     def _prefill_complete(self, slot: int, job: _PrefillJob) -> None:
         """KV-discipline hook when a slot's chunked prefill finishes (paged
         backends with prefix sharing publish the prompt blocks here)."""
 
     def fused_chunk_step(self, now: float) -> List[Request]:
-        """One fused tick: dispatch, then commit."""
+        """One fused tick, sync form: dispatch, then commit. The async
+        engine calls the two halves a tick apart instead
+        (``dispatch_exec``/``commit_exec``)."""
         return self.commit_exec(self.dispatch_fused(now), now)
 
     def dispatch_fused(self, now: float) -> _PendingExec:
@@ -524,7 +647,7 @@ class VariantBackend:
         progress, position mirrors, remaining-budget counts and the
         prefill-complete transition (including the prefix-index publish;
         stream order puts the published pages' writes before any later
-        sharer's reads)."""
+        sharer's reads). Token values are applied by ``commit_exec``."""
         B, ck = self.max_batch, self.prefill_chunk_tokens
         tokens = np.zeros((B, ck), np.int64)
         start = np.zeros((B,), np.int64)
@@ -536,17 +659,24 @@ class VariantBackend:
             tokens[slot, :nv] = job.seq[job.pos:job.pos + nv]
             start[slot] = job.pos
             n_valid[slot] = nv
-            # rows completing here take the chunk's argmax as first token
-            set_mask[slot] = job.pos + nv >= len(job.seq)
+            # fresh rows completing here take the chunk's argmax as their
+            # first token; resumed rows already know theirs
+            set_mask[slot] = (job.pos + nv >= len(job.seq)
+                              and job.resume_tok is None)
         decode_rows = [s for s, r in enumerate(self.slot_req)
-                       if r is not None and s not in self._prefilling]
+                       if r is not None and s not in self._prefilling
+                       and s not in self._uncommitted_done]
         for s in decode_rows:
             feed_mask[s] = True            # device-side cur_tok feed
             start[s] = self.slot_pos[s]
             n_valid[s] = 1
             set_mask[s] = True                       # argmax = next token
+        t_disp = time.perf_counter()
         self._prefill_chunk_step(tokens, start, n_valid, set_mask, feed_mask)
-        pend = _PendingExec(kind="fused", toks=self.cur_tok.clone())
+        toks, ready = self._readback.start(self.cur_tok)
+        pend = _PendingExec(kind="fused", toks=toks, ready=ready,
+                            dispatched_at=t_disp)
+        resume_sets: List[Tuple[int, int]] = []
         for slot, job in list(self._prefilling.items()):
             nv = int(n_valid[slot])
             job.pos += nv
@@ -556,59 +686,152 @@ class VariantBackend:
                 continue
             del self._prefilling[slot]
             self._prefill_complete(slot, job)
-            # chunked admission takes only budgets above one token
-            # (PagedVariantBackend.admit), so the first token never ends it
-            self.slot_remaining[slot] = self._budget(job.req) - 1
-            pend.fused_completions.append((slot, job.req,
-                                           self.slot_gen[slot]))
+            r = job.req
+            if job.resume_tok is not None:
+                resume_sets.append((slot, job.resume_tok))
+            gen_n = len(job.gen) + 1     # count-based: known at dispatch
+            fin = gen_n >= self._budget(r)
+            if fin:
+                self.slot_remaining[slot] = 0
+                self._uncommitted_done.add(slot)
+            else:
+                self.slot_remaining[slot] = self._budget(r) - gen_n
+            pend.fused_completions.append(
+                (slot, r, self.slot_gen[slot], job.resume_tok,
+                 list(job.gen), fin))
         for s in decode_rows:
             self.slot_pos[s] += 1
             self.slot_remaining[s] -= 1
-            pend.decode_items.append((s, self.slot_req[s], self.slot_gen[s],
-                                      1, self.slot_remaining[s] <= 0))
+            fin = self.slot_remaining[s] <= 0
+            if fin:
+                self._uncommitted_done.add(s)
+            pend.decode_items.append(
+                (s, self.slot_req[s], self.slot_gen[s], 1, fin))
+        if resume_sets:    # resumed rows decode from their preserved token
+            # in place: cur_tok is a captured tensor; stream order puts
+            # this write after the read-back above. Indices and tokens go
+            # through pinned memory: a pageable copy would wait for the
+            # replay just enqueued.
+            sets = np.asarray(resume_sets, np.int64)          # (n, 2)
+            idx = self._host(sets).to(self.device, non_blocking=True)
+            self.cur_tok[idx[:, 0]] = idx[:, 1].to(self.cur_tok.dtype)
         return pend
 
+    def preempt(self, r: Request, now: float) -> str:
+        """Retire ``r`` early (a scheduler-selected victim): its slot — and
+        pages, for paged backends — is freed and the tokens it generated
+        are kept on ``r.resume_tokens``. Returns "requeued" (the caller
+        queues it again; it later resumes where it stopped) or "dropped"
+        (completed now with partial output, ``dropped=True``)."""
+        slot = next(s for s, q in enumerate(self.slot_req) if q is r)
+        job = self._prefilling.pop(slot, None)
+        if job is not None:              # mid-prefill: the preserved tokens
+            gen = job.gen + ([] if job.resume_tok is None
+                             else [job.resume_tok])   # it resumed with
+        else:
+            gen = list(self.slot_tokens[slot])
+        self.slot_req[slot] = None
+        self.slot_tokens[slot] = []
+        self.slot_remaining[slot] = 0
+        self._uncommitted_done.discard(slot)
+        self._retire_slot(slot)
+        r.preemptions += 1
+        r.resume_tokens = gen
+        self.metrics.inc("requests.preempted")
+        if self.preemption == "drop":
+            r.output = np.asarray(gen, np.int64)
+            r.completion = self.clock()
+            r.accuracy = self.accuracy
+            r.dropped = True
+            self._obs_complete(r, dropped=True)
+            return "dropped"
+        return "requeued"
+
     def decode_step_batch(self, now: float) -> List[Request]:
-        """One decode chunk for every bound slot (sync: dispatch, then
-        commit the chunk's tokens). Never called with rows mid-prefill:
-        those ticks are fused (``fused_chunk_step``)."""
+        """One decode chunk for every bound slot, sync form: dispatch, then
+        commit. Never called with rows mid-prefill: those ticks are fused
+        (``fused_chunk_step``)."""
         if self.active_slots == 0:
             return []
         return self.commit_exec(self.dispatch_decode(now), now)
 
-    def dispatch_decode(self, now: float) -> _PendingExec:
-        """Run one decode chunk; value-independent bookkeeping (remaining
-        counts, count-based completion) happens here. Returns the pending
-        record for ``commit_exec``."""
+    def dispatch_decode(self, now: float) -> Optional[_PendingExec]:
+        """Run one decode chunk without waiting for its tokens;
+        value-independent bookkeeping (remaining counts, count-based
+        completion) happens here. Returns the pending record for
+        ``commit_exec``, or None when every bound slot is a
+        finished-but-uncommitted zombie — nothing left to run."""
         assert not self._prefilling, "mid-prefill rows need the fused tick"
         items = []
         for slot, r in enumerate(self.slot_req):
-            if r is None:
+            if r is None or slot in self._uncommitted_done:
                 continue
             take = min(int(self.slot_remaining[slot]), self.decode_chunk)
+            items.append([slot, r, self.slot_gen[slot], take, False])
+        if not items:
+            return None
+        t_disp = time.perf_counter()
+        toks, ready = self._readback.start(self._dispatch_chunk())
+        for it in items:
+            slot, take = it[0], it[3]
             self.slot_remaining[slot] -= take
-            items.append((slot, r, self.slot_gen[slot], take,
-                          self.slot_remaining[slot] <= 0))
-        return _PendingExec(kind="decode", toks=self._dispatch_chunk(),
-                            decode_items=items)
+            if self.slot_remaining[slot] <= 0:
+                it[4] = True
+                self._uncommitted_done.add(slot)
+        return _PendingExec(kind="decode", toks=toks, ready=ready,
+                            dispatched_at=t_disp,
+                            decode_items=[tuple(it) for it in items])
+
+    def dispatch_exec(self, now: float
+                      ) -> Tuple[str, Optional[_PendingExec]]:
+        """Async exec phase: enqueue this tick's step and return (tick
+        kind, pending record) — the record is committed on the next tick,
+        after that tick's own dispatch, so the read-back and bookkeeping
+        hide behind device work in flight."""
+        if self._prefilling:
+            return "fused", self.dispatch_fused(now)
+        pend = self.dispatch_decode(now) if self.active_slots else None
+        return ("decode" if pend is not None else "idle"), pend
 
     def _dispatch_chunk(self) -> torch.Tensor:
-        """Run one decode chunk; returns its tokens (chunk, B)."""
-        toks = self._step("chunk", None).clone()
+        """Run one decode chunk; returns its tokens (chunk, B): the step's
+        static output, which the read-back copies before any later replay
+        overwrites it (stream order)."""
+        toks = self._step("chunk", None)
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
-    def commit_exec(self, pending: _PendingExec,
+    def commit_exec(self, pending: Optional[_PendingExec],
                     now: float) -> List[Request]:
-        """One batched D2H read of the tick's tokens, then token appends,
+        """Apply a dispatched exec's value-dependent bookkeeping: one wait
+        for the tick's own tokens (its event; never the stream, so a later
+        tick's work in flight is not waited for), then token appends,
         completion stamping and slot retirement. An item whose slot was
-        rebound since its dispatch (``slot_gen``) is skipped. Returns
+        preempted or rebound since its dispatch (``slot_gen``) is skipped:
+        greedy decoding regenerates the same tokens on resume. Returns
         requests finished here."""
-        toks = pending.toks.cpu().numpy()
+        if pending is None:
+            return []
+        t0 = time.perf_counter()
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        toks = pending.toks.numpy().copy()
+        t1 = time.perf_counter()
+        self.commit_wait_ms = (t1 - t0) * 1e3
+        self.commit_gap_ms = (t0 - pending.dispatched_at) * 1e3
         finished: List[Request] = []
-        for slot, r, gen_id in pending.fused_completions:
-            if self.slot_req[slot] is r and self.slot_gen[slot] == gen_id:
-                self.slot_tokens[slot] = [int(toks[slot])]
+        for slot, r, gen_id, resume_tok, gen_before, fin \
+                in pending.fused_completions:
+            if self.slot_req[slot] is not r or self.slot_gen[slot] != gen_id:
+                continue
+            tok0 = resume_tok if resume_tok is not None else int(toks[slot])
+            gen = gen_before + [tok0]
+            if fin:
+                self._finish(r, gen, now)
+                finished.append(r)
+                self._release_slot(slot)
+            else:
+                self.slot_tokens[slot] = gen
         for slot, r, gen_id, take, fin in pending.decode_items:
             if self.slot_req[slot] is not r or self.slot_gen[slot] != gen_id:
                 continue
@@ -623,15 +846,21 @@ class VariantBackend:
                 self._release_slot(slot)
         return finished
 
+    def flush_pending(self, now: float) -> List[Request]:
+        """Commit the in-flight async tick, if any."""
+        pend, self._pending = self._pending, None
+        return self.commit_exec(pend, now)
+
     def _release_slot(self, slot: int) -> None:
         self.slot_req[slot] = None
         self.slot_tokens[slot] = []
+        self._uncommitted_done.discard(slot)
         self._retire_slot(slot)
 
     def _retire_slot(self, slot: int) -> None:
-        """Hook called when a slot's request completes (paged backends free
-        the slot's pages here); the dense cache needs no cleanup — stale
-        entries are masked by the validity bias."""
+        """Hook called when a slot's request completes or is preempted
+        (paged backends free the slot's pages here); the dense cache needs
+        no cleanup — stale entries are masked by the validity bias."""
 
     def _finish(self, r: Request, tokens: List[int], now: float) -> None:
         r.output = np.asarray(tokens[:min(r.max_new, self.max_new)], np.int64)
@@ -639,22 +868,27 @@ class VariantBackend:
         r.accuracy = self.accuracy
         self._obs_complete(r)
 
-    def _obs_complete(self, r: Request) -> None:
-        """Completion-side metrics — one site for continuous finishes and
-        the pump path, so the registry's totals agree with ``done``."""
+    def _obs_complete(self, r: Request, dropped: bool = False) -> None:
+        """Completion-side metrics — one site for continuous finishes,
+        preemption drops and the pump path, so the registry's totals agree
+        with ``done``. Goodput counts a request that was not dropped and
+        met its own ``slo_ms`` (no per-request SLO counts as good)."""
         m = self.metrics
         lat = r.latency_ms
         m.inc("requests.completed")
         m.observe("request.latency_ms", lat)
         m.observe("request.queue_wait_ms", r.queue_wait_ms)
         m.observe("request.service_ms", r.service_ms)
-        if r.slo_ms <= 0 or lat <= r.slo_ms:
+        if dropped:
+            m.inc("requests.dropped")
+        elif r.slo_ms <= 0 or lat <= r.slo_ms:
             m.inc("requests.goodput_ok")
 
     def drain_slots(self, now: float) -> List[Request]:
         """Run prefill/decode until every in-flight sequence completes
-        (connection draining before retirement — create-then-remove)."""
-        done: List[Request] = []
+        (connection draining before retirement — create-then-remove).
+        Commits any in-flight async tick first, then ticks synchronously."""
+        done: List[Request] = list(self.flush_pending(now))
         steps = 0
         max_steps = self.max_new // self.decode_chunk + 2
         if self.chunked:   # fused ticks: 1 decode token while chunks finish
@@ -704,11 +938,11 @@ class PagedVariantBackend(VariantBackend):
 
     def __init__(self, name: str, cfg: ModelConfig, accuracy: float,
                  page_size: int = 16, pool_pages: Optional[int] = None,
-                 prefix_sharing: bool = False, **kw):
+                 **kw):
         self.page_size = page_size
         self._pool_pages_arg = pool_pages
-        self.prefix_sharing = prefix_sharing
-        self.chunked = prefix_sharing    # the tail prefill is a continuation
+        # ids of requests whose prefix lookup admit() already counted
+        self._planned: Set[int] = set()
         super().__init__(name, cfg, accuracy, **kw)
 
     def _build_state(self) -> None:
@@ -795,6 +1029,7 @@ class PagedVariantBackend(VariantBackend):
             plan = self.pool.prefix_plan(self._effective_seq(r)) \
                 if self._budget(r) > 1 else None   # budget-1: no pages at all
             if plan is not None and (plan.shared or plan.cow_src is not None):
+                self._planned.add(id(r))
                 hits.append(r)
             else:
                 misses.append(r)
@@ -843,18 +1078,28 @@ class PagedVariantBackend(VariantBackend):
     def _bind_chunked_slot(self, slot: int) -> None:
         """Chunked admission owns the slot's full page budget up front
         (``free_slots`` already gated the bind on worst-case capacity).
-        The plan's matched blocks are mapped by reference and only the rest
-        is allocated fresh; a fully matched boundary block is copied on
-        write into the first fresh page, so the re-fed final prompt
-        token's K/V write cannot touch the shared original. The prefill job
-        then starts at ``plan.tail_start``: shared tokens are never
-        recomputed."""
+        With prefix sharing, the plan's matched blocks are mapped by
+        reference and only the rest is allocated fresh; a fully matched
+        boundary block is copied on write into the first fresh page, so the
+        re-fed final prompt token's K/V write cannot touch the shared
+        original. The prefill job then starts at ``plan.tail_start``:
+        shared tokens are never recomputed. A resume re-prefills its prompt
+        + preserved tokens through here too, and may hit the index."""
         job = self._prefilling[slot]
-        # plan again against the *current* index: an earlier bind or
-        # monolithic alloc this tick may have reclaimed a retained page the
-        # admit-time plan used; that lookup already counted the hit
-        plan = self.pool.prefix_plan(job.seq, count=False)
-        shared, cow = tuple(plan.shared), plan.cow_src
+        planned = id(job.req) in self._planned
+        self._planned.discard(id(job.req))
+        plan = None
+        if self.prefix_sharing:
+            # plan against the *current* index: an earlier bind or
+            # monolithic alloc this tick may have reclaimed a retained page
+            # an admit-time plan used. The hit-rate telemetry counts one
+            # lookup per fresh admission: not again after admit()'s, and
+            # never for a resume.
+            plan = self.pool.prefix_plan(
+                self._effective_seq(job.req),
+                count=not planned and job.resume_tok is None)
+        shared = tuple(plan.shared) if plan is not None else ()
+        cow = plan.cow_src if plan is not None else None
         # protect the CoW source from retained-tier reclaim within this
         # very alloc — the copy below reads it after the pages are granted
         fresh = self.pool.alloc(slot, self.pages_per_slot - len(shared),
@@ -866,8 +1111,10 @@ class PagedVariantBackend(VariantBackend):
             plan, shared, cow = None, (), None
             fresh = self.pool.alloc(slot, self.pages_per_slot)
         assert fresh is not None
-        self.cache["pt"][slot] = torch.as_tensor(
-            list(shared) + list(fresh), dtype=torch.int32)
+        # from pinned memory: a pageable copy would wait on the stream
+        self.cache["pt"][slot].copy_(self._host(
+            np.asarray(list(shared) + list(fresh), np.int32)),
+            non_blocking=True)
         if plan is not None and plan.tail_start > 0:
             if cow is not None:
                 self.model.paged_cow_copy(self.cache, cow, fresh[0])
@@ -878,18 +1125,24 @@ class PagedVariantBackend(VariantBackend):
     def _prefill_complete(self, slot: int, job: _PrefillJob) -> None:
         """Publish the slot's fully written prompt blocks to the prefix
         index — only now, so a sharer never maps pages still being
-        written. (Only prefix sharing runs chunked prefill here.)"""
-        self.pool.publish_prefix(slot, job.seq)
+        written. A resume publishes the prompt part of its rebuilt sequence
+        alone (its generated tokens' last page keeps being appended to)."""
+        if self.prefix_sharing:
+            self.pool.publish_prefix(slot,
+                                     job.seq[:len(job.seq) - len(job.gen)])
 
     def _dispatch_chunk(self) -> torch.Tensor:
         """One decode chunk at the smallest page bucket covering the
-        longest live row (chosen on the host from ``slot_pos``)."""
+        longest live row (chosen on the host from ``slot_pos``). Rows
+        finished but not yet committed (async zombies) keep decoding
+        harmlessly — their writes land in the slot's own last page — but do
+        not widen the bucket."""
         live = [self.slot_pos[s] for s, r in enumerate(self.slot_req)
-                if r is not None]
+                if r is not None and s not in self._uncommitted_done]
         need = self.pool.pages_needed(int(max(live)) + self.decode_chunk)
         need = min(need, self.pages_per_slot)
         nb = next(b for b in self.page_buckets if b >= need)
-        toks = self._step("chunk", nb).clone()
+        toks = self._step("chunk", nb)
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
@@ -955,16 +1208,34 @@ class InProcessServingEngine:
             raise ValueError("kv_prefix_sharing requires kv_cache='paged' "
                              "(the prefix index maps shared blocks onto "
                              "pool pages)")
-        _refuse("scheduler", scheduler, "fifo", "A5")
-        _refuse("preemption", preemption, "none", "A5")
-        _refuse("async_tick", async_tick, False, "A6")
+        if preemption not in ("none", "requeue", "drop", "migrate"):
+            raise ValueError(f"preemption must be none|requeue|drop|migrate, "
+                             f"got {preemption!r}")
+        if async_tick and mode != "continuous":
+            raise ValueError("async_tick needs the continuous engine (the "
+                             "pump path is a blocking per-batch loop)")
         _refuse("speculative", speculative, None, "A7")
         _refuse("nodes", nodes, None, "A3")
         _refuse("trace", trace, False, "A3")
         _refuse("obs", obs, None, "A3")
         _refuse("profile_dispatch", profile_dispatch, 0, "A3")
         self.device = resolve_device(device)
+        # scheduling discipline between each backend's queue and its slots:
+        # "fifo" = arrival order; "edf" = deadline-order admission;
+        # "chunked" = EDF + chunked prefill. preemption= retires
+        # deadline-hopeless residents for feasible waiters ("requeue"
+        # resumes them later with tokens preserved, "drop" completes them
+        # early as dropped, "migrate" resumes them on a cheaper variant).
         self.sched = make_scheduler(scheduler)
+        if mode != "continuous" and (self.sched.chunked
+                                     or preemption != "none"):
+            raise ValueError("chunked scheduling and preemption need the "
+                             "continuous engine")
+        self.preemption = preemption
+        # async tick: each tick dispatches its exec first, then commits the
+        # previous tick's; greedy outputs equal the sync tick's, only the
+        # completion and retirement bookkeeping lags by one tick
+        self.async_tick = bool(async_tick)
         self.clock = clock   # every arrival/service/completion stamp source
         self.metrics = MetricsRegistry()
         self.variant_defs = dict(variants)       # name -> (cfg, accuracy)
@@ -1004,7 +1275,14 @@ class InProcessServingEngine:
                   max_new=self.max_new, decode_chunk=self.decode_chunk,
                   use_kernels=self.use_kernels, device=self.device,
                   params=self.weights.get(variant),
+                  chunked=self.sched.chunked,
                   prefill_chunk_tokens=self.prefill_chunk,
+                  preemption=self.preemption,
+                  # the async tick admits through the dispatch/commit
+                  # pipeline: build the continuation machinery where the
+                  # model supports it (chunked admission of the same
+                  # zero-padded prompt)
+                  build_chunked=self.async_tick,
                   clock=self.clock, metrics=self.metrics,
                   step_graphs=self.step_graphs,
                   graph_stream=self._graph_stream)
@@ -1066,8 +1344,14 @@ class InProcessServingEngine:
         return sum(b.active_slots for b in self.backends.values())
 
     def flush_pending(self, now: float) -> int:
-        """No-op: the sync tick commits every tick before it returns."""
-        return 0
+        """Commit every backend's in-flight async tick (a no-op in sync mode
+        or when nothing is pending). ``drain_slots`` flushes on its own;
+        shutdown paths call this so bookkeeping never trails the last
+        dispatch. Returns #completed."""
+        n0 = len(self.done)
+        for b in self.backends.values():
+            self.done.extend(b.flush_pending(now))
+        return len(self.done) - n0
 
     # ---------------------------------------------------------------- serving
     def submit(self, req: Request, backend: Optional[str]) -> bool:
@@ -1105,22 +1389,73 @@ class InProcessServingEngine:
         return self._pump_legacy(now)
 
     def _tick(self, now: float) -> int:
-        """One FIFO tick per backend: admit into free slots, then a fused
-        tick while any row is mid-prefill, else a decode chunk."""
+        """One scheduler-driven tick per backend, in three phases: preempt
+        (optional) -> admit (scheduler-ordered) -> exec: a fused tick while
+        any row is mid-prefill, else a decode chunk. With the async tick the
+        exec phase dispatches this tick's step, then commits the previous
+        tick's, so that read-back and bookkeeping run while the device works.
+        With the FIFO scheduler, no preemption and the sync tick this is the
+        plain admit + exec tick."""
         self._rebalance_queues()
         done_before = len(self.done)
         for name, b in self.backends.items():
+            t_b = time.perf_counter()
             q = self.queues.get(name, deque())
+            if self.preemption != "none" and q:
+                # finished-but-uncommitted zombie slots are not preemptable:
+                # their request is complete by count, only its read-back lags
+                resident = [r for s, r in enumerate(b.slot_req)
+                            if r is not None and s not in b._uncommitted_done]
+                for v in self.sched.select_victims(resident, list(q), now,
+                                                   len(b.free_slots)):
+                    if b.preempt(v, now) == "dropped":
+                        self.done.append(v)
+                        continue        # resumes later, tokens preserved
+                    tq = q
+                    if self.preemption == "migrate":
+                        # resume on a cheaper variant through a chunked
+                        # prefill continuation (stays put when nothing
+                        # cheaper is loaded)
+                        tgt = migration_target(name, self.backends,
+                                               self.queues)
+                        if tgt is not None:
+                            v.backend = tgt
+                            tq = self.queues.setdefault(tgt, deque())
+                            self.metrics.inc("requests.migrated")
+                    tq.append(v)
             free_n = len(b.free_slots)
             if q and free_n:
                 ordered = self.sched.order(list(q), now)
                 joiners, rest = ordered[:free_n], ordered[free_n:]
                 q.clear()
                 q.extend(rest)
-                self.done.extend(b.admit(joiners, now))
-            if b._prefilling:   # fused tick: prefill chunks + 1-tok decodes
+                if self.sched.chunked:
+                    self.done.extend(b.admit_chunked(joiners, now))
+                elif self.async_tick and b.chunked:
+                    # monolithic admission would prefill synchronously
+                    # inside the tick; chunked admission of the same
+                    # zero-padded prompt (right_sized stays off) defers it
+                    # into the dispatch/commit pipeline, same outputs
+                    self.done.extend(b.admit_chunked(joiners, now))
+                else:
+                    # resumed requests need the prefill continuation even
+                    # under monolithic admission (preemption builds it)
+                    fresh = [r for r in joiners if not r.resume_tokens]
+                    self.done.extend(b.admit(fresh, now))
+                    resumed = [r for r in joiners if r.resume_tokens]
+                    if resumed:
+                        self.done.extend(b.admit_chunked(resumed, now))
+            if self.async_tick:
+                pend_prev, b._pending = b._pending, None
+                _, b._pending = b.dispatch_exec(now)
+                if pend_prev is not None:
+                    # host work done this tick while the previous tick was
+                    # still in flight (preempt + admit + dispatch)
+                    b.hidden_host_ms = (time.perf_counter() - t_b) * 1e3
+                self.done.extend(b.commit_exec(pend_prev, now))
+            elif b._prefilling:  # fused tick: prefill chunks + 1-tok decodes
                 self.done.extend(b.fused_chunk_step(now))
-            else:               # pure decode: the bucket-aware chunk
+            else:                # pure decode: the bucket-aware chunk
                 self.done.extend(b.decode_step_batch(now))
         return len(self.done) - done_before
 

@@ -82,6 +82,73 @@ def test_flash_decode_kernel_matches_plain(cuda, B, KV, G, hd, C, softcap,
                                rtol=TOL[dtype])
 
 
+CHUNK_CASES = [
+    # B, ck, KV, G, hd, C, softcap, bias: "causal" at ragged starts with
+    # row 1 inert (n_valid 0: a query past it sees only key 0 onward) or
+    # "first" (every key but the first under -1e9)
+    (8, 16, 4, 8, 64, 576, 0.0, "causal"),    # the dense fused tick
+    (8, 16, 4, 8, 64, 576, 30.0, "causal"),   # softcap
+    (3, 5, 2, 8, 64, fd.SPLITS - 3, 0.0, "causal"),  # C below the splits
+    (8, 16, 5, 5, 64, 576, 0.0, "causal"),    # hymba-1.5b's group of 5
+    (2, 16, 2, 8, 128, 300, 0.0, "causal"),   # hd 128: 32 rows a CTA
+    (2, 7, 2, 4, 128, 100, 30.0, "first"),
+    (4, 16, 4, 8, 64, 576, 0.0, "first"),
+    (2, 1, 2, 8, 64, 50, 0.0, "causal"),      # ck 1 in the chunk layout
+]
+
+
+def _chunk_bias(rng, B, ck, C, kind, device):
+    if kind == "first":
+        bias = torch.full((B, ck, C), -1e9)
+        bias[..., 0] = 0.0
+    else:
+        start = torch.as_tensor(rng.integers(0, C, B))
+        start[min(1, B - 1)] = 0
+        pos = start[:, None] + torch.arange(ck)[None, :]
+        bias = torch.where(torch.arange(C)[None, None, :] <= pos[:, :, None],
+                           0.0, -1e9)
+    return bias.float().to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,ck,KV,G,hd,C,softcap,kind", CHUNK_CASES)
+def test_flash_decode_chunk_kernel_matches_plain(cuda, B, ck, KV, G, hd, C,
+                                                 softcap, kind, dtype):
+    """The chunk form, one launch, against its plain version (the stack of
+    single-query plain calls), and its launch counted on its own key."""
+    rng = np.random.default_rng(B * ck + C)
+    q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
+    k = _randn(rng, (B, KV, C, hd), dtype, cuda)
+    v = _randn(rng, (B, KV, C, hd), dtype, cuda)
+    bias = _chunk_bias(rng, B, ck, C, kind, cuda)
+    n0, d0 = fd.flash_decode_chunk.launches, fd.flash_decode_bkhd.launches
+    out = fd.flash_decode_chunk(q, k, v, bias, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_chunk.launches == n0 + 1
+    assert fd.flash_decode_bkhd.launches == d0
+    want = fd.flash_decode_chunk_plain(q, k, v, bias, softcap=softcap)
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_chunk_equals_single_query_kernels(cuda, dtype):
+    """Each chunk token's rows equal the decode kernel's at that token's
+    bias row: the same arithmetic in the same order, bitwise."""
+    rng = np.random.default_rng(4)
+    B, ck, KV, G, hd, C = 8, 16, 4, 8, 64, 576
+    q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
+    k = _randn(rng, (B, KV, C, hd), dtype, cuda)
+    v = _randn(rng, (B, KV, C, hd), dtype, cuda)
+    bias = _chunk_bias(rng, B, ck, C, "causal", cuda)
+    out = fd.flash_decode_chunk(q, k, v, bias)
+    for j in range(ck):
+        one = fd.flash_decode_bkhd(q[:, j].contiguous(), k, v,
+                                   bias[:, j].contiguous())
+        assert torch.equal(out[:, j], one), j
+
+
 def test_flash_decode_workspace_is_left_clean(cuda):
     """The last split of each (b, kv-head) sets its arrival counter back to
     zero, so the reused workspace serves the next call: two calls on other
@@ -663,6 +730,14 @@ GRAPH_ENGINES = [
     ("mamba2", "mamba2-130m", {}, {}, "continuous"),
     ("mamba2 pump", "mamba2-130m", {}, {}, "pump"),
     ("hymba", "hymba-1.5b", {}, {}, "continuous"),
+    ("dense chunked, fused tick", "tinyllama-1.1b", dict(num_layers=2),
+     dict(scheduler="chunked"), "continuous"),
+    ("dense async", "tinyllama-1.1b", dict(num_layers=2, dtype="bfloat16"),
+     dict(async_tick=True), "continuous"),
+    ("paged chunked async", "tinyllama-1.1b", dict(num_layers=2),
+     dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True,
+          scheduler="chunked", async_tick=True), "continuous"),
+    ("mamba2 async", "mamba2-130m", {}, dict(async_tick=True), "continuous"),
 ]
 
 
@@ -695,6 +770,7 @@ def test_step_graph_replays_equal_eager_steps(cuda, label, arch, over,
     assert b.graphs and all(g.graph is not None for g in b.graphs.values())
     if engine_kw.get("kv_prefix_sharing"):
         assert eng.kv_pool_stats()["prefix_hits"] > 0
+    if b.chunked:
         assert ("fused", 3) in b.graphs
     ws = build.workspace_buffers(eng._graph_stream.device,
                                  eng._graph_stream.cuda_stream)
@@ -800,3 +876,139 @@ def test_a_failed_capture_raises(cuda):
         g.capture(torch.cuda.graph_pool_handle())
     with pytest.raises(StepGraphError, match="never captured"):
         g.run(a=x)
+
+
+# ------------------------------------------- async tick, chunked, preemption
+
+def _virtual_serve(cuda, engine_kw, n=8, tight=False, layers=2,
+                   dtype="float32"):
+    """Staggered requests on a virtual clock (one per tick, tight SLOs on
+    even rids with ``tight``) through a 2-layer tinyllama engine, kernels
+    on, steps replayed. Returns (rid -> (backend, tokens, dropped,
+    preemptions), engine)."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = _smoke("tinyllama-1.1b", num_layers=layers, dtype=dtype)
+    t = [0.0]
+    eng = InProcessServingEngine(
+        {"v": (cfg, 70.0)}, max_batch=3, prompt_len=32, max_new=8,
+        decode_chunk=2, prefill_chunk=8, use_kernels=True, device=cuda,
+        clock=lambda: t[0], **engine_kw)
+    eng.apply_allocation(0.0, {"v": 1})
+    prompts = _shared_prompts(cfg.vocab_size, n)
+    rng = np.random.default_rng(2)
+    for i, p in enumerate(prompts):
+        slo = (30.0 if i % 2 == 0 else 5000.0) if tight else 0.0
+        eng.submit(Request(rid=i, tokens=p, max_new=int(rng.integers(2, 9)),
+                           arrival=t[0], slo_ms=slo), "v")
+        eng.step(t[0])
+        t[0] += 0.05
+    for _ in range(400):
+        if not eng.backlog(t[0]) and not eng.in_flight():
+            break
+        eng.step(t[0])
+        t[0] += 0.05
+    torch.cuda.synchronize()
+    for b in eng.backends.values():
+        assert b._pending is None and not b._uncommitted_done
+        assert all(r is None for r in b.slot_req)
+        if hasattr(b, "pool"):
+            b.pool.assert_invariants()
+            assert b.pool.used_pages == 0
+    return ({r.rid: (r.backend, list(r.output), r.dropped, r.preemptions)
+             for r in eng.done}, eng)
+
+
+ASYNC_CASES = [
+    dict(),
+    dict(scheduler="chunked"),
+    dict(scheduler="chunked", preemption="requeue"),
+    dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True),
+    dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True,
+         scheduler="chunked", preemption="requeue"),
+]
+
+
+@pytest.mark.parametrize("engine_kw", ASYNC_CASES,
+                         ids=lambda kw: ",".join(f"{k}={v}"
+                                                 for k, v in kw.items())
+                         or "dense fifo")
+def test_async_tick_equals_sync_on_the_card(cuda, engine_kw):
+    """The async tick against the sync tick on one workload, bitwise per
+    request; the async commit reads pinned host buffers behind CUDA events
+    (never a stream synchronise)."""
+    tight = engine_kw.get("preemption", "none") != "none"
+    want, _ = _virtual_serve(cuda, engine_kw, tight=tight)
+    got, eng = _virtual_serve(cuda, dict(engine_kw, async_tick=True),
+                              tight=tight)
+    assert len(want) == 8 and got == want
+    b = eng.backends["v"]
+    assert b.chunked                 # async admits through the fused tick
+    bufs = [t for ts in b._readback._bufs.values() for t in ts]
+    assert bufs and all(t.is_pinned() for t in bufs)
+    assert b.commit_wait_ms >= 0.0 and b.hidden_host_ms >= 0.0
+    if tight:
+        assert any(o[3] for o in got.values())
+
+
+@pytest.mark.parametrize("scheduler", ["edf", "chunked"])
+@pytest.mark.parametrize("kv_cache", ["dense", "paged"])
+def test_preemption_resume_on_the_card(cuda, kv_cache, scheduler):
+    """Three hopeless requests take the slots, five feasible ones arrive and
+    preempt them (requeue); each resume is a chunked prefill of prompt +
+    preserved tokens through the chunk kernels. Every request finishes
+    with the unpressured run's tokens (fp32), and the pool ends empty."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = _smoke("tinyllama-1.1b", num_layers=2)
+    prompts = _shared_prompts(cfg.vocab_size, 8)
+    outs = []
+    for preemption in ("none", "requeue"):
+        eng = InProcessServingEngine(
+            {"v": (cfg, 70.0)}, max_batch=3, prompt_len=32, max_new=8,
+            decode_chunk=2, prefill_chunk=8, use_kernels=True, device=cuda,
+            kv_cache=kv_cache, kv_page_size=8, scheduler=scheduler,
+            preemption=preemption, clock=lambda: 0.0)
+        eng.apply_allocation(0.0, {"v": 1})
+        for i in range(3):
+            eng.submit(Request(rid=i, tokens=prompts[i], max_new=8,
+                               arrival=0.0, slo_ms=1.0), "v")
+        eng.step(100.0)                  # admit the hopeless three
+        for i in range(3, 8):
+            eng.submit(Request(rid=i, tokens=prompts[i], max_new=8,
+                               arrival=0.0, slo_ms=1e9), "v")
+        eng.drain(100.0)
+        torch.cuda.synchronize()
+        b = eng.backends["v"]
+        if hasattr(b, "pool"):
+            b.pool.assert_invariants()
+            assert b.pool.used_pages == 0
+        if preemption != "none":
+            assert eng.metrics.value("requests.preempted") > 0
+        outs.append({r.rid: list(r.output) for r in eng.done})
+    assert len(outs[0]) == 8 and outs[1] == outs[0]
+
+
+def test_dense_fused_tick_launches_one_chunk_kernel_per_layer(cuda):
+    """Every dense fused tick runs flash_decode's chunk form once per layer
+    and the one-token decode kernel never (replayed or eager alike)."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import VariantBackend
+    cfg = _smoke("tinyllama-1.1b", num_layers=3)
+    for graphs in (True, False):
+        b = VariantBackend("v", cfg, 70.0, max_batch=3, prompt_len=32,
+                           max_new=8, decode_chunk=2, use_kernels=True,
+                           device=cuda, chunked=True, prefill_chunk_tokens=8,
+                           step_graphs=graphs)
+        b.admit_chunked([Request(rid=i, tokens=np.arange(20 + i), max_new=8,
+                                 arrival=0.0) for i in range(3)], 0.0)
+        ticks = 0
+        while b._prefilling:
+            n0 = ops.launch_counts()
+            b.fused_chunk_step(0.0)
+            n1 = ops.launch_counts()
+            assert n1["flash_decode_chunk"] - n0["flash_decode_chunk"] == 3
+            assert n1["flash_decode"] == n0["flash_decode"]
+            ticks += 1
+        assert ticks == 3                    # 22 tokens in chunks of 8
+        b.close()

@@ -123,6 +123,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         ops.ssd_scan(xs, dts, A, bcs, bcs, chunk=4),
         ssd_chunked(xs, dts, A, bcs, bcs, 4))
     assert ops.launch_counts() == {"flash_prefill": 0, "flash_decode": 0,
+                                   "flash_decode_chunk": 0,
                                    "paged_decode": 0, "ssd_scan": 0}
 
 
