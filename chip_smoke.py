@@ -22,8 +22,10 @@ phase raises, and the script exits nonzero:
               ragged last chunk; for flash_decode's chunk form, the dense
               fused tick's shape B 8, ck 16, C 576 and softcap, C below the
               split count, hymba-1.5b's group of 5, hd 128, ragged starts
-              with an inert row, queries that see only the first key), with
-              stated tolerances; then kernel /
+              with an inert row, queries that see only the first key, and
+              the tensor-core route's edges in bf16: C below its splits, C
+              not a multiple of 64, more tiles than splits, G 7 and G 1),
+              with stated tolerances; then kernel /
               plain / library (SDPA, a yardstick the port never calls; for
               the chunk form SDPA with a (B, H, ck, C) float mask; none
               for paged decode and the SSD scan, timed at mamba2-130m's and
@@ -109,7 +111,8 @@ Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 flash_prefill and flash_decode of that checkout (event and device times,
 SDPA beside them, bf16 and fp32), flash_decode's chunk form where the
 checkout has it (the dense fused tick's shape, SDPA with a float mask
-beside it), paged_decode (the decode step's call,
+beside it; on the tensor-core route also its device time by split
+count), paged_decode (the decode step's call,
 and one layer of the fused tick's ``paged_chunk_prefill_attention`` with
 the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
 hymba-1.5b's serve shapes, bf16, strided views, nonzero initial state,
@@ -338,7 +341,19 @@ def dense_chunk_checks(torch, fd, gen):
              ("hd 128 ragged", (2, CK, 2, 8, 128, 300), 0.0, "ragged"),
              ("hd 128 softcap, first key only", (2, 7, 2, 4, 128, 100),
               30.0, "first"),
-             ("first key only", (B, CK, KV, G, HD, CAP), 0.0, "first"))
+             ("first key only", (B, CK, KV, G, HD, CAP), 0.0, "first"),
+             # the tensor-core route's edges (bf16 at hd 64): C below its
+             # splits, C not a multiple of its 64-position tiles, more
+             # tiles than splits, a short second row block (G 7), 64
+             # tokens a block (G 1)
+             (f"C={fd.TC_SPLITS - 1} below the tensor-core splits",
+              (3, 5, 2, 8, HD, fd.TC_SPLITS - 1), 0.0, "ragged"),
+             ("C=203 ragged tile", (4, CK, KV, G, HD, 203), 0.0, "ragged"),
+             ("C=700 softcap, first key only", (2, CK, 2, G, HD, 700), 30.0,
+              "first"),
+             ("G=7 short row block", (2, 9, 3, 7, HD, 130), 0.0, "ragged"),
+             ("G=1 ck=80", (2, 80, 2, 1, HD, 320), 0.0, "ragged"),
+             ("ck=1 chunk layout", (2, 1, 2, G, HD, 50), 0.0, "ragged"))
     err = args = None
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
@@ -387,6 +402,29 @@ def dense_chunk_timing(torch, F, fd, gen, args):
                 device_ms=device_ms(torch, fd.flash_decode_chunk, sets),
                 library_ms=time_ms(torch, sdpa, sdpa_sets),
                 library_device_ms=device_ms(torch, sdpa, sdpa_sets))
+
+
+def dense_chunk_splits(torch, fd, gen, args, splits=(1, 2, 3, 4, 6, 9)):
+    """The tensor-core chunk form's device time at the dense fused tick's
+    shape (bf16) for each count of CTAs per row block (``fd.TC_SPLITS``,
+    which ``launch_plan`` reads at each call), each held to the plain
+    version first: the sweep behind the kernel's split count. Returns
+    {splits: device ms}."""
+    dt = torch.bfloat16
+    sets = rotated(args, lambda: dense_chunk_inputs(
+        torch, gen, B, CK, KV, H // KV, HD, CAP, dt), ())
+    keep, out = fd.TC_SPLITS, {}
+    try:
+        for n in splits:
+            fd.TC_SPLITS = n
+            check(f"flash_decode_chunk fused shape, {n} splits",
+                  fd.flash_decode_chunk(*args),
+                  fd.flash_decode_chunk_plain(*args), dt)
+            out[n] = device_ms(torch, fd.flash_decode_chunk, sets)
+    finally:
+        fd.TC_SPLITS = keep
+    log("  flash_decode_chunk device ms by splits: " + json.dumps(out))
+    return out
 
 
 def paged_kernel_checks(torch, pd, gen):
@@ -818,6 +856,9 @@ def ab_phase(torch):
                     fd.flash_decode_chunk_plain(*args), torch.bfloat16)
         rows.append(dict(name="flash_decode_chunk", max_abs_err=err,
                          **dense_chunk_timing(torch, F, fd, gen, args)))
+        if hasattr(fd, "TC_SPLITS"):           # the tensor-core route's
+            rows[-1]["splits_device_ms"] = dense_chunk_splits(torch, fd, gen,
+                                                              args)
     return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
             + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
@@ -898,7 +939,8 @@ def kernel_phase(torch):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
     rows.append(dict(name="flash_decode_chunk", route="cuda",
-                     source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                     source="src/repro_torch/kernels/csrc/"
+                            "flash_decode_chunk.cu",
                      replaces="src/repro/kernels/flash_decode.py:81",
                      max_abs_err=errs["dense_chunk"],
                      **dense_chunk_timing(torch, F, fd, gen,
@@ -939,9 +981,13 @@ def kernel_phase(torch):
                 log(f"  ssd_scan device ms by launch, {arch}: "
                     + json.dumps(t["launch_device_ms"]))
         if r["name"] == "flash_decode_chunk":
+            tc, n_rows, splits = fd.launch_plan(CK, H // KV, HD,
+                                                torch.bfloat16, True)
             log(f"  {'':<14s} the dense fused tick's chunk: B={B} ck={CK} "
                 f"C={CAP}, one launch for the reference's {CK} per-token "
-                f"calls; library = SDPA with a (B, H, ck, C) float mask")
+                f"calls ({'tensor cores' if tc else 'CUDA cores'}, "
+                f"{n_rows} rows x {splits} splits a CTA block); library = "
+                f"SDPA with a (B, H, ck, C) float mask")
         if "chunk_ms" in r:
             log(f"  {'paged chunk':<14s} {'bfloat16':<9s} kernel "
                 f"{r['chunk_ms']:.4f} (device {ms4(r['chunk_device_ms'])})  "

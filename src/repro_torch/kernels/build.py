@@ -21,7 +21,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_prefill", "flash_decode", "paged_decode", "ssd_scan")
+SOURCES = ("flash_prefill", "flash_decode", "flash_decode_chunk",
+           "paged_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

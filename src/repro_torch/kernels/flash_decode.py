@@ -1,7 +1,7 @@
-"""GQA decode attention over a dense KV cache: the CUDA kernel
-``csrc/flash_decode.cu`` (replacing the TPU kernel
-``repro/kernels/flash_decode.py:flash_decode_bkhd``) and its plain PyTorch
-version, in two forms:
+"""GQA decode attention over a dense KV cache: the CUDA kernels
+``csrc/flash_decode.cu`` and ``csrc/flash_decode_chunk.cu`` (replacing the
+TPU kernel ``repro/kernels/flash_decode.py:flash_decode_bkhd``) and their
+plain PyTorch version, in two forms:
 
 - ``flash_decode_bkhd``: one query token per row (the decode step);
 - ``flash_decode_chunk``: ``ck`` query tokens per row with a bias row each
@@ -10,15 +10,19 @@ version, in two forms:
   (``repro/models/attention.py:758-765``), in one launch.
 
 Each is the wrapper of its form: CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise. A launch splits the cache axis over
-``SPLITS`` CTAs per (b, kv-head, block of query rows); each writes its
-partial softmax sums to a scratch workspace and the last to arrive combines
-them, counted on a per-block arrival counter that it leaves at zero. The
-workspace (partials and counters, ``build.workspace``) is allocated once
-per device and stream and shared with paged_decode: launches on one stream
-run in order, so they never share it while in flight.
-``flash_decode_bkhd.launches`` and ``flash_decode_chunk.launches`` count
-each form's kernel launches (never plain-version calls).
+tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
+any launch: the chunk form in bf16 at hd 64 runs on the tensor cores
+(``flash_decode_chunk.cu``: ``wgmma`` over blocks of 64 query rows); the
+decode step, fp32 and hd 128 run on the CUDA cores (``flash_decode.cu``).
+A launch splits the cache axis over several CTAs per (b, kv-head, block of
+query rows); each writes its partial softmax sums to a scratch workspace
+and the last to arrive combines them, counted on a per-block arrival
+counter that it leaves at zero. The workspace (partials and counters,
+``build.workspace``) is allocated once per device and stream and shared
+with paged_decode: launches on one stream run in order, so they never
+share it while in flight. ``flash_decode_bkhd.launches`` and
+``flash_decode_chunk.launches`` count each form's kernel launches (never
+plain-version calls).
 """
 from __future__ import annotations
 
@@ -36,6 +40,9 @@ _ARGTYPES = [_C] * 7 + [_I] * 7 + [ctypes.c_float, _I, _C]
 MAX_GROUP_WIDTH = 4096          # rows * hd accumulators per CTA (csrc kMaxAcc)
 SPLITS = 8                      # CTAs per (b, kv-head, row block) (kSplits)
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
+TC_ROWS = 64                    # query rows of a tensor-core CTA (kRows)
+TC_SPLITS = 4                   # its CTAs per (b, kv-head, row block)
+TC_SMEM_BYTES = 5 * 64 * 128 + 1024   # Q, K and V rings, alignment (csrc)
 
 
 def chunk_rows(ck: int, G: int, hd: int) -> int:
@@ -60,9 +67,24 @@ def smem_bytes(G: int, hd: int, esize: int, rows: int = 0) -> int:
             + 4 * (2 * (rows // G) * tr + rows * hd + rows * tr + 3 * rows))
 
 
-def _launch_fn():
-    """The kernel's C entry point, its argument types set once."""
-    fn = build.load("flash_decode").flash_decode_launch
+def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
+                ) -> Tuple[bool, int, int]:
+    """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
+    form in bf16 at hd 64 runs on ``wgmma`` in blocks of 64 query rows
+    (``flash_decode_chunk.cu``), whatever ck and G; every other launch (the
+    decode step, fp32, hd 128) on the CUDA cores (``flash_decode.cu``),
+    with whole groups of G rows as the accumulators hold
+    (``chunk_rows``)."""
+    if chunk and dtype == torch.bfloat16 and hd == 64:
+        return True, TC_ROWS, TC_SPLITS
+    return False, chunk_rows(ck, G, hd) if chunk else G, SPLITS
+
+
+def _launch_fn(tc: bool):
+    """The C entry point of the tensor-core (``tc``) or CUDA-core kernel,
+    its argument types set once (the two take the same arguments)."""
+    lib = build.load("flash_decode_chunk" if tc else "flash_decode")
+    fn = lib.flash_decode_chunk_launch if tc else lib.flash_decode_launch
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
@@ -94,14 +116,16 @@ def flash_decode_chunk_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               bias: torch.Tensor, chunk: bool) -> Tuple[int, int]:
-    """Raise on what the kernel does not take, before any launch: q
+               bias: torch.Tensor, chunk: bool
+               ) -> Tuple[int, bool, int, int]:
+    """Raise on what neither kernel takes, before any launch: q
     (B,ck,KV,G,hd) and bias (B,ck,C) with ``chunk``, else q (B,KV,G,hd)
     and bias (B,C); k, v (B,KV,C,hd) of q's dtype; every operand
-    contiguous, 16-byte aligned and on q's device, the bias fp32; hd a
-    multiple of 8, a group of G rows within the accumulators and the
-    block's shared memory within one H100 block. Returns (ck, rows per
-    CTA)."""
+    contiguous, 16-byte aligned and on q's device, the bias fp32; on the
+    CUDA cores also hd a multiple of 8, a group of G rows within the
+    accumulators and the block's shared memory within one H100 block (the
+    tensor-core route takes bf16 at hd 64 at any G). Returns (ck,
+    ``launch_plan``)."""
     dev, dt = q.device, q.dtype
     for name, t, tdt, nd in (("q", q, dt, 5 if chunk else 4),
                              ("k", k, dt, 4), ("v", v, dt, 4),
@@ -118,31 +142,37 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
-    rows = chunk_rows(ck, G, hd)
-    smem = smem_bytes(G, hd, q.element_size(), rows)
-    if hd % 8 or rows * hd > MAX_GROUP_WIDTH or smem > MAX_SMEM_BYTES:
-        raise ValueError(f"flash_decode needs hd % 8 == 0, G*hd <= "
-                         f"{MAX_GROUP_WIDTH} and {smem} bytes of shared "
-                         f"memory <= {MAX_SMEM_BYTES}, got G={G} hd={hd}")
-    return ck, rows
+    tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
+    if not tc:
+        smem = smem_bytes(G, hd, q.element_size(), rows)
+        if hd % 8 or rows * hd > MAX_GROUP_WIDTH or smem > MAX_SMEM_BYTES:
+            raise ValueError(f"flash_decode needs hd % 8 == 0, G*hd <= "
+                             f"{MAX_GROUP_WIDTH} and {smem} bytes of shared "
+                             f"memory <= {MAX_SMEM_BYTES}, got G={G} "
+                             f"hd={hd}")
+    return ck, tc, rows, splits
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bias: torch.Tensor, softcap: float, chunk: bool) -> torch.Tensor:
-    """Check the operands (``check_args``), launch, return out like q."""
-    ck, rows = check_args(q, k, v, bias, chunk)
+    """Check the operands (``check_args``), launch the planned kernel,
+    return out like q."""
+    ck, tc, rows, splits = check_args(q, k, v, bias, chunk)
     dev = q.device
     B, KV, C = k.shape[0], k.shape[1], k.shape[2]
     G, hd = q.shape[-2], q.shape[-1]
     n_blocks = B * KV * -(-ck * G // rows)
-    fn = _launch_fn()
+    fn = _launch_fn(tc)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partials, arrivals = build.workspace(
-        dev, stream, n_blocks * SPLITS * (rows * hd + 2 * rows), n_blocks)
+        dev, stream, n_blocks * splits * (rows * hd + 2 * rows), n_blocks)
+    # the tensor-core kernel takes its split count where the CUDA-core one
+    # takes its rows per CTA (64 rows and 8 splits are its constants)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
-            G, C, hd, ck, rows, float(softcap), build.dtype_code(q), stream)
+            G, C, hd, ck, splits if tc else rows, float(softcap),
+            build.dtype_code(q), stream)
     # The decode step calls this once per layer and is bound by host time:
     # switch devices only when the call needs it.
     if dev.index == torch.cuda.current_device():
@@ -150,7 +180,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         with torch.cuda.device(dev):
             err = fn(*args)
-    build.check_launch("flash_decode", err)
+    build.check_launch("flash_decode_chunk" if tc else "flash_decode", err)
     return out
 
 
@@ -171,10 +201,15 @@ def flash_decode_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        ) -> torch.Tensor:
     """q (B,ck,KV,G,hd); k, v (B,KV,C,hd); bias (B,ck,C) float32 -> like
     q: query token j of row b attends under the bias row (b, j), exactly as
-    ``flash_decode_bkhd(q[:, j], k, v, bias[:, j])`` would, in one launch.
-    Every position of a query row whose bias is -1e9 still enters its sums
-    with a zero weight, so the cache must be finite there (in the engine it
-    holds stale but finite entries)."""
+    ``flash_decode_bkhd(q[:, j], k, v, bias[:, j])`` would, in one launch
+    (in bf16 at hd 64 on the tensor cores, whose sum order differs from the
+    single form's; elsewhere the same arithmetic in the same order).
+    Preconditions: every position of a query row whose bias is -1e9 still
+    enters its sums with a zero weight, so the cache must be finite there
+    (in the engine it holds stale but finite entries); rows are
+    independent, so a padded query or an inert row cannot reach a live
+    one; any C >= 1, also below the split count (a split without positions
+    adds nothing)."""
     if q.device.type == "cpu":
         return flash_decode_chunk_plain(q, k, v, bias, softcap=softcap)
     out = _launch(q, k, v, bias, softcap, chunk=True)

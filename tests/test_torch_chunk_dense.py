@@ -228,17 +228,21 @@ def test_chunks_over_a_prompt_reproduce_prefill():
     (3, 8, 64, 24), (16, 32, 128, 32), (4, 1, 64, 4)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launch_plan(ck, G, hd, rows, dtype):
-    """The rows one CTA takes: whole groups of G (a chunk token's heads
-    share its bias row), as many tokens as 4096 accumulators hold, at most
-    ck; the decode step takes its G rows. The block's shared memory fits
-    one H100 block at G 8 and hd 64/128 in both dtypes."""
+    """The rows one CUDA-core CTA takes: whole groups of G (a chunk token's
+    heads share its bias row), as many tokens as 4096 accumulators hold, at
+    most ck; the decode step takes its G rows. The block's shared memory
+    fits one H100 block at G 8 and hd 64/128 in both dtypes. In bf16 at hd
+    64 the chunk form plans the tensor-core route's 64 rows instead."""
     assert fd.chunk_rows(ck, G, hd) == rows
     esize = torch.tensor([], dtype=dtype).element_size()
     assert fd.smem_bytes(G, hd, esize, rows) <= fd.MAX_SMEM_BYTES
     q = torch.zeros((2, ck, 2, G, hd), dtype=dtype)
     k = torch.zeros((2, 2, 40, hd), dtype=dtype)
+    tc, plan_rows, splits = fd.launch_plan(ck, G, hd, dtype, True)
+    assert tc == (dtype == torch.bfloat16 and hd == 64)
+    assert plan_rows == (fd.TC_ROWS if tc else rows)
     assert fd.check_args(q, k, k, torch.zeros((2, ck, 40)), True) == \
-        (ck, rows)
+        (ck, tc, plan_rows, splits)
 
 
 def _refusal_cases():
@@ -268,3 +272,101 @@ def test_check_args_refuses(case):
     wrapper calls ``check_args`` first); CPU tensors exercise the checks."""
     with pytest.raises((ValueError, TypeError)):
         fd.check_args(*_refusal_cases()[case], chunk=True)
+
+
+@pytest.mark.parametrize("ck,G,hd,dtype,chunk,want", [
+    (16, 8, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),  # fused
+    (16, 5, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),  # 80 rows
+    (1, 8, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),   # ck 1
+    (4, 80, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),  # G*hd 5120
+    (16, 8, 64, torch.float32, True, (False, 64, fd.SPLITS)),
+    (16, 8, 128, torch.bfloat16, True, (False, 32, fd.SPLITS)),
+    (16, 5, 128, torch.float32, True, (False, 30, fd.SPLITS)),
+    (1, 8, 64, torch.bfloat16, False, (False, 8, fd.SPLITS)),     # decode
+    (1, 5, 128, torch.float32, False, (False, 5, fd.SPLITS)),
+])
+def test_tensor_core_launch_plan(ck, G, hd, dtype, chunk, want):
+    """The route, rows and splits of one launch: the chunk form in bf16 at
+    hd 64 on the tensor cores, 64 query rows a CTA at any G (a block spans
+    64 // G + 1 tokens or fewer) and ``TC_SPLITS`` CTAs per row block,
+    with at least four CTAs' shared memory on one SM; the decode step
+    (ck 1), fp32 and hd 128 on the CUDA cores as before, in the shared
+    memory of one H100 block. ``check_args`` returns the same plan."""
+    plan = fd.launch_plan(ck, G, hd, dtype, chunk)
+    assert plan == want
+    tc, rows, _ = plan
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if tc:
+        assert 4 * fd.TC_SMEM_BYTES <= fd.MAX_SMEM_BYTES
+        assert fd.TC_SMEM_BYTES == 5 * fd.TC_ROWS * hd * esize + 1024
+    else:
+        assert rows % G == 0 and rows * hd <= fd.MAX_GROUP_WIDTH
+        assert fd.smem_bytes(G, hd, esize, rows) <= fd.MAX_SMEM_BYTES
+    q = torch.zeros((2, ck, 2, G, hd) if chunk else (2, 2, G, hd),
+                    dtype=dtype)
+    k = torch.zeros((2, 2, 40, hd), dtype=dtype)
+    bias = torch.zeros((2, ck, 40) if chunk else (2, 40))
+    assert fd.check_args(q, k, k, bias, chunk) == (ck, *want)
+
+
+def _tc_refusal_cases():
+    """Operands of the tensor-core route (bf16, hd 64) that it refuses."""
+    bf = torch.bfloat16
+    q = torch.zeros((2, 4, 2, 8, 64), dtype=bf)
+    k = torch.zeros((2, 2, 40, 64), dtype=bf)
+    b = torch.zeros((2, 4, 40))
+    return {
+        "bias bf16": (q, k, k, b.to(bf)),
+        "bias (B, C)": (q, k, k, b[:, 0]),
+        "bias other C": (q, k, k, b[..., :39].contiguous()),
+        "q strided": (q.transpose(2, 3).contiguous().transpose(2, 3), k, k, b),
+        "q not 16-byte aligned": (
+            torch.zeros(q.numel() + 1, dtype=bf)[1:].view(q.shape), k, k, b),
+        "k fp32": (q, k.float(), k, b),
+        "v other shape": (q, k, k[:, :1].contiguous(), b),
+        "ck = 0": (q[:, :0], k, k, b[:, :0]),
+        "C = 0": (q, k[:, :, :0], k[:, :, :0], b[:, :, :0]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_tc_refusal_cases()))
+def test_check_args_refuses_tensor_core_route(case):
+    """What the tensor-core route does not take raises in ``check_args``,
+    before any launch, as the CUDA-core route's refusals do."""
+    with pytest.raises((ValueError, TypeError)):
+        fd.check_args(*_tc_refusal_cases()[case], chunk=True)
+
+
+@pytest.mark.parametrize("dtype,hd,chunk,lib", [
+    (torch.bfloat16, 64, True, "flash_decode_chunk"),
+    (torch.float32, 64, True, "flash_decode"),
+    (torch.bfloat16, 128, True, "flash_decode"),
+    (torch.bfloat16, 64, False, "flash_decode"),
+])
+def test_wrapper_loads_the_planned_kernel_after_the_checks(monkeypatch,
+                                                           dtype, hd, chunk,
+                                                           lib):
+    """On a non-CPU tensor (here meta) the wrapper checks, then loads the
+    planned kernel's library: a refused operand raises before any library
+    is loaded, and a valid one asks for the tensor-core library in bf16 at
+    hd 64 and for the CUDA-core one otherwise; nothing falls back to the
+    plain version, and no launch is counted."""
+    asked = []
+
+    def load(name):
+        asked.append(name)
+        raise RuntimeError("no kernels here")
+
+    monkeypatch.setattr(fd.build, "load", load)
+    wrap = fd.flash_decode_chunk if chunk else fd.flash_decode_bkhd
+    q = torch.zeros((2, 3, 2, 8, hd) if chunk else (2, 2, 8, hd),
+                    dtype=dtype, device="meta")
+    k = torch.zeros((2, 2, 40, hd), dtype=dtype, device="meta")
+    bias = torch.zeros((2, 3, 40) if chunk else (2, 40), device="meta")
+    n0 = wrap.launches
+    with pytest.raises(TypeError):
+        wrap(q, k, k, bias.to(torch.float64))
+    assert asked == []
+    with pytest.raises(RuntimeError, match="no kernels here"):
+        wrap(q, k, k, bias)
+    assert asked == [lib] and wrap.launches == n0

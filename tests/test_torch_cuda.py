@@ -94,6 +94,14 @@ CHUNK_CASES = [
     (2, 7, 2, 4, 128, 100, 30.0, "first"),
     (4, 16, 4, 8, 64, 576, 0.0, "first"),
     (2, 1, 2, 8, 64, 50, 0.0, "causal"),      # ck 1 in the chunk layout
+    # the tensor-core route's edges (bf16, hd 64): C below its splits, C
+    # not a multiple of its 64-position tiles, more tiles than splits with
+    # a softcap, G 7 (a short second row block), G 1 (64 tokens a block)
+    (3, 5, 2, 8, 64, fd.TC_SPLITS - 1, 0.0, "causal"),
+    (4, 16, 4, 8, 64, 203, 0.0, "causal"),
+    (2, 16, 2, 8, 64, 700, 30.0, "first"),
+    (2, 9, 3, 7, 64, 130, 0.0, "causal"),
+    (2, 80, 2, 1, 64, 320, 0.0, "causal"),
 ]
 
 
@@ -115,7 +123,11 @@ def _chunk_bias(rng, B, ck, C, kind, device):
 def test_flash_decode_chunk_kernel_matches_plain(cuda, B, ck, KV, G, hd, C,
                                                  softcap, kind, dtype):
     """The chunk form, one launch, against its plain version (the stack of
-    single-query plain calls), and its launch counted on its own key."""
+    single-query plain calls), and its launch counted on its own key; bf16
+    at hd 64 plans the tensor-core route, everything else the CUDA cores."""
+    tc, rows, _ = fd.launch_plan(ck, G, hd, dtype, True)
+    assert tc == (dtype == torch.bfloat16 and hd == 64)
+    assert rows == (fd.TC_ROWS if tc else fd.chunk_rows(ck, G, hd))
     rng = np.random.default_rng(B * ck + C)
     q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
     k = _randn(rng, (B, KV, C, hd), dtype, cuda)
@@ -135,7 +147,9 @@ def test_flash_decode_chunk_kernel_matches_plain(cuda, B, ck, KV, G, hd, C,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_chunk_equals_single_query_kernels(cuda, dtype):
     """Each chunk token's rows equal the decode kernel's at that token's
-    bias row: the same arithmetic in the same order, bitwise."""
+    bias row. fp32 runs the same arithmetic in the same order: bitwise.
+    bf16 at hd 64 runs on the tensor cores, whose sums take another order
+    by design: held to ``TOL``."""
     rng = np.random.default_rng(4)
     B, ck, KV, G, hd, C = 8, 16, 4, 8, 64, 576
     q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
@@ -146,26 +160,71 @@ def test_flash_decode_chunk_equals_single_query_kernels(cuda, dtype):
     for j in range(ck):
         one = fd.flash_decode_bkhd(q[:, j].contiguous(), k, v,
                                    bias[:, j].contiguous())
-        assert torch.equal(out[:, j], one), j
+        if dtype == torch.float32:
+            assert torch.equal(out[:, j], one), j
+        else:
+            torch.testing.assert_close(out[:, j].float(), one.float(),
+                                       atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "flash_decode_chunk_kernel"),
+    (torch.float32, 64, "flash_decode_kernel"),
+    (torch.bfloat16, 128, "flash_decode_kernel"),
+])
+def test_flash_decode_chunk_runs_the_planned_kernel(cuda, dtype, hd, kernel):
+    """The profiler sees the chunk form launch the kernel its plan names:
+    the tensor-core kernel in bf16 at hd 64, the CUDA-core one otherwise
+    (a trace that records no kernel at all is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2, 16, 2, 8, hd), dtype, cuda)
+    k = _randn(rng, (2, 2, 300, hd), dtype, cuda)
+    bias = _chunk_bias(rng, 2, 16, 300, "causal", cuda)
+    fd.flash_decode_chunk(q, k, k, bias)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fd.flash_decode_chunk(q, k, k, bias)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    ran = [n for n in names if "flash_decode" in n]
+    assert len(ran) == 1 and kernel in ran[0], names
 
 
 def test_flash_decode_workspace_is_left_clean(cuda):
-    """The last split of each (b, kv-head) sets its arrival counter back to
-    zero, so the reused workspace serves the next call: two calls on other
-    shapes and a repeat give the plain version's answers."""
+    """The last split of each block sets its arrival counter back to zero,
+    so the reused workspace serves the next call: decode calls of other
+    shapes and a repeat, interleaved with tensor-core chunk launches
+    (bf16, hd 64) and paged launches on the same workspace, give the plain
+    versions' answers and leave every counter at zero."""
     rng = np.random.default_rng(2)
-    outs = []
+    bf = torch.bfloat16
+    tol = dict(atol=TOL[bf], rtol=TOL[bf])
     for B, KV, G, C in ((8, 4, 8, 576), (2, 5, 5, 100), (8, 4, 8, 576)):
-        q = _randn(rng, (B, KV, G, 64), torch.bfloat16, cuda)
-        k = _randn(rng, (B, KV, C, 64), torch.bfloat16, cuda)
-        v = _randn(rng, (B, KV, C, 64), torch.bfloat16, cuda)
+        q = _randn(rng, (B, KV, G, 64), bf, cuda)
+        k = _randn(rng, (B, KV, C, 64), bf, cuda)
+        v = _randn(rng, (B, KV, C, 64), bf, cuda)
         bias = torch.zeros((B, C), device=cuda)
         out = fd.flash_decode_bkhd(q, k, v, bias)
         torch.testing.assert_close(out.float(),
                                    fd.flash_decode_plain(q, k, v, bias).float(),
-                                   atol=TOL[torch.bfloat16],
-                                   rtol=TOL[torch.bfloat16])
-        outs.append(out)
+                                   **tol)
+        ck = 16 if C > 100 else 3
+        qc = _randn(rng, (B, ck, KV, G, 64), bf, cuda)
+        bc = _chunk_bias(rng, B, ck, C, "causal", cuda)
+        torch.testing.assert_close(
+            fd.flash_decode_chunk(qc, k, v, bc).float(),
+            fd.flash_decode_chunk_plain(qc, k, v, bc).float(), **tol)
+        pq, kp, vp, tables, lengths = _paged_inputs(rng, B, KV, G, 64, 16,
+                                                    4, bf, cuda)
+        torch.testing.assert_close(
+            pd.paged_flash_decode_bkhd(pq, kp, vp, tables, lengths).float(),
+            pd.paged_flash_decode_plain(pq, kp, vp, tables, lengths).float(),
+            **tol)
     torch.cuda.synchronize()
     assert int(_arrivals(cuda).abs().sum()) == 0
 
