@@ -24,8 +24,11 @@ phase raises, and the script exits nonzero:
               split count, hymba-1.5b's group of 5, hd 128, ragged starts
               with an inert row, queries that see only the first key, and
               the tensor-core route's edges in bf16: C below its splits, C
-              not a multiple of 64, more tiles than splits, G 7 and G 1),
-              with stated tolerances; then kernel /
+              not a multiple of 64, more tiles than splits, G 7 and G 1;
+              both chunk forms at a speculative round's shapes: the verify
+              at ck 5 over C 576 / 36 pages, the drafter's resync at ck 1
+              over its 582-slot ring / 37 pages), with stated tolerances;
+              then kernel /
               plain / library (SDPA, a yardstick the port never calls; for
               the chunk form SDPA with a (B, H, ck, C) float mask; none
               for paged decode and the SSD scan, timed at mamba2-130m's and
@@ -99,8 +102,24 @@ phase raises, and the script exits nonzero:
               InfAdapter loop (phase 6) on the dense ladder with
               ``async_tick=True, scheduler="chunked",
               preemption="requeue"``;
-  9. output   the ``{"kernels": [...]}`` line (launches summed over the
-              serve loops and the prefix phase), then the ok line last.
+  9. spec     speculative decoding (``spec_k=4``) at full width on shared
+              weights, steps replayed: a 4-layer fp32 rung drafted by a
+              2-layer rung and by a twin, dense and paged with sharing,
+              FIFO sync and async and ``chunked`` async: speculative
+              output equal to target-only, pools (the drafter mirror's
+              included) empty; L22 bf16 drafted by the L8 rung and by an
+              L22 twin, dense and paged: replay equal to eager bitwise in
+              tokens and every cache leaf, 22 + L_d chunk-form and 4 x L_d
+              decode-form launches every round after the first (verify,
+              resync, drafts), per round wall ms, tokens per verifier step
+              and acceptance, device ms of one round, ms per committed
+              token against target-only, agreement with target-only
+              printed; then a 10 s serve loop of the InfAdapter loop
+              (phase 6) on the dense ladder with
+              ``speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22"``;
+ 10. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve loops and the prefix phase; the chunk forms' rows carry
+              their verify shape's times), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -158,6 +177,9 @@ SERVE_SECONDS = 20          # each of the dense and the paged serve loops
 PS_N, PS_SHARED = 24, 384
 AS_N = 12                   # async phase: requests in its fixed list
 ASYNC_SERVE_SECONDS = 10    # the async + chunked + requeue serve loop
+SPEC_K = 4                  # spec phase: drafts a round
+SPEC_CAP = CAP + SPEC_K + 2  # the drafter's ring: the headroom of k + 2
+SPEC_SERVE_SECONDS = 10     # the speculative serve loop
 # A serve loop reports its P99, violation rate and goodput only over this
 # many requests: over the 10-30 a short loop serves, the P99 is the slowest
 # request and one request moves the rate by several points. Short loops
@@ -304,8 +326,11 @@ def dense_chunk_inputs(torch, gen, b, ck, kv, g, hd, c, dtype, kind="fused"):
     (b, kv, c, hd) and the bias (b, ck, c). ``kind`` "fused": the dense
     fused tick's causal bias (t <= start + j) with every row at a chunk
     border of a 512-token prompt (row 1 inert at 0, where a padded query
-    still sees key 0, as in the engine); "ragged": starts anywhere, one
-    row running past c; "first": every key but the first under -1e9."""
+    still sees key 0, as in the engine); "verify": a speculative round's
+    verify, every row at a position past the 512-token prompt with its ck
+    = k + 1 queries inside c (row 1 inert at 0); "ragged": starts
+    anywhere, one row running past c; "first": every key but the first
+    under -1e9."""
     dev = torch.device(DEVICE)
 
     def randn(*shape):
@@ -319,6 +344,9 @@ def dense_chunk_inputs(torch, gen, b, ck, kv, g, hd, c, dtype, kind="fused"):
     if kind == "fused":
         start = ck * torch.randint(0, max(1, PROMPT // ck), (b,),
                                    generator=gen, device=dev)
+    elif kind == "verify":
+        start = torch.randint(PROMPT, c - ck + 1, (b,), generator=gen,
+                              device=dev)
     else:
         start = torch.randint(0, c, (b,), generator=gen, device=dev)
         start[-1] = max(c - ck // 2, 0)
@@ -374,8 +402,9 @@ def dense_chunk_checks(torch, fd, gen):
     return err, args
 
 
-def dense_chunk_timing(torch, F, fd, gen, args):
-    """The chunk form at the dense fused tick's shape (bf16): kernel,
+def dense_chunk_timing(torch, F, fd, gen, args, kind="fused"):
+    """The chunk form at the dense fused tick's shape (bf16; with
+    ``kind="verify"`` at a speculative verify's, ck from ``args``): kernel,
     plain, device and SDPA-with-a-(B, H, ck, C)-float-mask times (SDPA: the
     yardstick the port never calls), inputs rotated through more than 3x
     the L2 size, each set with its own chunk starts. The bound reads q,
@@ -383,15 +412,16 @@ def dense_chunk_timing(torch, F, fd, gen, args):
     its operations are QK^T and PV over each query's own valid keys on the
     bf16 tensor cores."""
     dt, esz, G = torch.bfloat16, 2, H // KV
+    ck = args[0].shape[1]
     sets = rotated(args, lambda: dense_chunk_inputs(
-        torch, gen, B, CK, KV, G, HD, CAP, dt), ())
+        torch, gen, B, ck, KV, G, HD, CAP, dt, kind), ())
     bias = args[3]
     valid = (bias == 0).sum(-1)                       # (B, ck) keys per query
     lmax = valid.max(1).values
-    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * CK * H * HD)
-              + 4 * B * CK * CAP)
+    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * ck * H * HD)
+              + 4 * B * ck * CAP)
     b_ms, b_by = bound(nbytes, 4 * H * HD * int(valid.sum()), dt)
-    sdpa_sets = [(q.reshape(B, CK, H, HD).transpose(1, 2), k, v,
+    sdpa_sets = [(q.reshape(B, ck, H, HD).transpose(1, 2), k, v,
                   m[:, None]) for q, k, v, m in sets]
     sdpa = (lambda q, k, v, m: F.scaled_dot_product_attention(
         q, k, v, attn_mask=m, enable_gqa=True))
@@ -508,6 +538,42 @@ def paged_kernel_checks(torch, pd, gen):
                                      f"output or nonzero length-0 row")
             check(f"paged_decode {label} {name}", got, want, dtype)
     return err, serve_args, chunk_err, chunk_args
+
+
+def verify_paged_inputs(torch, gen, ck, width, dtype):
+    """The paged chunk form's operands at a speculative round's shape: B
+    rows of ck queries at positions past the 512-token prompt, over full
+    ``width``-page tables of 16."""
+    return chunk_inputs(torch, gen, B, KV, H // KV, HD, PAGE, width, width,
+                        ck, dtype, start_range=(PROMPT, width * PAGE - ck))
+
+
+def verify_shape_checks(torch, fd, pd, gen):
+    """Both chunk forms at a speculative round's shapes against their plain
+    versions, bf16 and fp32: the verify at ck = SPEC_K + 1 over the
+    verifier's 576-slot ring and 36-page tables, and the drafter's width-1
+    resync over its SPEC_CAP = 582-slot ring (not a multiple of 64) and
+    37-page tables, queries past the 512-token prompt. Returns {(form,
+    dtype): (max abs err, inputs)} of the verify shape."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for label, ck, c in (("verify", SPEC_K + 1, CAP),
+                             ("resync", 1, SPEC_CAP)):
+            a = dense_chunk_inputs(torch, gen, B, ck, KV, H // KV, HD, c,
+                                   dtype, "verify")
+            e = check(f"flash_decode_chunk {label} B={B} ck={ck} C={c} "
+                      f"{name}", fd.flash_decode_chunk(*a),
+                      fd.flash_decode_chunk_plain(*a), dtype)
+            pa = verify_paged_inputs(torch, gen, ck, -(-c // PAGE), dtype)
+            e2 = check(f"paged_decode chunk {label} ck={ck} "
+                       f"{-(-c // PAGE)} pages {name}",
+                       pd.paged_flash_decode_chunk(*pa),
+                       pd.paged_flash_decode_chunk_plain(*pa), dtype)
+            if label == "verify":
+                out[("dense", dtype)] = (e, a)
+                out[("paged", dtype)] = (e2, pa)
+    return out
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n, dtype, strided=True):
@@ -663,27 +729,29 @@ def paged_decode_timing(torch, pd, gen, serve_args):
                 device_ms=device_ms(torch, pd.paged_flash_decode_bkhd, pags))
 
 
-def paged_chunk_timing(torch, pd, gen, chunk_args):
-    """The chunk form at the fused tick's shape (bf16; ``fused_inputs``):
-    kernel, plain and device times beside the bound, under ``chunk_*``
-    keys. The bound reads each row's K/V below its largest length once,
-    q, out, the live table entries and the lengths; its operations are
-    QK^T and PV over each query's own length on the bf16 tensor cores."""
+def paged_chunk_timing(torch, pd, gen, chunk_args, make=None,
+                       prefix="chunk"):
+    """The chunk form at the fused tick's shape (bf16; ``fused_inputs``, or
+    ``make(dtype)``'s inputs, such as a speculative verify's): kernel,
+    plain and device times beside the bound, under ``<prefix>_*`` keys.
+    The bound reads each row's K/V below its largest length once, q, out,
+    the live table entries and the lengths; its operations are QK^T and PV
+    over each query's own length on the bf16 tensor cores."""
     dt, esz = torch.bfloat16, 2
     lengths = chunk_args[4]
-    sets = rotated(chunk_args, lambda: fused_inputs(torch, gen, dt),
-                   (3, 4))
+    ck = lengths.shape[1]
+    make = make or (lambda d: fused_inputs(torch, gen, d))
+    sets = rotated(chunk_args, lambda: make(dt), (3, 4))
     lmax = lengths.long().max(1).values
-    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * CK * H * HD)
-              + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK)
+    nbytes = (esz * (2 * int(lmax.sum()) * KV * HD + 2 * B * ck * H * HD)
+              + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * ck)
     b_ms, b_by = bound(nbytes, 4 * H * HD * int(lengths.long().sum()), dt)
-    return dict(chunk_ms=time_ms(torch, pd.paged_flash_decode_chunk, sets),
-                chunk_plain_ms=time_ms(torch,
-                                       pd.paged_flash_decode_chunk_plain,
-                                       sets, iters=4),
-                chunk_bound_ms=b_ms, chunk_bound_by=b_by,
-                chunk_device_ms=device_ms(torch, pd.paged_flash_decode_chunk,
-                                          sets))
+    out = dict(ms=time_ms(torch, pd.paged_flash_decode_chunk, sets),
+               plain_ms=time_ms(torch, pd.paged_flash_decode_chunk_plain,
+                                sets, iters=4),
+               bound_ms=b_ms, bound_by=b_by,
+               device_ms=device_ms(torch, pd.paged_flash_decode_chunk, sets))
+    return {f"{prefix}_{k}": v for k, v in out.items()}
 
 
 def attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs, errs, dt):
@@ -930,6 +998,7 @@ def kernel_phase(torch):
     errs["paged"], paged_serve, errs["chunk"], chunk_args = \
         paged_kernel_checks(torch, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
+    verify = verify_shape_checks(torch, fd, pd, gen)
     torch.cuda.synchronize()
 
     log("    timing at the serve shapes (ms per call, inputs cold); the "
@@ -945,6 +1014,11 @@ def kernel_phase(torch):
                      max_abs_err=errs["dense_chunk"],
                      **dense_chunk_timing(torch, F, fd, gen,
                                           dense_chunk_args)))
+    # the verify shape (B 8, ck SPEC_K + 1, C 576) beside the fused tick's
+    e, a = verify[("dense", torch.bfloat16)]
+    rows[-1].update(verify_max_abs_err=e, **{
+        f"verify_{k}": v for k, v in dense_chunk_timing(
+            torch, F, fd, gen, a, kind="verify").items()})
     rows.append(dict(name="paged_decode", route="cuda",
                      source="src/repro_torch/kernels/csrc/paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
@@ -953,6 +1027,10 @@ def kernel_phase(torch):
                      chunk_max_abs_err=errs["chunk"],
                      **paged_decode_timing(torch, pd, gen, paged_serve),
                      **paged_chunk_timing(torch, pd, gen, chunk_args)))
+    e, a = verify[("paged", torch.bfloat16)]
+    rows[-1].update(verify_max_abs_err=e, **paged_chunk_timing(
+        torch, pd, gen, a, prefix="verify", make=lambda d: (
+            verify_paged_inputs(torch, gen, SPEC_K + 1, WIDTH, d))))
     ssd = {arch: ssd_timing(torch, ss, ssd_scan_plain, gen, arch)
            for arch in SSD_HEADS}
     hy = ssd["hymba-1.5b"]
@@ -994,6 +1072,15 @@ def kernel_phase(torch):
                 f"plain {r['chunk_plain_ms']:.4f}  bound "
                 f"{r['chunk_bound_ms']:.4f} ({r['chunk_bound_by']}); "
                 f"fused shape B={B} ck={CK}")
+        if "verify_ms" in r:
+            lib = ("" if r.get("verify_library_ms") is None else
+                   f"  library {r['verify_library_ms']:.4f} (device "
+                   f"{ms4(r['verify_library_device_ms'])})")
+            log(f"  {r['name'][:14]:<14s} {'bfloat16':<9s} verify kernel "
+                f"{r['verify_ms']:.4f} (device {ms4(r['verify_device_ms'])})"
+                f"  plain {r['verify_plain_ms']:.4f}{lib}  bound "
+                f"{r['verify_bound_ms']:.4f} ({r['verify_bound_by']}); "
+                f"verify shape B={B} ck={SPEC_K + 1}")
     return [r for r in rows if r.get("dtype", "bfloat16") == "bfloat16"]
 
 
@@ -1423,8 +1510,12 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
     def make_logged(name):
         b = make(name)
         loads.append((name, b.readiness_s))
+        drafter = "" if b._spec_pair is None else (
+            f"; drafter {b._spec_pair.d.name}: readiness "
+            f"{b._spec_pair.d.readiness_s:.3f}s "
+            f"({len(b._spec_pair.d.graphs)} step graphs)")
         log(f"  loaded {name}: readiness {b.readiness_s:.3f}s "
-            f"({len(b.graphs)} step graphs)")
+            f"({len(b.graphs)} step graphs){drafter}")
         return b
     engine._make_backend = make_logged
     if profiles is None:
@@ -1470,6 +1561,15 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
                                                 "flash_decode")
     else:
         need = ("flash_prefill", "paged_decode" if paged else "flash_decode")
+    spec = engine_kw.get("speculative")
+    if spec is not None:    # the verify runs flash_decode's chunk form
+        verifier = spec.split(":")[1]
+        if verifier not in {n for n, _ in loads}:
+            raise AssertionError(f"the controller never loaded the "
+                                 f"verifier {verifier}: {loads}")
+        need += ("flash_decode_chunk",)
+        if not engine.metrics.value("spec.rounds") > 0:
+            raise AssertionError(f"{kind}: no speculative round ran")
     if min(launches[k] for k in need) < 1:
         raise AssertionError(f"a kernel of the {kind} path never ran in its "
                              f"serve phase: {launches}")
@@ -1482,6 +1582,12 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
                "options": {k: v for k, v in engine_kw.items()
                            if k != "clock"},
                "preempted": int(engine.metrics.value("requests.preempted"))}
+    if spec is not None:
+        summary.update({k: engine.metrics.value(k) for k in (
+            "spec.batch_rounds", "spec.rounds", "spec.committed_tokens",
+            "spec.drafts_accepted", "spec.drafts_proposed")},
+            spec_accept_rate=s.get("spec_accept_rate"),
+            spec_tokens_per_step=s.get("spec_tokens_per_step"))
     if s["n_requests"] >= TAIL_MIN_REQUESTS:
         summary.update(p99_ms=s["p99_ms"], goodput=s["goodput"],
                        violation_rate=s["violation_rate"])
@@ -1650,24 +1756,33 @@ def async_requests(vocab, n=AS_N, seed=31):
 
 
 def async_serve(torch, cfg, params, reqs, engine_kw):
-    """One engine of ``cfg`` (kernels on, steps replayed) on a fake clock
-    that advances 50 ms a tick: a request arrives per tick, then ticks until
-    every queue and slot is empty. Returns (rid -> tokens, stats: ticks,
-    wall ms per tick (host clock, device synchronised at the end only, as a
-    serving loop runs), mean hidden host ms and commit_wait_ms per tick,
-    preemptions, launches)."""
+    """One engine of ``cfg`` alone (``ladder_serve``)."""
+    return ladder_serve(torch, {cfg.name: (cfg, 78.0)}, {cfg.name: params},
+                        cfg.name, reqs, engine_kw)
+
+
+def ladder_serve(torch, variants, weights, target, reqs, engine_kw):
+    """One engine of ``variants`` on ``weights`` (kernels on, steps
+    replayed) serving ``target`` on a fake clock that advances 50 ms a
+    tick: a request arrives per tick, then ticks until every queue and
+    slot is empty; every pool (a speculative drafter's mirror included)
+    must end empty and consistent. Returns (rid -> tokens, stats: ticks,
+    wall ms per tick (host clock, device synchronised at the end only, as
+    a serving loop runs), mean hidden host ms and commit_wait_ms per tick,
+    preemptions, launches, and with ``speculative`` the spec counters and
+    rates)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Request
     from repro_torch.serving.engine import InProcessServingEngine
     t = [0.0]
     eng = InProcessServingEngine(
-        {cfg.name: (cfg, 78.0)}, max_batch=B, prompt_len=PROMPT,
+        variants, max_batch=B, prompt_len=PROMPT,
         max_new=MAX_NEW, decode_chunk=CHUNK, prefill_chunk=CK,
         queue_cap=1000, use_kernels=True, device=DEVICE,
-        weights={cfg.name: params}, clock=lambda: t[0], **engine_kw)
-    eng.apply_allocation(0.0, {cfg.name: 1})
-    b = eng.backends[cfg.name]
+        weights=weights, clock=lambda: t[0], **engine_kw)
+    eng.apply_allocation(0.0, {target: 1})
+    b = eng.backends[target]
     waits, hidden = [], []
     ops.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1685,7 +1800,7 @@ def async_serve(torch, cfg, params, reqs, engine_kw):
 
     for i, (toks, max_new, slo) in enumerate(reqs):
         eng.submit(Request(rid=i, tokens=toks, max_new=max_new,
-                           arrival=t[0], slo_ms=slo), cfg.name)
+                           arrival=t[0], slo_ms=slo), target)
         tick()
         ticks += 1
     while eng.backlog(t[0]) or eng.in_flight():
@@ -1693,6 +1808,9 @@ def async_serve(torch, cfg, params, reqs, engine_kw):
         ticks += 1
         if ticks > 5000:
             raise AssertionError(f"{engine_kw}: the engine did not drain")
+    # an async speculative engine may hold one dispatched round of rows
+    # that finished at the last commit (it verifies nothing): commit it
+    eng.flush_pending(t[0])
     torch.cuda.synchronize()
     wall = time.time() - t0
     outs = {r.rid: np.asarray(r.output) for r in eng.done}
@@ -1702,19 +1820,24 @@ def async_serve(torch, cfg, params, reqs, engine_kw):
                              f"complete with their budgets")
     if b._pending is not None or b._uncommitted_done or b.active_slots:
         raise AssertionError(f"{engine_kw}: uncommitted work after the drain")
-    if hasattr(b, "pool"):
-        b.pool.assert_invariants()
-        if b.pool.used_pages:
-            raise AssertionError(f"{engine_kw}: {b.pool.used_pages} pages "
-                                 f"still mapped")
+    pair = b._spec_pair
+    for x in (b,) if pair is None else (b, pair.d):
+        if hasattr(x, "pool"):
+            x.pool.assert_invariants()
+            if x.pool.used_pages:
+                raise AssertionError(f"{engine_kw}: {x.pool.used_pages} "
+                                     f"pages of {x.name} still mapped")
     stats = dict(ticks=ticks, wall_ms_per_tick=wall * 1e3 / ticks,
                  commit_wait_ms=float(np.mean(waits)),
                  hidden_host_ms=float(np.mean(hidden)) if hidden else None,
                  preempted=int(eng.metrics.value("requests.preempted")),
                  launches=ops.launch_counts())
+    if pair is not None:
+        stats.update(pair.acceptance_stats(), readiness_s={
+            "verifier": b.readiness_s, "drafter": pair.d.readiness_s})
     for bk in eng.backends.values():
         bk.close()
-    del eng, b
+    del eng, b, pair
     torch.cuda.empty_cache()
     return outs, stats
 
@@ -1795,6 +1918,301 @@ def async_phase(torch):
     return summary
 
 
+def spec_rung(torch):
+    """The spec phase's part 1: a full-width 4-layer fp32 rung of
+    tinyllama-1.1b as the verifier, drafted by a 2-layer rung of the same
+    seed (the serve ladder's weights: its first layers) and by a twin with
+    the verifier's own weights, over the async phase's request list on a
+    fake clock: dense and paged with prefix sharing, each FIFO sync, FIFO
+    async and ``chunked`` async (the twin on two of them). Every
+    speculative output must equal the target-only greedy tokens, and every
+    pool, the drafter mirror's included, end empty (``ladder_serve``)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = torch.device(DEVICE)
+    base = get_config("tinyllama-1.1b").replace(dtype="float32",
+                                                use_kernels=True)
+    v = base.replace(num_layers=4, name="tinyllama-L4-f32")
+    d2 = base.replace(num_layers=2, name="tinyllama-L2-f32")
+    twin = v.replace(name="tinyllama-L4-f32-twin")
+    pv = LM(v).init(torch.Generator(device=dev).manual_seed(0))
+    pd2 = LM(d2).init(torch.Generator(device=dev).manual_seed(0))
+    variants = {v.name: (v, 78.0), d2.name: (d2, 70.0),
+                twin.name: (twin, 75.0)}
+    weights = {v.name: pv, d2.name: pd2, twin.name: pv}
+    reqs = async_requests(v.vocab_size)
+    out = {}
+    for kv in ("dense", "paged"):
+        kvkw = dict(kv_cache="paged", kv_page_size=PAGE,
+                    kv_prefix_sharing=True) if kv == "paged" else {}
+        want, _ = ladder_serve(torch, variants, weights, v.name, reqs, kvkw)
+        for mode, mkw in (("fifo sync", {}),
+                          ("fifo async", dict(async_tick=True)),
+                          ("chunked async", dict(scheduler="chunked",
+                                                 async_tick=True))):
+            for dr in (d2, twin):
+                if dr is twin and mode != ("fifo sync" if kv == "dense"
+                                           else "chunked async"):
+                    continue
+                got, st = ladder_serve(
+                    torch, variants, weights, v.name, reqs,
+                    dict(kvkw, **mkw, speculative=f"{dr.name}:{v.name}",
+                         spec_k=SPEC_K))
+                same = all(np.array_equal(got[i], want[i]) for i in want)
+                name = f"L4 fp32 {kv} {mode}, drafter {dr.name}"
+                log(f"  {name}: speculative == target-only {same}; accept "
+                    f"rate {st['accept_rate']:.3f}, tokens per verifier "
+                    f"step {st['tokens_per_step']:.3f}, {st['rounds']} "
+                    f"row-rounds, {st['ticks']} ticks, wall ms per tick "
+                    f"{st['wall_ms_per_tick']:.3f}")
+                if not same or st["rounds"] < 1:
+                    raise AssertionError(f"{name}: speculative output "
+                                         f"differs from target-only")
+                if dr is twin and st["accept_rate"] != 1.0:
+                    raise AssertionError(f"{name}: a twin drafter accepted "
+                                         f"{st['accept_rate']}")
+                out[name] = {k: st[k] for k in (
+                    "accept_rate", "tokens_per_step", "rounds", "ticks",
+                    "wall_ms_per_tick", "readiness_s")}
+    del pv, pd2
+    torch.cuda.empty_cache()
+    return out
+
+
+def live_tokens(torch, b):
+    """``b.cur_tok`` with the rows of a paged backend whose block table is
+    the trash page alone (retired rows) set to -1: such a row keeps
+    decoding from page 0, whose contents depend on the scatter order of
+    colliding writes (deliberate difference 2), and so does its token."""
+    if "pt" not in b.cache:
+        return b.cur_tok.clone()
+    return torch.where((b.cache["pt"] != 0).any(1), b.cur_tok, -1)
+
+
+def spec_drive(torch, variants, weights, target, prompts, engine_kw):
+    """Admit B full-budget requests of ``prompts`` at once on a
+    ``target`` engine (bf16, kernels on; sync ticks) and tick until they
+    finish; each tick after the admitting one is one speculative round
+    (``speculative`` in ``engine_kw``) or one decode chunk of CHUNK steps,
+    timed on the host clock with the device synchronised, its kernel
+    launches and committed tokens counted; the third such tick runs under
+    the profiler instead (its device ms). Returns (rid -> tokens, the
+    verifier's and drafter's cache leaves and cur_tok, per-tick records,
+    device ms of one tick, readiness, the engine's graphs' launches)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    eng = InProcessServingEngine(
+        variants, max_batch=B, prompt_len=PROMPT, max_new=MAX_NEW,
+        decode_chunk=CHUNK, prefill_chunk=CK, use_kernels=True,
+        device=DEVICE, weights=weights, **engine_kw)
+    eng.apply_allocation(0.0, {target: 1})
+    b = eng.backends[target]
+    pair = b._spec_pair
+    for i in range(B):
+        eng.submit(Request(rid=i, tokens=prompts[i], max_new=MAX_NEW,
+                           arrival=0.0), target)
+    m = eng.metrics
+
+    def committed():
+        return (sum(len(t) for t in b.slot_tokens)
+                + sum(len(r.output) for r in eng.done))
+
+    eng.step(0.0)                        # admission (+ the first round)
+    ticks, dev_ms = [], None
+    while eng.in_flight():
+        if len(ticks) == 2 and dev_ms is None:
+            dev_ms, _ = profiled(torch, lambda: eng.step(0.0))
+            continue
+        n0, c0 = ops.launch_counts(), committed()
+        s0 = {k: m.value(k) for k in ("spec.rounds", "spec.drafts_accepted",
+                                      "spec.drafts_proposed")}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.step(0.0)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        n1 = ops.launch_counts()
+        ds = {k: m.value(k) - s0[k] for k in s0}
+        ticks.append(dict(
+            wall_ms=wall, tokens=committed() - c0,
+            launches={k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]},
+            row_rounds=ds["spec.rounds"],
+            tokens_per_step=((committed() - c0) / ds["spec.rounds"]
+                             if ds["spec.rounds"] else None),
+            accept_rate=(ds["spec.drafts_accepted"]
+                         / ds["spec.drafts_proposed"]
+                         if ds["spec.drafts_proposed"] else None)))
+    if len(eng.done) != B or any(len(r.output) != MAX_NEW
+                                 for r in eng.done):
+        raise AssertionError(f"{target} {engine_kw}: requests incomplete")
+    parts = [("verifier", b)] + ([] if pair is None else [("drafter",
+                                                            pair.d)])
+    state = {n: {**{k: t.clone() for k, t in x.cache.items()},
+                 "cur_tok": live_tokens(torch, x)} for n, x in parts}
+    for n, x in parts:
+        if hasattr(x, "pool"):
+            x.pool.assert_invariants()
+            if x.pool.used_pages:
+                raise AssertionError(f"{n} {x.name}: {x.pool.used_pages} "
+                                     f"pages still mapped")
+    graphs = {n: {f"{k[0]}@{k[1]}": g.launches for k, g in x.graphs.items()}
+              for n, x in parts}
+    # each captured step of a round alone, replayed back to back on its
+    # last inputs (the state is read above): its ms from CUDA events
+    step_ms = {}
+    if pair is not None and b.graphs and b.device.type == "cuda":
+        draft = max((k for k in pair.d.graphs if k[0] == "chunk"),
+                    key=lambda k: k[1] or 0)
+        for label, g in (("verify", b.graphs[("verify", B)]),
+                         ("draft", pair.d.graphs[draft]),
+                         ("resync", pair.d.graphs[("resync", B)])):
+            step_ms[label] = time_ms(torch, g.graph.replay, [()], iters=20)
+    ready = {n: x.readiness_s for n, x in parts}
+    outs = {r.rid: np.asarray(r.output) for r in eng.done}
+    for _, x in parts:
+        x.close()
+    del eng, b, pair, parts
+    torch.cuda.empty_cache()
+    return outs, state, ticks, dev_ms, ready, (graphs, step_ms)
+
+
+def spec_phase(torch):
+    """Speculative decoding at full width on shared weights, steps
+    replayed. Part 1 (``spec_rung``): a 4-layer fp32 rung, speculative ==
+    target-only. Part 2: tinyllama-1.1b L22 in bf16 drafted by the L8 rung
+    of the same seed and by an L22 twin, dense and paged with prefix
+    sharing (``spec_drive``): replay against ``step_graphs=False`` bitwise
+    in tokens and every cache leaf of verifier and drafter (the pool's
+    trash page 0 aside: deliberate difference 2); each round after the
+    first launches the verify's 22 chunk-form kernels, the drafter's resync
+    (one chunk-form launch per drafter layer) and its SPEC_K decode steps
+    (SPEC_K decode-form launches per drafter layer), and each captured step
+    holds exactly its share. Prints per round the wall ms, tokens per
+    verifier step and acceptance, device ms of one round, ms per committed
+    token against the target-only decode chunk's on the same weights, and
+    the agreement with target-only (bf16 rounding can part them after the
+    first differently rounded logit: printed, not held). The tokens of a
+    retired paged row are not compared (``live_tokens``). Each part's
+    seconds are printed."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    dev = torch.device(DEVICE)
+    log(f"[9] spec: speculative decoding, spec_k={SPEC_K}, full width, "
+        f"steps replayed")
+    t0 = time.time()
+    summary = {"L4 fp32": spec_rung(torch)}
+    log(f"  L4 fp32 part: {time.time() - t0:.1f}s")
+    t0 = time.time()
+    base = get_config("tinyllama-1.1b").replace(use_kernels=True)
+    v = base.replace(name="tinyllama-1.1b-L22")
+    d8 = base.replace(num_layers=8, name="tinyllama-1.1b-L8")
+    twin = v.replace(name="tinyllama-1.1b-L22-twin")
+    pv = LM(v).init(torch.Generator(device=dev).manual_seed(0))
+    pd8 = LM(d8).init(torch.Generator(device=dev).manual_seed(0))
+    variants = {v.name: (v, 78.0), d8.name: (d8, 70.0),
+                twin.name: (twin, 75.0)}
+    weights = {v.name: pv, d8.name: pd8, twin.name: pv}
+    prompts = np.random.default_rng(41).integers(0, v.vocab_size,
+                                                 (B, PROMPT))
+    for kv in ("dense", "paged"):
+        kvkw = dict(kv_cache="paged", kv_page_size=PAGE,
+                    kv_prefix_sharing=True) if kv == "paged" else {}
+        want, _, t_ticks, t_dev, _, _ = spec_drive(
+            torch, variants, weights, v.name, prompts, kvkw)
+        t_tok = (sum(t["wall_ms"] for t in t_ticks)
+                 / sum(t["tokens"] for t in t_ticks))
+        for dr in (d8, twin):
+            Ld = dr.num_layers
+            runs = {}
+            for path in ("eager", "replay"):
+                runs[path] = spec_drive(
+                    torch, variants, weights, v.name, prompts,
+                    dict(kvkw, speculative=f"{dr.name}:{v.name}",
+                         spec_k=SPEC_K, step_graphs=path == "replay"))
+            (e_out, e_st, e_ticks, e_dev, e_rt, _), \
+                (r_out, r_st, r_ticks, r_dev, r_rt, (graphs, step_ms)) = \
+                runs["eager"], runs["replay"]
+            name = f"L22 bf16 {kv}, drafter {dr.name}"
+            same_tok = all(np.array_equal(e_out[i], r_out[i]) for i in e_out)
+            diff = {}
+            for part in e_st:
+                for k in e_st[part]:
+                    a, b = r_st[part][k], e_st[part][k]
+                    if k in ("kp", "vp"):      # the trash page 0 aside
+                        a, b = a[:, :, 1:], b[:, :, 1:]
+                    if not torch.equal(a, b):
+                        diff[f"{part}.{k}"] = float(
+                            (a.float() - b.float()).abs().max())
+            agree = sum(int((r_out[i] == want[i]).sum()) for i in want)
+            chunk_key, dec_key = (("paged_decode", "paged_decode")
+                                  if kv == "paged"
+                                  else ("flash_decode_chunk", "flash_decode"))
+            per_round = {chunk_key: v.num_layers + Ld}
+            per_round[dec_key] = per_round.get(dec_key, 0) + SPEC_K * Ld
+            bad = [(p, i, t["launches"]) for p, tk in (("eager", e_ticks),
+                                                       ("replay", r_ticks))
+                   for i, t in enumerate(tk) if t["launches"] != per_round]
+            draft = [g for key, g in graphs["drafter"].items()
+                     if key.startswith("chunk@")]
+            steps_ok = (graphs["verifier"][f"verify@{B}"]
+                        == {chunk_key: v.num_layers}
+                        and graphs["drafter"][f"resync@{B}"]
+                        == {chunk_key: Ld}
+                        and bool(draft) and all(g == {dec_key: SPEC_K * Ld}
+                                                for g in draft))
+            r_tok = (sum(t["wall_ms"] for t in r_ticks)
+                     / sum(t["tokens"] for t in r_ticks))
+            log(f"  {name}: replay vs eager tokens equal {same_tok}, cache "
+                f"leaves differing {diff or 'none'}; launches per round "
+                f"{per_round} on every round: {not bad}; captured steps "
+                f"hold their share: {steps_ok}; readiness replay "
+                f"{json.dumps(r_rt)}, eager {json.dumps(e_rt)}")
+            log(f"    per round (replay): wall ms "
+                f"{[round(t['wall_ms'], 3) for t in r_ticks]}; tokens per "
+                f"verifier step {[t['tokens_per_step'] for t in r_ticks]}; "
+                f"accept rate "
+                f"{[None if t['accept_rate'] is None else round(t['accept_rate'], 3) for t in r_ticks]}")
+            log(f"    device ms of one round: replay {ms4(r_dev)}, eager "
+                f"{ms4(e_dev)}; wall ms per round replay "
+                f"{np.mean([t['wall_ms'] for t in r_ticks]):.3f}, eager "
+                f"{np.mean([t['wall_ms'] for t in e_ticks]):.3f}; ms per "
+                f"committed token {r_tok:.4f} against target-only "
+                f"{t_tok:.4f} (decode chunk of {CHUNK}, device ms "
+                f"{ms4(t_dev)} a chunk); tokens agreeing with target-only "
+                f"{agree}/{B * MAX_NEW}")
+            r_wall = float(np.mean([t["wall_ms"] for t in r_ticks]))
+            log(f"    a round's replayed steps alone (ms, CUDA events): "
+                f"{json.dumps(step_ms)}; the rest of a round's wall "
+                f"(accept, rewind, copies, read-back, host) "
+                f"{r_wall - sum(step_ms.values()):.3f}")
+            if not same_tok or diff or bad or not steps_ok:
+                raise AssertionError(f"{name}: replay differs from eager "
+                                     f"(tokens {same_tok}, leaves {diff}) "
+                                     f"or launches per round {bad[:3]} / "
+                                     f"steps {graphs}")
+            summary[name] = {
+                "replay_wall_ms_per_round": float(np.mean(
+                    [t["wall_ms"] for t in r_ticks])),
+                "eager_wall_ms_per_round": float(np.mean(
+                    [t["wall_ms"] for t in e_ticks])),
+                "replay_device_ms_round": r_dev, "eager_device_ms_round": e_dev,
+                "timed_rounds": len(r_ticks),
+                "ms_per_token": r_tok, "target_ms_per_token": t_tok,
+                "target_device_ms_chunk": t_dev,
+                "agree_with_target": agree, "readiness_s": r_rt,
+                "step_ms": step_ms,
+                "launches_per_round": per_round}
+    del pv, pd8
+    torch.cuda.empty_cache()
+    log(f"  L22 bf16 part: {time.time() - t0:.1f}s")
+    log("  spec summary " + json.dumps(summary))
+    return summary
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -1851,18 +2269,25 @@ def main():
     chunked, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
         async_tick=True, scheduler="chunked", preemption="requeue"),
         seconds=ASYNC_SERVE_SECONDS)
+    spec_phase(torch)
+    spec, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
+        speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22", spec_k=SPEC_K),
+        seconds=SPEC_SERVE_SECONDS)
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm,
-                                                   chunked))
+                                                   chunked, spec))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms", "chunk_max_abs_err",
             "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",
-            "chunk_device_ms", "hymba_ms", "hymba_device_ms",
+            "chunk_device_ms", "verify_max_abs_err", "verify_ms",
+            "verify_plain_ms", "verify_bound_ms", "verify_bound_by",
+            "verify_device_ms", "verify_library_ms",
+            "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[9] total wall time {time.time() - t_start:.1f}s")
+    log(f"[10] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -15,7 +15,8 @@ With ``--kv-cache paged`` the loop serves on the paged KV pool
 dispatch/commit tick) set the serving engine's scheduling, as the
 reference's ``examples/serve_autoscale.py`` exposes them; requests then
 carry the ``--slo-ms`` deadline the schedulers read, on the loop's elapsed
-clock. The profiles always come from the pump path of a plain dense engine
+clock. ``--speculative DRAFTER:VERIFIER`` (with ``--spec-k``) serves the
+verifier rung through speculative rounds drafted by the drafter rung. The profiles always come from the pump path of a plain dense engine
 of the same ladder and geometry (the paged backend has none).
 
 Usage:
@@ -27,6 +28,8 @@ Usage:
       --prefix-sharing --device cpu --seconds 5
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
       --scheduler chunked --preemption requeue --async-tick --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
+      --speculative tinyllama-1.1b-L8:tinyllama-1.1b-L22 --seconds 30
 """
 from __future__ import annotations
 
@@ -128,6 +131,14 @@ def main(argv=None):
                          "dispatches its step before committing the "
                          "previous tick's tokens (greedy outputs equal "
                          "the sync tick's)")
+    ap.add_argument("--speculative", default=None,
+                    metavar="DRAFTER:VERIFIER",
+                    help="speculative decoding on the ladder: the drafter "
+                         "rung proposes --spec-k tokens a round, the "
+                         "verifier scores them in one step (greedy outputs "
+                         "stay the verifier's own)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft length per speculative round")
     args = ap.parse_args(argv)
 
     variants = build_ladder(args.arch, full_width=args.full_width)
@@ -141,7 +152,8 @@ def main(argv=None):
         variants, use_kernels=True, device=args.device, clock=ElapsedClock(),
         kv_cache=args.kv_cache, kv_prefix_sharing=args.prefix_sharing,
         scheduler=args.scheduler, preemption=args.preemption,
-        async_tick=args.async_tick, **geo)
+        async_tick=args.async_tick, speculative=args.speculative,
+        spec_k=args.spec_k, **geo)
     for n, p in profiles.items():
         print(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
 
@@ -164,6 +176,9 @@ def main(argv=None):
         return
     print(f"\n{s['n_requests']} requests: viol={s['violation_rate']:.1%} "
           f"p99={s['p99_ms']:.0f}ms acc_loss={s['accuracy_loss']:.2f}%")
+    if "spec_accept_rate" in s:
+        print(f"speculative: accept rate {s['spec_accept_rate']:.3f}, "
+              f"tokens per verifier step {s['spec_tokens_per_step']:.3f}")
 
 
 if __name__ == "__main__":

@@ -26,11 +26,12 @@ Public methods:
   init_paged_cache / paged_admit / paged_cow_copy / paged_retire
   prefill_chunk_paged(params, cache, tokens, start, n_valid)
   decode_step_paged(params, cache, tokens, n_pages)
+  verify_chunk / verify_chunk_paged(params, cache, tokens, start, n_valid)
+                                          -> (greedy argmax (B, ck), cache)
 
-Other families (MoE, encoder-decoder, VLM) and speculative verification
-(``verify_chunk``, ROADMAP A7) are not ported yet. The paged and chunked
-forms cover the dense family only (SSM/hybrid state is not positional; the
-reference refuses them too).
+Other families (MoE, encoder-decoder, VLM) are not ported yet. The paged,
+chunked and verify forms cover the dense family only (SSM/hybrid state is
+not positional; the reference refuses them too).
 """
 from __future__ import annotations
 
@@ -459,6 +460,40 @@ class LM:
         x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid,
                                      paged=True)
         return self._finish_chunk(x, params, n_valid), cache
+
+    # ------------------------------------------------------------------
+    # speculative verify: the chunk trunk with a head at every position
+    # ------------------------------------------------------------------
+    def _verify_finish(self, x: torch.Tensor, params: Dict) -> torch.Tensor:
+        """Final norm + unembed at every chunk position -> greedy argmax
+        (B, ck) int64: verification needs the target's prediction at each
+        proposed position, not only at the row's last valid one."""
+        return torch.argmax(self._logits(params, x), dim=-1)
+
+    def verify_chunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                     start: torch.Tensor, n_valid: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict]:
+        """Score a (B, k+1) slice of proposed tokens at per-row offsets in
+        one call (the verify of speculative decoding). ``tokens[:, 0]`` is
+        each row's last committed token, the rest are drafts; the argmax at
+        position j is what target-only greedy decoding emits after
+        consuming ``tokens[:, :j+1]``. The chunk's K/V is written like a
+        prefill continuation's; the engine discards rejected positions by
+        rewinding ``pos`` (slots past a row's position are never attended
+        before they are written again). Returns (argmax (B, ck), cache),
+        updated in place."""
+        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid,
+                                     paged=False)
+        return self._verify_finish(x, params), cache
+
+    def verify_chunk_paged(self, params: Dict, cache: Dict,
+                           tokens: torch.Tensor, start: torch.Tensor,
+                           n_valid: torch.Tensor
+                           ) -> Tuple[torch.Tensor, Dict]:
+        """``verify_chunk`` against the paged pool; same contract."""
+        x, cache = self._chunk_trunk(params, cache, tokens, start, n_valid,
+                                     paged=True)
+        return self._verify_finish(x, params), cache
 
     # ------------------------------------------------------------------
     # one-token decode against the paged pool

@@ -74,9 +74,15 @@ device synchronised before the clock stops. The CUDA kernels are built
 before the first clock starts, so no variant's readiness includes the
 build.
 
+Speculative decoding (``speculative="drafter:verifier"``, ``spec_k``):
+every backend of the verifier variant gets a hidden drafter backend bound
+as a ``DraftPair``; each round drafts ``spec_k`` tokens on the drafter and
+verifies them in one chunk call on the verifier (captured as its "verify"
+step), so the committed stream is the verifier's own greedy stream.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: ``speculative`` (ROADMAP A7), the replica fabric ``nodes=`` and
-tracing ``trace=``/``profile_dispatch=``/``obs=`` (A3).
+ignored: the replica fabric ``nodes=`` and tracing
+``trace=``/``profile_dispatch=``/``obs=`` (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -99,7 +105,7 @@ from repro_torch.serving.api import Request, summarize_requests
 from repro_torch.serving.graphs import StepGraph, StepGraphError, tensor_leaves
 from repro_torch.serving.sched import make_scheduler, migration_target
 
-__all__ = ["Request", "VariantBackend", "PagedVariantBackend",
+__all__ = ["Request", "VariantBackend", "PagedVariantBackend", "DraftPair",
            "InProcessServingEngine"]
 
 # Batch axis of each cache leaf (k/v and the SSM's conv/ssd states carry a
@@ -135,7 +141,7 @@ class _PendingExec:
     appends, completion and retirement, guarded by the ``(request,
     slot_gen)`` pair of each item, so a slot preempted or rebound inside
     the gap never absorbs stale tokens."""
-    kind: str                                  # "decode" | "fused"
+    kind: str                                  # "decode" | "fused" | "spec"
     toks: torch.Tensor
     ready: Optional["torch.cuda.Event"]
     dispatched_at: float                       # perf_counter at dispatch
@@ -145,6 +151,10 @@ class _PendingExec:
     # chunked prefill completed at dispatch; their first token is the fused
     # argmax (or the preserved resume token) read at commit
     fused_completions: List[Tuple] = field(default_factory=list)
+    # (slot, req, slot_gen, base, round_no) — speculative rounds; ``toks``
+    # is the packed (B, 2k+1) [drafts | verifier argmax] matrix and the
+    # commit replays the device's acceptance rule on it (DraftPair.commit)
+    spec_items: List[Tuple] = field(default_factory=list)
 
 
 # Pinned read-back buffers per step shape. The async tick holds at most two
@@ -210,7 +220,12 @@ class VariantBackend:
 
     Every device step runs through ``_step(name, shape, **inputs)``: a
     graph replay (``step_graphs``, the default), or with
-    ``step_graphs=False`` the step itself, op by op."""
+    ``step_graphs=False`` the step itself, op by op.
+
+    ``spec_role`` binds the backend into a ``DraftPair`` with ``spec_k``
+    drafts a round: a "verifier" also captures the verify step at
+    (max_batch, spec_k + 1), a "drafter" the width-1 continuation that
+    resyncs it after a round that accepted every draft."""
 
     def __init__(self, name: str, cfg: ModelConfig, accuracy: float,
                  max_batch: int = 8, prompt_len: int = 32, max_new: int = 16,
@@ -219,11 +234,13 @@ class VariantBackend:
                  params: Optional[Dict] = None,
                  chunked: bool = False,
                  prefill_chunk_tokens: int = 16, preemption: str = "none",
-                 prefix_sharing: bool = False, build_chunked: bool = False,
+                 prefix_sharing: bool = False,
+                 cache_headroom: int = 0, build_chunked: bool = False,
                  clock: Callable[[], float] = time.time,
                  metrics: Optional[MetricsRegistry] = None,
                  step_graphs: bool = True,
-                 graph_stream: Optional["torch.cuda.Stream"] = None):
+                 graph_stream: Optional["torch.cuda.Stream"] = None,
+                 spec_role: Optional[str] = None, spec_k: int = 0):
         self.name = name
         self.device = resolve_device(device)
         if use_kernels and not cfg.use_kernels:
@@ -237,6 +254,19 @@ class VariantBackend:
         self.decode_chunk = max(1, min(decode_chunk, max_new))
         self.clock = clock       # every service/completion stamp uses this
         self.prefill_chunk_tokens = max(1, prefill_chunk_tokens)
+        # extra token capacity past prompt_len + max_new: a speculative
+        # drafter writes up to k positions past the last committed token,
+        # and on the dense ring such a write past capacity would wrap onto
+        # the row's own prompt. The request budget (``_budget``) is not
+        # widened: headroom is scratch space, never servable tokens.
+        self.cache_headroom = max(0, cache_headroom)
+        if spec_role not in (None, "verifier", "drafter"):
+            raise ValueError(f"spec_role must be verifier|drafter, got "
+                             f"{spec_role!r}")
+        self.spec_role, self.spec_k = spec_role, spec_k
+        # the engine attaches a DraftPair here when this backend is the
+        # verifier of a drafter:verifier binding
+        self._spec_pair: Optional["DraftPair"] = None
         # the backend's own model object: its per-layer views of the params
         # go with the backend when it is retired
         self.model = LM(cfg)
@@ -313,7 +343,7 @@ class VariantBackend:
 
     @property
     def _max_len(self) -> int:
-        return self.prompt_len + self.max_new
+        return self.prompt_len + self.max_new + self.cache_headroom
 
     def _prefill(self, tokens: torch.Tensor):
         return self.model.prefill(self.params, {"tokens": tokens},
@@ -336,9 +366,11 @@ class VariantBackend:
     def _build_steps(self, steps: Dict[Tuple[str, Optional[int]],
                                        Tuple[Callable, Dict]]) -> None:
         """Warm every step once (``(name, shape) -> (fn, example
-        inputs)``), then capture each (``step_graphs``) or keep it to call
-        directly, then zero the resident state the warm-up wrote to: every
-        path starts serving from the same state."""
+        inputs)``), with the speculative steps of ``spec_role``, then
+        capture each (``step_graphs``) or keep it to call directly, then
+        zero the resident state the warm-up wrote to: every path starts
+        serving from the same state."""
+        steps = {**steps, **self._spec_steps()}
         if self.step_graphs:
             self.graphs = {
                 key: StepGraph(f"{self.name}:{key[0]}@{key[1]}", fn, inputs,
@@ -374,8 +406,11 @@ class VariantBackend:
 
     def close(self) -> None:
         """Drop the captured graphs and their memory pool (``apply_allocation``
-        calls this when it retires the variant)."""
+        calls this when it retires the variant), and those of a bound
+        drafter."""
         self.graphs, self._steps = {}, {}
+        if self._spec_pair is not None:
+            self._spec_pair.d.close()
 
     # ------------------------------------------------------------- the steps
     def _prefill_step(self, tokens: torch.Tensor):
@@ -418,6 +453,39 @@ class VariantBackend:
             steps[("fused", B)] = (self._fused_step, self._fused_inputs())
         self._build_steps(steps)
 
+    def _spec_steps(self) -> Dict[Tuple[str, Optional[int]],
+                                  Tuple[Callable, Dict]]:
+        """The speculative steps of ``spec_role``, with example inputs that
+        make every row inert (no write, no advance): the verifier's verify
+        at (max_batch, spec_k + 1); the drafter's width-1 continuation (a
+        step of its own, as the fused step holds one width)."""
+        if self.spec_role is None:
+            return {}
+        B, dev = self.max_batch, self.device
+        width = self.spec_k + 1 if self.spec_role == "verifier" else 1
+        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+        inputs = {"tokens": torch.zeros((B, width), dtype=torch.int64,
+                                        device=dev),
+                  "start": zeros, "n_valid": zeros}
+        if self.spec_role == "verifier":
+            return {("verify", B): (self._verify_step, inputs)}
+        return {("resync", B): (self._resync_step, inputs)}
+
+    def _verify_step(self, tokens: torch.Tensor, start: torch.Tensor,
+                     n_valid: torch.Tensor) -> torch.Tensor:
+        """The verifier's step: score (B, k+1) tokens at per-row offsets
+        (``LM.verify_chunk`` on this KV discipline); returns the greedy
+        argmax at every position (B, k+1)."""
+        pred, _ = self._model_verify_chunk(tokens, start, n_valid)
+        return pred
+
+    def _resync_step(self, tokens: torch.Tensor, start: torch.Tensor,
+                     n_valid: torch.Tensor) -> None:
+        """The drafter's resync: a width-1 continuation that writes the
+        K/V of a fully accepted round's last draft (its decode scan emitted
+        that token but never fed it); ``cur_tok`` is left alone."""
+        self._model_prefill_chunk(tokens, start, n_valid)
+
     # ------------------------------------------------------------ device fns
     def _chunk_scan(self, cache: Dict, tok: torch.Tensor, step_fn):
         """``decode_chunk`` greedy steps of ``step_fn(cache, tok)``. Returns
@@ -434,6 +502,11 @@ class VariantBackend:
         """KV-discipline hook: the paged backend runs the pool form."""
         return self.model.prefill_chunk(self.params, self.cache, tokens,
                                         start, n_valid)
+
+    def _model_verify_chunk(self, tokens, start, n_valid):
+        """KV-discipline hook: the paged backend runs the pool form."""
+        return self.model.verify_chunk(self.params, self.cache, tokens,
+                                       start, n_valid)
 
     def _fused_step(self, tokens: torch.Tensor, start: torch.Tensor,
                     n_valid: torch.Tensor, set_mask: torch.Tensor,
@@ -548,6 +621,10 @@ class VariantBackend:
         self.slot_remaining[slot] = self._budget(r) - 1
         self.slot_tokens[slot] = [tok0]
         self.slot_pos[slot] = self.prompt_len     # device pos after prefill
+        if self._spec_pair is not None:
+            # monolithic admission prefilled the zero-padded prompt, so the
+            # drafter mirrors exactly that sequence
+            self._spec_pair.on_fresh(slot, self._effective_seq(r))
 
     def admit(self, reqs: List[Request], now: float) -> List[Request]:
         """Prefill ``reqs`` (≤ free slots) and join them to the batch.
@@ -663,9 +740,15 @@ class VariantBackend:
             # first token; resumed rows already know theirs
             set_mask[slot] = (job.pos + nv >= len(job.seq)
                               and job.resume_tok is None)
+        # speculative rows advance only in DraftPair rounds: a fused tick
+        # (someone else's prefill) must not single-step them, so they stall
+        # for the tick like zombies and the pair resumes them next round
+        spec_rows = (self._spec_pair.owned()
+                     if self._spec_pair is not None else ())
         decode_rows = [s for s, r in enumerate(self.slot_req)
                        if r is not None and s not in self._prefilling
-                       and s not in self._uncommitted_done]
+                       and s not in self._uncommitted_done
+                       and s not in spec_rows]
         for s in decode_rows:
             feed_mask[s] = True            # device-side cur_tok feed
             start[s] = self.slot_pos[s]
@@ -696,6 +779,10 @@ class VariantBackend:
                 self._uncommitted_done.add(slot)
             else:
                 self.slot_remaining[slot] = self._budget(r) - gen_n
+                if self._spec_pair is not None:
+                    # the row decodes from the next tick on: hand it to the
+                    # pair (job.seq is exactly what this backend prefilled)
+                    self._spec_pair.on_fresh(slot, job.seq)
             pend.fused_completions.append(
                 (slot, r, self.slot_gen[slot], job.resume_tok,
                  list(job.gen), fin))
@@ -735,6 +822,8 @@ class VariantBackend:
         self.slot_remaining[slot] = 0
         self._uncommitted_done.discard(slot)
         self._retire_slot(slot)
+        if self._spec_pair is not None:
+            self._spec_pair.on_release(slot)
         r.preemptions += 1
         r.resume_tokens = gen
         self.metrics.inc("requests.preempted")
@@ -750,7 +839,10 @@ class VariantBackend:
     def decode_step_batch(self, now: float) -> List[Request]:
         """One decode chunk for every bound slot, sync form: dispatch, then
         commit. Never called with rows mid-prefill: those ticks are fused
-        (``fused_chunk_step``)."""
+        (``fused_chunk_step``). With a bound drafter the decode is a
+        speculative round."""
+        if self._spec_pair is not None and self._spec_pair.has_work():
+            return self.commit_exec(self._spec_pair.dispatch(now), now)
         if self.active_slots == 0:
             return []
         return self.commit_exec(self.dispatch_decode(now), now)
@@ -790,6 +882,8 @@ class VariantBackend:
         hide behind device work in flight."""
         if self._prefilling:
             return "fused", self.dispatch_fused(now)
+        if self._spec_pair is not None and self._spec_pair.has_work():
+            return "spec", self._spec_pair.dispatch(now)
         pend = self.dispatch_decode(now) if self.active_slots else None
         return ("decode" if pend is not None else "idle"), pend
 
@@ -812,13 +906,9 @@ class VariantBackend:
         requests finished here."""
         if pending is None:
             return []
-        t0 = time.perf_counter()
-        if pending.ready is not None:
-            pending.ready.synchronize()
-        toks = pending.toks.numpy().copy()
-        t1 = time.perf_counter()
-        self.commit_wait_ms = (t1 - t0) * 1e3
-        self.commit_gap_ms = (t0 - pending.dispatched_at) * 1e3
+        toks = self._read_pending(pending)
+        if pending.kind == "spec":
+            return self._spec_pair.commit(pending, toks, now)
         finished: List[Request] = []
         for slot, r, gen_id, resume_tok, gen_before, fin \
                 in pending.fused_completions:
@@ -846,6 +936,17 @@ class VariantBackend:
                 self._release_slot(slot)
         return finished
 
+    def _read_pending(self, pending: _PendingExec) -> np.ndarray:
+        """The one wait of a commit, on its own tokens' event, and their
+        host copy; times the wait and the dispatch-to-commit gap."""
+        t0 = time.perf_counter()
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        toks = pending.toks.numpy().copy()
+        self.commit_wait_ms = (time.perf_counter() - t0) * 1e3
+        self.commit_gap_ms = (t0 - pending.dispatched_at) * 1e3
+        return toks
+
     def flush_pending(self, now: float) -> List[Request]:
         """Commit the in-flight async tick, if any."""
         pend, self._pending = self._pending, None
@@ -856,6 +957,8 @@ class VariantBackend:
         self.slot_tokens[slot] = []
         self._uncommitted_done.discard(slot)
         self._retire_slot(slot)
+        if self._spec_pair is not None:
+            self._spec_pair.on_release(slot)
 
     def _retire_slot(self, slot: int) -> None:
         """Hook called when a slot's request completes or is preempted
@@ -894,6 +997,8 @@ class VariantBackend:
         if self.chunked:   # fused ticks: 1 decode token while chunks finish
             max_steps += -(-(self.prompt_len + self.max_new)
                            // self.prefill_chunk_tokens) + self.max_new + 2
+        if self._spec_pair is not None:
+            max_steps += self.max_new + 2   # worst case: 1 token a round
         while self.active_slots and steps < max_steps:
             if self._prefilling:
                 done.extend(self.fused_chunk_step(now))
@@ -948,8 +1053,10 @@ class PagedVariantBackend(VariantBackend):
     def _build_state(self) -> None:
         model, ps, B, dev = self.model, self.page_size, self.max_batch, \
             self.device
-        # pages covering one slot's whole budget (prompt + decode tokens)
-        self.pages_per_slot = -(-(self.prompt_len + self.max_new) // ps)
+        # pages covering one slot's whole budget (prompt + decode tokens,
+        # plus the scratch headroom a speculative drafter writes drafts
+        # into before they are accepted)
+        self.pages_per_slot = -(-self._max_len // ps)
         pool_pages = self._pool_pages_arg or (
             B * self.pages_per_slot + 1)               # +1: trash page 0
         self.pool = PagedKVCache(pool_pages, ps, metrics=self.metrics)
@@ -1002,6 +1109,10 @@ class PagedVariantBackend(VariantBackend):
     def _model_prefill_chunk(self, tokens, start, n_valid):
         return self.model.prefill_chunk_paged(self.params, self.cache,
                                               tokens, start, n_valid)
+
+    def _model_verify_chunk(self, tokens, start, n_valid):
+        return self.model.verify_chunk_paged(self.params, self.cache,
+                                             tokens, start, n_valid)
 
     # ------------------------------------------------- continuous-batch path
     @property
@@ -1159,6 +1270,318 @@ class PagedVariantBackend(VariantBackend):
             "paged KV backends serve in continuous mode only")
 
 
+def _accept_fn(k: int, drafts: torch.Tensor, pred: torch.Tensor,
+               base_in: torch.Tensor, end: torch.Tensor, dev_m: torch.Tensor,
+               fresh_m: torch.Tensor, host_tok: torch.Tensor,
+               host_resync: torch.Tensor, cur_v: torch.Tensor
+               ) -> Tuple[torch.Tensor, ...]:
+    """Acceptance of the previous round and the inputs of the next, on the
+    device (the reference's jitted ``DraftPair._accept_fn``; a dozen small
+    kernels, run eagerly). ``dev_m`` rows derive base and pending token
+    from the previous round's ``drafts`` (B, k) and verifier argmax ``pred``
+    (B, k+1): the longest agreeing prefix ``a`` commits with the bonus
+    ``pred[a]``. ``fresh_m`` rows take the verifier's device ``cur_v`` as
+    pending at their bootstrap base; the other live rows are host-fed
+    (their round committed already). ``n_valid`` is capped by the tokens
+    still owed (``end - base``), so a finished row's zombie round verifies
+    and writes nothing. Returns (base, pending, n_valid, resync) (B,)."""
+    nv_prev = torch.clamp(end - base_in, 0, k + 1)
+    cols = torch.arange(k, device=drafts.device)[None, :]
+    agree = (drafts == pred[:, :k]) & (cols < (nv_prev - 1)[:, None])
+    a = torch.cumprod(agree.long(), dim=1).sum(dim=1)
+    bonus = torch.gather(pred, 1, a[:, None])[:, 0]
+    base_new = torch.where(dev_m, base_in + a + 1, base_in)
+    pending = torch.where(dev_m, bonus, torch.where(fresh_m, cur_v, host_tok))
+    resync = (dev_m & (a == k)) | (~dev_m & ~fresh_m & host_resync)
+    nv_next = torch.clamp(end - base_new, 0, k + 1)
+    return base_new, pending, nv_next, resync
+
+
+class DraftPair:
+    """Speculative decoding (the reference's DESIGN.md §Speculative
+    decoding): a cheap drafter backend proposes ``k`` tokens a round for
+    every decoding slot of its verifier backend; the verifier scores all
+    k+1 positions (the pending token and the k drafts) in one chunk call
+    (its captured "verify" step), the longest agreeing draft prefix plus
+    the verifier's own bonus token commits, and the rest rolls back by
+    rewinding positions.
+
+    **Greedy parity.** The bonus token is the verifier's argmax given the
+    committed prefix and a draft commits only where it equals that argmax,
+    so the committed stream is the verifier's greedy stream, whatever the
+    drafter proposes.
+
+    **Overlap.** Round t's acceptance is computed on the device at round
+    t+1's dispatch (``_accept_fn`` over round t's drafts and argmax), so
+    with the async tick round t+1 is dispatched before round t's tokens
+    are read back. The commit replays the same integer rule on the packed
+    ``(B, 2k+1)`` matrix on the host, one tick later.
+
+    **Static buffers.** Every device write of a round lands in a tensor
+    the captured steps were built against: both caches' ``pos`` and the
+    drafter's ``cur_tok`` are written in place, the resync, the draft
+    chunk and the verify are step replays. The round's drafts and argmax
+    are copied into ``_pack``, a buffer this object owns, so no later
+    replay of a step (a fused tick, another page bucket's draft chunk, a
+    bootstrap) can change what the next round's acceptance reads; stream
+    order puts that read (and the read-back copy) before the next round's
+    copy into it.
+
+    **Rollback.** Both caches rewind ``pos`` to the committed length. Chunk
+    and decode attention mask every slot past the query position and write
+    a slot before attending it, so rejected-draft K/V is unreachable once
+    the position retreats; no page is freed (budgets are all or nothing)
+    and ``PagedKVCache.rollback`` audits that no published prefix page
+    covers a rejected position.
+
+    **Per-slot host state** (``_mode``): "fresh" — the drafter mirror was
+    prefilled this dispatch and the pending token lives in the verifier's
+    device ``cur_tok``; "device" — a dispatched round's acceptance is not
+    committed yet, the device derives base and pending itself; "host" — the
+    round committed before the next dispatch (sync ticks, or async ticks
+    interleaved with fused ticks), so the host feeds base, pending and the
+    resync flag. ``base[slot]`` holds the round-start base of the round in
+    ``_pack`` until a dispatch consumes its acceptance, then catches up at
+    commit."""
+
+    def __init__(self, verifier: VariantBackend, drafter: VariantBackend,
+                 k: int):
+        assert k >= 1
+        assert drafter.max_batch == verifier.max_batch
+        assert drafter.prompt_len == verifier.prompt_len
+        assert drafter.max_new == verifier.max_new
+        assert drafter.decode_chunk == k, \
+            "the drafter's decode chunk is the k-token draft"
+        assert drafter.chunked, "the drafter needs the continuation " \
+            "machinery (mirror prefill and the full-accept resync)"
+        assert verifier.spec_role == "verifier" and verifier.spec_k == k
+        assert drafter.spec_role == "drafter"
+        self.v, self.d, self.k = verifier, drafter, k
+        self.paged = isinstance(verifier, PagedVariantBackend)
+        assert self.paged == isinstance(drafter, PagedVariantBackend)
+        self.metrics = verifier.metrics
+        B = verifier.max_batch
+        self.base = np.zeros((B,), np.int64)       # round-start verifier pos
+        self.end = np.zeros((B,), np.int64)        # base at completion
+        self.pend_tok = np.zeros((B,), np.int64)   # host-fed pending token
+        self.resync_host = np.zeros((B,), bool)    # host-fed full-accept flag
+        self._slot_round = np.zeros((B,), np.int64)
+        self._round_no = 0
+        self._mode: Dict[int, str] = {}
+        self.fresh: Dict[int, np.ndarray] = {}     # slot -> mirror sequence
+        self._d_bound: Set[int] = set()
+        # the last round's [drafts (B, k) | verifier argmax (B, k+1)]:
+        # zeros until the first round
+        self._pack = torch.zeros((B, 2 * k + 1), dtype=torch.int64,
+                                 device=verifier.device)
+        # per-slot acceptance telemetry
+        self.slot_rounds = np.zeros((B,), np.int64)
+        self.slot_accepted = np.zeros((B,), np.int64)
+        self.slot_proposed = np.zeros((B,), np.int64)
+        verifier._spec_pair = self
+
+    # ------------------------------------------------------------ slot hooks
+    def on_fresh(self, slot: int, seq: np.ndarray) -> None:
+        """The verifier bound ``slot`` to a decoding request whose cache
+        holds exactly ``seq`` (and the pending first token in ``cur_tok``)."""
+        self.fresh[slot] = np.asarray(seq, np.int64)
+        self._mode.pop(slot, None)
+
+    def on_release(self, slot: int) -> None:
+        """The verifier released ``slot`` (finish or preemption): drop its
+        speculative state and the drafter mirror's pages. An in-flight
+        round's stale items are discarded by the commit's guard."""
+        self._mode.pop(slot, None)
+        self.fresh.pop(slot, None)
+        if slot in self._d_bound:
+            self._d_bound.discard(slot)
+            self.d._retire_slot(slot)
+
+    def owned(self):
+        return self._mode.keys() | self.fresh.keys()
+
+    def has_work(self) -> bool:
+        return bool(self._mode or self.fresh)
+
+    # ---------------------------------------------------------- round halves
+    def _bootstrap_fresh(self) -> None:
+        """Mirror-prefill every newly bound slot's sequence into the
+        drafter's cache (continuation chunks of the drafter's
+        ``prefill_chunk_tokens``, which also covers resumed rows longer
+        than ``prompt_len``) and seed the host state. The pending token is
+        taken on the device from the verifier's ``cur_tok`` at dispatch: it
+        may exist only there (a chunked completion not yet committed)."""
+        v, d = self.v, self.d
+        B, ck = v.max_batch, d.prefill_chunk_tokens
+        maxlen = 0
+        for slot, seq in sorted(self.fresh.items()):
+            base0 = int(v.slot_pos[slot])
+            assert base0 == len(seq), (base0, len(seq))
+            self.base[slot] = base0
+            self.end[slot] = base0 + int(v.slot_remaining[slot])
+            self.pend_tok[slot] = 0
+            self.resync_host[slot] = False
+            self._mode[slot] = "fresh"
+            maxlen = max(maxlen, len(seq))
+            if self.paged and slot not in self._d_bound:
+                pages = d.pool.alloc(slot, d.pages_per_slot)
+                assert pages is not None, "the drafter's pool covers max_batch"
+                d.cache["pt"][slot].copy_(d._host(np.asarray(pages, np.int32)),
+                                          non_blocking=True)
+            self._d_bound.add(slot)
+        no_rows = np.zeros((B,), bool)
+        for off in range(0, maxlen, ck):
+            tokens = np.zeros((B, ck), np.int64)
+            st = np.zeros((B,), np.int64)
+            nv = np.zeros((B,), np.int64)
+            for slot, seq in self.fresh.items():
+                n = min(len(seq) - off, ck)
+                if n <= 0:
+                    continue
+                tokens[slot, :n] = seq[off:off + n]
+                st[slot] = off
+                nv[slot] = n
+            d._prefill_chunk_step(tokens, st, nv, no_rows, no_rows)
+        self.fresh.clear()
+
+    def dispatch(self, now: float) -> Optional[_PendingExec]:
+        """One speculative round for every owned slot, with no host read:
+        the previous round's acceptance (device), the rewind of both
+        caches, the drafter's resync after full accepts, a k-token draft
+        chunk on the drafter and one verify of all k+1 positions."""
+        v, d, k = self.v, self.d, self.k
+        B = v.max_batch
+        if self.fresh:
+            self._bootstrap_fresh()
+        live = sorted(self._mode)
+        if not live:
+            return None
+        t_disp = time.perf_counter()
+        self._round_no += 1
+        rnd = self._round_no
+        live_np = np.zeros((B,), bool)
+        dev_np = np.zeros((B,), bool)
+        fresh_np = np.zeros((B,), bool)
+        items = []
+        for s in live:
+            live_np[s] = True
+            dev_np[s] = self._mode[s] == "device"
+            fresh_np[s] = self._mode[s] == "fresh"
+            items.append((s, v.slot_req[s], v.slot_gen[s],
+                          int(self.base[s]), rnd))
+            self._slot_round[s] = rnd
+            self._mode[s] = "device"
+        # the host state in one pinned copy
+        hs = v._host(np.stack([self.base, self.end, live_np, dev_np,
+                               fresh_np, self.pend_tok, self.resync_host]
+                              ).astype(np.int64)).to(v.device,
+                                                     non_blocking=True)
+        live_m, dev_m, fresh_m = hs[2] != 0, hs[3] != 0, hs[4] != 0
+        pd, pp = self._pack[:, :k], self._pack[:, k:]
+        base_new, pending, nv_next, resync = _accept_fn(
+            k, pd, pp, hs[0], hs[1], dev_m, fresh_m, hs[5], hs[6] != 0,
+            v.cur_tok)
+        # rollback and advance: a position rewind on both caches, in place
+        for c in (v.cache, d.cache):
+            c["pos"].copy_(torch.where(live_m, base_new, c["pos"]))
+        if self.paged:
+            for s in live:     # the pool's audit: a rewind never uncovers
+                v.pool.rollback(s, int(self.base[s]) + 1)   # a published page
+        if self._round_no > 1:
+            # full-accept resync: the k-th draft committed but its K/V was
+            # never written (the scan emits it as output only): feed it
+            # through a width-1 continuation at base_new - 1
+            d._step("resync", B, tokens=pd[:, k - 1:k], start=base_new - 1,
+                    n_valid=resync.long())
+        d.cur_tok.copy_(torch.where(live_m, pending, d.cur_tok))
+        if self.paged:
+            # the host base lags one round under the async tick: cover it
+            # and this round's k draft writes
+            mx = max(int(self.base[s]) for s in live)
+            need = d.pool.pages_needed(min(mx + 2 * k + 2, d._max_len))
+            nb = next(b for b in d.page_buckets
+                      if b >= min(need, d.pages_per_slot))
+            dtoks = d._step("chunk", nb)
+        else:
+            dtoks = d._step("chunk", None)
+        drafts = dtoks.t()                                     # (B, k)
+        pred = v._step("verify", B,
+                       tokens=torch.cat([pending[:, None], drafts], dim=1),
+                       start=base_new, n_valid=nv_next)
+        self._pack[:, :k].copy_(drafts)
+        self._pack[:, k:].copy_(pred)
+        toks, ready = v._readback.start(self._pack)
+        self.metrics.inc("spec.batch_rounds")
+        return _PendingExec(kind="spec", toks=toks, ready=ready,
+                            dispatched_at=t_disp, spec_items=items)
+
+    def commit(self, pending: _PendingExec, pack: np.ndarray,
+               now: float) -> List[Request]:
+        """Replay the round's acceptance on the host from the packed
+        ``(B, 2k+1)`` matrix (read back once) and apply the value-dependent
+        bookkeeping: token appends, acceptance telemetry, completion. A
+        ``(request, slot_gen)`` mismatch means the slot was preempted or
+        rebound between dispatch and commit: its stale tokens are dropped
+        and regenerated identically on resume."""
+        v, k, m = self.v, self.k, self.metrics
+        drafts, pred = pack[:, :k], pack[:, k:]
+        finished: List[Request] = []
+        for slot, r, gen_id, _base_disp, rnd in pending.spec_items:
+            if v.slot_req[slot] is not r or v.slot_gen[slot] != gen_id:
+                continue
+            # The round-start base is read live from ``self.base``, not from
+            # the dispatch-time snapshot: under the async tick round r+1 is
+            # dispatched before round r commits, so the snapshot can be one
+            # round stale. Commits run in dispatch order and each advances
+            # ``self.base`` by a + 1, so here it is round r's true start.
+            base_t = int(self.base[slot])
+            nv = int(min(self.end[slot] - base_t, k + 1))
+            if nv <= 0:
+                continue          # zombie round of an already finished row
+            a = 0
+            while a < nv - 1 and int(drafts[slot, a]) == int(pred[slot, a]):
+                a += 1
+            v.slot_tokens[slot].extend(
+                [int(t) for t in drafts[slot, :a]] + [int(pred[slot, a])])
+            new_base = base_t + a + 1
+            self.base[slot] = new_base
+            v.slot_pos[slot] = new_base
+            v.slot_remaining[slot] = self.end[slot] - new_base
+            self.slot_rounds[slot] += 1
+            self.slot_accepted[slot] += a
+            self.slot_proposed[slot] += nv - 1
+            m.inc("spec.rounds")
+            m.inc("spec.committed_tokens", a + 1)
+            m.inc("spec.drafts_accepted", a)
+            m.inc("spec.drafts_proposed", nv - 1)
+            # A3: the reference also observes spec.tokens_per_step and
+            # spec.accept_rate in its rolling windows, which the port's obs
+            # stack does not have yet
+            if self._slot_round[slot] == rnd:
+                # no newer round in flight (sync ticks, or async ticks
+                # interleaved with fused ticks): the next dispatch takes
+                # base, pending and resync from the host
+                self._mode[slot] = "host"
+                self.pend_tok[slot] = int(pred[slot, a])
+                self.resync_host[slot] = a == k
+            # else a newer round already consumed this acceptance on the
+            # device; self.base just caught up to that round's base
+            if new_base >= self.end[slot]:
+                v._finish(r, v.slot_tokens[slot], now)
+                finished.append(r)
+                v._release_slot(slot)     # -> on_release drops spec state
+        return finished
+
+    def acceptance_stats(self) -> Dict:
+        rounds = int(self.slot_rounds.sum())
+        acc = int(self.slot_accepted.sum())
+        prop = int(self.slot_proposed.sum())
+        return {"rounds": rounds, "drafts_accepted": acc,
+                "drafts_proposed": prop,
+                "accept_rate": acc / max(prop, 1),
+                "tokens_per_step": (acc + rounds) / max(rounds, 1)}
+
+
 def _refuse(option: str, value, default, item: str) -> None:
     if value != default:
         raise NotImplementedError(
@@ -1177,7 +1600,9 @@ class InProcessServingEngine:
     weights. ``use_kernels`` routes attention through the CUDA kernels.
     ``step_graphs`` (default) replays each backend's steps as CUDA graphs on
     a card (``VariantBackend``); ``False`` runs them op by op, the eager
-    path replays are held against.
+    path replays are held against. ``speculative="drafter:verifier"`` binds
+    a hidden drafter of the first variant to every backend of the second
+    (``DraftPair``, ``spec_k`` drafts a round).
     """
 
     def __init__(self, variants: Mapping[str, Tuple[ModelConfig, float]],
@@ -1196,7 +1621,7 @@ class InProcessServingEngine:
                  preemption: str = "none",
                  trace: bool = False, obs=None, profile_dispatch: int = 0,
                  async_tick: bool = False,
-                 speculative: Optional[str] = None,
+                 speculative: Optional[str] = None, spec_k: int = 4,
                  step_graphs: bool = True):
         if mode not in ("continuous", "pump"):
             raise ValueError(f"mode must be continuous|pump, got {mode!r}")
@@ -1214,7 +1639,26 @@ class InProcessServingEngine:
         if async_tick and mode != "continuous":
             raise ValueError("async_tick needs the continuous engine (the "
                              "pump path is a blocking per-batch loop)")
-        _refuse("speculative", speculative, None, "A7")
+        # speculative decoding on the variant ladder: "drafter:verifier"
+        # names two variants; every backend of the verifier gets a
+        # dedicated drafter bound as a DraftPair
+        self.spec_drafter = self.spec_verifier = None
+        self.spec_k = int(spec_k)
+        if speculative is not None:
+            if mode != "continuous":
+                raise ValueError("speculative decoding needs the continuous "
+                                 "engine")
+            drafter, _, verifier = speculative.partition(":")
+            if not (drafter and verifier and drafter != verifier):
+                raise ValueError(f"speculative= wants 'drafter:verifier', "
+                                 f"got {speculative!r}")
+            if drafter not in variants or verifier not in variants:
+                raise ValueError(f"speculative variants must be among the "
+                                 f"engine's variants: {speculative!r}")
+            if not 1 <= self.spec_k <= max_new:
+                raise ValueError(f"spec_k={spec_k} must fit inside the "
+                                 f"decode budget (1..{max_new})")
+            self.spec_drafter, self.spec_verifier = drafter, verifier
         _refuse("nodes", nodes, None, "A3")
         _refuse("trace", trace, False, "A3")
         _refuse("obs", obs, None, "A3")
@@ -1286,13 +1730,43 @@ class InProcessServingEngine:
                   clock=self.clock, metrics=self.metrics,
                   step_graphs=self.step_graphs,
                   graph_stream=self._graph_stream)
+        if variant == self.spec_verifier:
+            kw.update(spec_role="verifier", spec_k=self.spec_k)
         if self.kv_cache == "paged":
-            return PagedVariantBackend(variant, cfg, acc,
-                                       page_size=self.kv_page_size,
-                                       pool_pages=self.kv_pool_pages,
-                                       prefix_sharing=self.kv_prefix_sharing,
-                                       **kw)
-        return VariantBackend(variant, cfg, acc, **kw)
+            b = PagedVariantBackend(variant, cfg, acc,
+                                    page_size=self.kv_page_size,
+                                    pool_pages=self.kv_pool_pages,
+                                    prefix_sharing=self.kv_prefix_sharing,
+                                    **kw)
+        else:
+            b = VariantBackend(variant, cfg, acc, **kw)
+        if variant == self.spec_verifier:
+            self._attach_drafter(b)
+        return b
+
+    def _attach_drafter(self, verifier: VariantBackend) -> None:
+        """Build a dedicated drafter backend for one verifier and bind the
+        two as a ``DraftPair``. The drafter is hidden from routing and the
+        queues: it exists only as the verifier's proposer, with its own KV
+        state sized with scratch headroom (drafts are written up to k
+        positions past the last committed token before acceptance, plus
+        one in-flight zombie round under the async tick)."""
+        dcfg, dacc = self.variant_defs[self.spec_drafter]
+        kw = dict(max_batch=self.max_batch, prompt_len=self.prompt_len,
+                  max_new=self.max_new, decode_chunk=self.spec_k,
+                  use_kernels=self.use_kernels, device=self.device,
+                  params=self.weights.get(self.spec_drafter), chunked=True,
+                  prefill_chunk_tokens=self.prefill_chunk,
+                  cache_headroom=self.spec_k + 2, clock=self.clock,
+                  metrics=self.metrics, step_graphs=self.step_graphs,
+                  graph_stream=self._graph_stream, spec_role="drafter",
+                  spec_k=self.spec_k)
+        if self.kv_cache == "paged":
+            d = PagedVariantBackend(self.spec_drafter, dcfg, dacc,
+                                    page_size=self.kv_page_size, **kw)
+        else:
+            d = VariantBackend(self.spec_drafter, dcfg, dacc, **kw)
+        DraftPair(verifier, d, self.spec_k)
 
     # ------------------------------------------------------------ ClusterAPI
     def apply_allocation(self, t: float, units: Mapping[str, int]) -> None:
@@ -1554,4 +2028,13 @@ class InProcessServingEngine:
                 out["kv_pool_occupancy"] = pool["occupancy"]
                 out["kv_shared_pages"] = pool["shared_pages"]
                 out["kv_prefix_hit_rate"] = pool["prefix_hit_rate"]
+            pairs = [b._spec_pair for b in self.backends.values()
+                     if b._spec_pair is not None]
+            if pairs:
+                rounds = sum(int(p.slot_rounds.sum()) for p in pairs)
+                acc = sum(int(p.slot_accepted.sum()) for p in pairs)
+                prop = sum(int(p.slot_proposed.sum()) for p in pairs)
+                out["spec_accept_rate"] = acc / max(prop, 1)
+                out["spec_tokens_per_step"] = \
+                    (acc + rounds) / max(rounds, 1)
         return out

@@ -1071,3 +1071,149 @@ def test_dense_fused_tick_launches_one_chunk_kernel_per_layer(cuda):
             ticks += 1
         assert ticks == 3                    # 22 tokens in chunks of 8
         b.close()
+
+
+# ------------------------------------------------------ speculative decoding
+
+SPEC_K = 4
+SPEC_CAP = 512 + 64 + SPEC_K + 2     # the drafter's ring: 582, not 64-aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ck", [SPEC_K + 1, 1])
+def test_chunk_forms_at_the_verify_shapes(cuda, ck, dtype):
+    """Both chunk forms at a speculative round's shapes, against their
+    plain versions: the verify at ck = k + 1 and the drafter's resync at
+    ck = 1, over the drafter's 582-slot ring (dense) and 37-page tables of
+    16 (paged), queries at offsets past a 512-token prompt (row 1 inert at
+    0, as the resync's rows that accepted less than every draft)."""
+    rng = np.random.default_rng(ck)
+    B, KV, G, hd, ps = 8, 4, 8, 64, 16
+    width = -(-SPEC_CAP // ps)
+    start = torch.as_tensor(rng.integers(512, SPEC_CAP - ck, B))
+    start[1] = 0
+    pos = start[:, None] + torch.arange(ck)[None, :]
+    bias = torch.where(torch.arange(SPEC_CAP)[None, None, :]
+                       <= pos[:, :, None], 0.0, -1e9).float().to(cuda)
+    q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
+    k = _randn(rng, (B, KV, SPEC_CAP, hd), dtype, cuda)
+    v = _randn(rng, (B, KV, SPEC_CAP, hd), dtype, cuda)
+    n0 = fd.flash_decode_chunk.launches
+    out = fd.flash_decode_chunk(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fd.flash_decode_chunk.launches == n0 + 1
+    torch.testing.assert_close(
+        out.float(), fd.flash_decode_chunk_plain(q, k, v, bias).float(),
+        atol=TOL[dtype], rtol=0)
+    P = B * width + 1
+    kp = _randn(rng, (KV, P, ps, hd), dtype, cuda)
+    vp = _randn(rng, (KV, P, ps, hd), dtype, cuda)
+    tables = torch.as_tensor(rng.permutation(np.arange(1, P)).reshape(
+        B, width), dtype=torch.int32, device=cuda)
+    lengths = torch.clamp(pos + 1, 1, width * ps).to(torch.int32).to(cuda)
+    n0 = pd.paged_flash_decode_bkhd.launches
+    out = pd.paged_flash_decode_chunk(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert pd.paged_flash_decode_bkhd.launches == n0 + 1
+    want = pd.paged_flash_decode_chunk_plain(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def _spec_serve(cuda, step_graphs, kv_cache, speculative="small:big",
+                async_tick=False):
+    """Eight staggered requests on a virtual clock through a speculative
+    engine (drafter "small" 1 layer, verifier "big" 3 layers, fp32, kernels
+    on, k = SPEC_K; ``speculative=None`` serves "big" alone). Returns
+    (rid -> tokens, verifier and drafter cache leaves and cur_tok, engine)."""
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    variants = {"small": (_smoke("tinyllama-1.1b", num_layers=1), 70.0),
+                "big": (_smoke("tinyllama-1.1b", num_layers=3), 75.0)}
+    t = [0.0]
+    eng = InProcessServingEngine(
+        variants, max_batch=3, prompt_len=32, max_new=12, decode_chunk=2,
+        prefill_chunk=8, use_kernels=True, device=cuda, kv_cache=kv_cache,
+        kv_page_size=8, speculative=speculative, spec_k=SPEC_K,
+        async_tick=async_tick, step_graphs=step_graphs, clock=lambda: t[0])
+    eng.apply_allocation(0.0, {"big": 1})
+    rng = np.random.default_rng(4)
+    for i, p in enumerate(_shared_prompts(variants["big"][0].vocab_size, 8)):
+        eng.submit(Request(rid=i, tokens=p, max_new=int(rng.integers(2, 13)),
+                           arrival=t[0]), "big")
+        eng.step(t[0])
+        t[0] += 0.05
+    eng.drain(t[0])
+    torch.cuda.synchronize()
+    b = eng.backends["big"]
+    parts = [("verifier", b)]
+    if b._spec_pair is not None:
+        parts.append(("drafter", b._spec_pair.d))
+    # a retired paged row decodes from the trash page 0, whose contents
+    # depend on the scatter order of colliding writes: its token is not
+    # compared
+    state = {n: {**{k: t.clone() for k, t in x.cache.items()},
+                 "cur_tok": (torch.where((x.cache["pt"] != 0).any(1),
+                                         x.cur_tok, -1)
+                             if "pt" in x.cache else x.cur_tok.clone())}
+             for n, x in parts}
+    for _, x in parts:
+        if hasattr(x, "pool"):
+            x.pool.assert_invariants()
+            assert x.pool.used_pages == 0
+    return {r.rid: list(r.output) for r in eng.done}, state, eng
+
+
+@pytest.mark.parametrize("kv_cache,async_tick", [("dense", False),
+                                                 ("dense", True),
+                                                 ("paged", True)])
+def test_speculative_replay_equals_eager(cuda, kv_cache, async_tick):
+    """Speculative rounds replayed (the verify, the drafter's resync, draft
+    chunks and bootstrap chunks as CUDA graphs) against the same engine op
+    by op: bitwise-equal tokens and every cache leaf of verifier and
+    drafter (paged: all but the trash page 0); at fp32 both equal the
+    verifier's target-only greedy tokens."""
+    got, state, eng = _spec_serve(cuda, True, kv_cache, async_tick=async_tick)
+    want, ref_state, _ = _spec_serve(cuda, False, kv_cache,
+                                     async_tick=async_tick)
+    target, _, _ = _spec_serve(cuda, True, kv_cache, speculative=None)
+    assert len(want) == 8 and got == want == target
+    for n in state:
+        for k in state[n]:
+            a, b = state[n][k], ref_state[n][k]
+            if k in ("kp", "vp"):
+                diff = (a != b).flatten(3).any(-1).any(1)
+                assert set(diff.any(0).nonzero().flatten().tolist()) <= {0}
+            else:
+                assert torch.equal(a, b), (n, k)
+    assert eng.metrics.value("spec.rounds") > 0
+
+
+@pytest.mark.parametrize("kv_cache", ["dense", "paged"])
+def test_speculative_steps_launch_the_chunk_kernels(cuda, kv_cache):
+    """The captured verify is one chunk-form launch per verifier layer and
+    the drafter's resync one per drafter layer; the draft chunk is k
+    decode-form launches per drafter layer; a round after the first
+    launches the three together."""
+    _, _, eng = _spec_serve(cuda, True, kv_cache)
+    b = eng.backends["big"]
+    d = b._spec_pair.d
+    chunk_key, dec_key = (("paged_decode", "paged_decode")
+                          if kv_cache == "paged"
+                          else ("flash_decode_chunk", "flash_decode"))
+    assert b.graphs[("verify", 3)].launches == {chunk_key: 3}
+    assert d.graphs[("resync", 3)].launches == {chunk_key: 1}
+    draft = [g for (name, _), g in d.graphs.items() if name == "chunk"]
+    assert draft and all(g.launches == {dec_key: SPEC_K} for g in draft)
+    from repro_torch.serving.api import Request
+    for i in range(2):
+        eng.submit(Request(rid=100 + i, tokens=np.arange(32) + i, max_new=12,
+                           arrival=0.0), "big")
+    eng.step(0.0)                       # admit (monolithic) + round 1
+    n0 = ops.launch_counts()
+    eng.step(0.0)                       # one later round
+    n1 = ops.launch_counts()
+    got = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    want = {chunk_key: 3 + 1}
+    want[dec_key] = want.get(dec_key, 0) + SPEC_K
+    assert got == want

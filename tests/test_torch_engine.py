@@ -142,8 +142,8 @@ def test_copied_solver_returns_the_reference_allocation(solver, seed):
 
 
 @pytest.mark.parametrize("option", [
-    dict(speculative="small:big"), dict(nodes=[]), dict(trace=True),
-    dict(obs=object()), dict(profile_dispatch=4)])
+    dict(nodes=[]), dict(trace=True), dict(obs=object()),
+    dict(profile_dispatch=4)])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         PEngine(_port_variants(tiny_variants(2)), device="cpu", **option)
