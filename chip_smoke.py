@@ -117,9 +117,29 @@ phase raises, and the script exits nonzero:
               printed; then a 10 s serve loop of the InfAdapter loop
               (phase 6) on the dense ladder with
               ``speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22"``;
- 10. output   the ``{"kernels": [...]}`` line (launches summed over the
-              serve loops and the prefix phase; the chunk forms' rows carry
-              their verify shape's times), then the ok line last.
+ 10. obs      observability on the engine at full width (tinyllama-1.1b
+              L22, bf16, kernels on, steps replayed): the async phase's
+              request list on a fake clock through dense FIFO with the
+              sync tick and paged with sharing + ``chunked`` + requeue +
+              the async tick, each with observability off
+              (``Observability.disabled()``) and traced (spans, ticks,
+              windows, a flight recorder, ``profile_dispatch=2``): tokens
+              bitwise equal, every kernel's launches equal (tracing adds
+              no kernel to a replayed tick), a valid Chrome trace with no
+              dropped span or tick, every request's spans monotone from
+              QUEUED to a terminal event, sampled ticks split into
+              dispatch + device + host sync within exec_ms and unsampled
+              ticks NaN; the dispatch floor summary and wall ms per tick
+              traced and untraced printed; then 10 s of the launcher's own
+              ``--trace --profile-dispatch --burn-rate-alerts
+              --flight-dir`` serve (``launch.serve.serve``) at an SLO the
+              ladder cannot meet: an alert fires, the controller re-solves
+              for it (reason ``burn_rate``), a flight dump and the trace,
+              metrics and audit reports validate with zero drops;
+ 11. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve loops, the prefix phase and the obs phase's serve; the
+              chunk forms' rows carry their verify shape's times), then the
+              ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -180,6 +200,13 @@ ASYNC_SERVE_SECONDS = 10    # the async + chunked + requeue serve loop
 SPEC_K = 4                  # spec phase: drafts a round
 SPEC_CAP = CAP + SPEC_K + 2  # the drafter's ring: the headroom of k + 2
 SPEC_SERVE_SECONDS = 10     # the speculative serve loop
+OBS_SERVE_SECONDS = 10      # the obs phase's traced serve loop
+# the obs phase's serve: an SLO no rung meets (a request spends >= 9 ticks
+# of the loop's 50 ms sleep) but the profiles call feasible, so the
+# controller allocates and every completion burns the error budget; the
+# load keeps the burn monitor's 5 s window above its 5 requests
+OBS_SLO_MS = 300.0
+OBS_LOAD = (2.0, 4.0)
 # A serve loop reports its P99, violation rate and goodput only over this
 # many requests: over the 10-30 a short loop serves, the P99 is the slowest
 # request and one request moves the rate by several points. Short loops
@@ -1755,13 +1782,14 @@ def async_requests(vocab, n=AS_N, seed=31):
     return out
 
 
-def async_serve(torch, cfg, params, reqs, engine_kw):
+def async_serve(torch, cfg, params, reqs, engine_kw, inspect=None):
     """One engine of ``cfg`` alone (``ladder_serve``)."""
     return ladder_serve(torch, {cfg.name: (cfg, 78.0)}, {cfg.name: params},
-                        cfg.name, reqs, engine_kw)
+                        cfg.name, reqs, engine_kw, inspect)
 
 
-def ladder_serve(torch, variants, weights, target, reqs, engine_kw):
+def ladder_serve(torch, variants, weights, target, reqs, engine_kw,
+                 inspect=None):
     """One engine of ``variants`` on ``weights`` (kernels on, steps
     replayed) serving ``target`` on a fake clock that advances 50 ms a
     tick: a request arrives per tick, then ticks until every queue and
@@ -1770,7 +1798,7 @@ def ladder_serve(torch, variants, weights, target, reqs, engine_kw):
     wall ms per tick (host clock, device synchronised at the end only, as
     a serving loop runs), mean hidden host ms and commit_wait_ms per tick,
     preemptions, launches, and with ``speculative`` the spec counters and
-    rates)."""
+    rates; ``inspect(engine)``'s result under "inspect" when given)."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serving.api import Request
@@ -1835,6 +1863,8 @@ def ladder_serve(torch, variants, weights, target, reqs, engine_kw):
     if pair is not None:
         stats.update(pair.acceptance_stats(), readiness_s={
             "verifier": b.readiness_s, "drafter": pair.d.readiness_s})
+    if inspect is not None:
+        stats["inspect"] = inspect(eng)
     for bk in eng.backends.values():
         bk.close()
     del eng, b, pair
@@ -2213,6 +2243,202 @@ def spec_phase(torch):
     return summary
 
 
+def traced_checks(eng, every=None, monotone=True):
+    """The obs phase's checks of one traced engine after its drain: a
+    valid Chrome trace, no dropped span or tick, every request's spans
+    from QUEUED to one terminal event, monotone in time with ``monotone``
+    (on a fake clock: under a wall clock the prefill events carry the
+    tick's ``now``, a little before the ``clock()`` stamp of an admission
+    in the same tick, as in the reference), and the dispatch profiler's
+    split finite, non-negative and within exec_ms where it was sampled and
+    NaN elsewhere. With ``every`` (an engine with one backend from its
+    first tick on, so that backend's record i is tick i + 1), the sampled
+    ticks must be exactly the non-idle ticks whose number ``every``
+    divides. Returns the dispatch floor summary per backend and counts."""
+    import math
+    from repro_torch.obs import (dispatch_floor_summary, to_chrome_trace,
+                                 validate_chrome_trace)
+    from repro_torch.obs import trace as ev
+    n_events = validate_chrome_trace(to_chrome_trace(eng.tracer))
+    dropped = (eng.metrics.value("obs.spans_dropped"),
+               eng.metrics.value("obs.ticks_dropped"))
+    if not n_events > 0 or dropped != (0.0, 0.0):
+        raise AssertionError(f"trace: {n_events} events, dropped {dropped}")
+    for r in eng.done:
+        names = [e.name for e in r.spans or ()]
+        ts = [e.t for e in r.spans or ()]
+        if (not names or names[0] != ev.QUEUED
+                or (monotone and ts != sorted(ts))
+                or names[-1] not in ev.TERMINAL_EVENTS
+                or ev.TERMINAL_EVENTS & set(names[:-1])):
+            raise AssertionError(f"request {r.rid}: spans {names} at {ts}")
+    recs = {}
+    for r in eng.tracer.ticks:
+        recs.setdefault(r.backend, []).append(r)
+    n_sampled = 0
+    for name, rs in recs.items():
+        for i, r in enumerate(rs):       # record i of a backend: tick i + 1
+            split = (r.dispatch_ms, r.device_ms, r.host_sync_ms)
+            if every is None:
+                sampled = not math.isnan(r.dispatch_ms)
+            else:
+                sampled = (i + 1) % every == 0 and r.kind != "idle"
+            if not sampled:
+                if not all(math.isnan(x) for x in split):
+                    raise AssertionError(f"{name} tick {i + 1}: unsampled "
+                                         f"split {split}")
+                continue
+            n_sampled += 1
+            if not (all(math.isfinite(x) and x >= 0 for x in split)
+                    and sum(split) <= r.exec_ms + 1e-3):
+                raise AssertionError(f"{name} tick {i + 1}: split {split} "
+                                     f"against exec_ms {r.exec_ms}")
+    if not n_sampled:
+        raise AssertionError("no tick was sampled by the dispatch profiler")
+    return {"dispatch_floor": {n: dispatch_floor_summary(rs)
+                               for n, rs in recs.items()},
+            "trace_events": n_events, "sampled_ticks": n_sampled,
+            "ticks": len(eng.tracer.ticks)}
+
+
+def obs_phase(torch, profiles):
+    """Observability on the engine at full width: tinyllama-1.1b L22 in
+    bf16, kernels on, steps replayed. Part (a): the async phase's request
+    list on a fake clock through dense FIFO (sync tick) and paged with
+    sharing + ``chunked`` + requeue + async tick, each untraced
+    (``Observability.disabled()``) and traced (trace, windows, a flight
+    recorder, ``profile_dispatch=2``); tokens and every kernel's launches
+    must be equal between the two, and the traced engine must pass
+    ``traced_checks``. Part (b): the launcher's own observability wiring
+    (``launch.serve.serve`` with ``--trace --profile-dispatch 4
+    --burn-rate-alerts --flight-dir``) for OBS_SERVE_SECONDS at OBS_SLO_MS
+    on the dense ladder's profiles: at least one alert, a ``burn_rate``
+    re-solve in the audit, a valid flight dump, valid trace / metrics /
+    audit reports and zero drop counters. Returns the launch counts of
+    part (b)'s serve loop."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models.model import LM
+    from repro_torch.obs import FlightRecorder, Observability
+    from repro_torch.obs.export import (assert_zero, summarize_file,
+                                        validate_metrics_file,
+                                        validate_trace_file)
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    log("[10] obs: tracing, windows, the flight recorder and the dispatch "
+        "profiler on the engine, full width L22 bf16, kernels on, steps "
+        "replayed")
+    cfg = get_config("tinyllama-1.1b").replace(
+        num_layers=22, name="tinyllama-1.1b-L22", use_kernels=True)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    reqs = async_requests(cfg.vocab_size)
+    summary = {}
+    configs = {
+        "dense fifo sync": {},
+        "paged sharing chunked+requeue async": dict(
+            kv_cache="paged", kv_page_size=PAGE, kv_prefix_sharing=True,
+            scheduler="chunked", preemption="requeue", async_tick=True)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in configs.items():
+            off_out, off = async_serve(torch, cfg, params, reqs, dict(
+                kw, obs=Observability.disabled()))
+            flight = FlightRecorder(out_dir=tmp)
+            on_out, on = async_serve(
+                torch, cfg, params, reqs,
+                dict(kw, obs=Observability(trace=True, windows=True,
+                                           flight=flight),
+                     profile_dispatch=2),
+                inspect=lambda eng: traced_checks(eng, 2))
+            same = all(np.array_equal(off_out[i], on_out[i])
+                       for i in off_out)
+            if not same:
+                raise AssertionError(f"{name}: traced tokens differ")
+            if on["launches"] != off["launches"]:
+                raise AssertionError(f"{name}: tracing changed the kernel "
+                                     f"launches: {off['launches']} -> "
+                                     f"{on['launches']}")
+            if not flight.ticks or not flight.spans:
+                raise AssertionError(f"{name}: the flight ring stayed empty")
+            # the untraced run's registry is off too: read preemptions here
+            if kw.get("preemption") and not on["preempted"]:
+                raise AssertionError(f"{name}: preemption never fired")
+            ins = on.pop("inspect")
+            log(f"  {name}: tokens bitwise equal {same}; launches equal "
+                f"{on['launches'] == off['launches']}; ticks "
+                f"{off['ticks']}/{on['ticks']}; wall ms per tick untraced "
+                f"{off['wall_ms_per_tick']:.3f}, traced "
+                f"{on['wall_ms_per_tick']:.3f}; {ins['trace_events']} "
+                f"trace events, {ins['sampled_ticks']} sampled ticks; "
+                f"preempted {on['preempted']}")
+            log(f"  {name}: dispatch floor " + json.dumps(
+                ins["dispatch_floor"]))
+            summary[name] = {"untraced": off, "traced": on, **ins}
+        del params
+        torch.cuda.empty_cache()
+
+        args = launcher.parse_args([
+            "--full-width", "--device", DEVICE,
+            "--seconds", str(OBS_SERVE_SECONDS), "--interval", "5",
+            "--slo-ms", str(OBS_SLO_MS), "--load", *map(str, OBS_LOAD),
+            "--trace", "--profile-dispatch", "4", "--burn-rate-alerts",
+            "--flight-dir", f"{tmp}/flight", "--report-dir",
+            f"{tmp}/reports"])
+        log(f"  launcher serve: {OBS_SERVE_SECONDS}s at slo {OBS_SLO_MS} ms, "
+            f"load {OBS_LOAD} req/s, --trace --profile-dispatch 4 "
+            f"--burn-rate-alerts --flight-dir")
+        ops.reset_launch_counts()
+        out = launcher.serve(args, profiles=profiles,
+                             log=lambda m: log("  " + m))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        eng, s = out["engine"], out["summary"]
+        if s is None or s["pending"] != 0:
+            raise AssertionError(f"launcher serve: summary {s}")
+        if min(launches["flash_prefill"], launches["flash_decode"]) < 1:
+            raise AssertionError(f"a kernel of the dense path never ran in "
+                                 f"the launcher serve: {launches}")
+        n_alerts = len(out["slo_monitor"].alerts)
+        if n_alerts < 1 or out["burn_resolves"] < 1:
+            raise AssertionError(f"{n_alerts} alerts, "
+                                 f"{out['burn_resolves']} burn_rate "
+                                 f"re-solves")
+        dumps = out["flight"].dumps
+        if not dumps:
+            raise AssertionError("no flight dump written")
+        flight_events = [validate_trace_file(p) for p in dumps]
+        rep = out["reports"]
+        n_trace = validate_trace_file(rep["TRACE_engine.json"])
+        n_rows = validate_metrics_file(rep["METRICS_engine.jsonl"])
+        for c in ("obs.spans_dropped", "obs.ticks_dropped"):
+            assert_zero(rep["METRICS_engine.jsonl"], c)
+        audit = [json.loads(line) for line in
+                 open(rep["AUDIT_decisions.jsonl"]) if line.strip()]
+        summarize_file(rep["AUDIT_decisions.jsonl"])
+        if not any(d.get("reason") == "burn_rate" for d in audit):
+            raise AssertionError("the audit holds no burn_rate decision")
+        ins = traced_checks(eng, monotone=False)
+        log(f"  launcher serve: {s['n_requests']} requests, {n_alerts} "
+            f"alerts, {out['burn_resolves']} burn_rate re-solves, "
+            f"{len(dumps)} flight dumps ({flight_events} events), trace "
+            f"{n_trace} events, metrics {n_rows} rows, audit {len(audit)} "
+            f"decisions; dispatch floor " + json.dumps(ins["dispatch_floor"]))
+        summary["launcher serve"] = {
+            "n_requests": s["n_requests"], "alerts": n_alerts,
+            "burn_resolves": out["burn_resolves"], "flight_dumps": len(dumps),
+            "trace_events": n_trace, "audit_decisions": len(audit),
+            "launches": launches, **ins}
+        for b in eng.backends.values():
+            b.close()
+        del eng, out
+        torch.cuda.empty_cache()
+    log(f"  obs phase: {time.time() - t_phase:.1f}s")
+    log("  obs summary " + json.dumps(summary))
+    return launches
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -2273,9 +2499,10 @@ def main():
     spec, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
         speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22", spec_k=SPEC_K),
         seconds=SPEC_SERVE_SECONDS)
+    obs = obs_phase(torch, profiles)
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm,
-                                                   chunked, spec))
+                                                   chunked, spec, obs))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2287,7 +2514,7 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[10] total wall time {time.time() - t_start:.1f}s")
+    log(f"[11] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -27,6 +27,7 @@ from repro_torch.core.objective import Allocation, evaluate
 from repro_torch.core.profiles import VariantProfile
 from repro_torch.core.solver import SOLVERS
 from repro_torch.obs.audit import DecisionAudit, predict_outputs
+from repro_torch.obs.slo import CollectingSink
 from repro_torch.serving.api import ClusterAPI  # noqa: F401  (re-export: public API)
 
 
@@ -60,7 +61,7 @@ class InfAdapterController:
                  forecaster, cfg: ControllerConfig,
                  dispatcher: Optional[WeightedRoundRobinDispatcher] = None,
                  audit: Optional[DecisionAudit] = None,
-                 burn_alerts=None):
+                 burn_alerts: Optional[CollectingSink] = None):
         self.profiles = dict(profiles)
         self.forecaster = forecaster
         self.cfg = cfg
@@ -159,9 +160,8 @@ class InfAdapterController:
         node triggers a re-solve (and thereby re-placement) at the next
         reactive check instead of waiting out the control interval.
 
-        A ``burn_alerts`` sink (duck-typed: anything with ``pop_pending()``,
-        such as the reference package's ``CollectingSink`` fed by an
-        ``SLOMonitor``) adds a second trigger: any pending burn-rate alert
+        A ``burn_alerts`` sink (``repro_torch.obs.slo.CollectingSink`` fed by
+        an ``SLOMonitor``) adds a second trigger: any pending burn-rate alert
         forces an immediate re-solve, independent of ``cfg.reactive`` —
         the SLO is already burning, so capacity-vs-rate arithmetic is moot.
         This is the first consumer of the goodput-aware-control roadmap

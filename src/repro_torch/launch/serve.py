@@ -16,8 +16,24 @@ dispatch/commit tick) set the serving engine's scheduling, as the
 reference's ``examples/serve_autoscale.py`` exposes them; requests then
 carry the ``--slo-ms`` deadline the schedulers read, on the loop's elapsed
 clock. ``--speculative DRAFTER:VERIFIER`` (with ``--spec-k``) serves the
-verifier rung through speculative rounds drafted by the drafter rung. The profiles always come from the pump path of a plain dense engine
-of the same ladder and geometry (the paged backend has none).
+verifier rung through speculative rounds drafted by the drafter rung. The
+profiles always come from the pump path of a plain dense engine of the
+same ladder and geometry (the paged backend has none); that engine keeps
+its own observability bundle, so calibration traffic never reaches the
+serving engine's windows, trace or flight recorder.
+
+Observability, as the reference's ``examples/serve_autoscale.py`` wires
+it: ``--trace`` records request spans and per-tick records and writes
+``TRACE_engine.json`` (Chrome trace_event JSON: open it in Perfetto),
+``METRICS_engine.jsonl`` and ``AUDIT_decisions.jsonl`` under
+``--report-dir``; ``--profile-dispatch N`` (with ``--trace``) splits every
+Nth tick's exec phase into enqueue, device wait and host sync;
+``--burn-rate-alerts`` turns on the rolling windows and the SLO burn-rate
+monitor, whose alerts make the controller re-solve at once (reason
+``burn_rate``); ``--flight-dir DIR`` arms the flight recorder, which dumps
+the recent past as ``FLIGHT_<reason>.json`` into DIR on each alert.
+``python -m repro_torch.obs.export --validate-trace ... --validate-metrics
+... --assert-zero obs.spans_dropped`` checks the reports.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --seconds 30
@@ -30,10 +46,14 @@ Usage:
       --scheduler chunked --preemption requeue --async-tick --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
       --speculative tinyllama-1.1b-L8:tinyllama-1.1b-L22 --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-width --trace \
+      --profile-dispatch 4 --burn-rate-alerts --flight-dir reports/flight \
+      --seconds 30
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -42,6 +62,10 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.adapter import ControllerConfig, InfAdapterController
 from repro_torch.core.forecaster import MovingMaxForecaster
 from repro_torch.core.profiles import VariantProfile
+from repro_torch.obs import (BurnRateRule, CollectingSink, FlightRecorder,
+                             FlightTrigger, Observability, SLOMonitor)
+from repro_torch.obs.export import (write_audit_jsonl, write_chrome_trace,
+                                    write_metrics_jsonl)
 from repro_torch.serving.driver import (ElapsedClock, rise_fall_load,
                                         run_serving_loop)
 from repro_torch.serving.engine import InProcessServingEngine
@@ -105,7 +129,7 @@ def calibrate(engine, variants, reps=3, max_new=8):
     return profiles
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--seconds", type=int, default=30)
@@ -115,6 +139,10 @@ def main(argv=None):
     ap.add_argument("--slo-ms", type=float, default=2000.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--load", type=float, nargs=2, default=None,
+                    metavar=("LO", "HI"),
+                    help="offered load of the rising-falling curve, req/s "
+                         "(default: the form's LOAD)")
     ap.add_argument("--kv-cache", choices=("dense", "paged"),
                     default="dense")
     ap.add_argument("--prefix-sharing", action="store_true")
@@ -139,46 +167,134 @@ def main(argv=None):
                          "stay the verifier's own)")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="draft length per speculative round")
-    args = ap.parse_args(argv)
+    ap.add_argument("--trace", action="store_true",
+                    help="record request spans and per-tick phase costs "
+                         "and write TRACE_engine.json (Perfetto-loadable), "
+                         "METRICS_engine.jsonl and AUDIT_decisions.jsonl "
+                         "under --report-dir")
+    ap.add_argument("--report-dir", default="reports",
+                    help="where --trace writes its reports")
+    ap.add_argument("--profile-dispatch", type=int, default=0, metavar="N",
+                    help="with --trace, fence every Nth tick's exec step: "
+                         "its record splits exec_ms into dispatch_ms "
+                         "(enqueue), device_ms (wait on the device) and "
+                         "host_sync_ms")
+    ap.add_argument("--burn-rate-alerts", action="store_true",
+                    help="turn on rolling windows and the SLO burn-rate "
+                         "monitor; the controller re-solves at once when "
+                         "the fast and the slow window both burn the error "
+                         "budget too fast")
+    ap.add_argument("--flight-dir", default=None, metavar="DIR",
+                    help="arm the flight recorder: dump a Perfetto-loadable "
+                         "FLIGHT_<reason>.json of the recent past into DIR "
+                         "on each burn-rate alert")
+    return ap.parse_args(argv)
 
+
+def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
+    """Calibrate (unless ``profiles`` are given: they must come from a plain
+    dense engine of the same ladder and geometry), then serve for
+    ``args.seconds`` under the InfAdapter controller with the engine and
+    observability options of ``args``. Returns the run's ``engine``, its
+    ``summary`` (None when no request completed), ``slo_monitor`` and
+    ``flight`` (None when off), ``burn_resolves`` (the controller's
+    re-solves for an alert) and ``reports`` (name -> path of each report
+    written)."""
     variants = build_ladder(args.arch, full_width=args.full_width)
     geo = GEOMETRY[args.full_width]
-    engine = InProcessServingEngine(variants, use_kernels=True,
-                                    device=args.device, **geo)
-    print("calibrating variants...")
-    profiles = calibrate(engine, variants, max_new=geo["max_new"])
+    if profiles is None:
+        engine = InProcessServingEngine(variants, use_kernels=True,
+                                        device=args.device, **geo)
+        log("calibrating variants...")
+        profiles = calibrate(engine, variants, max_new=geo["max_new"])
+        del engine
+    # the serving engine's observability: the rolling windows feed the
+    # burn-rate monitor; the flight recorder rides the tracer's hooks
+    obs, flight = None, None
+    if args.burn_rate_alerts or args.flight_dir:
+        if args.flight_dir:
+            os.makedirs(args.flight_dir, exist_ok=True)
+            flight = FlightRecorder(out_dir=args.flight_dir)
+        obs = Observability(trace=args.trace, windows=True, flight=flight)
     # calibrated on the plain dense engine, served on the configured one
     engine = InProcessServingEngine(
         variants, use_kernels=True, device=args.device, clock=ElapsedClock(),
         kv_cache=args.kv_cache, kv_prefix_sharing=args.prefix_sharing,
         scheduler=args.scheduler, preemption=args.preemption,
         async_tick=args.async_tick, speculative=args.speculative,
-        spec_k=args.spec_k, **geo)
+        spec_k=args.spec_k, trace=args.trace, obs=obs,
+        profile_dispatch=args.profile_dispatch, **geo)
     for n, p in profiles.items():
-        print(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
+        log(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
 
     cfg = ControllerConfig(interval_s=args.interval, budget=args.budget,
                            slo_ms=args.slo_ms, beta=args.beta, gamma=0.05,
                            reactive=True, queue_aware=True)
-    ctrl = InfAdapterController(profiles, MovingMaxForecaster(window=10), cfg)
+    slo_monitor, sink = None, None
+    if args.burn_rate_alerts:
+        sink = CollectingSink()
+        sinks = [sink] + ([FlightTrigger(flight)] if flight is not None
+                          else [])
+        slo_monitor = SLOMonitor(engine.windows, budget=0.05,
+                                 rules=(BurnRateRule(fast_s=5.0, slow_s=30.0,
+                                                     threshold=2.0),),
+                                 sinks=tuple(sinks))
+    ctrl = InfAdapterController(profiles, MovingMaxForecaster(window=10),
+                                cfg, burn_alerts=sink)
     vocab = variants[next(iter(variants))][0].vocab_size
+    load = args.load or LOAD[args.full_width]
     run_serving_loop(engine, ctrl, seconds=args.seconds,
                      interval=args.interval,
-                     load_fn=rise_fall_load(max(args.seconds, 1),
-                                            *LOAD[args.full_width]),
+                     load_fn=rise_fall_load(max(args.seconds, 1), *load),
                      prompt_len=geo["prompt_len"], max_new=geo["max_new"],
                      vocab=vocab if args.full_width else 256,
-                     slo_ms=args.slo_ms)
+                     slo_ms=args.slo_ms, slo_monitor=slo_monitor, log=log)
     s = engine.summarize(args.slo_ms,
                          max(p.accuracy for p in profiles.values()))
+    out = dict(engine=engine, summary=s or None,
+               slo_monitor=slo_monitor, flight=flight, reports={},
+               burn_resolves=sum(1 for d in ctrl.audit.entries
+                                 if d.reason == "burn_rate"))
     if not s:
-        print(f"\nno requests completed ({engine.rejected} rejected)")
-        return
-    print(f"\n{s['n_requests']} requests: viol={s['violation_rate']:.1%} "
-          f"p99={s['p99_ms']:.0f}ms acc_loss={s['accuracy_loss']:.2f}%")
-    if "spec_accept_rate" in s:
-        print(f"speculative: accept rate {s['spec_accept_rate']:.3f}, "
-              f"tokens per verifier step {s['spec_tokens_per_step']:.3f}")
+        log(f"no requests completed ({engine.rejected} rejected)")
+    else:
+        log(f"{s['n_requests']} requests: viol={s['violation_rate']:.1%} "
+            f"p99={s['p99_ms']:.0f}ms acc_loss={s['accuracy_loss']:.2f}%")
+        if "spec_accept_rate" in s:
+            log(f"speculative: accept rate {s['spec_accept_rate']:.3f}, "
+                f"tokens per verifier step {s['spec_tokens_per_step']:.3f}")
+    if slo_monitor is not None:
+        log(f"burn-rate alerts: {len(slo_monitor.alerts)} fired, "
+            f"{out['burn_resolves']} re-solves")
+    if flight is not None:
+        for p in flight.dumps:
+            log(f"flight dump: {p}")
+    if args.trace:
+        os.makedirs(args.report_dir, exist_ok=True)
+        rep = {k: os.path.join(args.report_dir, k) for k in (
+            "TRACE_engine.json", "METRICS_engine.jsonl",
+            "AUDIT_decisions.jsonl")}
+        n_ev = write_chrome_trace(rep["TRACE_engine.json"], engine.tracer,
+                                  label="repro_torch.launch.serve")
+        n_m = write_metrics_jsonl(
+            rep["METRICS_engine.jsonl"], engine.metrics,
+            extra=[{"name": "run.config", "kind": "meta",
+                    "arch": args.arch, "full_width": args.full_width,
+                    "kv_cache": args.kv_cache, "scheduler": args.scheduler,
+                    "async_tick": args.async_tick, "seconds": args.seconds,
+                    "slo_ms": args.slo_ms,
+                    "profile_dispatch": args.profile_dispatch}])
+        n_d = write_audit_jsonl(rep["AUDIT_decisions.jsonl"], ctrl.audit)
+        log(f"trace: {rep['TRACE_engine.json']} ({n_ev} events; load in "
+            f"Perfetto)")
+        log(f"metrics: {rep['METRICS_engine.jsonl']} ({n_m} series)")
+        log(f"audit: {rep['AUDIT_decisions.jsonl']} ({n_d} decisions)")
+        out["reports"] = rep
+    return out
+
+
+def main(argv=None):
+    serve(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Shared wall-clock serving loop for the real-execution drivers.
 
-``examples/serve_autoscale.py`` and ``repro.launch.serve`` both replay a
-load curve against an ``InProcessServingEngine`` behind the InfAdapter
-control loop; this module holds the one copy of that loop so the two
-drivers can't drift. Poisson arrivals are scaled by the *measured* tick
+``repro_torch.launch.serve`` and ``chip_smoke.py``'s serve phases both
+replay a load curve against an ``InProcessServingEngine`` behind the
+InfAdapter control loop; this module holds the one copy of that loop so
+the drivers can't drift. Poisson arrivals are scaled by the *measured* tick
 duration, so offered load tracks λ(t) regardless of how fast the engine
 ticks.
 
@@ -44,7 +44,7 @@ class ElapsedClock:
 
 def trace_load(rate: np.ndarray, scale: float = 1.0,
                repeat: bool = False) -> Callable[[float], float]:
-    """λ(t) from a recorded per-second rate trace (``repro.data.traces``):
+    """λ(t) from a recorded per-second rate trace:
     second ``int(now)`` of the trace, scaled by ``scale`` (smoke-size a
     Twitter-shaped trace down to what a CPU engine sustains). ``repeat``
     wraps around instead of holding the last second."""
@@ -71,13 +71,15 @@ def run_serving_loop(engine: ServingAPI, ctrl, *, seconds: float,
     ``now`` (see ``trace_load`` to replay a recorded trace). The controller
     steps every ``interval`` seconds; the engine is ticked (admission + one
     decode chunk) every ``tick_sleep``, and drained before returning.
-    ``faults`` (a ``repro.cluster.faults.FaultSchedule`` with event times in
-    elapsed seconds) is injected into fabric-backed engines as wall-clock
-    time passes. ``slo_ms`` stamps each request's deadline (deadline-aware
-    schedulers and the goodput metric read it). Returns the number of
-    requests submitted.
+    ``faults`` (a fault schedule with ``next_t()`` and ``apply_due(now,
+    engine)``, event times in elapsed seconds) is injected into
+    fabric-backed engines as wall-clock time passes; the port has no such
+    engine until the replica fabric (the fabric half of ROADMAP A3) lands.
+    ``slo_ms`` stamps each request's deadline (deadline-aware schedulers
+    and the goodput metric read it). Returns the number of requests
+    submitted.
 
-    ``slo_monitor`` (a ``repro.obs.slo.SLOMonitor`` over the engine's
+    ``slo_monitor`` (a ``repro_torch.obs.slo.SLOMonitor`` over the engine's
     windowed metrics) turns on the online reaction path: every iteration
     the monitor's burn-rate rules are checked and ``ctrl.maybe_react`` is
     called, so a controller wired with ``burn_alerts=`` re-solves on a

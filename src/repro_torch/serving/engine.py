@@ -80,9 +80,21 @@ as a ``DraftPair``; each round drafts ``spec_k`` tokens on the drafter and
 verifies them in one chunk call on the verifier (captured as its "verify"
 step), so the committed stream is the verifier's own greedy stream.
 
+Observability (``repro_torch.obs``): one ``Observability`` bundle — the
+metrics registry, the tracer and the rolling windows — serves the engine,
+every backend, a speculative verifier's hidden drafter and the page pools.
+``trace=True`` records each request's span events and one ``TickRecord``
+per backend tick (phase costs on the host clock, batch geometry);
+``obs=Observability(windows=True, flight=...)`` adds the rolling windows
+the SLO burn-rate monitor reads and the flight recorder's rings.
+``profile_dispatch=N`` (with tracing) fences every Nth tick's exec-phase
+step: the host time of its enqueue (``dispatch_ms``), the wait on a CUDA
+event recorded after it (``device_ms``) and the rest of the exec phase
+(``host_sync_ms``) land on that tick's record; other ticks record no event
+and never synchronise.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the replica fabric ``nodes=`` and tracing
-``trace=``/``profile_dispatch=``/``obs=`` (ROADMAP A3).
+ignored: the replica fabric ``nodes=`` (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -100,7 +112,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build as kbuild
 from repro_torch.models.attention import PagedKVCache
 from repro_torch.models.model import LM
-from repro_torch.obs.registry import MetricsRegistry
+from repro_torch.obs import Observability, TickRecord
+from repro_torch.obs import trace as ev
+from repro_torch.obs.slo import slo_class_key
 from repro_torch.serving.api import Request, summarize_requests
 from repro_torch.serving.graphs import StepGraph, StepGraphError, tensor_leaves
 from repro_torch.serving.sched import make_scheduler, migration_target
@@ -237,7 +251,7 @@ class VariantBackend:
                  prefix_sharing: bool = False,
                  cache_headroom: int = 0, build_chunked: bool = False,
                  clock: Callable[[], float] = time.time,
-                 metrics: Optional[MetricsRegistry] = None,
+                 obs: Optional[Observability] = None,
                  step_graphs: bool = True,
                  graph_stream: Optional["torch.cuda.Stream"] = None,
                  spec_role: Optional[str] = None, spec_k: int = 0):
@@ -246,7 +260,18 @@ class VariantBackend:
         if use_kernels and not cfg.use_kernels:
             cfg = cfg.replace(use_kernels=True)
         self.cfg = cfg
-        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        # the observability bundle: the engine hands its own to every
+        # backend, so all publish into one registry, tracer and window map;
+        # hot paths use the cached instruments, never the bundle
+        self.obs = obs if obs is not None else Observability.disabled()
+        self.metrics = self.obs.metrics
+        self.tracer = self.obs.tracer
+        self.windows = self.obs.windows
+        # dispatch profiler: the engine arms _fence_exec on sampled ticks;
+        # _exec_step then fences the exec-phase step and leaves
+        # (dispatch_ms, device_ms) on exec_split for the TickRecord
+        self._fence_exec = False
+        self.exec_split: Optional[Tuple[float, float]] = None
         self.accuracy = accuracy
         self.max_batch = max_batch
         self.prompt_len = prompt_len
@@ -397,6 +422,30 @@ class VariantBackend:
                       for k, v in inputs.items()}
         return step(**inputs)
 
+    def _exec_step(self, name: str, shape: Optional[int],
+                   **inputs: torch.Tensor):
+        """``_step`` for an exec-phase step: the fused tick, a decode chunk
+        or the speculative verify. On a dispatch-sampled tick
+        (``_fence_exec``) the host times the step's enqueue, then records a
+        CUDA event on the current stream and waits for it, so
+        ``exec_split`` carries (dispatch_ms, device_ms) for the tick's
+        ``TickRecord``: device_ms is the host's wait until the device has
+        finished what the tick enqueued; the rest of the exec phase is the
+        host-sync tail (the read-back and the per-slot bookkeeping). On CPU
+        tensors nothing is left in flight and no event is recorded."""
+        if not self._fence_exec:
+            return self._step(name, shape, **inputs)
+        t0 = time.perf_counter()
+        out = self._step(name, shape, **inputs)
+        t1 = time.perf_counter()
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        t2 = time.perf_counter()
+        self.exec_split = ((t1 - t0) * 1e3, (t2 - t1) * 1e3)
+        return out
+
     def _host(self, a: np.ndarray) -> torch.Tensor:
         """A step input from the host: pinned on a card, so the copy into
         the step's device buffer is asynchronous (the pinned block is
@@ -527,10 +576,10 @@ class VariantBackend:
                             feed_mask: np.ndarray) -> None:
         """Run the fused tick's step on these host arrays ((B, ck) int64
         tokens; (B,) int64 start and n_valid; (B,) bool masks)."""
-        self._step("fused", self.max_batch, tokens=self._host(tokens),
-                   start=self._host(start), n_valid=self._host(n_valid),
-                   set_mask=self._host(set_mask),
-                   feed_mask=self._host(feed_mask))
+        self._exec_step("fused", self.max_batch, tokens=self._host(tokens),
+                        start=self._host(start), n_valid=self._host(n_valid),
+                        set_mask=self._host(set_mask),
+                        feed_mask=self._host(feed_mask))
 
     def _fused_inputs(self) -> Dict[str, torch.Tensor]:
         """Example inputs of the fused step: every row inert."""
@@ -597,6 +646,8 @@ class VariantBackend:
         t_service = self.clock()
         for r in reqs:                   # service (= prefill + decode) begins
             r.service_start = t_service
+            self.tracer.request_event(r, ev.ADMITTED, t_service,
+                                      backend=self.name, mode="monolithic")
         prompts = np.zeros((rows, self.prompt_len), np.int64)
         for j, r in enumerate(reqs):
             prompts[j, :len(r.tokens)] = r.tokens[:self.prompt_len]
@@ -648,6 +699,11 @@ class VariantBackend:
                 continue
             self._bind_slot(r, slot, tok0)
         self._admit_merge(new_cache, first, src, mask)
+        if self.tracer.on:    # monolithic prefill finishes inside the admit
+            for r in reqs:
+                if r not in finished:
+                    self.tracer.event(r.rid, ev.PREFILL_COMPLETE, now,
+                                      backend=self.name)
         return finished
 
     # ----------------------------------------------- chunked-prefill path
@@ -686,6 +742,9 @@ class VariantBackend:
             self._prefilling[slot] = _PrefillJob(req=r, seq=seq,
                                                  resume_tok=resume_tok,
                                                  gen=gen)
+            self.tracer.request_event(
+                r, ev.RESUME if resume_tok is not None else ev.ADMITTED,
+                t_service, backend=self.name, slot=slot, seq_len=len(seq))
             self._bind_chunked_slot(slot)      # paged: allocate pages now
         return []
 
@@ -760,16 +819,23 @@ class VariantBackend:
         pend = _PendingExec(kind="fused", toks=toks, ready=ready,
                             dispatched_at=t_disp)
         resume_sets: List[Tuple[int, int]] = []
+        tron = self.tracer.on
         for slot, job in list(self._prefilling.items()):
             nv = int(n_valid[slot])
             job.pos += nv
             self._count_prefill_tokens(nv)
             self.slot_pos[slot] = job.pos
+            if tron:
+                self.tracer.event(job.req.rid, ev.PREFILL_CHUNK, now,
+                                  backend=self.name, pos=job.pos, n=nv)
             if job.pos < len(job.seq):
                 continue
             del self._prefilling[slot]
             self._prefill_complete(slot, job)
             r = job.req
+            if tron:
+                self.tracer.event(r.rid, ev.PREFILL_COMPLETE, now,
+                                  backend=self.name)
             if job.resume_tok is not None:
                 resume_sets.append((slot, job.resume_tok))
             gen_n = len(job.gen) + 1     # count-based: known at dispatch
@@ -827,6 +893,9 @@ class VariantBackend:
         r.preemptions += 1
         r.resume_tokens = gen
         self.metrics.inc("requests.preempted")
+        self.tracer.request_event(r, ev.PREEMPT, now, backend=self.name,
+                                  slot=slot, generated=len(gen),
+                                  action=self.preemption)
         if self.preemption == "drop":
             r.output = np.asarray(gen, np.int64)
             r.completion = self.clock()
@@ -891,7 +960,7 @@ class VariantBackend:
         """Run one decode chunk; returns its tokens (chunk, B): the step's
         static output, which the read-back copies before any later replay
         overwrites it (stream order)."""
-        toks = self._step("chunk", None)
+        toks = self._exec_step("chunk", None)
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
@@ -972,20 +1041,42 @@ class VariantBackend:
         self._obs_complete(r)
 
     def _obs_complete(self, r: Request, dropped: bool = False) -> None:
-        """Completion-side metrics — one site for continuous finishes,
-        preemption drops and the pump path, so the registry's totals agree
-        with ``done``. Goodput counts a request that was not dropped and
-        met its own ``slo_ms`` (no per-request SLO counts as good)."""
+        """Completion-side metrics and the terminal span event — one site
+        for continuous finishes, preemption drops and the pump path, so the
+        registry's totals agree with ``done``. Goodput counts a request
+        that was not dropped and met its own ``slo_ms`` (no per-request SLO
+        counts as good).
+
+        With rolling windows on (``Observability(windows=True)``) the same
+        outcomes land in the windowed instruments under the same names,
+        keyed at ``r.completion`` (the backend's one clock), plus the
+        per-SLO-class ``slo.class.<key>.good|bad`` counters the burn-rate
+        monitor reads."""
         m = self.metrics
         lat = r.latency_ms
+        good = not dropped and (r.slo_ms <= 0 or lat <= r.slo_ms)
         m.inc("requests.completed")
         m.observe("request.latency_ms", lat)
         m.observe("request.queue_wait_ms", r.queue_wait_ms)
         m.observe("request.service_ms", r.service_ms)
         if dropped:
             m.inc("requests.dropped")
-        elif r.slo_ms <= 0 or lat <= r.slo_ms:
+        elif good:
             m.inc("requests.goodput_ok")
+        w = self.windows
+        if w.on:
+            tc = r.completion
+            w.inc("requests.completed", tc)
+            w.observe("request.latency_ms", tc, lat)
+            cls = slo_class_key(r.slo_ms)
+            if dropped:
+                w.inc("requests.dropped", tc)
+            elif good:
+                w.inc("requests.goodput_ok", tc)
+            w.inc(f"slo.class.{cls}.{'good' if good else 'bad'}", tc)
+        self.tracer.request_event(r, ev.DROP if dropped else ev.COMPLETE,
+                                  r.completion, backend=self.name,
+                                  latency_ms=lat)
 
     def drain_slots(self, now: float) -> List[Request]:
         """Run prefill/decode until every in-flight sequence completes
@@ -1232,6 +1323,11 @@ class PagedVariantBackend(VariantBackend):
                 self.metrics.inc("kv.cow_copies")
             job.pos = plan.tail_start
             self.slot_pos[slot] = plan.tail_start
+            self.tracer.request_event(job.req, ev.COW_BIND, self.clock(),
+                                      backend=self.name, slot=slot,
+                                      shared_pages=len(shared),
+                                      tail_start=plan.tail_start,
+                                      cow=cow is not None)
 
     def _prefill_complete(self, slot: int, job: _PrefillJob) -> None:
         """Publish the slot's fully written prompt blocks to the prefix
@@ -1253,7 +1349,7 @@ class PagedVariantBackend(VariantBackend):
         need = self.pool.pages_needed(int(max(live)) + self.decode_chunk)
         need = min(need, self.pages_per_slot)
         nb = next(b for b in self.page_buckets if b >= need)
-        toks = self._step("chunk", nb)
+        toks = self._exec_step("chunk", nb)
         self.slot_pos += self.decode_chunk   # device advanced every row
         return toks
 
@@ -1360,6 +1456,7 @@ class DraftPair:
         self.paged = isinstance(verifier, PagedVariantBackend)
         assert self.paged == isinstance(drafter, PagedVariantBackend)
         self.metrics = verifier.metrics
+        self.windows = verifier.windows
         B = verifier.max_batch
         self.base = np.zeros((B,), np.int64)       # round-start verifier pos
         self.end = np.zeros((B,), np.int64)        # base at completion
@@ -1505,9 +1602,10 @@ class DraftPair:
         else:
             dtoks = d._step("chunk", None)
         drafts = dtoks.t()                                     # (B, k)
-        pred = v._step("verify", B,
-                       tokens=torch.cat([pending[:, None], drafts], dim=1),
-                       start=base_new, n_valid=nv_next)
+        pred = v._exec_step("verify", B,
+                            tokens=torch.cat([pending[:, None], drafts],
+                                             dim=1),
+                            start=base_new, n_valid=nv_next)
         self._pack[:, :k].copy_(drafts)
         self._pack[:, k:].copy_(pred)
         toks, ready = v._readback.start(self._pack)
@@ -1523,7 +1621,8 @@ class DraftPair:
         ``(request, slot_gen)`` mismatch means the slot was preempted or
         rebound between dispatch and commit: its stale tokens are dropped
         and regenerated identically on resume."""
-        v, k, m = self.v, self.k, self.metrics
+        v, k = self.v, self.k
+        m, w = self.metrics, self.windows
         drafts, pred = pack[:, :k], pack[:, k:]
         finished: List[Request] = []
         for slot, r, gen_id, _base_disp, rnd in pending.spec_items:
@@ -1554,9 +1653,10 @@ class DraftPair:
             m.inc("spec.committed_tokens", a + 1)
             m.inc("spec.drafts_accepted", a)
             m.inc("spec.drafts_proposed", nv - 1)
-            # A3: the reference also observes spec.tokens_per_step and
-            # spec.accept_rate in its rolling windows, which the port's obs
-            # stack does not have yet
+            if w.on:
+                w.observe("spec.tokens_per_step", now, a + 1)
+                if nv > 1:
+                    w.observe("spec.accept_rate", now, a / (nv - 1))
             if self._slot_round[slot] == rnd:
                 # no newer round in flight (sync ticks, or async ticks
                 # interleaved with fused ticks): the next dispatch takes
@@ -1602,7 +1702,8 @@ class InProcessServingEngine:
     a card (``VariantBackend``); ``False`` runs them op by op, the eager
     path replays are held against. ``speculative="drafter:verifier"`` binds
     a hidden drafter of the first variant to every backend of the second
-    (``DraftPair``, ``spec_k`` drafts a round).
+    (``DraftPair``, ``spec_k`` drafts a round). ``trace``, ``obs`` and
+    ``profile_dispatch`` set up observability (see the module docstring).
     """
 
     def __init__(self, variants: Mapping[str, Tuple[ModelConfig, float]],
@@ -1619,7 +1720,8 @@ class InProcessServingEngine:
                  kv_prefix_sharing: bool = False,
                  scheduler="fifo", prefill_chunk: int = 16,
                  preemption: str = "none",
-                 trace: bool = False, obs=None, profile_dispatch: int = 0,
+                 trace: bool = False, obs: Optional[Observability] = None,
+                 profile_dispatch: int = 0,
                  async_tick: bool = False,
                  speculative: Optional[str] = None, spec_k: int = 4,
                  step_graphs: bool = True):
@@ -1660,9 +1762,6 @@ class InProcessServingEngine:
                                  f"decode budget (1..{max_new})")
             self.spec_drafter, self.spec_verifier = drafter, verifier
         _refuse("nodes", nodes, None, "A3")
-        _refuse("trace", trace, False, "A3")
-        _refuse("obs", obs, None, "A3")
-        _refuse("profile_dispatch", profile_dispatch, 0, "A3")
         self.device = resolve_device(device)
         # scheduling discipline between each backend's queue and its slots:
         # "fifo" = arrival order; "edf" = deadline-order admission;
@@ -1681,7 +1780,19 @@ class InProcessServingEngine:
         # completion and retirement bookkeeping lags by one tick
         self.async_tick = bool(async_tick)
         self.clock = clock   # every arrival/service/completion stamp source
-        self.metrics = MetricsRegistry()
+        # observability: metrics are on by default, span/tick tracing with
+        # trace=True. One bundle serves the engine and every backend it
+        # creates, so all publish into one registry and one trace timeline
+        # (stamped from self.clock, the engine's one clock).
+        self.obs = obs if obs is not None else Observability(trace=trace)
+        self.metrics = self.obs.metrics
+        self.tracer = self.obs.tracer
+        self.windows = self.obs.windows
+        # dispatch profiler: every Nth tick fences its exec-phase step and
+        # records the dispatch/device/host-sync split on its TickRecord
+        # (0 = off; the records need tracing)
+        self.profile_dispatch = int(profile_dispatch)
+        self._tick_no = 0
         self.variant_defs = dict(variants)       # name -> (cfg, accuracy)
         self.weights = dict(weights or {})
         self.max_batch = max_batch
@@ -1727,7 +1838,7 @@ class InProcessServingEngine:
                   # model supports it (chunked admission of the same
                   # zero-padded prompt)
                   build_chunked=self.async_tick,
-                  clock=self.clock, metrics=self.metrics,
+                  clock=self.clock, obs=self.obs,
                   step_graphs=self.step_graphs,
                   graph_stream=self._graph_stream)
         if variant == self.spec_verifier:
@@ -1758,7 +1869,7 @@ class InProcessServingEngine:
                   params=self.weights.get(self.spec_drafter), chunked=True,
                   prefill_chunk_tokens=self.prefill_chunk,
                   cache_headroom=self.spec_k + 2, clock=self.clock,
-                  metrics=self.metrics, step_graphs=self.step_graphs,
+                  obs=self.obs, step_graphs=self.step_graphs,
                   graph_stream=self._graph_stream, spec_role="drafter",
                   spec_k=self.spec_k)
         if self.kv_cache == "paged":
@@ -1835,6 +1946,10 @@ class InProcessServingEngine:
         if not self.backends:
             self.rejected += 1
             self.metrics.inc("requests.rejected")
+            if self.windows.on:
+                self.windows.inc("requests.rejected", self.clock())
+            self.tracer.request_event(req, ev.REJECTED, self.clock(),
+                                      reason="no_backend")
             return False
         name = backend if backend in self.backends else \
             min(self.queues, key=lambda m: len(self.queues[m])) \
@@ -1843,10 +1958,19 @@ class InProcessServingEngine:
         if len(q) >= self.queue_cap:
             self.rejected += 1
             self.metrics.inc("requests.rejected")
+            if self.windows.on:
+                self.windows.inc("requests.rejected", self.clock())
+            self.tracer.request_event(req, ev.REJECTED, self.clock(),
+                                      backend=name, reason="queue_full")
             return False
         req.backend = name
         q.append(req)
         self.metrics.inc("requests.submitted")
+        if self.windows.on:
+            self.windows.inc("requests.submitted", self.clock())
+        # stamped at clock(), not req.arrival, so span times stay monotone
+        self.tracer.request_event(req, ev.QUEUED, self.clock(), backend=name,
+                                  arrival=req.arrival)
         return True
 
     def step(self, now: float) -> int:
@@ -1869,12 +1993,25 @@ class InProcessServingEngine:
         exec phase dispatches this tick's step, then commits the previous
         tick's, so that read-back and bookkeeping run while the device works.
         With the FIFO scheduler, no preemption and the sync tick this is the
-        plain admit + exec tick."""
+        plain admit + exec tick.
+
+        With tracing on, each backend's tick lands one ``TickRecord``: the
+        wall cost of each phase (``perf_counter`` around the phase bodies),
+        batch geometry and pool occupancy, and on async ticks the commit
+        of the previous tick. Tracing off costs one branch a phase."""
         self._rebalance_queues()
         done_before = len(self.done)
+        tron = self.tracer.on
+        self._tick_no += 1
+        # dispatch-profiler sampling: fence every Nth tick's exec step; the
+        # records exist only with tracing on, so sampling follows tron
+        fence = (tron and self.profile_dispatch > 0
+                 and self._tick_no % self.profile_dispatch == 0)
         for name, b in self.backends.items():
-            t_b = time.perf_counter()
             q = self.queues.get(name, deque())
+            bdone = len(self.done)
+            n_preempted = n_admitted = 0
+            t0 = time.perf_counter()
             if self.preemption != "none" and q:
                 # finished-but-uncommitted zombie slots are not preemptable:
                 # their request is complete by count, only its read-back lags
@@ -1882,6 +2019,7 @@ class InProcessServingEngine:
                             if r is not None and s not in b._uncommitted_done]
                 for v in self.sched.select_victims(resident, list(q), now,
                                                    len(b.free_slots)):
+                    n_preempted += 1
                     if b.preempt(v, now) == "dropped":
                         self.done.append(v)
                         continue        # resumes later, tokens preserved
@@ -1896,13 +2034,17 @@ class InProcessServingEngine:
                             v.backend = tgt
                             tq = self.queues.setdefault(tgt, deque())
                             self.metrics.inc("requests.migrated")
+                            if self.windows.on:
+                                self.windows.inc("requests.migrated", now)
                     tq.append(v)
+            t1 = time.perf_counter() if tron else 0.0
             free_n = len(b.free_slots)
             if q and free_n:
                 ordered = self.sched.order(list(q), now)
                 joiners, rest = ordered[:free_n], ordered[free_n:]
                 q.clear()
                 q.extend(rest)
+                n_admitted = len(joiners)
                 if self.sched.chunked:
                     self.done.extend(b.admit_chunked(joiners, now))
                 elif self.async_tick and b.chunked:
@@ -1919,18 +2061,53 @@ class InProcessServingEngine:
                     resumed = [r for r in joiners if r.resume_tokens]
                     if resumed:
                         self.done.extend(b.admit_chunked(resumed, now))
+            t2 = time.perf_counter() if tron else 0.0
+            if fence:
+                b._fence_exec, b.exec_split = True, None
+            nan = float("nan")
+            commit_ms = gap_ms = wait_ms = hidden_ms = nan
             if self.async_tick:
                 pend_prev, b._pending = b._pending, None
-                _, b._pending = b.dispatch_exec(now)
+                kind, b._pending = b.dispatch_exec(now)
+                t3 = time.perf_counter()
                 if pend_prev is not None:
                     # host work done this tick while the previous tick was
                     # still in flight (preempt + admit + dispatch)
-                    b.hidden_host_ms = (time.perf_counter() - t_b) * 1e3
+                    b.hidden_host_ms = (t3 - t0) * 1e3
                 self.done.extend(b.commit_exec(pend_prev, now))
+                if tron and pend_prev is not None:
+                    commit_ms = (time.perf_counter() - t3) * 1e3
+                    gap_ms, wait_ms = b.commit_gap_ms, b.commit_wait_ms
+                    hidden_ms = b.hidden_host_ms
             elif b._prefilling:  # fused tick: prefill chunks + 1-tok decodes
+                kind = "fused"
                 self.done.extend(b.fused_chunk_step(now))
+                t3 = time.perf_counter() if tron else 0.0
             else:                # pure decode: the bucket-aware chunk
+                kind = "decode" if b.active_slots else "idle"
                 self.done.extend(b.decode_step_batch(now))
+                t3 = time.perf_counter() if tron else 0.0
+            if tron:
+                exec_ms = (t3 - t2) * 1e3
+                disp_ms = dev_ms = host_ms = nan
+                if fence:
+                    b._fence_exec = False
+                    if b.exec_split is not None:   # idle ticks ran no step
+                        disp_ms, dev_ms = b.exec_split
+                        host_ms = max(exec_ms - disp_ms - dev_ms, 0.0)
+                occ = (b.kv_pool_occupancy
+                       if isinstance(b, PagedVariantBackend) else nan)
+                self.tracer.tick(TickRecord(
+                    backend=name, t=now, kind=kind,
+                    preempt_ms=(t1 - t0) * 1e3, admit_ms=(t2 - t1) * 1e3,
+                    exec_ms=exec_ms, active=b.active_slots,
+                    prefilling=len(b._prefilling), queued=len(q),
+                    admitted=n_admitted, preempted=n_preempted,
+                    completed=len(self.done) - bdone, pool_occupancy=occ,
+                    dispatch_ms=disp_ms, device_ms=dev_ms,
+                    host_sync_ms=host_ms, commit_ms=commit_ms,
+                    commit_gap_ms=gap_ms, commit_wait_ms=wait_ms,
+                    hidden_host_ms=hidden_ms))
         return len(self.done) - done_before
 
     def drain(self, now: float, max_ticks: int = 10_000) -> int:

@@ -1217,3 +1217,88 @@ def test_speculative_steps_launch_the_chunk_kernels(cuda, kv_cache):
     want = {chunk_key: 3 + 1}
     want[dec_key] = want.get(dec_key, 0) + SPEC_K
     assert got == want
+
+
+# ----------------------------------------------------------- observability
+OBS_ENGINES = [
+    ("dense fifo", {}),
+    ("paged chunked async", dict(kv_cache="paged", kv_page_size=8,
+                                 kv_prefix_sharing=True, scheduler="chunked",
+                                 preemption="requeue", async_tick=True)),
+]
+
+
+def _counting_events(monkeypatch):
+    """Count every CUDA event the engine constructs from here on."""
+    made = []
+
+    class Event(torch.cuda.Event):
+        def __new__(cls, *a, **kw):
+            made.append(1)
+            return super().__new__(cls, *a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    return made
+
+
+@pytest.mark.parametrize("label,engine_kw", OBS_ENGINES)
+def test_obs_trace_adds_no_kernel_and_changes_no_token(cuda, monkeypatch,
+                                                     label, engine_kw):
+    """One workload, steps replayed, with observability off, traced, and
+    traced with every tick fenced (``profile_dispatch=1``): bitwise-equal
+    tokens and equal kernel launches (the trace's hooks are host code
+    around the replays), the captured tensors never replaced (every
+    graph's pointer check passes after the run), and the profiler's CUDA
+    events are the only events tracing adds: one per fenced step."""
+    from repro_torch.obs import Observability
+    tight = engine_kw.get("preemption", "none") != "none"
+    runs = {}
+    for mode, kw in (("off", dict(obs=Observability.disabled())),
+                     ("traced", dict(trace=True)),
+                     ("fenced", dict(trace=True, profile_dispatch=1))):
+        made = _counting_events(monkeypatch)
+        ops.reset_launch_counts()
+        got, eng = _virtual_serve(cuda, dict(engine_kw, **kw), tight=tight)
+        runs[mode] = (got, ops.launch_counts(), len(made), eng)
+        monkeypatch.undo()
+    for mode in ("traced", "fenced"):
+        assert runs[mode][0] == runs["off"][0], mode
+        assert runs[mode][1] == runs["off"][1], mode
+    assert sum(runs["off"][1].values()) > 0
+    assert runs["traced"][2] == runs["off"][2]
+    eng = runs["fenced"][3]
+    recs = eng.tracer.ticks
+    fenced = [r for r in recs if np.isfinite(r.dispatch_ms)]
+    assert fenced and all(r.kind != "idle" for r in fenced)
+    assert runs["fenced"][2] - runs["off"][2] == len(fenced)
+    for r in fenced:
+        assert r.device_ms > 0.0 and r.dispatch_ms > 0.0
+        assert r.host_sync_ms >= 0.0
+        assert r.dispatch_ms + r.device_ms + r.host_sync_ms \
+            <= r.exec_ms + 1e-3
+    for mode in ("traced", "fenced"):
+        b = runs[mode][3].backends["v"]
+        assert b.graphs
+        for g in b.graphs.values():
+            assert g.graph is not None
+            g._check_state()
+
+
+def test_dispatch_profiler_unfenced_ticks_record_no_event(cuda, monkeypatch):
+    """``profile_dispatch=3``: every third tick fenced, the others NaN; the
+    events the profiler adds over a traced run are exactly the fenced
+    ticks' (the async tick's read-back events aside, which both runs make
+    alike)."""
+    base = _counting_events(monkeypatch)
+    want, _ = _virtual_serve(cuda, dict(trace=True, async_tick=True))
+    monkeypatch.undo()
+    made = _counting_events(monkeypatch)
+    got, eng = _virtual_serve(cuda, dict(trace=True, async_tick=True,
+                                         profile_dispatch=3))
+    monkeypatch.undo()
+    assert got == want
+    recs = eng.tracer.ticks
+    fenced = [i for i, r in enumerate(recs) if np.isfinite(r.dispatch_ms)]
+    assert fenced and all((i + 1) % 3 == 0 for i in fenced)
+    assert len(made) - len(base) == len(fenced)
+    assert all(recs[i].device_ms > 0.0 for i in fenced)

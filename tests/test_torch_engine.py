@@ -1,9 +1,8 @@
 """The port's serving engine and control plane against the reference:
 identical per-request outputs from both engines on the same requests with
 bridged weights (continuous and pump modes), the InfAdapter loop on the
-port's engine, solver parity of the copied control plane, and the options
-that are refused until ported (speculative decoding, the replica fabric,
-tracing)."""
+port's engine, solver parity of the copied control plane, and the option
+that is refused until ported (the replica fabric)."""
 import time
 
 import numpy as np
@@ -141,9 +140,7 @@ def test_copied_solver_returns_the_reference_allocation(solver, seed):
     assert got.objective == pytest.approx(want.objective)
 
 
-@pytest.mark.parametrize("option", [
-    dict(nodes=[]), dict(trace=True), dict(obs=object()),
-    dict(profile_dispatch=4)])
+@pytest.mark.parametrize("option", [dict(nodes=[])])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         PEngine(_port_variants(tiny_variants(2)), device="cpu", **option)
