@@ -136,10 +136,25 @@ phase raises, and the script exits nonzero:
               ladder cannot meet: an alert fires, the controller re-solves
               for it (reason ``burn_rate``), a flight dump and the trace,
               metrics and audit reports validate with zero drops;
- 11. output   the ``{"kernels": [...]}`` line (launches summed over the
-              serve loops, the prefix phase and the obs phase's serve; the
-              chunk forms' rows carry their verify shape's times), then the
-              ok line last.
+ 11. profile  the paper's Profiler (``repro_torch.profiling``) at full
+              width: ``EngineProfiler`` sweeps the dense tinyllama-1.1b
+              L8/L15/L22 ladder and a paged L22 at the serve geometry
+              (sync FIFO, kernels on, steps replayed) at 1, 2, 4 and 8
+              slots, 16 requests a point after 4, each on a throwaway
+              backend that must be closed after it; per rung every point,
+              both fits with R², readiness, the serve phase's
+              ``calibrate()`` profile, the H100 ``roofline_profile`` and
+              ``roofline_scale_factor``; th(8) > th(1) and R² in [0, 1]
+              asserted; the store saved and reloaded equal; drift on the
+              live L8 rung at 2 units: a healthy check in band, then a host
+              stall of 5 mean chunk times ahead of every decode chunk
+              flagged, ``OnlineRecalibrator`` re-profiles it, throughput(1)
+              falls and the controller provisions more units for the same
+              load;
+ 12. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve loops, the prefix phase, the obs phase's serve and the
+              profile phase; the chunk forms' rows carry their verify
+              shape's times), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -168,8 +183,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet, at 700 W
-PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
+# the card's HBM rate and dense bf16 peak are read from the port's one home
+# for the H100 constants, ``repro_torch.core.profiles`` (``card_rates``, in
+# ``main``); the fp32 peak (H100 SXM data sheet, no tensor cores) is local
+HBM_BYTES_PER_S = None
+PEAK_FLOPS = {"torch.float32": 67e12}
 TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
 # ssd_scan, relative to max |plain|: fp32 sums in other orders over 128-step
 # chunks; bf16 y is one rounding of the same fp32 value (2^-8); the final
@@ -207,6 +225,11 @@ OBS_SERVE_SECONDS = 10      # the obs phase's traced serve loop
 # load keeps the burn monitor's 5 s window above its 5 requests
 OBS_SLO_MS = 300.0
 OBS_LOAD = (2.0, 4.0)
+# profile phase: EngineProfiler at the reference's defaults, and the drift
+# check's requests per stage and stall (in measured mean chunk times)
+PROF_POINTS, PROF_RPP, PROF_WARMUP = (1, 2, 4, 8), 16, 4
+DRIFT_N = 12
+DRIFT_STALL_X = 5
 # A serve loop reports its P99, violation rate and goodput only over this
 # many requests: over the 10-30 a short loop serves, the P99 is the slowest
 # request and one request moves the rate by several points. Short loops
@@ -217,6 +240,19 @@ DEVICE = "cuda"
 
 def log(msg):
     print(msg, flush=True)
+
+
+def card_rates():
+    """(HBM bytes/s, dense bf16 FLOP/s) of the H100 SXM from this
+    checkout's ``repro_torch/core/profiles.py``, loaded by path so that
+    ``--ab`` against an older checkout reads the same constants."""
+    import importlib.util
+    path = ROOT / "src" / "repro_torch" / "core" / "profiles.py"
+    spec = importlib.util.spec_from_file_location("_card_rates", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod.HBM_BW, mod.PEAK_FLOPS_BF16
 
 
 def bound(nbytes, flops, dtype):
@@ -2439,6 +2475,225 @@ def obs_phase(torch, profiles):
     return launches
 
 
+def profiling_phase(torch, profiles):
+    """The paper's Profiler on the card (``repro_torch.profiling``): the
+    full-width L8/L15/L22 dense ladder at the serve geometry, sync FIFO,
+    kernels on, steps replayed, each rung swept by ``EngineProfiler`` at
+    PROF_POINTS (PROF_RPP requests a point after PROF_WARMUP) on a
+    throwaway backend, and L22 once more on a paged engine. Per rung: every
+    point, both fits with R², readiness, and beside them the serve phase's
+    ``calibrate()`` profile (``profiles``), the H100 ``roofline_profile``
+    and ``roofline_scale_factor`` at MAX_NEW tokens a request. Asserts
+    th(8) > th(1) and R² in [0, 1] on every rung, every throwaway closed,
+    and the store's save/load round trip equal. Then drift on the live L8
+    rung at 2 units: a healthy check within band; a host stall of
+    DRIFT_STALL_X mean chunk times ahead of every decode chunk
+    (``VariantBackend._dispatch_chunk``) flagged; ``OnlineRecalibrator``
+    re-profiles it at (1, 2), throughput(1) falls and the controller
+    provisions more units for the same load. Returns (launch counts of the
+    phase, summary)."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.core.adapter import (ControllerConfig,
+                                          InfAdapterController)
+    from repro_torch.core.forecaster import MovingMaxForecaster
+    from repro_torch.core.profiles import roofline_profile
+    from repro_torch.kernels import ops
+    from repro_torch.launch.profile_and_serve import stall_decode_chunks
+    from repro_torch.launch.serve import GEOMETRY, build_ladder
+    from repro_torch.profiling.calibrate import roofline_scale_factor
+    from repro_torch.profiling.drift import DriftDetector, OnlineRecalibrator
+    from repro_torch.profiling.measure import EngineProfiler
+    from repro_torch.profiling.store import ProfileStore
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    t_phase = time.time()
+    log("[11] profile: EngineProfiler on the full-width ladder (dense L8/L15/"
+        "L22, paged L22), the profile store, drift and recalibration, the "
+        "H100 roofline")
+    variants = build_ladder("tinyllama-1.1b", full_width=True)
+    geo = GEOMETRY[True]
+    vocab = next(iter(variants.values()))[0].vocab_size
+    engines = {
+        "dense": InProcessServingEngine(variants, use_kernels=True,
+                                        device=DEVICE, enforce_units=True,
+                                        **geo)}
+    top = max(variants, key=lambda n: variants[n][0].num_layers)
+    engines["paged"] = InProcessServingEngine(
+        {top: variants[top]}, use_kernels=True, device=DEVICE,
+        enforce_units=True, kv_cache="paged", kv_page_size=PAGE, **geo)
+    throwaways = []
+    for eng in engines.values():
+        make = eng._make_backend
+        eng._make_backend = (lambda make: lambda name: throwaways.append(
+            make(name)) or throwaways[-1])(make)
+
+    def fmt(p, n):
+        return f"th({n}) {p.throughput(n):.3f} req/s, p99({n}) " \
+               f"{p.p99_ms(n):.1f} ms"
+
+    ops.reset_launch_counts()
+    summary, measured = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = ProfileStore(f"{tmp}/profiles.json")
+        rungs = [(n, "dense") for n in variants] + [(top, "paged")]
+        for name, kind in rungs:
+            cfg, acc = variants[name]
+            t0 = time.time()
+            m = EngineProfiler(engines[kind], points=PROF_POINTS,
+                               requests_per_point=PROF_RPP,
+                               warmup=PROF_WARMUP, vocab=vocab,
+                               ).profile_variant(name)
+            key = name if kind == "dense" else f"{name}-paged"
+            measured[key] = m
+            store.register(dataclasses.replace(m.profile, name=key),
+                           "measured", fit=m.th_fit, meta=m.store_meta())
+            roof = roofline_profile(cfg, acc, tokens_per_request=MAX_NEW)
+            scale = roofline_scale_factor({name: m}, {name: cfg},
+                                          tokens_per_request=MAX_NEW)
+            log(f"  {key} ({kind}): sweep {time.time() - t0:.1f}s, "
+                f"readiness {m.readiness_s:.3f}s")
+            for pt in m.points:
+                log(f"    units {pt.units}: {pt.throughput_rps:.4f} req/s, "
+                    f"service mean {pt.mean_service_ms:.2f} ms, P99 "
+                    f"{pt.p99_service_ms:.2f} ms, queue "
+                    f"{pt.mean_queue_ms:.3f} ms, n {pt.n_requests}")
+            log(f"    fit th(n) = {m.th_fit.slope:.4f} n "
+                f"{m.th_fit.intercept:+.4f} req/s (R2 "
+                f"{m.th_fit.r_squared:.4f}); p99(n) = {m.lat_base_ms:.2f} "
+                f"+ {m.lat_k_ms:.2f}/n ms (R2 {m.lat_r_squared:.4f}); "
+                f"mean(n) = {m.lat_mean_base_ms:.2f} + "
+                f"{m.lat_mean_k_ms:.2f}/n ms")
+            for label, p in (("measured", m.profile),
+                             ("calibrate()", profiles[name]),
+                             ("H100 roofline", roof)):
+                log(f"    {label:>13}: slope {p.th_slope:.4f}, intercept "
+                    f"{p.th_intercept:+.4f}, p = {p.lat_base_ms:.2f} + "
+                    f"{p.lat_k_ms:.2f}/n ms, rt {p.rt:.3f} s; "
+                    f"{fmt(p, 1)}; {fmt(p, 8)}")
+            log(f"    roofline_scale_factor (measured / roofline slope, "
+                f"{MAX_NEW} tokens a request): {scale:.5f}")
+            if not m.profile.throughput(8) > m.profile.throughput(1):
+                raise AssertionError(f"{key}: th(8) <= th(1)")
+            for r2 in (m.th_fit.r_squared, m.lat_r_squared):
+                if not 0.0 <= r2 <= 1.0:
+                    raise AssertionError(f"{key}: R2 {r2} outside [0, 1]")
+            summary[key] = {
+                "points": [dataclasses.asdict(pt) for pt in m.points],
+                "th_fit": [m.th_fit.slope, m.th_fit.intercept,
+                           m.th_fit.r_squared],
+                "p99_fit": [m.lat_base_ms, m.lat_k_ms, m.lat_r_squared],
+                "mean_fit": [m.lat_mean_base_ms, m.lat_mean_k_ms],
+                "readiness_s": m.readiness_s,
+                "calibrate": dataclasses.asdict(profiles[name]),
+                "roofline": dataclasses.asdict(roof),
+                "roofline_scale_factor": scale}
+        open_ = [b.name for b in throwaways if b.graphs or b._steps]
+        if len(throwaways) != len(rungs) or open_:
+            raise AssertionError(f"throwaways {len(throwaways)} of "
+                                 f"{len(rungs)}, left open: {open_}")
+        throwaways.clear()
+        ladder = {n: variants[n][0] for n in variants}
+        summary["ladder_scale_factor"] = roofline_scale_factor(
+            {n: measured[n] for n in variants}, ladder,
+            tokens_per_request=MAX_NEW)
+        loaded = ProfileStore.load(store.save())
+        if loaded.names() != store.names() or any(
+                loaded.get(n) != store.get(n)
+                or loaded.entry(n).provenance != store.entry(n).provenance
+                for n in store.names()):
+            raise AssertionError("the profile store's round trip differs")
+        log(f"  store: {len(loaded)} profiles saved and reloaded equal; "
+            f"ladder roofline_scale_factor "
+            f"{summary['ladder_scale_factor']:.5f}")
+
+        # drift on the live L8 rung, observed against the reloaded store
+        low = min(variants, key=lambda n: variants[n][0].num_layers)
+        eng = engines["dense"]
+        eng.apply_allocation(0.0, {low: 2})
+        b = eng.backends[low]
+        throwaways.clear()          # the live load: not a throwaway
+        detector = DriftDetector(loaded, tolerance=1.0, min_requests=8)
+        rng = np.random.default_rng(5)
+        rid = [0]
+
+        def serve(n):
+            for _ in range(n):
+                eng.submit(Request(rid=rid[0], tokens=rng.integers(
+                    0, vocab, PROMPT).astype(np.int64), max_new=MAX_NEW,
+                    arrival=time.time()), low)
+                rid[0] += 1
+            eng.drain(0.0)
+            detector.observe_engine(eng)
+            return detector.check(low, units=2)
+        healthy = serve(DRIFT_N)
+        m1 = measured[low]
+        chunk_ms = m1.points[0].mean_service_ms / (MAX_NEW // CHUNK)
+        stall_s = DRIFT_STALL_X * chunk_ms / 1e3
+        stall_decode_chunks(b, stall_s)
+        drifted = serve(DRIFT_N)
+        log(f"  drift on {low} at 2 units: healthy service ratio "
+            f"{healthy.service_ratio:.3f} ({healthy.n_obs} obs, "
+            f"{healthy.reason or 'within band'}); stall {stall_s * 1e3:.1f} "
+            f"ms a chunk ({DRIFT_STALL_X} x {chunk_ms:.2f} ms): ratio "
+            f"{drifted.service_ratio:.3f} ({drifted.reason})")
+        if healthy.drifted or healthy.n_obs < 8:
+            raise AssertionError(f"healthy check: {healthy}")
+        if not drifted.drifted:
+            raise AssertionError(f"stalled check not flagged: {drifted}")
+        lam = 0.8 * m1.profile.throughput(1)
+        ctrl = InfAdapterController(
+            {low: loaded.get(low)}, MovingMaxForecaster(window=5),
+            ControllerConfig(budget=B, slo_ms=10_000.0, min_load=lam))
+        before = ctrl.decide(0.0, eng).allocation
+        recal = OnlineRecalibrator(
+            EngineProfiler(eng, warmup=2, vocab=vocab), loaded,
+            controller=ctrl, detector=detector, points=(1, 2),
+            requests_per_point=6)
+        t0 = time.time()
+        m2 = recal.recalibrate(low)
+        after = ctrl.decide(0.0, eng).allocation
+        log(f"  recalibrated {low} in {time.time() - t0:.1f}s: th(1) "
+            f"{m1.profile.throughput(1):.4f} -> "
+            f"{m2.profile.throughput(1):.4f} req/s; units for "
+            f"{lam:.3f} req/s {before.units} -> {after.units}")
+        if throwaways:
+            raise AssertionError("recalibration built a throwaway")
+        if not m2.profile.throughput(1) < m1.profile.throughput(1):
+            raise AssertionError("throughput(1) did not fall")
+        if ctrl.profiles[low] != m2.profile or not loaded.entry(
+                low).meta.get("recalibrated"):
+            raise AssertionError("recalibration did not patch the "
+                                 "controller and the store")
+        if not after.total_units() > before.total_units():
+            raise AssertionError(f"allocation did not grow: {before.units} "
+                                 f"-> {after.units}")
+        if b.slot_cap != 2 or eng.backends[low] is not b:
+            raise AssertionError("the live backend was not restored")
+        summary["drift"] = {
+            "healthy_ratio": healthy.service_ratio,
+            "drifted_ratio": drifted.service_ratio, "stall_ms": stall_s * 1e3,
+            "chunk_ms": chunk_ms, "th1_before": m1.profile.throughput(1),
+            "th1_after": m2.profile.throughput(1), "lam": lam,
+            "units_before": before.units, "units_after": after.units,
+            "recal_points": [dataclasses.asdict(pt) for pt in m2.points]}
+        eng.apply_allocation(0.0, {})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k in ("flash_prefill", "flash_decode", "paged_decode"):
+        if launches[k] < 1:
+            raise AssertionError(f"{k} never ran in the profile phase: "
+                                 f"{launches}")
+    del engines, eng, b
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.time() - t_phase
+    log(f"  profile phase: {summary['wall_s']:.1f}s; launches "
+        + json.dumps(launches))
+    log("  profile summary " + json.dumps(summary))
+    return launches, summary
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -2458,6 +2713,8 @@ def main():
         sys.exit("chip_smoke: run from a checkout of the repository "
                  f"({src / 'repro_torch'} is missing)")
     sys.path.insert(0, str(src))
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S, PEAK_FLOPS["torch.bfloat16"] = card_rates()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2500,9 +2757,10 @@ def main():
         speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22", spec_k=SPEC_K),
         seconds=SPEC_SERVE_SECONDS)
     obs = obs_phase(torch, profiles)
+    prof, _ = profiling_phase(torch, profiles)
     for r in rows:
         r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm,
-                                                   chunked, spec, obs))
+                                                   chunked, spec, obs, prof))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2514,7 +2772,7 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[11] total wall time {time.time() - t_start:.1f}s")
+    log(f"[12] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -5,11 +5,22 @@ at a handful of allocations (1, 2, 4, 8, 16 cores) and a *linear regression*
 ``th_m(n) = a·n + b`` predicts throughput at any allocation; processing
 latency is modeled as ``p_m(n) = base + k / n``.
 
-A copy of the reference package's host-only profile code:
-``VariantProfile``, the regression fit and the paper-calibrated ResNet
-family. The reference's analytic ``roofline_profile`` carries per-chip TPU
-constants and has no counterpart here yet (the port's serve path calibrates
-its profiles on the engine itself, ``repro_torch.launch.serve.calibrate``).
+Three profile sources, distinguished by *provenance* in the profile store
+(``repro_torch.profiling.store.ProfileStore``):
+  * ``paper-calibrated`` — ``paper_resnet_profiles()``: the paper's
+    ResNet-18/34/50/101/152 family, calibrated so every relation the paper
+    reports holds (Fig. 1/2).
+  * ``roofline`` — ``roofline_profile(cfg, ...)``: throughput of an LLM
+    variant on n cards derived from the analytic roofline of one NVIDIA
+    H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s HBM), cross-calibrated
+    against measured variants by ``repro_torch.profiling.calibrate``. The
+    formulas are the reference package's (its TPU roofline); only the
+    per-card constants are the H100's.
+  * ``measured`` — ``repro_torch.profiling.measure.EngineProfiler``:
+    profiles regression-fitted from the port's ``InProcessServingEngine``.
+
+``paper_resnet_profiles``/``variant_ladder_profiles`` accept an optional
+``store`` (duck-typed ``ProfileStore``) and register what they build.
 """
 from __future__ import annotations
 
@@ -17,6 +28,13 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+# NVIDIA H100 SXM constants (per card, data sheet, at 700 W): dense bf16
+# tensor-core peak and HBM3 bandwidth
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
 
 
 @dataclass(frozen=True)
@@ -108,8 +126,9 @@ def paper_resnet_profiles(noise: float = 0.01, seed: int = 0,
                           store=None) -> Dict[str, VariantProfile]:
     """The paper's five-variant family with regression-fitted throughput.
 
-    With ``store`` (a ``repro.profiling.store.ProfileStore``) every profile
-    is registered under provenance ``"paper-calibrated"`` with its fit."""
+    With ``store`` (a ``repro_torch.profiling.store.ProfileStore``) every
+    profile is registered under provenance ``"paper-calibrated"`` with its
+    fit."""
     out = {}
     for name, (a, b, lb, lk, acc, rt) in _RESNET_TRUTH.items():
         fit = fit_throughput(measured_resnet_points(name, noise, seed))
@@ -119,4 +138,67 @@ def paper_resnet_profiles(noise: float = 0.01, seed: int = 0,
             lat_base_ms=lb, lat_k_ms=lk)
         if store is not None:
             store.register(out[name], "paper-calibrated", fit=fit)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Roofline-derived profiles for LLM variant ladders (H100 constants)
+# ---------------------------------------------------------------------------
+
+def roofline_decode_tokens_per_s(cfg: ModelConfig, n_chips: int,
+                                 batch: int = 8, kv_len: int = 2048,
+                                 mfu: float = 0.4, hbm_eff: float = 0.7) -> float:
+    """Decode throughput bound on n cards: min(compute, weight+KV streaming)."""
+    n_active = cfg.active_param_count()
+    flops_per_tok = 2.0 * n_active
+    compute = n_chips * PEAK_FLOPS_BF16 * mfu / flops_per_tok * batch
+    bytes_per_step = 2.0 * n_active  # weights streamed once per step (bf16)
+    KV, hd, L = max(cfg.num_kv_heads, 1), cfg.resolved_head_dim, cfg.num_layers
+    if cfg.family != "ssm":
+        bytes_per_step += 2 * batch * kv_len * KV * hd * L * 2
+    memory = n_chips * HBM_BW * hbm_eff / bytes_per_step * batch
+    return min(compute, memory)
+
+
+def roofline_profile(cfg: ModelConfig, accuracy: float, *,
+                     tokens_per_request: int = 128, max_chips: int = 64,
+                     ) -> VariantProfile:
+    """Linear-regression profile over card counts (the paper's methodology)."""
+    pts = []
+    for n in PROFILE_CORE_POINTS:
+        rps = roofline_decode_tokens_per_s(cfg, n) / tokens_per_request
+        pts.append((n, rps))
+    fit = fit_throughput(pts)
+    # latency: time to generate one request's tokens at per-card rate
+    tok_s_1 = roofline_decode_tokens_per_s(cfg, 1)
+    lat_k = tokens_per_request / max(tok_s_1, 1e-9) * 1000.0
+    # readiness: HBM fill time for the weights + compile slack
+    load_s = 2.0 * cfg.param_count() / HBM_BW + 2.0
+    return VariantProfile(
+        name=cfg.name, accuracy=accuracy, rt=load_s,
+        th_slope=fit.slope, th_intercept=fit.intercept,
+        lat_base_ms=5.0, lat_k_ms=lat_k, max_units=max_chips)
+
+
+def variant_ladder_profiles(base: ModelConfig, *, fractions=(0.25, 0.5, 0.75, 1.0),
+                            acc_max: float = 80.0, acc_span: float = 12.0,
+                            store=None) -> Dict[str, VariantProfile]:
+    """Depth-scaled variant family for an assigned arch + scaling-law accuracy
+    proxy acc(N) = acc_max - acc_span · (N/N_full)^(-0.28) + acc_span
+    (documented proxy — monotone in N with diminishing returns).
+
+    With ``store`` every profile is registered under provenance
+    ``"roofline"`` (analytic, not measured)."""
+    out = {}
+    n_full = base.param_count()
+    for f in fractions:
+        L = max(2, int(round(base.num_layers * f)))
+        cfg = base.replace(name=f"{base.name}-L{L}", num_layers=L)
+        ratio = cfg.param_count() / n_full
+        acc = acc_max - acc_span * (ratio ** -0.28 - 1.0) - acc_span * 0.0
+        acc = float(np.clip(acc, 1.0, 99.9))
+        out[cfg.name] = roofline_profile(cfg, acc)
+        if store is not None:
+            store.register(out[cfg.name], "roofline",
+                           meta={"base": base.name, "fraction": f})
     return out

@@ -1302,3 +1302,109 @@ def test_dispatch_profiler_unfenced_ticks_record_no_event(cuda, monkeypatch):
     assert fenced and all((i + 1) % 3 == 0 for i in fenced)
     assert len(made) - len(base) == len(fenced)
     assert all(recs[i].device_ms > 0.0 for i in fenced)
+
+
+# ------------------------------------------------------------- profiling
+
+def _profile_engine(cuda, layers=(2, 4), **kw):
+    from repro_torch.serving.engine import InProcessServingEngine
+    variants = {f"L{n}": (_smoke("tinyllama-1.1b", num_layers=n), 70.0 + n)
+                for n in layers}
+    kw = {**dict(max_batch=4, prompt_len=32, max_new=8, decode_chunk=4,
+                 use_kernels=True, device=cuda), **kw}
+    return InProcessServingEngine(variants, **kw)
+
+
+@pytest.mark.parametrize("kv_cache", ["dense", "paged"])
+def test_profiler_sweep_on_the_card(cuda, kv_cache):
+    """An ``EngineProfiler`` sweep of a two-rung ladder, steps replayed as
+    CUDA graphs: every rung's fitted capacity grows with its units
+    (th(4) > th(1)), every point counts its requests, and the sweep
+    launched the path's kernels."""
+    from repro_torch.profiling.measure import EngineProfiler
+    eng = _profile_engine(cuda, kv_cache=kv_cache, kv_page_size=8)
+    ops.reset_launch_counts()
+    got = EngineProfiler(eng, points=(1, 2, 4), requests_per_point=8,
+                         warmup=4, vocab=128).profile_all()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert sorted(got) == ["L2", "L4"]
+    for m in got.values():
+        assert [p.units for p in m.points] == [1, 2, 4]
+        assert all(p.n_requests >= 8 for p in m.points)
+        assert m.profile.throughput(4) > m.profile.throughput(1)
+        assert 0.0 <= m.th_fit.r_squared <= 1.0
+        assert m.readiness_s > 0.0
+    decode = "paged_decode" if kv_cache == "paged" else "flash_decode"
+    assert launches["flash_prefill"] > 0 and launches[decode] > 0
+    assert not eng.backends
+
+
+def test_throwaway_sweep_releases_its_graphs_and_memory(cuda):
+    """After a throwaway's sweep its graphs are dropped and
+    ``memory_allocated`` is back within 5% of where it stood before the
+    throwaway was built (a first sweep makes what the process keeps: the
+    libraries' and the kernels' workspaces). The rung is full width at 2
+    layers, so the throwaway itself holds hundreds of MB."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.profiling.measure import EngineProfiler
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = get_config("tinyllama-1.1b").replace(num_layers=2, name="w")
+    eng = InProcessServingEngine({"w": (cfg, 70.0)}, max_batch=4,
+                                 prompt_len=64, max_new=8, decode_chunk=4,
+                                 use_kernels=True, device=cuda)
+    built, held = [], []
+    make = eng._make_backend
+
+    def make_logged(name):
+        b = make(name)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        built.append(b)
+        return b
+    eng._make_backend = make_logged
+    prof = EngineProfiler(eng, points=(1, 2), requests_per_point=4, warmup=2)
+    prof.profile_variant("w")
+    built.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    prof.profile_variant("w")
+    (tb,) = built
+    built.clear()
+    assert not tb.graphs and not tb._steps
+    del tb
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert held[-1] - base > 200e6          # the throwaway's own footprint
+    assert abs(after - base) <= 0.05 * base, (base, held[-1], after)
+
+
+def test_live_backend_profiled_in_place_on_the_card(cuda):
+    """A loaded variant is profiled in place: its captured graphs stay (and
+    pass their pointer checks), its slot cap is restored, and it serves
+    afterwards with every request complete."""
+    import time
+    from repro_torch.profiling.measure import EngineProfiler
+    from repro_torch.serving.api import Request
+    eng = _profile_engine(cuda, layers=(2,), enforce_units=True)
+    eng.apply_allocation(0.0, {"L2": 2})
+    b = eng.backends["L2"]
+    graphs = dict(b.graphs)
+    assert graphs and b.slot_cap == 2
+    m = EngineProfiler(eng, points=(1, 2, 4), requests_per_point=4,
+                       warmup=2, vocab=128).profile_variant("L2")
+    assert [p.units for p in m.points] == [1, 2, 4]
+    assert eng.backends["L2"] is b and b.slot_cap == 2
+    assert b.graphs == graphs
+    for g in b.graphs.values():
+        assert g.graph is not None
+        g._check_state()
+    rng = np.random.default_rng(4)
+    for i in range(6):
+        eng.submit(Request(rid=i, tokens=rng.integers(0, 128, 32),
+                           max_new=8, arrival=time.time()), "L2")
+    eng.drain(0.0)
+    assert len(eng.done) == 6 and all(len(r.output) == 8 for r in eng.done)

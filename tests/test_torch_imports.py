@@ -36,6 +36,13 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     assert out.stdout.strip().endswith("[]"), out.stdout
 
 
+def test_the_scan_covers_the_profiling_modules():
+    assert {"repro_torch.profiling", "repro_torch.profiling.calibrate",
+            "repro_torch.profiling.drift", "repro_torch.profiling.measure",
+            "repro_torch.profiling.store",
+            "repro_torch.launch.profile_and_serve"} <= set(MODULES)
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):
