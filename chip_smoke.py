@@ -151,10 +151,34 @@ phase raises, and the script exits nonzero:
               flagged, ``OnlineRecalibrator`` re-profiles it, throughput(1)
               falls and the controller provisions more units for the same
               load;
- 12. output   the ``{"kernels": [...]}`` line (launches summed over the
-              serve loops, the prefix phase, the obs phase's serve and the
-              profile phase; the chunk forms' rows carry their verify
-              shape's times), then the ok line last.
+ 12. fabric   the replica fabric (``repro_torch.cluster`` on the engine's
+              ``nodes=``) at full width: tinyllama-1.1b L8 and L22, bf16,
+              kernels on, steps replayed, on two nodes of four units
+              (spread placement, p2c routing), each replica its own seeded
+              weights: {L8: 2, L22: 2} on the dense engine, then on the
+              paged engine with prefix sharing, serving FAB_N requests of
+              512 + 64 tokens on a fake clock, half to each rung, node0
+              crashed at a fixed tick: every request completes once, none
+              rejected, each on its own rung's replicas through the retry,
+              capacity_factor 0.5, memory_allocated down by at least 90% of
+              the killed replicas' weights and KV; the allocation
+              re-applied: capacity_factor 1.0, every replica on node1;
+              memory and readiness printed per load; tokens held against
+              one plain backend per rung (equal in bf16, or else the same
+              on 2- and 4-layer fp32 rungs must be); paged pools empty and
+              consistent and
+              ``kv_pool_stats`` summed over the live replicas; then
+              {L22: 2} with one replica slowed FAB_SLOW-fold under a steady
+              stream (decode commits at least 2.5x its twin's, p2c's split
+              printed) and restored; then FAB_SERVE_SECONDS of the
+              launcher's ``--replicas 4 --nodes 2 --fail-node-at
+              --flight-dir`` serve: every request completes once, the
+              crash's flight dump validates, the next decision sees the
+              crash and capacity_factor returns to 1.0 (the time printed);
+ 13. output   the ``{"kernels": [...]}`` line (launches summed over the
+              serve loops, the prefix phase, the obs phase's serve, the
+              profile phase and the fabric phase; the chunk forms' rows
+              carry their verify shape's times), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -230,6 +254,12 @@ OBS_LOAD = (2.0, 4.0)
 PROF_POINTS, PROF_RPP, PROF_WARMUP = (1, 2, 4, 8), 16, 4
 DRIFT_N = 12
 DRIFT_STALL_X = 5
+# fabric phase: requests in its fixed list (half to each rung), the tick
+# at which node0 crashes, the straggler's stream and slow factor, and the
+# launcher's crash-and-recover serve (crash FAB_FAIL_AT s in)
+FAB_N, FAB_CRASH_TICK = 32, 6
+FAB_STRAGGLER_N, FAB_SLOW = 24, 3.0
+FAB_SERVE_SECONDS, FAB_FAIL_AT = 15, 5.0
 # A serve loop reports its P99, violation rate and goodput only over this
 # many requests: over the 10-30 a short loop serves, the P99 is the slowest
 # request and one request moves the rate by several points. Short loops
@@ -2475,6 +2505,378 @@ def obs_phase(torch, profiles):
     return launches
 
 
+def fabric_requests(vocab, n=FAB_N, seed=41):
+    """The fabric phase's fixed request list: ``n`` prompts of PROMPT
+    tokens, every other one over a shared PS_SHARED-token prefix (prefix
+    hits on a paged replica), each with the full MAX_NEW budget."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, PS_SHARED)
+    return [np.concatenate([prefix, rng.integers(0, vocab,
+                                                 PROMPT - PS_SHARED)])
+            if i % 2 else rng.integers(0, vocab, PROMPT) for i in range(n)]
+
+
+def own_bytes(b):
+    """A backend's own weights and KV cache, in bytes."""
+    from repro_torch.serving.graphs import tensor_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tensor_leaves(b.params) + tensor_leaves(b.cache))
+
+
+def fabric_engine(torch, variants, engine_kw, loads=None, fabric=True):
+    """An engine of ``variants`` at the serve geometry on a fake clock
+    (``engine.t``), kernels on, steps replayed, every backend its own
+    seeded weights; with ``fabric`` on two nodes of four units, spread
+    placement, p2c routing. ``loads`` collects each backend's variant,
+    readiness and ``memory_allocated`` after its load."""
+    from repro_torch.cluster import make_nodes
+    from repro_torch.serving.engine import InProcessServingEngine
+    t = [1.0]
+    fab = dict(nodes=make_nodes(2, 4), placement="spread", router="p2c") \
+        if fabric else {}
+    eng = InProcessServingEngine(
+        variants, max_batch=B, prompt_len=PROMPT, max_new=MAX_NEW,
+        decode_chunk=CHUNK, prefill_chunk=CK, queue_cap=1000,
+        use_kernels=True, device=DEVICE, clock=lambda: t[0], **fab,
+        **engine_kw)
+    eng.t = t
+    if loads is not None:
+        make = eng._make_backend
+
+        def make_logged(name):
+            b = make(name)
+            torch.cuda.synchronize()
+            loads.append({"variant": name, "readiness_s": b.readiness_s,
+                          "memory_allocated": torch.cuda.memory_allocated(),
+                          "own_bytes": own_bytes(b)})
+            log(f"    loaded a {name} replica: readiness "
+                f"{b.readiness_s:.3f}s, {own_bytes(b)} bytes of weights and "
+                f"KV, memory_allocated {torch.cuda.memory_allocated()}")
+            return b
+        eng._make_backend = make_logged
+    return eng
+
+
+def fabric_drive(torch, eng, reqs, names, crash_tick=None, per_tick=2):
+    """Submit ``reqs`` on the engine's fake clock, ``per_tick`` a tick, rid
+    i to ``names[i % len(names)]``, then tick until every queue and slot is
+    empty; at ``crash_tick`` crash node0 and measure what it frees. Returns
+    (rid -> tokens, crash stats or None)."""
+    import gc
+    import numpy as np
+    from repro_torch.cluster import node_crash
+    from repro_torch.serving.api import Request
+    t, crash, ticks, i = eng.t, None, 0, 0
+    while i < len(reqs) or eng.backlog(t[0]) or eng.in_flight():
+        for _ in range(per_tick):
+            if i < len(reqs):
+                if not eng.submit(Request(rid=i, tokens=reqs[i],
+                                          max_new=MAX_NEW, arrival=t[0]),
+                                  names[i % len(names)]):
+                    raise AssertionError(f"request {i} rejected")
+                i += 1
+        if ticks == crash_tick:
+            dead = [r for r in eng.fabric.replicas.values()
+                    if r.node_id == "node0"]
+            own = sum(own_bytes(r.handle) for r in dead)
+            busy = sum(r.handle.active_slots for r in dead)
+            rids = sorted(r.rid for r in dead)
+            n_sub = eng.metrics.value("requests.submitted")
+            del dead
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t_c = time.time()
+            eng.inject_fault(t[0], node_crash(t[0], "node0"))
+            crash_ms = (time.time() - t_c) * 1e3
+            gc.collect()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            crash = dict(killed=rids, in_slots=busy, own_bytes=own,
+                         before=before, after=after, freed=before - after,
+                         crash_ms=crash_ms,
+                         retried=int(eng.metrics.value("requests.submitted")
+                                     - n_sub),
+                         capacity_factor=eng.capacity_factor(t[0]),
+                         backends=sorted(eng.backends))
+            log(f"    crash node0 at tick {ticks}: killed {rids} ({busy} "
+                f"requests in slots), {crash['retried']} retried; "
+                f"memory_allocated {before} -> {after} (freed "
+                f"{before - after}, the killed replicas' own {own}); "
+                f"capacity_factor {crash['capacity_factor']}")
+            if crash["capacity_factor"] != 0.5:
+                raise AssertionError(f"capacity_factor after the crash: "
+                                     f"{crash['capacity_factor']}")
+            if crash["freed"] < 0.9 * own:
+                raise AssertionError(f"the killed replicas' memory was not "
+                                     f"released: {crash}")
+            if not busy or not crash["retried"]:
+                raise AssertionError(f"the crash hit no request: {crash}")
+        eng.step(t[0])
+        t[0] += 0.05
+        ticks += 1
+        if ticks > 5000:
+            raise AssertionError("the fabric did not drain")
+    eng.flush_pending(t[0])
+    torch.cuda.synchronize()
+    outs = {r.rid: np.asarray(r.output) for r in eng.done}
+    if sorted(r.rid for r in eng.done) != list(range(len(reqs))):
+        raise AssertionError(f"{len(eng.done)} completions for "
+                             f"{len(reqs)} requests")
+    if eng.rejected or any(len(o) != MAX_NEW for o in outs.values()):
+        raise AssertionError(f"rejected {eng.rejected}, or a short output")
+    wrong = [r.rid for r in eng.done
+             if r.backend.split("#")[0] != names[r.rid % len(names)]]
+    if wrong:
+        raise AssertionError(f"requests served off their variant: {wrong}")
+    return outs, crash
+
+
+def fabric_crash(torch, variants, kv, label):
+    """Part (a)/(b) of the fabric phase on one KV discipline: {L8: 2, L22:
+    2} on two nodes, FAB_N requests (half to each rung), node0 crashed at
+    FAB_CRASH_TICK, then the allocation re-applied; the tokens held
+    against one plain backend per rung. Returns (summary, launches)."""
+    import gc
+    import numpy as np
+    from repro_torch.kernels import ops
+    names = list(variants)
+    alloc = {n: 2 for n in names}
+    reqs = fabric_requests(next(iter(variants.values()))[0].vocab_size)
+    loads = []
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    log(f"  {label}: memory_allocated before loading {mem0}")
+    eng = fabric_engine(torch, variants, kv, loads)
+    eng.apply_allocation(eng.t[0], alloc)
+    placed = {rid: r.node_id for rid, r in eng.fabric.replicas.items()}
+    log(f"  {label}: placed {placed}")
+    ops.reset_launch_counts()
+    outs, crash = fabric_drive(torch, eng, reqs, names,
+                               crash_tick=FAB_CRASH_TICK)
+    launches = ops.launch_counts()
+    need = ("flash_prefill", "paged_decode" if kv else "flash_decode")
+    if min(launches[k] for k in need) < 1:
+        raise AssertionError(f"{label}: a kernel of the path never ran: "
+                             f"{launches}")
+    served = {rid: sum(r.backend == rid for r in eng.done)
+              for rid in placed}
+    n_loads = len(loads)
+    eng.apply_allocation(eng.t[0], alloc)
+    cf = eng.capacity_factor(eng.t[0])
+    nodes = {r.node_id for r in eng.fabric.replicas.values()}
+    log(f"  {label}: re-applied {alloc}: capacity_factor {cf}, replicas "
+        f"{sorted(eng.fabric.replicas)} on {sorted(nodes)}; new replicas' "
+        f"readiness {[round(x['readiness_s'], 3) for x in loads[n_loads:]]}")
+    if cf != 1.0 or nodes != {"node1"}:
+        raise AssertionError(f"{label}: re-placement gave capacity_factor "
+                             f"{cf} on {nodes}")
+    pool = None
+    if kv:
+        for rid, b in eng.backends.items():
+            b.pool.assert_invariants()
+            if b.pool.used_pages:
+                raise AssertionError(f"{rid}: {b.pool.used_pages} pages "
+                                     f"still mapped")
+        pool = eng.kv_pool_stats()
+        usable = sum(b.pool.usable_pages for b in eng.backends.values())
+        if pool["usable_pages"] != usable or pool["used_pages"] != 0:
+            raise AssertionError(f"kv_pool_stats {pool} over {usable} "
+                                 f"usable pages")
+    for b in eng.backends.values():
+        b.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one plain backend per rung on the same requests: the tokens a
+    # request gets must not depend on the replica that served it
+    one = fabric_engine(torch, variants, kv, fabric=False)
+    one.apply_allocation(one.t[0], {n: 1 for n in names})
+    want, _ = fabric_drive(torch, one, reqs, names)
+    for b in one.backends.values():
+        b.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = sum(np.array_equal(outs[i], want[i]) for i in outs)
+    log(f"  {label}: tokens equal to one plain backend per rung for "
+        f"{same}/{len(outs)} requests; served per replica {served}")
+    summary = dict(placed=placed, loads=loads, crash=crash, served=served,
+                   tokens_equal=same, kv_pool=pool, launches=launches,
+                   memory_before_loading=mem0)
+    return summary, launches
+
+
+def fabric_straggler(torch, variants):
+    """Part (c): {L22: 2} with L22#0 slowed FAB_SLOW-fold under a steady
+    stream (a request a tick): the slowed replica's decode commits, timed
+    from dispatch to the commit's end, against its twin's; p2c's split
+    printed; then the replica restored. Returns (summary, launches)."""
+    import numpy as np
+    from repro_torch.cluster import replica_restore, replica_slowdown
+    from repro_torch.kernels import ops
+    (name,) = [n for n in variants if n.endswith("-L22")]
+    eng = fabric_engine(torch, {name: variants[name]}, {})
+    eng.apply_allocation(eng.t[0], {name: 2})
+    slow, twin = f"{name}#0", f"{name}#1"
+    eng.inject_fault(eng.t[0], replica_slowdown(eng.t[0], slow, FAB_SLOW))
+    if eng.backends[slow].slow_factor != FAB_SLOW:
+        raise AssertionError("the slowdown did not reach the backend")
+    spans = {slow: [], twin: []}
+    for rid, b in eng.backends.items():
+        commit = b.commit_exec
+
+        def timed(pending, now, rid=rid, commit=commit):
+            out = commit(pending, now)
+            if pending is not None and pending.kind == "decode":
+                spans[rid].append((time.perf_counter()
+                                   - pending.dispatched_at) * 1e3)
+            return out
+        b.commit_exec = timed
+    reqs = fabric_requests(variants[name][0].vocab_size, FAB_STRAGGLER_N)
+    ops.reset_launch_counts()
+    fabric_drive(torch, eng, reqs, [name], per_tick=1)
+    launches = ops.launch_counts()
+    split = {rid: sum(r.backend == rid for r in eng.done) for rid in spans}
+    ms = {rid: float(np.mean(v)) for rid, v in spans.items()}
+    ratio = ms[slow] / ms[twin]
+    log(f"  straggler: {slow} x{FAB_SLOW}: decode commit {ms[slow]:.3f} ms "
+        f"against {twin}'s {ms[twin]:.3f} ({ratio:.3f}x, {len(spans[slow])} "
+        f"and {len(spans[twin])} commits); p2c sent {split}")
+    if ratio < 2.5:
+        raise AssertionError(f"the straggler is only {ratio:.3f}x slower")
+    eng.inject_fault(eng.t[0], replica_restore(eng.t[0], slow))
+    if eng.backends[slow].slow_factor != 1.0:
+        raise AssertionError("replica_restore left the slow factor")
+    for b in eng.backends.values():
+        b.close()
+    del eng
+    torch.cuda.empty_cache()
+    return dict(commit_ms=ms, ratio=ratio, split=split,
+                commits={k: len(v) for k, v in spans.items()},
+                launches=launches), launches
+
+
+def fabric_launcher(torch, profiles, tmp):
+    """Part (d): FAB_SERVE_SECONDS of the launcher's ``--replicas 4 --nodes
+    2 --fail-node-at FAB_FAIL_AT --flight-dir`` serve at full width, at a
+    steady load: every accepted request completes once, the crash's flight
+    dump validates, the controller's first decision after the crash sees
+    capacity below 1 and re-places the replicas; the time from the crash
+    to capacity_factor 1.0 printed. Returns (summary, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs.export import validate_trace_file
+    from repro_torch.serving.engine import InProcessServingEngine as E
+    args = launcher.parse_args([
+        "--full-width", "--device", DEVICE, "--seconds",
+        str(FAB_SERVE_SECONDS), "--interval", "3", "--load", "1.5", "1.5",
+        "--replicas", "4", "--nodes", "2", "--fail-node-at",
+        str(FAB_FAIL_AT), "--flight-dir", f"{tmp}/flight"])
+    events = []      # (engine clock, what, capacity_factor after)
+    apply, inject = E.apply_allocation, E.inject_fault
+
+    def apply_logged(self, t, units):
+        apply(self, t, units)
+        events.append((self.clock(), "apply", self.capacity_factor(t)))
+
+    def inject_logged(self, now, event):
+        inject(self, now, event)
+        events.append((self.clock(), event.kind, self.capacity_factor(now)))
+    E.apply_allocation, E.inject_fault = apply_logged, inject_logged
+    ops.reset_launch_counts()
+    try:
+        out = launcher.serve(args, profiles=profiles,
+                             log=lambda m: log("    " + m))
+    finally:
+        E.apply_allocation, E.inject_fault = apply, inject
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    eng, s = out["engine"], out["summary"]
+    if s is None or s["pending"] != 0:
+        raise AssertionError(f"launcher fabric serve: summary {s}")
+    rids = [r.rid for r in eng.done]
+    if len(rids) != len(set(rids)):
+        raise AssertionError("a request completed twice")
+    if len(out["faults"]):
+        raise AssertionError("a fault was never injected")
+    dump = Path(tmp) / "flight" / "FLIGHT_fault_node_crash.json"
+    n_dump = validate_trace_file(str(dump))
+    (t_crash,) = [t for t, what, _ in events if what == "node_crash"]
+    after = [e for e in out["controller"].audit.entries if e.t >= t_crash]
+    if not after or after[0].inputs["capacity_factor"] >= 1.0:
+        raise AssertionError(f"no decision saw the crash: {events}")
+    back = [t for t, what, cf in events
+            if what == "apply" and t >= t_crash and cf == 1.0]
+    if not back:
+        raise AssertionError(f"capacity never came back: {events}")
+    log(f"  launcher: {s['n_requests']} requests, {eng.rejected} rejected; "
+        f"crash at t={t_crash:.3f}s, the next decision at "
+        f"t={after[0].t:.3f}s saw capacity_factor "
+        f"{after[0].inputs['capacity_factor']}; capacity_factor 1.0 after "
+        f"{back[0] - t_crash:.3f}s; flight dump {n_dump} events; "
+        f"events {[(round(t, 3), w, cf) for t, w, cf in events]}")
+    summary = dict(n_requests=s["n_requests"], rejected=eng.rejected,
+                   crash_t=t_crash, decision_t=after[0].t,
+                   recovery_s=back[0] - t_crash, flight_events=n_dump,
+                   events=events, launches=launches)
+    for b in eng.backends.values():
+        b.close()
+    del eng, out
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def fabric_phase(torch, profiles):
+    """The replica fabric at full width (tinyllama-1.1b L8 and L22, bf16,
+    kernels on, steps replayed; two nodes of four units, spread placement,
+    p2c routing): (a) dense {L8: 2, L22: 2}, node0 crashed mid-run; (b) the
+    same on the paged engine with prefix sharing; (c) a straggler; (d) the
+    launcher's crash-and-recover serve. Returns the phase's launch
+    counts."""
+    import tempfile
+    from collections import Counter
+    from repro_torch.launch.serve import build_ladder
+    t_phase = time.time()
+    log("[12] fabric: replicas, p2c routing, a node crash with retry, a "
+        "straggler and the launcher's --replicas/--nodes/--fail-node-at, "
+        "full width bf16, kernels on, steps replayed")
+    variants = build_ladder("tinyllama-1.1b", depths=(8, 22),
+                            accs=(70.0, 78.0), full_width=True)
+    summary, launches = {}, Counter()
+    f32 = {n: (c.replace(dtype="float32"), a) for n, (c, a) in
+           build_ladder("tinyllama-1.1b", depths=(2, 4), accs=(70.0, 78.0),
+                        full_width=True).items()}
+    for kv, label in (({}, "dense"), (dict(
+            kv_cache="paged", kv_page_size=PAGE, kv_prefix_sharing=True),
+            "paged sharing")):
+        summary[label], n = fabric_crash(torch, variants, kv, label)
+        launches.update(n)
+        if summary[label]["tokens_equal"] == FAB_N:
+            continue
+        # bf16 greedy tokens part after a differently rounded logit (with
+        # sharing, a prompt that hits one replica's prefix index misses
+        # another's and prefills in chunks): at fp32 they must agree
+        label = f"{label} fp32"
+        summary[label], n = fabric_crash(torch, f32, kv, label)
+        launches.update(n)
+        if summary[label]["tokens_equal"] != FAB_N:
+            raise AssertionError(f"{label}: fabric tokens differ from the "
+                                 f"plain backend's")
+    summary["straggler"], n = fabric_straggler(torch, variants)
+    launches.update(n)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["launcher"], n = fabric_launcher(torch, profiles, tmp)
+    launches.update(n)
+    summary["wall_s"] = time.time() - t_phase
+    log(f"  fabric phase: {summary['wall_s']:.1f}s; launches "
+        f"{dict(launches)}")
+    log("  fabric summary " + json.dumps(summary, default=str))
+    return dict(launches)
+
+
 def profiling_phase(torch, profiles):
     """The paper's Profiler on the card (``repro_torch.profiling``): the
     full-width L8/L15/L22 dense ladder at the serve geometry, sync FIFO,
@@ -2758,9 +3160,10 @@ def main():
         seconds=SPEC_SERVE_SECONDS)
     obs = obs_phase(torch, profiles)
     prof, _ = profiling_phase(torch, profiles)
+    fabric = fabric_phase(torch, profiles)
     for r in rows:
-        r["launches"] = sum(c[r["name"]] for c in (dense, paged, prefix, ssm,
-                                                   chunked, spec, obs, prof))
+        r["launches"] = sum(c.get(r["name"], 0) for c in (
+            dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2772,7 +3175,7 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[12] total wall time {time.time() - t_start:.1f}s")
+    log(f"[13] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

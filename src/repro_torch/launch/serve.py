@@ -35,6 +35,16 @@ the recent past as ``FLIGHT_<reason>.json`` into DIR on each alert.
 ``python -m repro_torch.obs.export --validate-trace ... --validate-metrics
 ... --assert-zero obs.spans_dropped`` checks the reports.
 
+The replica fabric, as the reference example wires it: ``--replicas N``
+and ``--nodes M`` serve every variant as single-unit replicas, each a
+whole backend, spread over M nodes of ``max(2, ceil(2 * budget / M))``
+units (room for the create-then-remove surge and for re-placement after
+a crash), with a budget of ``max(N, 2)`` units; ``--fail-node-at T``
+crashes node0 T seconds in and recovers it 8 s later. The crashed
+replicas' requests are retried on the survivors, and the controller's next
+decision re-places them; with ``--flight-dir`` each fault dumps
+``FLIGHT_fault_<kind>.json``.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width --seconds 30
@@ -49,6 +59,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width --trace \
       --profile-dispatch 4 --burn-rate-alerts --flight-dir reports/flight \
       --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
+      --replicas 4 --nodes 2 --fail-node-at 5 --flight-dir reports/flight \
+      --seconds 15
 """
 from __future__ import annotations
 
@@ -58,6 +71,8 @@ import time
 
 import numpy as np
 
+from repro_torch.cluster import (FaultSchedule, make_nodes, node_crash,
+                                 node_recover)
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.adapter import ControllerConfig, InfAdapterController
 from repro_torch.core.forecaster import MovingMaxForecaster
@@ -187,7 +202,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--flight-dir", default=None, metavar="DIR",
                     help="arm the flight recorder: dump a Perfetto-loadable "
                          "FLIGHT_<reason>.json of the recent past into DIR "
-                         "on each burn-rate alert")
+                         "on each burn-rate alert and injected fault")
+    ap.add_argument("--replicas", type=int, default=0,
+                    help="shard variants into single-unit replicas across "
+                         "the node set (0 = one backend per variant)")
+    ap.add_argument("--nodes", type=int, default=0,
+                    help="node count for the replica fabric "
+                         "(default: max(--replicas, 2))")
+    ap.add_argument("--fail-node-at", type=float, default=None,
+                    help="crash node0 this many seconds in (it recovers 8 s "
+                         "later): exercises retry and re-placement")
     return ap.parse_args(argv)
 
 
@@ -198,8 +222,9 @@ def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
     observability options of ``args``. Returns the run's ``engine``, its
     ``summary`` (None when no request completed), ``slo_monitor`` and
     ``flight`` (None when off), ``burn_resolves`` (the controller's
-    re-solves for an alert) and ``reports`` (name -> path of each report
-    written)."""
+    re-solves for an alert), ``reports`` (name -> path of each report
+    written), ``faults`` (the fault schedule, None without
+    ``--fail-node-at``) and ``controller``."""
     variants = build_ladder(args.arch, full_width=args.full_width)
     geo = GEOMETRY[args.full_width]
     if profiles is None:
@@ -216,6 +241,19 @@ def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
             os.makedirs(args.flight_dir, exist_ok=True)
             flight = FlightRecorder(out_dir=args.flight_dir)
         obs = Observability(trace=args.trace, windows=True, flight=flight)
+    fabric_on = (args.replicas > 0 or args.nodes > 0
+                 or args.fail_node_at is not None)
+    budget = max(args.replicas, 2) if fabric_on else args.budget
+    fabric_kw = {}
+    if fabric_on:
+        n_nodes = args.nodes or max(args.replicas, 2)
+        # room for the create-then-remove surge and for re-placement after
+        # a node crash
+        node_cap = max(2, -(-2 * budget // n_nodes))
+        log(f"cluster fabric: {n_nodes} nodes x {node_cap} units, "
+            f"replica_size=1 (budget {budget})")
+        fabric_kw = dict(nodes=make_nodes(n_nodes, node_cap),
+                         placement="spread", replica_size=1)
     # calibrated on the plain dense engine, served on the configured one
     engine = InProcessServingEngine(
         variants, use_kernels=True, device=args.device, clock=ElapsedClock(),
@@ -223,11 +261,11 @@ def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
         scheduler=args.scheduler, preemption=args.preemption,
         async_tick=args.async_tick, speculative=args.speculative,
         spec_k=args.spec_k, trace=args.trace, obs=obs,
-        profile_dispatch=args.profile_dispatch, **geo)
+        profile_dispatch=args.profile_dispatch, **fabric_kw, **geo)
     for n, p in profiles.items():
         log(f"  {n}: {p.th_slope:.1f} rps/unit, rt {p.rt:.2f}s")
 
-    cfg = ControllerConfig(interval_s=args.interval, budget=args.budget,
+    cfg = ControllerConfig(interval_s=args.interval, budget=budget,
                            slo_ms=args.slo_ms, beta=args.beta, gamma=0.05,
                            reactive=True, queue_aware=True)
     slo_monitor, sink = None, None
@@ -241,6 +279,11 @@ def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
                                  sinks=tuple(sinks))
     ctrl = InfAdapterController(profiles, MovingMaxForecaster(window=10),
                                 cfg, burn_alerts=sink)
+    faults = None
+    if args.fail_node_at is not None:
+        faults = FaultSchedule([
+            node_crash(args.fail_node_at, "node0"),
+            node_recover(args.fail_node_at + 8.0, "node0")])
     vocab = variants[next(iter(variants))][0].vocab_size
     load = args.load or LOAD[args.full_width]
     run_serving_loop(engine, ctrl, seconds=args.seconds,
@@ -248,11 +291,13 @@ def serve(args: argparse.Namespace, profiles=None, log=print) -> dict:
                      load_fn=rise_fall_load(max(args.seconds, 1), *load),
                      prompt_len=geo["prompt_len"], max_new=geo["max_new"],
                      vocab=vocab if args.full_width else 256,
-                     slo_ms=args.slo_ms, slo_monitor=slo_monitor, log=log)
+                     faults=faults, slo_ms=args.slo_ms,
+                     slo_monitor=slo_monitor, log=log)
     s = engine.summarize(args.slo_ms,
                          max(p.accuracy for p in profiles.values()))
     out = dict(engine=engine, summary=s or None,
                slo_monitor=slo_monitor, flight=flight, reports={},
+               faults=faults, controller=ctrl,
                burn_resolves=sum(1 for d in ctrl.audit.entries
                                  if d.reason == "burn_rate"))
     if not s:

@@ -71,13 +71,11 @@ def run_serving_loop(engine: ServingAPI, ctrl, *, seconds: float,
     ``now`` (see ``trace_load`` to replay a recorded trace). The controller
     steps every ``interval`` seconds; the engine is ticked (admission + one
     decode chunk) every ``tick_sleep``, and drained before returning.
-    ``faults`` (a fault schedule with ``next_t()`` and ``apply_due(now,
-    engine)``, event times in elapsed seconds) is injected into
-    fabric-backed engines as wall-clock time passes; the port has no such
-    engine until the replica fabric (the fabric half of ROADMAP A3) lands.
-    ``slo_ms`` stamps each request's deadline (deadline-aware schedulers
-    and the goodput metric read it). Returns the number of requests
-    submitted.
+    ``faults`` (a ``repro_torch.cluster.faults.FaultSchedule`` with event
+    times in elapsed seconds) is injected into fabric-backed engines as
+    wall-clock time passes. ``slo_ms`` stamps each request's deadline
+    (deadline-aware schedulers and the goodput metric read it). Returns
+    the number of requests submitted.
 
     ``slo_monitor`` (a ``repro_torch.obs.slo.SLOMonitor`` over the engine's
     windowed metrics) turns on the online reaction path: every iteration

@@ -93,8 +93,20 @@ event recorded after it (``device_ms``) and the rest of the exec phase
 (``host_sync_ms``) land on that tick's record; other ticks record no event
 and never synchronise.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-ignored: the replica fabric ``nodes=`` (ROADMAP A3).
+Replica sharding (``nodes=``, ``placement=``, ``router=``,
+``replica_size=``): the engine mounts the shared
+``repro_torch.cluster.ReplicaFabric`` and an allocation of n units becomes
+replicas ("variant#i"), each a whole backend with its own weights, KV
+cache or page pool, captured graphs and admission queue, placed on nodes
+by the configured policy. ``submit`` routes in two levels: the caller's
+dispatcher picks the variant, the engine's ``RoutingAPI`` the replica
+(power-of-two-choices least-outstanding by default). ``inject_fault``
+takes node crashes (the in-flight and queued requests of the killed
+replicas are re-submitted to their variant's survivors with their original
+arrival), node recoveries and replica slow-downs (a decode commit
+stretched by the slow factor). A killed or retired replica is closed, so
+its graphs and their pool go with it. Without ``nodes`` the engine keeps
+one backend per variant, keyed by the variant's name.
 """
 from __future__ import annotations
 
@@ -102,11 +114,16 @@ import functools
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Deque, Dict, List, Mapping, Optional, Set, Tuple
+from typing import (Callable, Deque, Dict, List, Mapping, Optional,
+                    Sequence, Set, Tuple)
 
 import numpy as np
 import torch
 
+from repro_torch.cluster.faults import FaultEvent
+from repro_torch.cluster.placement import Node
+from repro_torch.cluster.replicas import ReplicaFabric
+from repro_torch.cluster.router import ReplicaView, make_router
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build as kbuild
@@ -332,6 +349,7 @@ class VariantBackend:
         self.units = 1
         self.slot_cap: Optional[int] = None   # units -> concurrency (enforced
         # only when the engine runs with enforce_units; see free_slots)
+        self.slow_factor = 1.0   # straggler fault: decode stretched by this
         self.slot_req: List[Optional[Request]] = [None] * max_batch
         self.slot_remaining = np.zeros((max_batch,), np.int64)
         self.slot_tokens: List[List[int]] = [[] for _ in range(max_batch)]
@@ -978,6 +996,11 @@ class VariantBackend:
         toks = self._read_pending(pending)
         if pending.kind == "spec":
             return self._spec_pair.commit(pending, toks, now)
+        if self.slow_factor > 1.0 and pending.kind == "decode":
+            # injected straggler: the chunk's time, device included (the
+            # read waited for it), scales by slow_factor
+            time.sleep((time.perf_counter() - pending.dispatched_at)
+                       * (self.slow_factor - 1.0))
         finished: List[Request] = []
         for slot, r, gen_id, resume_tok, gen_before, fin \
                 in pending.fused_completions:
@@ -1682,13 +1705,6 @@ class DraftPair:
                 "tokens_per_step": (acc + rounds) / max(rounds, 1)}
 
 
-def _refuse(option: str, value, default, item: str) -> None:
-    if value != default:
-        raise NotImplementedError(
-            f"{option}={value!r} is not ported to repro_torch yet "
-            f"(ROADMAP {item})")
-
-
 class InProcessServingEngine:
     """``ServingAPI`` on real models (continuous batching or legacy pump).
 
@@ -1704,6 +1720,8 @@ class InProcessServingEngine:
     a hidden drafter of the first variant to every backend of the second
     (``DraftPair``, ``spec_k`` drafts a round). ``trace``, ``obs`` and
     ``profile_dispatch`` set up observability (see the module docstring).
+    ``nodes`` (with ``placement``, ``router`` and ``replica_size``) mounts
+    the replica fabric; ``None`` keeps one backend per variant.
     """
 
     def __init__(self, variants: Mapping[str, Tuple[ModelConfig, float]],
@@ -1714,7 +1732,9 @@ class InProcessServingEngine:
                  device=None,
                  weights: Optional[Mapping[str, Dict]] = None,
                  clock: Callable[[], float] = time.time,
-                 nodes=None, kv_cache: str = "dense",
+                 nodes: Optional[Sequence[Node]] = None,
+                 placement="first-fit", router="p2c", replica_size: int = 1,
+                 kv_cache: str = "dense",
                  kv_page_size: int = 16,
                  kv_pool_pages: Optional[int] = None,
                  kv_prefix_sharing: bool = False,
@@ -1761,7 +1781,6 @@ class InProcessServingEngine:
                 raise ValueError(f"spec_k={spec_k} must fit inside the "
                                  f"decode budget (1..{max_new})")
             self.spec_drafter, self.spec_verifier = drafter, verifier
-        _refuse("nodes", nodes, None, "A3")
         self.device = resolve_device(device)
         # scheduling discipline between each backend's queue and its slots:
         # "fifo" = arrival order; "edf" = deadline-order admission;
@@ -1822,6 +1841,19 @@ class InProcessServingEngine:
         self.done: List[Request] = []
         self.rejected: int = 0
         self.cost_log: List[Tuple[float, int]] = []
+        # replica sharding (cluster fabric): backends keyed by replica rid
+        # ("variant#i") instead of variant name; ``nodes=None`` keeps the
+        # one-backend-per-variant layout
+        self.fabric: Optional[ReplicaFabric] = None
+        self.router = None
+        if nodes is not None:
+            # loading is synchronous on this engine (a backend's
+            # construction blocks for its measured readiness), so fabric
+            # readiness is immediate
+            self.fabric = ReplicaFabric(nodes, policy=placement,
+                                        replica_size=replica_size,
+                                        rt_fn=lambda m: 0.0)
+            self.router = make_router(router, metrics=self.metrics)
         prepare_kernels(use_kernels, self.device)
 
     def _make_backend(self, variant: str) -> VariantBackend:
@@ -1882,6 +1914,9 @@ class InProcessServingEngine:
     # ------------------------------------------------------------ ClusterAPI
     def apply_allocation(self, t: float, units: Mapping[str, int]) -> None:
         target = {m: n for m, n in units.items() if n > 0}
+        if self.fabric is not None:
+            self._apply_fabric(t, target)
+            return
         for m, n in target.items():
             if m not in self.backends:
                 self.backends[m] = self._make_backend(m)
@@ -1900,6 +1935,31 @@ class InProcessServingEngine:
         self.units = dict(target)
         self.cost_log.append((t, sum(target.values())))
 
+    def _apply_fabric(self, t: float, target: Mapping[str, int]) -> None:
+        """Replica-granular create-then-remove: the fabric diffs the target
+        replica multiset, new replicas become whole backends (ready on
+        construction: the load blocks here, which is rt_m), surplus
+        replicas drain their slots and requeue waiters, then close."""
+        tr = self.fabric.apply(t, target)
+        for rep in tr.created:
+            b = self._make_backend(rep.variant)
+            b.units = rep.units
+            b.slot_cap = min(rep.units, self.max_batch) \
+                if self.enforce_units else None
+            b.slow_factor = rep.slow_factor
+            rep.handle = b
+            self.backends[rep.rid] = b
+            self.queues.setdefault(rep.rid, deque())
+        for rep in self.fabric.purge(t):     # switch_t == t: loads blocked
+            rep.handle = None
+            b = self.backends.pop(rep.rid, None)
+            if b is not None and not rep.crashed:
+                self.done.extend(b.drain_slots(t))
+                b.close()        # its graphs and their pool go with it
+        self._rebalance_queues()
+        self.units = dict(target)
+        self.cost_log.append((t, self.fabric.provisioned_units()))
+
     def _rebalance_queues(self) -> None:
         """Move requests queued on retired backends to the least-loaded live
         ones (orphans stay queued while no variant is loaded)."""
@@ -1914,6 +1974,8 @@ class InProcessServingEngine:
                 self.queues.setdefault(tgt, deque()).append(r)
 
     def loaded_variants(self, t: float) -> Set[str]:
+        if self.fabric is not None:
+            return set(self.fabric.variants_ready(t))
         return set(self.backends)
 
     def backlog(self, t: float) -> float:
@@ -1921,9 +1983,15 @@ class InProcessServingEngine:
         return float(sum(len(q) for q in self.queues.values()))
 
     def capacity_factor(self, t: float) -> float:
-        """Fraction of the target allocation live: always 1.0 without the
-        replica fabric."""
-        return 1.0
+        """Fraction of the target allocation live (1.0 without the replica
+        fabric), so reactive controllers see a crash at once."""
+        return self.fabric.capacity_factor(t) if self.fabric is not None \
+            else 1.0
+
+    def mark_warm(self, variants: Optional[Sequence[str]] = None,
+                  t: float = 0.0) -> None:
+        """Harness parity with the simulator: a backend is ready the moment
+        its construction returns, so warm start is a no-op."""
 
     def in_flight(self) -> int:
         return sum(b.active_slots for b in self.backends.values())
@@ -1938,11 +2006,64 @@ class InProcessServingEngine:
             self.done.extend(b.flush_pending(now))
         return len(self.done) - n0
 
+    # ----------------------------------------------------------------- faults
+    def inject_fault(self, now: float, event: FaultEvent) -> None:
+        """Apply one ``repro_torch.cluster.faults`` event (fabric only)."""
+        if self.fabric is None:
+            raise RuntimeError("fault injection requires the replica fabric "
+                               "(construct the engine with nodes=)")
+        if event.kind == "node_crash":
+            self._crash_node(now, event.target)
+        elif event.kind == "node_recover":
+            self.fabric.recover_node(now, event.target)
+        elif event.kind in ("replica_slowdown", "replica_restore"):
+            factor = event.factor if event.kind == "replica_slowdown" else 1.0
+            if self.fabric.slow_replica(now, event.target, factor):
+                rep = self.fabric.replicas[event.target]
+                if rep.handle is not None:
+                    rep.handle.slow_factor = rep.slow_factor
+        if self.obs.flight is not None:   # snapshot the run-up to the fault
+            self.obs.flight.trigger(f"fault_{event.kind}", now,
+                                    extra={"target": event.target,
+                                           "factor": event.factor})
+
+    def _crash_node(self, now: float, node_id: str) -> None:
+        """Kill every replica on the node now (no drain): their in-flight
+        and queued requests are re-submitted to survivors, keeping their
+        original arrival, so the failure's latency cost is measured. Each
+        killed backend is closed after the flush, so no graph of it is
+        replayed again and no event of it is waited on."""
+        # commit in-flight async ticks first: a request whose last tokens
+        # are already committed on a survivor must not be re-submitted, and
+        # the killed replicas' zombies complete here, once
+        self.flush_pending(now)
+        killed = self.fabric.crash_node(now, node_id)
+        orphans: List[Tuple[str, Request]] = []
+        for rep in killed:
+            rep.handle = None
+            b = self.backends.pop(rep.rid, None)
+            orphans.extend((rep.variant, r)
+                           for r in self.queues.pop(rep.rid, deque()))
+            if b is not None:
+                orphans.extend((rep.variant, r)
+                               for r in b.slot_req if r is not None)
+                b.close()
+        self.fabric.purge(now)
+        for variant, r in orphans:
+            r.service_start = 0.0        # the retry starts from the queue
+            # the retry keeps the dispatcher's variant: its surviving
+            # replicas absorb first; _route_replica spills to the whole
+            # cluster only if none is left. Full or empty: a rejection
+            self.submit(r, variant)
+
     # ---------------------------------------------------------------- serving
     def submit(self, req: Request, backend: Optional[str]) -> bool:
-        """Enqueue on ``backend``'s admission queue (or the shortest queue
-        when that variant is not loaded). Returns False — backpressure —
-        when the queue is full or nothing is loaded."""
+        """Enqueue on an admission queue. Without the fabric ``backend``
+        names the variant's backend (the shortest queue when that variant
+        is not loaded); with it, routing has two levels: the caller's
+        dispatcher picked the variant, the ``RoutingAPI`` picks its
+        replica. Returns False — backpressure — when the queue is full or
+        nothing is loaded."""
         if not self.backends:
             self.rejected += 1
             self.metrics.inc("requests.rejected")
@@ -1951,9 +2072,12 @@ class InProcessServingEngine:
             self.tracer.request_event(req, ev.REJECTED, self.clock(),
                                       reason="no_backend")
             return False
-        name = backend if backend in self.backends else \
-            min(self.queues, key=lambda m: len(self.queues[m])) \
-            if self.queues else min(self.backends)
+        if self.fabric is not None:
+            name = self._route_replica(req, backend)
+        else:
+            name = backend if backend in self.backends else \
+                min(self.queues, key=lambda m: len(self.queues[m])) \
+                if self.queues else min(self.backends)
         q = self.queues.setdefault(name, deque())
         if len(q) >= self.queue_cap:
             self.rejected += 1
@@ -1968,10 +2092,25 @@ class InProcessServingEngine:
         self.metrics.inc("requests.submitted")
         if self.windows.on:
             self.windows.inc("requests.submitted", self.clock())
-        # stamped at clock(), not req.arrival, so span times stay monotone
+        # stamped at clock(), not req.arrival: a crash retry re-queues with
+        # its original arrival, and span times must stay monotone
         self.tracer.request_event(req, ev.QUEUED, self.clock(), backend=name,
                                   arrival=req.arrival)
         return True
+
+    def _route_replica(self, req: Request, variant: Optional[str]) -> str:
+        """Level 2 of two-level routing: the replica rid. Outstanding =
+        queued + in-slot requests, over the replica's units, so bigger
+        replicas absorb proportionally more."""
+        rids = [rid for rid, b in self.backends.items()
+                if variant is not None and b.name == variant]
+        if not rids:                     # unknown/retired variant: all live
+            rids = list(self.backends)
+        views = [ReplicaView(
+            rid,
+            len(self.queues.get(rid, ())) + self.backends[rid].active_slots,
+            self.backends[rid].units) for rid in rids]
+        return self.router.pick(views)
 
     def step(self, now: float) -> int:
         """ONE engine tick (continuous mode): each backend admits waiting

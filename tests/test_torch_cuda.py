@@ -1408,3 +1408,154 @@ def test_live_backend_profiled_in_place_on_the_card(cuda):
                            max_new=8, arrival=time.time()), "L2")
     eng.drain(0.0)
     assert len(eng.done) == 6 and all(len(r.output) == 8 for r in eng.done)
+
+
+# ------------------------------------------------------------ replica fabric
+def _fabric_engine(cuda, cfg, n_nodes=2, node_cap=2, **kw):
+    """A fabric of ``n_nodes`` nodes (spread, single-unit replicas, p2c)
+    over the one variant "v" of ``cfg``, kernels on, steps replayed."""
+    from repro_torch.cluster import make_nodes
+    from repro_torch.serving.engine import InProcessServingEngine
+    kw = {**dict(max_batch=3, prompt_len=32, max_new=8, decode_chunk=2,
+                 prefill_chunk=8), **kw}
+    return InProcessServingEngine(
+        {"v": (cfg, 70.0)}, use_kernels=True, device=cuda,
+        nodes=make_nodes(n_nodes, node_cap), placement="spread", **kw)
+
+
+def _fabric_requests(vocab, n, arrival=0.0):
+    from repro_torch.serving.api import Request
+    rng = np.random.default_rng(11)
+    return [Request(rid=i, tokens=rng.integers(0, vocab, 32), max_new=8,
+                    arrival=arrival) for i in range(n)]
+
+
+def test_fabric_killed_replica_memory_is_released(cuda):
+    """A node crash closes its replica: the backend object is collected
+    (nothing holds it: not the fabric, the router, a pending record or a
+    graph), and ``memory_allocated`` falls by at least 90% of its weights
+    and KV cache. Full width at 2 layers, so a replica holds hundreds of
+    MB."""
+    import gc
+    import time
+    import weakref
+    from repro_torch.cluster import node_crash
+    from repro_torch.configs import get_config
+    from repro_torch.serving.graphs import tensor_leaves
+    cfg = get_config("tinyllama-1.1b").replace(num_layers=2, name="v")
+    eng = _fabric_engine(cuda, cfg, max_batch=4, prompt_len=64)
+    eng.apply_allocation(0.0, {"v": 2})
+    for r in _fabric_requests(cfg.vocab_size, 8, time.time()):
+        assert eng.submit(r, "v")
+    eng.step(0.0)                               # both replicas hold work
+    (rid,) = [r.rid for r in eng.fabric.replicas.values()
+              if r.node_id == "node0"]
+    b = eng.backends[rid]
+    own = sum(t.numel() * t.element_size()
+              for t in tensor_leaves(b.params) + tensor_leaves(b.cache))
+    alive = weakref.ref(b)
+    del b
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    eng.inject_fault(time.time(), node_crash(time.time(), "node0"))
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert alive() is None
+    assert own > 200e6
+    assert before - after >= 0.9 * own, (before, after, own)
+    eng.drain(0.0)
+    assert sorted(r.rid for r in eng.done) == list(range(8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fabric_replicas_replay_equal_tokens(cuda, dtype):
+    """Two replicas of one variant, each its own seeded weights and its own
+    captured graphs, give each request the tokens one backend of the
+    variant gives it: the graphs run at ``max_batch``, so a row's
+    arithmetic does not depend on its neighbours."""
+    import time
+    from repro_torch.serving.engine import InProcessServingEngine
+    cfg = _smoke("tinyllama-1.1b", num_layers=2, dtype=dtype)
+    eng = _fabric_engine(cuda, cfg)
+    eng.apply_allocation(0.0, {"v": 2})
+    one = InProcessServingEngine({"v": (cfg, 70.0)}, max_batch=3,
+                                 prompt_len=32, max_new=8, decode_chunk=2,
+                                 use_kernels=True, device=cuda)
+    one.apply_allocation(0.0, {"v": 1})
+    for e in (eng, one):
+        for i, r in enumerate(_fabric_requests(cfg.vocab_size, 9,
+                                               time.time())):
+            assert e.submit(r, "v")
+            if i % 2:
+                e.step(0.0)
+        e.drain(0.0)
+    got = {r.rid: list(r.output) for r in eng.done}
+    want = {r.rid: list(r.output) for r in one.done}
+    assert len(got) == 9 and got == want
+    assert {r.backend for r in eng.done} == {"v#0", "v#1"}
+    assert all(b.graphs for b in eng.backends.values())
+
+
+def test_fabric_crash_during_an_async_tick_commits_it_once(cuda):
+    """With the async tick the crashed replica holds a dispatched tick: the
+    crash commits it (its finished rows complete there, once) and closes
+    the backend, whose steps are never run again; the rest retry on the
+    survivor and every request completes exactly once."""
+    import time
+    from repro_torch.cluster import node_crash
+    cfg = _smoke("tinyllama-1.1b", num_layers=2)
+    eng = _fabric_engine(cuda, cfg, async_tick=True)
+    eng.apply_allocation(0.0, {"v": 2})
+    for r in _fabric_requests(cfg.vocab_size, 10, time.time()):
+        eng.submit(r, "v")
+    for _ in range(3):
+        eng.step(0.0)
+    killed = eng.backends["v#0"]
+    assert killed._pending is not None              # a tick in flight
+    runs = []
+    step = killed._step
+    killed._step = lambda *a, **k: runs.append(a) or step(*a, **k)
+    eng.inject_fault(time.time(), node_crash(time.time(), "node0"))
+    assert killed._pending is None and not killed.graphs
+    assert "v#0" not in eng.backends and eng.capacity_factor(0.0) == 0.5
+    eng.drain(0.0)
+    eng.flush_pending(0.0)
+    assert runs == []
+    rids = [r.rid for r in eng.done]
+    assert sorted(rids) == list(range(10))          # each exactly once
+    assert all(len(r.output) == 8 for r in eng.done)
+
+
+def test_fabric_slow_factor_stretches_a_decode_commit(cuda):
+    """A replica slowed 3x: each of its decode commits ends at least 2.5x
+    its dispatch-to-read time after dispatch (the sleep scales the chunk's
+    time, device included), while its twin's are not stretched (median
+below 2x: the bookkeeping after the read adds to a short chunk)."""
+    import time
+    from repro_torch.cluster import replica_slowdown
+    cfg = _smoke("tinyllama-1.1b", num_layers=2)
+    eng = _fabric_engine(cuda, cfg)
+    eng.apply_allocation(0.0, {"v": 2})
+    eng.inject_fault(0.0, replica_slowdown(0.0, "v#0", 3.0))
+    spans = {"v#0": [], "v#1": []}
+    for rid, b in eng.backends.items():
+        commit = b.commit_exec
+
+        def timed(pending, now, b=b, rid=rid, commit=commit):
+            out = commit(pending, now)
+            if pending is not None and pending.kind == "decode":
+                spans[rid].append((time.perf_counter()
+                                   - pending.dispatched_at) * 1e3
+                                  / max(b.commit_gap_ms
+                                        + b.commit_wait_ms, 1e-6))
+            return out
+        b.commit_exec = timed
+    for r in _fabric_requests(cfg.vocab_size, 12, time.time()):
+        eng.submit(r, "v")
+    eng.drain(0.0)
+    assert len(eng.done) == 12
+    assert spans["v#0"] and spans["v#1"]
+    assert min(spans["v#0"]) >= 2.5, spans
+    assert float(np.median(spans["v#1"])) < 2.0, spans

@@ -1,8 +1,8 @@
 """The port's serving engine and control plane against the reference:
 identical per-request outputs from both engines on the same requests with
 bridged weights (continuous and pump modes), the InfAdapter loop on the
-port's engine, solver parity of the copied control plane, and the option
-that is refused until ported (the replica fabric)."""
+port's engine, solver parity of the copied control plane, and the
+replica fabric that ``nodes=`` mounts, against the reference's."""
 import time
 
 import numpy as np
@@ -140,10 +140,27 @@ def test_copied_solver_returns_the_reference_allocation(solver, seed):
     assert got.objective == pytest.approx(want.objective)
 
 
-@pytest.mark.parametrize("option", [dict(nodes=[])])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        PEngine(_port_variants(tiny_variants(2)), device="cpu", **option)
+@pytest.mark.parametrize("n_nodes", [0, 2])
+def test_nodes_build_the_reference_fabric(n_nodes):
+    """``nodes=[]`` (nowhere to place a replica) and two nodes of two
+    units: the port's engine mounts the fabric and reports the reference
+    engine's replicas, ``capacity_factor``, ``loaded_variants`` and
+    ``cost_log`` after the same allocations."""
+    from repro.cluster import make_nodes as jnodes
+    from repro_torch.cluster import make_nodes as pnodes
+    jv = tiny_variants(2)
+    jeng = JEngine(jv, nodes=jnodes(n_nodes, 2), placement="spread",
+                   **GEOMETRY)
+    peng = PEngine(_port_variants(jv), device="cpu", nodes=pnodes(n_nodes, 2),
+                   placement="spread", **GEOMETRY)
+    for t, units in ((0.0, {"small": 2, "big": 1}), (1.0, {"big": 2})):
+        for eng in (jeng, peng):
+            eng.apply_allocation(t, units)
+        assert sorted(peng.backends) == sorted(jeng.backends)
+        assert peng.capacity_factor(t) == jeng.capacity_factor(t)
+        assert peng.loaded_variants(t) == jeng.loaded_variants(t)
+        assert peng.cost_log == jeng.cost_log
+    assert peng.fabric is not None
 
 
 def test_backpressure_and_unit_caps():

@@ -43,6 +43,15 @@ def test_the_scan_covers_the_profiling_modules():
             "repro_torch.launch.profile_and_serve"} <= set(MODULES)
 
 
+def test_the_scan_covers_the_cluster_modules():
+    assert {"repro_torch.cluster", "repro_torch.cluster.faults",
+            "repro_torch.cluster.placement", "repro_torch.cluster.replicas",
+            "repro_torch.cluster.router"} <= set(MODULES)
+    assert {p.name for p in (PKG / "cluster").rglob("*.py")} == {
+        "__init__.py", "faults.py", "placement.py", "replicas.py",
+        "router.py"}
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):

@@ -10,7 +10,10 @@ restored, a paged engine profiled on a paged throwaway, and the
 
 The drift mirror holds the detector against a profile measured on the same
 backend in the same test, with a stall of 10x the measured mean service
-time, so no wall-clock band separates two backends built apart."""
+time. The service times the detector compares are read on the engine's
+injected clock, which a decode chunk advances by a fixed quantum and the
+stall by its own length, so the host's load moves no band; the stall also
+sleeps, because the recalibrated throughput is read on the wall clock."""
 import os
 import subprocess
 import sys
@@ -56,7 +59,7 @@ def _engine(**kw):
 def _submit(eng, n, rng, backend="small"):
     for i in range(n):
         eng.submit(Request(rid=i, tokens=rng.integers(0, 128, PROMPT),
-                           max_new=MAX_NEW, arrival=time.time()), backend)
+                           max_new=MAX_NEW, arrival=eng.clock()), backend)
     eng.drain(0.0)
 
 
@@ -127,14 +130,32 @@ def test_roofline_cross_calibration(profiled):
     assert np.isclose(cal.lat_k_ms * scale, raw.lat_k_ms, rtol=1e-6)
 
 
+# the fake clock's advance per dispatched decode chunk (seconds)
+CHUNK_QUANTUM_S = 0.002
+
+
+def _advance_clock_per_chunk(backend, t, quantum_s):
+    """Each decode chunk the backend dispatches advances the clock list
+    ``t`` (the engine's injected clock) by ``quantum_s``."""
+    orig = backend._dispatch_chunk
+
+    def ticking():
+        t[0] += quantum_s
+        return orig()
+    backend._dispatch_chunk = ticking
+
+
 def test_drift_flagged_and_recalibration_shifts_allocation(tmp_path):
     """Healthy engine within band of a profile measured on the same
     backend; the slowed engine flagged; the targeted re-profile patches
     store + controller and the Eq. 1 solver provisions more units for the
-    same load."""
-    eng = _engine()
+    same load. Service times run on a clock that only the decode chunks and
+    the stall advance; the stall also sleeps for the wall-clock rates."""
+    t = [1000.0]
+    eng = _engine(clock=lambda: t[0])
     eng.apply_allocation(0.0, {"small": 2})
     b = eng.backends["small"]
+    _advance_clock_per_chunk(b, t, CHUNK_QUANTUM_S)
     m = EngineProfiler(eng, points=(1, 2), requests_per_point=8, warmup=2,
                        max_units=8).profile_variant("small")
     assert b.slot_cap == 2 and eng.backends["small"] is b
@@ -153,6 +174,7 @@ def test_drift_flagged_and_recalibration_shifts_allocation(tmp_path):
     # a stall of 10x the measured mean service time ahead of every chunk
     stall_s = 10 * max(p.mean_service_ms for p in m.points) / 1e3
     stall_decode_chunks(b, stall_s)
+    _advance_clock_per_chunk(b, t, stall_s)
     _submit(eng, 12, rng)
     detector.observe_engine(eng)
     drifted = detector.check("small", units=2)
