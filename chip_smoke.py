@@ -175,10 +175,32 @@ phase raises, and the script exits nonzero:
               --flight-dir`` serve: every request completes once, the
               crash's flight dump validates, the next decision sees the
               crash and capacity_factor returns to 1.0 (the time printed);
- 13. output   the ``{"kernels": [...]}`` line (launches summed over the
+ 13. eval     the paper's evaluation at full width (tinyllama-1.1b
+              L8/L15/L22, bf16, kernels on, steps replayed) on the profile
+              phase's measured dense profiles: (a) InfAdapter, MS+, VPA+ (on
+              L22), INFaaS and Cocktail, each driving a fresh dense FIFO
+              engine through ``run_serving_loop`` for EVAL_SECONDS of the
+              bursty trace from EVAL_T0 (the spike's onset), scaled so that
+              its base is EVAL_BASE_SHARE of L22's capacity at EVAL_BUDGET
+              units and its spike lies between L22's and L8's (the scale
+              printed): every submission completes once with its full
+              budget or is counted as rejected, every controller leaves its
+              decisions, Cocktail's requests land only on its ensembles'
+              members (one member a request: the loop has no fan-out),
+              flash_prefill and flash_decode launch, each engine closed
+              after its run; decisions, served, rejected, cost and
+              accuracy loss printed, P99, violation rate and goodput over
+              TAIL_MIN_REQUESTS; (b) ``launch.replay_trace --engine
+              --full-width`` in process (the simulated panels, then the
+              trace on a ``chunked`` engine: flash_decode's chunk form
+              launches); (c) ``run_experiment`` of the five controllers on
+              ``SimCluster`` over the same measured profiles, the trace
+              scaled as ``launch.llm_autoscale`` scales it, printed beside
+              (a)'s engine numbers;
+ 14. output   the ``{"kernels": [...]}`` line (launches summed over the
               serve loops, the prefix phase, the obs phase's serve, the
-              profile phase and the fabric phase; the chunk forms' rows
-              carry their verify shape's times), then the ok line last.
+              profile, fabric and eval phases; the chunk forms' rows carry
+              their verify shape's times), then the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -260,6 +282,14 @@ DRIFT_STALL_X = 5
 FAB_N, FAB_CRASH_TICK = 32, 6
 FAB_STRAGGLER_N, FAB_SLOW = 24, 3.0
 FAB_SERVE_SECONDS, FAB_FAIL_AT = 15, 5.0
+# eval phase: the five controllers' serve loops on a window of the bursty
+# trace from EVAL_T0 (the spike starts at 600 s), at EVAL_BUDGET units and
+# EVAL_SLO_MS; the trace is scaled so that its base (EVAL_BASE req/s) is
+# EVAL_BASE_SHARE of what the L22 rung sustains at the full budget
+EVAL_SECONDS, EVAL_INTERVAL = 20, 5.0
+EVAL_T0, EVAL_BASE, EVAL_BASE_SHARE = 595, 40.0, 0.5
+EVAL_BUDGET, EVAL_SLO_MS = 3, 2000.0
+EVAL_CONTROLLERS = ("InfAdapter", "MS+", "VPA+", "INFaaS", "Cocktail")
 # A serve loop reports its P99, violation rate and goodput only over this
 # many requests: over the 10-30 a short loop serves, the P99 is the slowest
 # request and one request moves the rate by several points. Short loops
@@ -1681,12 +1711,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
             "spec.drafts_accepted", "spec.drafts_proposed")},
             spec_accept_rate=s.get("spec_accept_rate"),
             spec_tokens_per_step=s.get("spec_tokens_per_step"))
-    if s["n_requests"] >= TAIL_MIN_REQUESTS:
-        summary.update(p99_ms=s["p99_ms"], goodput=s["goodput"],
-                       violation_rate=s["violation_rate"])
-    else:
-        summary["tail"] = (f"not reported: {s['n_requests']} requests, "
-                           f"under {TAIL_MIN_REQUESTS}")
+    summary.update(tail_fields(s))
     if paged:
         for name, b in engine.backends.items():
             b.pool.assert_invariants()
@@ -2877,6 +2902,256 @@ def fabric_phase(torch, profiles):
     return dict(launches)
 
 
+def eval_controller(kind, profiles, cfg, window):
+    """One of the paper's five controllers over ``profiles``: VPA+ holds the
+    most accurate rung; INFaaS takes any rung (its accuracy floor is the
+    ladder's lowest); the forecasters look back ``window`` seconds."""
+    from repro_torch.core.adapter import (InfAdapterController,
+                                          MSPlusController, VPAPlusController)
+    from repro_torch.core.cocktail import CocktailController
+    from repro_torch.core.forecaster import MovingMaxForecaster
+    from repro_torch.core.infaas import INFaaSController
+    top = max(profiles, key=lambda n: profiles[n].accuracy)
+    fc = MovingMaxForecaster(window=window)
+    if kind == "InfAdapter":
+        return InfAdapterController(profiles, fc, cfg)
+    if kind == "MS+":
+        return MSPlusController(profiles, fc, cfg)
+    if kind == "VPA+":
+        return VPAPlusController(profiles[top], cfg)
+    if kind == "INFaaS":
+        return INFaaSController(profiles, cfg, min_accuracy=min(
+            p.accuracy for p in profiles.values()))
+    return CocktailController(profiles, fc, cfg)
+
+
+def close_engine(torch, eng):
+    """Retire every backend (each is closed: its graphs and pool go) and
+    return the card's ``memory_allocated`` after."""
+    eng.apply_allocation(0.0, {})
+    if eng.backends:
+        raise AssertionError(f"backends left open: {sorted(eng.backends)}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def served_checks(label, eng, n_sub, max_new, vocab):
+    """Every submission finished once with its full budget or was counted
+    as rejected, and nothing is left in flight."""
+    rids = [r.rid for r in eng.done]
+    if len(rids) != len(set(rids)):
+        raise AssertionError(f"{label}: a request completed twice")
+    if len(rids) + eng.rejected != n_sub:
+        raise AssertionError(f"{label}: {n_sub} submitted, {len(rids)} "
+                             f"done, {eng.rejected} rejected")
+    bad = [r.rid for r in eng.done if len(r.output) != max_new
+           or not ((r.output >= 0) & (r.output < vocab)).all()]
+    if bad:
+        raise AssertionError(f"{label}: requests with wrong outputs: "
+                             f"{bad[:10]}")
+    if eng.in_flight() or eng.backlog(0.0):
+        raise AssertionError(f"{label}: work left after the drain")
+
+
+def tail_fields(s):
+    """P99, violation rate and goodput over TAIL_MIN_REQUESTS or more."""
+    if s["n_requests"] >= TAIL_MIN_REQUESTS:
+        return dict(p99_ms=s["p99_ms"], violation_rate=s["violation_rate"],
+                    goodput=s["goodput"])
+    return {"tail": f"not reported: {s['n_requests']} requests, under "
+                    f"{TAIL_MIN_REQUESTS}"}
+
+
+def eval_serve(torch, kind, variants, profiles, scale):
+    """Part (a): ``kind`` drives a fresh dense FIFO engine of the
+    full-width ladder through ``run_serving_loop`` for EVAL_SECONDS of the
+    bursty trace from EVAL_T0, scaled by ``scale``. Returns (summary,
+    launches)."""
+    from repro_torch.core.adapter import ControllerConfig
+    from repro_torch.data.traces import paper_bursty_trace
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import GEOMETRY
+    from repro_torch.serving.driver import run_serving_loop, trace_load
+    from repro_torch.serving.engine import InProcessServingEngine
+    geo = GEOMETRY[True]
+    vocab = next(iter(variants.values()))[0].vocab_size
+    cfg = ControllerConfig(interval_s=EVAL_INTERVAL, budget=EVAL_BUDGET,
+                           slo_ms=EVAL_SLO_MS, beta=0.05, gamma=0.05,
+                           reactive=True, queue_aware=True)
+    ctrl = eval_controller(kind, profiles, cfg, window=10)
+    mem0 = torch.cuda.memory_allocated()
+    eng = InProcessServingEngine(variants, use_kernels=True, device=DEVICE,
+                                 **geo)
+    load = trace_load(paper_bursty_trace()[EVAL_T0:], scale=scale)
+    log(f"  {kind}: serving {EVAL_SECONDS}s of the bursty trace from "
+        f"{EVAL_T0}s at scale {scale:.5f}")
+    ops.reset_launch_counts()
+    t0 = time.time()
+    n_sub = run_serving_loop(eng, ctrl, seconds=EVAL_SECONDS,
+                             interval=EVAL_INTERVAL, load_fn=load,
+                             prompt_len=geo["prompt_len"],
+                             max_new=geo["max_new"], vocab=vocab,
+                             slo_ms=EVAL_SLO_MS,
+                             log=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ops.launch_counts()
+    served_checks(kind, eng, n_sub, geo["max_new"], vocab)
+    if len(ctrl.decisions) < EVAL_SECONDS / EVAL_INTERVAL:
+        raise AssertionError(f"{kind}: {len(ctrl.decisions)} decisions")
+    decisions = [(round(d.t, 3), {m: n for m, n in
+                                  d.allocation.units.items() if n})
+                 for d in ctrl.decisions]
+    if kind == "Cocktail":
+        members = set().union(*(u for _, u in decisions))
+        stray = {r.backend for r in eng.done} - members
+        if stray:
+            raise AssertionError(f"Cocktail served on {stray}, outside its "
+                                 f"ensembles {members}")
+    best = max(a for _, a in variants.values())
+    s = eng.summarize(EVAL_SLO_MS, best) if eng.done else {}
+    if not s:
+        raise AssertionError(f"{kind}: no request completed ({n_sub} "
+                             f"submitted, {eng.rejected} rejected)")
+    summary = dict(decisions=decisions, submitted=n_sub,
+                   served=s["n_requests"], rejected=eng.rejected,
+                   avg_cost_units=s["avg_cost_units"],
+                   accuracy_loss=s["accuracy_loss"], p50_ms=s["p50_ms"],
+                   wall_s=wall, **tail_fields(s))
+    summary["memory_left_bytes"] = close_engine(torch, eng) - mem0
+    del eng
+    log(f"  {kind}: " + json.dumps(summary))
+    return summary, launches
+
+
+def eval_replay(torch, profiles, scale):
+    """Part (b): the replay launcher in process with ``--engine
+    --full-width`` (its ``chunked`` scheduler: the dense fused tick) on the
+    profile phase's profiles. Returns (summary, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import replay_trace
+    from repro_torch.launch.serve import GEOMETRY
+    geo = GEOMETRY[True]
+    vocab = next(iter(replay_trace.engine_ladder(True).values()))[0].vocab_size
+    ops.reset_launch_counts()
+    t0 = time.time()
+    out = replay_trace.main(
+        ["--engine", "--full-width", "--device", DEVICE, "--engine-seconds",
+         str(EVAL_SECONDS), "--engine-scale", f"{scale:.5f}"],
+        profiles=profiles, log=lambda m: log("    " + m))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    res = out["engine"]
+    eng, s = res["engine"], res["summary"]
+    if s is None:
+        raise AssertionError("replay launcher: no request completed")
+    served_checks("replay launcher", eng, res["submitted"], geo["max_new"],
+                  vocab)
+    if launches["flash_decode_chunk"] < 1:
+        raise AssertionError(f"the replay's chunked engine never ran "
+                             f"flash_decode's chunk form: {launches}")
+    summary = dict(submitted=res["submitted"], served=s["n_requests"],
+                   rejected=eng.rejected, avg_cost_units=s["avg_cost_units"],
+                   accuracy_loss=s["accuracy_loss"],
+                   wall_s=time.time() - t0, **tail_fields(s))
+    close_engine(torch, eng)
+    del eng, res, out
+    log("  replay launcher: " + json.dumps(summary))
+    return summary, launches
+
+
+def eval_sim(profiles):
+    """Part (c): ``run_experiment`` of the five controllers on
+    ``SimCluster`` over the card's measured profiles, on the bursty trace
+    scaled as ``launch.llm_autoscale`` scales it (base 2x, spike 4.5x the
+    slowest rung's th(4)), at its budget of 12 units. Returns name ->
+    summary."""
+    from repro_torch.core.adapter import ControllerConfig
+    from repro_torch.data.traces import paper_bursty_trace
+    from repro_torch.sim.runner import run_experiment
+    cap4 = min(p.throughput(4) for p in profiles.values())
+    trace = paper_bursty_trace(base=cap4 * 2.0, spike=cap4 * 4.5)
+    cfg = ControllerConfig(budget=12, slo_ms=EVAL_SLO_MS, beta=0.02,
+                           gamma=0.05)
+    best = max(p.accuracy for p in profiles.values())
+    fastest = max(profiles, key=lambda m: profiles[m].th_slope)
+    top = max(profiles, key=lambda m: profiles[m].accuracy)
+    log(f"  simulator: the bursty trace at base {cap4 * 2.0:.3f}, spike "
+        f"{cap4 * 4.5:.3f} req/s, budget 12")
+    out = {}
+    for kind in EVAL_CONTROLLERS:
+        ctrl = eval_controller(kind, profiles, cfg, window=120)
+        profs, warm = ({top: profiles[top]}, {top: 4}) if kind == "VPA+" \
+            else (profiles, {fastest: 4})
+        r = run_experiment(kind, ctrl, profs, trace, slo_ms=EVAL_SLO_MS,
+                           warm_start=warm, reference_accuracy=best)
+        out[kind] = {k: r.summary[k] for k in (
+            "n_requests", "violation_rate", "p99_ms", "accuracy_loss",
+            "avg_cost_units", "goodput")}
+        if not out[kind]["n_requests"] > 0:
+            raise AssertionError(f"simulator: {kind} served nothing")
+    return out
+
+
+def eval_phase(torch, measured):
+    """The paper's evaluation on the card: (a) the five controllers, each
+    on a fresh dense engine of the full-width ladder; (b) the replay
+    launcher's engine replay; (c) the simulator on the same measured
+    profiles. Returns the phase's launch counts."""
+    from collections import Counter
+    from repro_torch.launch.serve import build_ladder
+    t_phase = time.time()
+    log("[13] eval: InfAdapter, MS+, VPA+, INFaaS and Cocktail on the "
+        "full-width ladder over the bursty trace; the replay launcher; the "
+        "simulator on the measured profiles")
+    variants = build_ladder("tinyllama-1.1b", full_width=True)
+    profiles = {n: measured[n] for n in variants}
+    top = max(variants, key=lambda n: variants[n][0].num_layers)
+    low = min(variants, key=lambda n: variants[n][0].num_layers)
+    cap = profiles[top].throughput(EVAL_BUDGET)
+    scale = EVAL_BASE_SHARE * cap / EVAL_BASE
+    spike = 95.0 * scale
+    log(f"  scale {scale:.5f}: base {EVAL_BASE * scale:.3f} req/s = "
+        f"{EVAL_BASE_SHARE} x {top}'s th({EVAL_BUDGET}) {cap:.3f}; spike "
+        f"{spike:.3f} req/s against {low}'s th({EVAL_BUDGET}) "
+        f"{profiles[low].throughput(EVAL_BUDGET):.3f}")
+    if not cap < spike < profiles[low].throughput(EVAL_BUDGET):
+        raise AssertionError("the spike does not sit between the rungs' "
+                             "capacities")
+    summary, launches = {"scale": scale, "engine": {}}, Counter()
+    for kind in EVAL_CONTROLLERS:
+        summary["engine"][kind], n = eval_serve(torch, kind, variants,
+                                                profiles, scale)
+        launches.update(n)
+    for k in ("flash_prefill", "flash_decode"):
+        if launches[k] < 1:
+            raise AssertionError(f"{k} never ran in the controllers' loops: "
+                                 f"{dict(launches)}")
+    summary["replay"], n = eval_replay(torch, profiles, scale)
+    launches.update(n)
+    t0 = time.time()
+    summary["sim"] = eval_sim(profiles)
+    summary["sim_wall_s"] = time.time() - t0
+    log(f"  {'controller':<11} | simulator: {'viol%':>7} {'p99 ms':>9} "
+        f"{'acc loss':>8} {'cost':>6} | engine: {'served':>6} {'rej':>4} "
+        f"{'viol%':>7} {'p99 ms':>9} {'acc loss':>8} {'cost':>6}")
+    for kind in EVAL_CONTROLLERS:
+        m, e = summary["sim"][kind], summary["engine"][kind]
+        tail = (f"{e['violation_rate'] * 100:6.2f}% {e['p99_ms']:9.1f}"
+                if "p99_ms" in e else f"{'n/a':>7} {'n/a':>9}")
+        log(f"  {kind:<11} | {m['violation_rate'] * 100:17.2f}% "
+            f"{m['p99_ms']:9.1f} {m['accuracy_loss']:8.3f} "
+            f"{m['avg_cost_units']:6.2f} | {e['served']:14d} "
+            f"{e['rejected']:4d} {tail} {e['accuracy_loss']:8.3f} "
+            f"{e['avg_cost_units']:6.2f}")
+    summary["wall_s"] = time.time() - t_phase
+    log(f"  eval phase: {summary['wall_s']:.1f}s; launches "
+        f"{dict(launches)}")
+    log("  eval summary " + json.dumps(summary, default=str))
+    return dict(launches)
+
+
 def profiling_phase(torch, profiles):
     """The paper's Profiler on the card (``repro_torch.profiling``): the
     full-width L8/L15/L22 dense ladder at the serve geometry, sync FIFO,
@@ -2893,7 +3168,7 @@ def profiling_phase(torch, profiles):
     (``VariantBackend._dispatch_chunk``) flagged; ``OnlineRecalibrator``
     re-profiles it at (1, 2), throughput(1) falls and the controller
     provisions more units for the same load. Returns (launch counts of the
-    phase, summary)."""
+    phase, summary, the dense rungs' measured ``VariantProfile``s)."""
     import dataclasses
     import tempfile
     import numpy as np
@@ -3093,7 +3368,7 @@ def profiling_phase(torch, profiles):
     log(f"  profile phase: {summary['wall_s']:.1f}s; launches "
         + json.dumps(launches))
     log("  profile summary " + json.dumps(summary))
-    return launches, summary
+    return launches, summary, {n: measured[n].profile for n in variants}
 
 
 def main():
@@ -3159,11 +3434,13 @@ def main():
         speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22", spec_k=SPEC_K),
         seconds=SPEC_SERVE_SECONDS)
     obs = obs_phase(torch, profiles)
-    prof, _ = profiling_phase(torch, profiles)
+    prof, _, measured = profiling_phase(torch, profiles)
     fabric = fabric_phase(torch, profiles)
+    evaluation = eval_phase(torch, measured)
     for r in rows:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
-            dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric))
+            dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
+            evaluation))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3175,7 +3452,7 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[13] total wall time {time.time() - t_start:.1f}s")
+    log(f"[14] total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))

@@ -1,0 +1,2 @@
+"""Workload data of the port: the synthetic, seeded request-rate traces
+(``traces``), a copy of the reference's host-only module."""

@@ -1559,3 +1559,70 @@ below 2x: the bookkeeping after the read adds to a short chunk)."""
     assert spans["v#0"] and spans["v#1"]
     assert min(spans["v#0"]) >= 2.5, spans
     assert float(np.median(spans["v#1"])) < 2.0, spans
+
+
+# ------------------------------------------------- the paper's controllers
+EVAL_PROFILE = {     # rung -> (th_slope req/s a unit, p99 base ms, k ms)
+    2: (9.0, 40.0, 160.0), 4: (6.0, 60.0, 240.0), 6: (4.0, 90.0, 330.0)}
+
+
+def _eval_controller(kind, profiles):
+    from repro_torch.core.adapter import (ControllerConfig,
+                                          InfAdapterController,
+                                          MSPlusController, VPAPlusController)
+    from repro_torch.core.cocktail import CocktailController
+    from repro_torch.core.forecaster import MovingMaxForecaster
+    from repro_torch.core.infaas import INFaaSController
+    cfg = ControllerConfig(interval_s=1.0, budget=12, slo_ms=2000.0,
+                           beta=0.05, gamma=0.05, reactive=True,
+                           queue_aware=True)
+    fc = MovingMaxForecaster(window=10)
+    return {"infadapter": lambda: InfAdapterController(profiles, fc, cfg),
+            "ms+": lambda: MSPlusController(profiles, fc, cfg),
+            "vpa+": lambda: VPAPlusController(profiles["L6"], cfg),
+            "infaas": lambda: INFaaSController(profiles, cfg,
+                                               min_accuracy=70.0),
+            "cocktail": lambda: CocktailController(profiles, fc, cfg)}[kind]()
+
+
+@pytest.mark.parametrize("kind", ["infadapter", "ms+", "vpa+", "infaas",
+                                  "cocktail"])
+def test_controller_drives_the_engine_on_the_card(cuda, kind):
+    """Each of the paper's five controllers drives a three-rung ladder
+    (d_model 128, 2/4/6 layers, kernels on, steps replayed) through
+    ``run_serving_loop`` for a few seconds: requests are served with their
+    full budget, each submission completes once or is counted as rejected,
+    flash_prefill and flash_decode launch, and Cocktail's requests land
+    only on its ensemble's members, one member each."""
+    from repro_torch.core.profiles import VariantProfile
+    from repro_torch.serving.driver import rise_fall_load, run_serving_loop
+    from repro_torch.serving.engine import InProcessServingEngine
+    variants = {f"L{n}": (_smoke("tinyllama-1.1b", num_layers=n), 70.0 + n)
+                for n in EVAL_PROFILE}
+    profiles = {f"L{n}": VariantProfile(
+        name=f"L{n}", accuracy=70.0 + n, rt=0.5, th_slope=th,
+        th_intercept=0.0, lat_base_ms=lb, lat_k_ms=lk, max_units=4)
+        for n, (th, lb, lk) in EVAL_PROFILE.items()}
+    eng = InProcessServingEngine(variants, max_batch=4, prompt_len=32,
+                                 max_new=8, decode_chunk=4, use_kernels=True,
+                                 device=cuda)
+    ctrl = _eval_controller(kind, profiles)
+    ops.reset_launch_counts()
+    n = run_serving_loop(eng, ctrl, seconds=4.0, interval=1.0,
+                         load_fn=rise_fall_load(4.0, 4.0, 16.0),
+                         prompt_len=32, max_new=8, vocab=128, slo_ms=2000.0,
+                         log=None)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert len(eng.done) > 0 and len(ctrl.decisions) >= 3
+    rids = [r.rid for r in eng.done]
+    assert len(rids) == len(set(rids))
+    assert len(rids) + eng.rejected == n
+    assert all(len(r.output) == 8 for r in eng.done)
+    assert launches["flash_prefill"] > 0 and launches["flash_decode"] > 0
+    if kind == "cocktail":
+        ensembles = [d.allocation.active_variants() for d in ctrl.decisions]
+        assert max(map(len, ensembles)) > 1
+        assert {r.backend for r in eng.done} <= set().union(*ensembles)
+    eng.apply_allocation(0.0, {})
+    assert not eng.backends

@@ -52,6 +52,17 @@ def test_the_scan_covers_the_cluster_modules():
         "router.py"}
 
 
+def test_the_scan_covers_the_evaluation_modules():
+    assert {"repro_torch.sim.cluster", "repro_torch.sim.runner",
+            "repro_torch.data", "repro_torch.data.traces",
+            "repro_torch.analysis.report", "repro_torch.core.infaas",
+            "repro_torch.core.cocktail", "repro_torch.launch.quickstart",
+            "repro_torch.launch.replay_trace",
+            "repro_torch.launch.llm_autoscale"} <= set(MODULES)
+    assert {p.name for p in (PKG / "sim").rglob("*.py")} == {
+        "cluster.py", "runner.py"}
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):
