@@ -197,10 +197,32 @@ phase raises, and the script exits nonzero:
               ``SimCluster`` over the same measured profiles, the trace
               scaled as ``launch.llm_autoscale`` scales it, printed beside
               (a)'s engine numbers;
- 14. output   the ``{"kernels": [...]}`` line (launches summed over the
+ 14. dense    the other dense configs: every attention kernel at
+              gemma-2b's hd 256 (8 query heads on one KV head; flash_prefill
+              at B 8, S 512; flash_decode's decode step at C 576 and its
+              chunk form at ck 16; paged decode and its chunk form over 36
+              pages of 16, also with NaN pages past every length) and
+              flash_prefill at hd 32 with a window, against the plain
+              versions in bf16 and fp32, then timed beside SDPA and the
+              bound; gemma-2b L18 at full width (bf16: GeGLU, MQA, the tied
+              256000 x 2048 table) kernels on vs off, dense and paged, 18
+              launches per prefill and per step asserted, wall and device
+              ms, and a 2-layer fp32 rung with identical greedy tokens; its
+              steps replayed vs eager (dense, paged + sharing, dense
+              chunked), launches per step asserted; the gemma-2b 6/12/18
+              ladder through the InfAdapter loop (dense FIFO 20 s, paged +
+              sharing and ``chunked`` 10 s each; served, rejected,
+              launches, memory_allocated after close); yi-6b L32 kernels
+              on vs off at model level; ``python -m
+              repro_torch.launch.llm_autoscale`` at its default (yi-6b),
+              run alongside in a subprocess;
+ 15. output   the ``{"kernels": [...]}`` line (launches summed over the
               serve loops, the prefix phase, the obs phase's serve, the
-              profile, fabric and eval phases; the chunk forms' rows carry
-              their verify shape's times), then the ok line last.
+              profile, fabric and eval phases and the gemma-2b loops; the
+              chunk forms' rows carry their verify shape's times, and every
+              attention kernel's row its gemma-2b times under ``gemma_*``
+              keys, flash_prefill's its hd-32 times under ``hd32_*``), then
+              the ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -222,6 +244,7 @@ change compare in one call: unpack the parent with ``git archive <commit>
 """
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -295,6 +318,11 @@ EVAL_CONTROLLERS = ("InfAdapter", "MS+", "VPA+", "INFaaS", "Cocktail")
 # request and one request moves the rate by several points. Short loops
 # are path smokes (completions, preemptions, launches).
 TAIL_MIN_REQUESTS = 100
+# dense-config phase: gemma-2b's attention heads (8 query heads on one KV
+# head of hd 256), the serve loop of its paged and chunked engines
+GEMMA = "gemma-2b"
+GEMMA_H, GEMMA_KV, GEMMA_HD = 8, 1, 256
+GEMMA_SIDE_SECONDS = 10
 DEVICE = "cuda"
 
 
@@ -1227,6 +1255,40 @@ def prefill_decode(torch, lm, params, toks, feed=None):
     return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8)
 
 
+def paged_prefill_decode(torch, lm, params, toks, feed=None):
+    """The same prefill as ``prefill_decode``, scattered into a page pool of
+    B*WIDTH+1 shuffled pages (``paged_admit``), then 8 ``decode_step_paged``
+    steps over the full 36-page tables. Returns like ``prefill_decode``,
+    with paged_decode launches per paged step last."""
+    from repro_torch.kernels import paged_decode as pd
+    dev = toks.device
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits, pref = lm.prefill(params, {"tokens": toks}, max_len=PROMPT)
+    cache = lm.init_paged_cache(B, B * WIDTH + 1, PAGE, WIDTH, dev)
+    perm = torch.randperm(B * WIDTH, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(2)) + 1
+    lm.paged_admit(cache, pref, torch.zeros(B, dtype=torch.int64,
+                                            device=dev),
+                   torch.argmax(logits, -1), perm.reshape(B, WIDTH),
+                   torch.arange(B, device=dev))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    n0 = pd.paged_flash_decode_bkhd.launches
+    outs, seq = [logits], []
+    for i in range(8):
+        tok = torch.argmax(logits, -1) if feed is None else feed[i]
+        seq.append(tok)
+        logits, cache = lm.decode_step_paged(params, cache, tok,
+                                             n_pages=WIDTH)
+        outs.append(logits)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    per_step = (pd.paged_flash_decode_bkhd.launches - n0) / 8
+    return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8, per_step)
+
+
 def rel_err(xs, ys, vocab):
     """Largest ||x - y|| / ||y|| over pairs of logits, over the real vocab
     (the padded entries carry the -1e9 mask, which would swamp the norm)."""
@@ -1244,7 +1306,6 @@ def _tree_float(tree):
 
 def model_phase(torch):
     from repro_torch.configs import get_config
-    from repro_torch.kernels import paged_decode as pd
     from repro_torch.models.model import LM
     dev = torch.device(DEVICE)
     log("[4] model: full-width tinyllama-1.1b, kernels on vs off")
@@ -1256,34 +1317,7 @@ def model_phase(torch):
         return prefill_decode(torch, lm, params, toks, feed)
 
     def run_paged(lm, params, feed=None):
-        """The same prefill, scattered into a page pool of B*WIDTH+1
-        shuffled pages (``paged_admit``), then 8 ``decode_step_paged``
-        steps over the full 36-page tables. Returns like ``run``."""
-        torch.cuda.synchronize()
-        t0 = time.time()
-        logits, pref = lm.prefill(params, {"tokens": toks}, max_len=PROMPT)
-        cache = lm.init_paged_cache(B, B * WIDTH + 1, PAGE, WIDTH, dev)
-        perm = torch.randperm(B * WIDTH, device=dev,
-                              generator=torch.Generator(device=dev)
-                              .manual_seed(2)) + 1
-        lm.paged_admit(cache, pref, torch.zeros(B, dtype=torch.int64,
-                                                device=dev),
-                       torch.argmax(logits, -1), perm.reshape(B, WIDTH),
-                       torch.arange(B, device=dev))
-        torch.cuda.synchronize()
-        t1 = time.time()
-        n0 = pd.paged_flash_decode_bkhd.launches
-        outs, seq = [logits], []
-        for i in range(8):
-            tok = torch.argmax(logits, -1) if feed is None else feed[i]
-            seq.append(tok)
-            logits, cache = lm.decode_step_paged(params, cache, tok,
-                                                 n_pages=WIDTH)
-            outs.append(logits)
-        torch.cuda.synchronize()
-        t2 = time.time()
-        per_step = (pd.paged_flash_decode_bkhd.launches - n0) / 8
-        return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8, per_step)
+        return paged_prefill_decode(torch, lm, params, toks, feed)
 
     lm_off = LM(cfg)
     lm_on = LM(cfg.replace(use_kernels=True))
@@ -1499,6 +1533,85 @@ def graph_drive(torch, b, prompts, engine):
     return out, {r.rid: r.output for r in reqs}, state
 
 
+def graph_arch(torch, arch, max_new, engines):
+    """``graph_phase``'s comparison for one architecture at full width over
+    the given engines ("dense", "paged", "dense-chunked"). Returns
+    {"<arch> L<layers> <engine>": summary}."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.serving.engine import PagedVariantBackend, VariantBackend
+    dev = torch.device(DEVICE)
+    summary = {}
+    cfg = get_config(arch).replace(use_kernels=True)
+    params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                                (B, PROMPT))
+    for engine in engines:
+        paged = engine == "paged"
+        runs = {}
+        for path in ("eager", "replay"):
+            kw = dict(page_size=PAGE, prefix_sharing=True) if paged \
+                else dict(chunked=engine == "dense-chunked")
+            cls = PagedVariantBackend if paged else VariantBackend
+            b = cls(f"{arch}-{engine}-{path}", cfg, 0.0, max_batch=B,
+                    prompt_len=PROMPT, max_new=max_new,
+                    decode_chunk=CHUNK, use_kernels=True, device=DEVICE,
+                    params=params, prefill_chunk_tokens=CK,
+                    step_graphs=path == "replay", **kw)
+            steps, outs, state = graph_drive(torch, b, prompts, engine)
+            runs[path] = (steps, outs, state, b.readiness_s)
+            b.close()
+            del b
+        (e_steps, e_outs, e_state, e_rt), (r_steps, r_outs, r_state,
+                                            r_rt) = runs["eager"], \
+            runs["replay"]
+        same_tok = all(np.array_equal(e_outs[i], r_outs[i])
+                       for i in e_outs)
+        # the pool's trash page 0 takes colliding writes of inert rows
+        # in scatter order on either path, and no live row reads it
+        cut = {k: (lambda t: t[:, :, 1:]) if k in ("kp", "vp")
+               else (lambda t: t) for k in e_state}
+        diff = {k: float((cut[k](r_state[k]).float()
+                          - cut[k](e_state[k]).float()).abs().max())
+                for k in e_state
+                if not torch.equal(cut[k](r_state[k]),
+                                   cut[k](e_state[k]))}
+        name = f"{arch} L{cfg.num_layers} {engine}"
+        log(f"  {name}: readiness eager {e_rt:.3f}s, replay {r_rt:.3f}s;"
+            f" tokens equal {same_tok}; cache leaves differing "
+            f"{diff or 'none'}")
+        for kind, e in e_steps.items():
+            r = r_steps[kind]
+            log(f"    {kind:<8s} per step: eager wall {e['wall_ms']:.3f}"
+                f" ms, span {e['span_ms']:.3f}, device "
+                f"{e['device_ms']:.3f}, {e['kernels']:g} kernels "
+                f"({e['port_launches']:g} port); replay wall "
+                f"{r['wall_ms']:.3f} ms, span {r['span_ms']:.3f}, "
+                f"device {r['device_ms']:.3f}, {r['kernels']:g} kernels "
+                f"({r['port_launches']:g} port)")
+            if r["launches"] != e["launches"]:
+                raise AssertionError(f"{name} {kind}: port launches per "
+                                     f"step {r['launches']} replayed, "
+                                     f"{e['launches']} eager")
+            if engine == "dense-chunked" and kind == "fused" and \
+                    r["launches"] != {"flash_decode_chunk":
+                                      cfg.num_layers}:
+                raise AssertionError(
+                    f"{name}: launches per dense fused tick "
+                    f"{r['launches']}, want one flash_decode_chunk per "
+                    f"layer ({cfg.num_layers})")
+        if not same_tok or diff:
+            raise AssertionError(f"{name}: replay differs from eager "
+                                 f"(tokens equal {same_tok}, cache "
+                                 f"leaves {diff})")
+        summary[name] = {"readiness_s": {"eager": e_rt, "replay": r_rt},
+                         "eager": e_steps, "replay": r_steps}
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
 def graph_phase(torch):
     """Replays against the eager steps at full width (bf16, kernels on),
     through the engine's backends on shared weights, one replaying CUDA
@@ -1515,96 +1628,28 @@ def graph_phase(torch):
     events around the call), device ms and kernels per step
     (``torch.profiler``), and each backend's readiness
     (the replaying one's includes its captures)."""
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import LM
-    from repro_torch.serving.engine import PagedVariantBackend, VariantBackend
-    dev = torch.device(DEVICE)
     log("[5] graphs: full-width steps replayed vs eager, bf16, kernels on")
     summary = {}
     for arch, max_new, engines in (
             ("tinyllama-1.1b", MAX_NEW, ("dense", "paged", "dense-chunked")),
             ("mamba2-130m", 2 * CHUNK, ("dense",)),
             ("hymba-1.5b", 2 * CHUNK, ("dense",))):
-        cfg = get_config(arch).replace(use_kernels=True)
-        params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
-        prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
-                                                    (B, PROMPT))
-        for engine in engines:
-            paged = engine == "paged"
-            runs = {}
-            for path in ("eager", "replay"):
-                kw = dict(page_size=PAGE, prefix_sharing=True) if paged \
-                    else dict(chunked=engine == "dense-chunked")
-                cls = PagedVariantBackend if paged else VariantBackend
-                b = cls(f"{arch}-{engine}-{path}", cfg, 0.0, max_batch=B,
-                        prompt_len=PROMPT, max_new=max_new,
-                        decode_chunk=CHUNK, use_kernels=True, device=DEVICE,
-                        params=params, prefill_chunk_tokens=CK,
-                        step_graphs=path == "replay", **kw)
-                steps, outs, state = graph_drive(torch, b, prompts, engine)
-                runs[path] = (steps, outs, state, b.readiness_s)
-                b.close()
-                del b
-            (e_steps, e_outs, e_state, e_rt), (r_steps, r_outs, r_state,
-                                                r_rt) = runs["eager"], \
-                runs["replay"]
-            same_tok = all(np.array_equal(e_outs[i], r_outs[i])
-                           for i in e_outs)
-            # the pool's trash page 0 takes colliding writes of inert rows
-            # in scatter order on either path, and no live row reads it
-            cut = {k: (lambda t: t[:, :, 1:]) if k in ("kp", "vp")
-                   else (lambda t: t) for k in e_state}
-            diff = {k: float((cut[k](r_state[k]).float()
-                              - cut[k](e_state[k]).float()).abs().max())
-                    for k in e_state
-                    if not torch.equal(cut[k](r_state[k]),
-                                       cut[k](e_state[k]))}
-            name = f"{arch} L{cfg.num_layers} {engine}"
-            log(f"  {name}: readiness eager {e_rt:.3f}s, replay {r_rt:.3f}s;"
-                f" tokens equal {same_tok}; cache leaves differing "
-                f"{diff or 'none'}")
-            for kind, e in e_steps.items():
-                r = r_steps[kind]
-                log(f"    {kind:<8s} per step: eager wall {e['wall_ms']:.3f}"
-                    f" ms, span {e['span_ms']:.3f}, device "
-                    f"{e['device_ms']:.3f}, {e['kernels']:g} kernels "
-                    f"({e['port_launches']:g} port); replay wall "
-                    f"{r['wall_ms']:.3f} ms, span {r['span_ms']:.3f}, "
-                    f"device {r['device_ms']:.3f}, {r['kernels']:g} kernels "
-                    f"({r['port_launches']:g} port)")
-                if r["launches"] != e["launches"]:
-                    raise AssertionError(f"{name} {kind}: port launches per "
-                                         f"step {r['launches']} replayed, "
-                                         f"{e['launches']} eager")
-                if engine == "dense-chunked" and kind == "fused" and \
-                        r["launches"] != {"flash_decode_chunk":
-                                          cfg.num_layers}:
-                    raise AssertionError(
-                        f"{name}: launches per dense fused tick "
-                        f"{r['launches']}, want one flash_decode_chunk per "
-                        f"layer ({cfg.num_layers})")
-            if not same_tok or diff:
-                raise AssertionError(f"{name}: replay differs from eager "
-                                     f"(tokens equal {same_tok}, cache "
-                                     f"leaves {diff})")
-            summary[name] = {"readiness_s": {"eager": e_rt, "replay": r_rt},
-                             "eager": e_steps, "replay": r_steps}
-        del params
-        torch.cuda.empty_cache()
+        summary.update(graph_arch(torch, arch, max_new, engines))
     log("  graph summary " + json.dumps(summary))
     return summary
 
 
 def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
-                engine_kw=None, seconds=SERVE_SECONDS):
+                engine_kw=None, seconds=SERVE_SECONDS, close=False):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
     profiles first), or on the paged engine with prefix sharing using the
     given dense profiles, over ``arch``'s full-width ladder; ``engine_kw``
     adds engine options (the async tick, a scheduler, preemption: the
     engine then stamps requests on the loop's elapsed clock, which its
     deadlines are read against) and ``seconds`` sets the loop's length.
-    Returns (this phase's launch counts, profiles)."""
+    With ``close`` every backend is retired (closed) after the loop and the
+    card's ``memory_allocated`` printed. Returns (this phase's launch
+    counts, profiles)."""
     from repro_torch.configs import get_config
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
     from repro_torch.core.forecaster import MovingMaxForecaster
@@ -1727,6 +1772,10 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
         if b._pending is not None or b._uncommitted_done or b.active_slots:
             raise AssertionError(f"{name}: uncommitted work after the drain")
     log(f"  serve summary ({kind}) " + json.dumps(summary))
+    if close:
+        log(f"  {kind}: served {s['n_requests']}, rejected "
+            f"{s['rejected']}; memory_allocated after close "
+            f"{close_engine(torch, engine) / 1e9:.3f} GB")
     del engine
     torch.cuda.empty_cache()
     return launches, profiles
@@ -3371,6 +3420,399 @@ def profiling_phase(torch, profiles):
     return launches, summary, {n: measured[n].profile for n in variants}
 
 
+def gemma_inputs(torch, gen, dtype):
+    """Makers of each attention kernel's operands at gemma-2b's serve
+    shapes (8 query heads on one KV head of hd 256; the serve geometry's B
+    8, 512-token prompts, ring C 576, 36 pages of 16, chunks of 16)."""
+    dev = torch.device(DEVICE)
+    G = GEMMA_H // GEMMA_KV
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    return {
+        "prefill": lambda: (randn(B, PROMPT, GEMMA_H, GEMMA_HD),
+                            randn(B, PROMPT, GEMMA_KV, GEMMA_HD),
+                            randn(B, PROMPT, GEMMA_KV, GEMMA_HD)),
+        "decode": lambda: (randn(B, GEMMA_KV, G, GEMMA_HD),
+                           randn(B, GEMMA_KV, CAP, GEMMA_HD),
+                           randn(B, GEMMA_KV, CAP, GEMMA_HD),
+                           torch.zeros((B, CAP), device=dev)),
+        "chunk": lambda: dense_chunk_inputs(torch, gen, B, CK, GEMMA_KV, G,
+                                            GEMMA_HD, CAP, dtype),
+        "paged": lambda: paged_inputs(torch, gen, B, GEMMA_KV, G, GEMMA_HD,
+                                      PAGE, WIDTH, dtype),
+        "paged_chunk": lambda: chunk_inputs(
+            torch, gen, B, GEMMA_KV, G, GEMMA_HD, PAGE, WIDTH, WIDTH, CK,
+            dtype, start_range=(PS_SHARED, PROMPT - CK)),
+    }
+
+
+def timed_row(torch, fn, plain, sets, nbytes, flops, dt, library=None,
+              plain_iters=4):
+    """Kernel, plain and device times of ``fn`` over ``sets`` beside the
+    bound of ``nbytes`` and ``flops`` in ``dt``; ``library`` is (fn, sets)
+    of one PyTorch call computing the same function (SDPA), or None."""
+    b_ms, b_by = bound(nbytes, flops, dt)
+    row = dict(ms=time_ms(torch, fn, sets),
+               plain_ms=time_ms(torch, plain, sets, iters=plain_iters),
+               bound_ms=b_ms, bound_by=b_by,
+               device_ms=device_ms(torch, fn, sets), library_ms=None,
+               library_device_ms=None)
+    if library is not None:
+        lib, lib_sets = library
+        row.update(library_ms=time_ms(torch, lib, lib_sets),
+                   library_device_ms=device_ms(torch, lib, lib_sets))
+    return row
+
+
+def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
+    """Every attention kernel at gemma-2b's hd 256 against its plain
+    version in bf16 and fp32 (paged: also NaN pages past every length),
+    flash_prefill at hd 32 with a window (the reference kernel test's
+    shape), then their times in bf16 (flash_prefill and flash_decode's
+    decode step in fp32 too). Returns {kernel name: {"gemma_<key>": ...,
+    "hd32_<key>": ...}} for the JSON line (bf16)."""
+    H_, KV_, HD_ = GEMMA_H, GEMMA_KV, GEMMA_HD
+    G = H_ // KV_
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        mk = gemma_inputs(torch, gen, dt)
+        for key, fn, plain in (
+                ("prefill", fp.flash_prefill_bshd, fp.flash_prefill_plain),
+                ("decode", fd.flash_decode_bkhd, fd.flash_decode_plain),
+                ("chunk", fd.flash_decode_chunk, fd.flash_decode_chunk_plain),
+                ("paged", pd.paged_flash_decode_bkhd,
+                 pd.paged_flash_decode_plain),
+                ("paged_chunk", pd.paged_flash_decode_chunk,
+                 pd.paged_flash_decode_chunk_plain)):
+            a = mk[key]()
+            errs[(key, dt)] = check(f"{key} hd 256 gemma shape {name}",
+                                    fn(*a), plain(*a), dt)
+        for key, a, fn, plain in (
+                ("paged", paged_inputs(torch, gen, B, KV_, G, HD_, PAGE,
+                                       WIDTH, dt, poison=True),
+                 pd.paged_flash_decode_bkhd, pd.paged_flash_decode_plain),
+                ("paged_chunk", chunk_inputs(torch, gen, B, KV_, G, HD_, PAGE,
+                                             WIDTH, WIDTH, CK, dt,
+                                             poison=True),
+                 pd.paged_flash_decode_chunk,
+                 pd.paged_flash_decode_chunk_plain)):
+            out = fn(*a)
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"{key} hd 256: non-finite output past "
+                                     f"NaN pages")
+            check(f"{key} hd 256 NaN pages past every length {name}", out,
+                  plain(*a), dt)
+        q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(dt)
+                   for s in ((2, 128, 4, 32), (2, 128, 4, 32),
+                             (2, 128, 4, 32)))
+        errs[("hd32", dt)] = check(
+            f"flash_prefill hd 32 window 32 {name}",
+            fp.flash_prefill_bshd(q, k, v, window=32),
+            fp.flash_prefill_plain(q, k, v, window=32), dt)
+    torch.cuda.synchronize()
+
+    def sdpa_mask(q, k, v, m):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                              enable_gqa=True)
+
+    def sdpa_causal(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    rows = {"flash_prefill": {}, "flash_decode": {},
+            "flash_decode_chunk": {}, "paged_decode": {}}
+    for dt in (torch.bfloat16, torch.float32):
+        esz, name = torch.tensor([], dtype=dt).element_size(), str(dt)[6:]
+        mk = gemma_inputs(torch, gen, dt)
+        res = {}
+        first = mk["prefill"]()
+        sets = rotated(first, mk["prefill"], ())
+        pairs = PROMPT * (PROMPT + 1) // 2
+        res["flash_prefill"] = timed_row(
+            torch, fp.flash_prefill_bshd, fp.flash_prefill_plain, sets,
+            esz * 2 * B * PROMPT * (H_ + KV_) * HD_,
+            4 * B * H_ * pairs * HD_, dt, library=(sdpa_causal, [
+                tuple(t.transpose(1, 2).contiguous() for t in st)
+                for st in sets]))
+        first = mk["decode"]()
+        sets = rotated(first, mk["decode"], ())
+        res["flash_decode"] = timed_row(
+            torch, fd.flash_decode_bkhd, fd.flash_decode_plain, sets,
+            esz * (2 * B * H_ * HD_ + 2 * B * KV_ * CAP * HD_) + 4 * B * CAP,
+            4 * B * H_ * CAP * HD_, dt, library=(sdpa_mask, [
+                (q.reshape(B, H_, 1, HD_), k, v, m[:, None, None, :])
+                for q, k, v, m in sets]))
+        if dt == torch.bfloat16:
+            first = mk["chunk"]()
+            sets = rotated(first, mk["chunk"], ())
+            valid = (first[3] == 0).sum(-1)
+            lmax = valid.max(1).values
+            res["flash_decode_chunk"] = timed_row(
+                torch, fd.flash_decode_chunk, fd.flash_decode_chunk_plain,
+                sets, esz * (2 * int(lmax.sum()) * KV_ * HD_
+                             + 2 * B * CK * H_ * HD_) + 4 * B * CK * CAP,
+                4 * H_ * HD_ * int(valid.sum()), dt, library=(sdpa_mask, [
+                    (q.reshape(B, CK, H_, HD_).transpose(1, 2), k, v,
+                     m[:, None]) for q, k, v, m in sets]))
+            first = mk["paged"]()
+            sets = rotated(first, mk["paged"], (3, 4))
+            lengths = first[4].long()
+            live = int(lengths.sum())
+            res["paged_decode"] = timed_row(
+                torch, pd.paged_flash_decode_bkhd,
+                pd.paged_flash_decode_plain, sets,
+                esz * (2 * live * KV_ * HD_ + 2 * B * H_ * HD_)
+                + 4 * int(((lengths + PAGE - 1) // PAGE).sum()) + 4 * B,
+                4 * H_ * live * HD_, dt)
+            first = mk["paged_chunk"]()
+            sets = rotated(first, mk["paged_chunk"], (3, 4))
+            lengths = first[4].long()
+            lmax = lengths.max(1).values
+            res["paged_chunk"] = timed_row(
+                torch, pd.paged_flash_decode_chunk,
+                pd.paged_flash_decode_chunk_plain, sets,
+                esz * (2 * int(lmax.sum()) * KV_ * HD_
+                       + 2 * B * CK * H_ * HD_)
+                + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK,
+                4 * H_ * HD_ * int(lengths.sum()), dt)
+            S32, w = 128, 32
+            make = lambda: tuple(                           # noqa: E731
+                torch.randn((2, S32, 4, 32), generator=gen,
+                            device=DEVICE).to(dt) for _ in range(3))
+            sets = rotated(make(), make, ())
+            mask = fp.causal_window_mask(S32, w, torch.device(DEVICE))
+            pairs = int(mask.sum())
+            res["hd32"] = timed_row(
+                torch, lambda q, k, v: fp.flash_prefill_bshd(q, k, v,
+                                                             window=w),
+                lambda q, k, v: fp.flash_prefill_plain(q, k, v, window=w),
+                sets, esz * 4 * 2 * S32 * 4 * 32, 4 * 2 * 4 * pairs * 32, dt,
+                library=(sdpa_mask, [
+                    tuple(t.transpose(1, 2).contiguous() for t in st)
+                    + (mask,) for st in sets]))
+        for key, r in res.items():
+            lib = ("no single library call" if r["library_ms"] is None else
+                   f"SDPA {r['library_ms']:.4f} (device "
+                   f"{ms4(r['library_device_ms'])})")
+            log(f"  {key:<18s} {name:<9s} hd "
+                f"{32 if key == 'hd32' else HD_}: kernel {r['ms']:.4f} "
+                f"(device {ms4(r['device_ms'])})  plain {r['plain_ms']:.4f}"
+                f"  {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+        if dt != torch.bfloat16:
+            continue
+        err = {"flash_prefill": "prefill", "flash_decode": "decode",
+               "flash_decode_chunk": "chunk", "paged_decode": "paged"}
+        for kernel, row in rows.items():
+            row.update({f"gemma_{k}": v for k, v in res[kernel].items()},
+                       gemma_max_abs_err=errs[(err[kernel], dt)])
+        rows["paged_decode"].update(
+            {f"gemma_chunk_{k}": v for k, v in res["paged_chunk"].items()},
+            gemma_chunk_max_abs_err=errs[("paged_chunk", dt)])
+        rows["flash_prefill"].update(
+            {f"hd32_{k}": v for k, v in res["hd32"].items()},
+            hd32_max_abs_err=errs[("hd32", dt)])
+    return rows
+
+
+def dense_model_check(torch, arch, paged=True):
+    """``arch`` at full width (its published depth, bf16) with random
+    seeded weights: prefill of B x PROMPT tokens and 8 decode steps with
+    the kernels on and off (and, with ``paged``, the steps through the page
+    pool with the kernels on), logits held to BF16_LOGIT_TOL, launches
+    asserted per prefill and per step, wall and device ms (one prefill and
+    one decode step under ``torch.profiler``) printed; then a 2-layer fp32
+    rung of the same widths must give identical greedy tokens kernels on
+    vs off (and paged vs dense). Returns the numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import LM
+    from repro_torch.serving.graphs import tensor_leaves
+    dev = torch.device(DEVICE)
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    lm_off, lm_on = LM(cfg), LM(cfg.replace(use_kernels=True))
+    params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+    wbytes = sum(t.numel() * t.element_size() for t in tensor_leaves(params))
+    prefill_decode(torch, lm_on, params, toks)                 # warm-up
+    off, seq, t_off = prefill_decode(torch, lm_off, params, toks)
+    n0 = ops.launch_counts()
+    on, seq_on, t_on = prefill_decode(torch, lm_on, params, toks, feed=seq)
+    n1 = ops.launch_counts()
+    got = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+    if got != {"flash_prefill": L, "flash_decode": 8 * L}:
+        raise AssertionError(f"{arch}: launches over one prefill and 8 "
+                             f"decode steps {got}, want {L} and {8 * L}")
+    rel = rel_err(on, off, cfg.vocab_size)
+    first = [int((torch.argmax(a, -1) == torch.argmax(b, -1)).sum())
+             for a, b in zip(on, off)]
+    out = {"weight_bytes": wbytes, "prefill_ms_on": t_on[0],
+           "prefill_ms_off": t_off[0], "decode_step_ms_on": t_on[1],
+           "decode_step_ms_off": t_off[1], "logits_rel_err": rel,
+           "launches_per_prefill": got["flash_prefill"],
+           "launches_per_decode_step": got["flash_decode"] / 8,
+           "greedy_agree_per_step": first}
+    cache_tok = seq[0]
+    for path, lm in (("on", lm_on), ("off", lm_off)):
+        logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+        out[f"prefill_device_ms_{path}"], _ = profiled(torch, lambda: (
+            lm.prefill(params, {"tokens": toks}, max_len=CAP)))
+        out[f"decode_device_ms_{path}"], _ = profiled(torch, lambda: (
+            lm.decode_step(params, cache, cache_tok)))
+        del logits, cache
+    log(f"  {arch} L{L} bf16 ({wbytes / 1e9:.3f} GB of weights): logits rel "
+        f"err on vs off {rel:.3e} (tol {BF16_LOGIT_TOL:.0e}); greedy tokens "
+        f"on = off per step (of {B}) {first}; launches per prefill "
+        f"{got['flash_prefill']} flash_prefill, per decode step "
+        f"{got['flash_decode'] / 8:g} flash_decode")
+    log(f"  {arch} L{L} B={B} S={PROMPT}: prefill wall ms on {t_on[0]:.2f} "
+        f"off {t_off[0]:.2f}, device {out['prefill_device_ms_on']:.3f} / "
+        f"{out['prefill_device_ms_off']:.3f}; decode step wall ms on "
+        f"{t_on[1]:.2f} off {t_off[1]:.2f}, device "
+        f"{out['decode_device_ms_on']:.3f} / "
+        f"{out['decode_device_ms_off']:.3f}")
+    bad = not all(bool(torch.isfinite(a).all()) for a in on)
+    if paged:
+        pg, _, t_pg = paged_prefill_decode(torch, lm_on, params, toks,
+                                           feed=seq)
+        out.update(paged_logits_rel_err=rel_err(pg, on, cfg.vocab_size),
+                   decode_step_ms_paged=t_pg[1],
+                   paged_launches_per_step=t_pg[2])
+        log(f"  {arch} L{L} paged: logits rel err (paged vs dense, kernels "
+            f"on) {out['paged_logits_rel_err']:.3e}; step ms {t_pg[1]:.2f}; "
+            f"paged_decode launches per step {t_pg[2]:g}")
+        bad |= not all(bool(torch.isfinite(a).all()) for a in pg)
+        if t_pg[2] != L or out["paged_logits_rel_err"] > BF16_LOGIT_TOL:
+            raise AssertionError(f"{arch} paged: {t_pg[2]} launches a step "
+                                 f"(want {L}), rel err "
+                                 f"{out['paged_logits_rel_err']}")
+    if bad or rel > BF16_LOGIT_TOL:
+        raise AssertionError(f"{arch} bf16 logits: rel err {rel}, finite "
+                             f"{not bad}")
+    del params, on, off
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(num_layers=2, dtype="float32", name=f"{arch}-L2-f32")
+    lm_off, lm_on = LM(cfg32), LM(cfg32.replace(use_kernels=True))
+    params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+    _, s_off, _ = prefill_decode(torch, lm_off, params, toks)
+    _, s_on, _ = prefill_decode(torch, lm_on, params, toks)
+    same = all(bool((a == b).all()) for a, b in zip(s_on, s_off))
+    same_pg = True
+    if paged:
+        _, s_pg, _ = paged_prefill_decode(torch, lm_on, params, toks)
+        same_pg = all(bool((a == b).all()) for a, b in zip(s_pg, s_on))
+    log(f"  {arch} L2 fp32: greedy 8 tokens x {B} rows identical on vs off: "
+        f"{same}; paged vs dense: {same_pg}")
+    if not (same and same_pg):
+        raise AssertionError(f"{arch} fp32 greedy tokens differ: kernels "
+                             f"on/off {same}, paged/dense {same_pg}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_config_phase(torch, F):
+    """The other dense configs on the card (gemma-2b, yi-6b): the attention
+    kernels at hd 256; gemma-2b L18 at full width kernels on vs off, dense
+    and paged; its steps replayed vs eager with launches per step
+    asserted; its 6/12/18 ladder through the serve loop on the dense,
+    paged + sharing and chunked engines; yi-6b L32 at model level; and the
+    ``llm_autoscale`` launcher at its default (yi-6b), run alongside.
+    ``memory_allocated`` is printed (after a collection) at the phase's
+    start and after each of its model stages, beside each serve loop's
+    after its close. Returns (kernel rows' gemma keys, the serve loops'
+    launch counts)."""
+    import gc
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_decode as pd
+    t_phase = time.time()
+    cfg = get_config(GEMMA)
+    if (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) != (
+            GEMMA_H, GEMMA_KV, GEMMA_HD):
+        raise AssertionError(f"{GEMMA}'s heads are not the phase's shapes")
+    log("[14] dense configs: gemma-2b (MQA, hd 256, GeGLU, tied 256000 x "
+        "2048 embedding) and yi-6b at full width")
+    autoscale = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.llm_autoscale"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def memory(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  memory_allocated {label}: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    try:
+        memory("at the phase's start")
+        gen = torch.Generator(device=DEVICE).manual_seed(25)
+        rows = gemma_kernel_rows(torch, F, fd, fp, pd, gen)
+        t_k = time.time()
+        memory("after the kernels")
+        model = dense_model_check(torch, GEMMA)
+        t_m = time.time()
+        memory(f"after {GEMMA}'s model check")
+        graphs = graph_arch(torch, GEMMA, MAX_NEW,
+                            ("dense", "paged", "dense-chunked"))
+        memory(f"after {GEMMA}'s graphs")
+        L = cfg.num_layers
+        want = {"dense": {"prefill": {"flash_prefill": L},
+                          "decode": {"flash_decode": L}},
+                "paged": {"prefill": {"flash_prefill": L},
+                          "fused": {"paged_decode": L},
+                          "decode": {"paged_decode": L}},
+                "dense-chunked": {"fused": {"flash_decode_chunk": L}}}
+        for engine, kinds in want.items():
+            steps = graphs[f"{GEMMA} L{L} {engine}"]["replay"]
+            for kind, launches in kinds.items():
+                if steps[kind]["launches"] != launches:
+                    raise AssertionError(
+                        f"{GEMMA} {engine} {kind}: launches per step "
+                        f"{steps[kind]['launches']}, want {launches}")
+        log(f"  {GEMMA} L{L} launches per step as asserted: {want}")
+        t_g = time.time()
+        launches = Counter()
+        dense, profiles = serve_phase(torch, arch=GEMMA, close=True)
+        launches.update(dense)
+        paged, _ = serve_phase(torch, paged=True, profiles=profiles,
+                               arch=GEMMA, seconds=GEMMA_SIDE_SECONDS,
+                               close=True)
+        launches.update(paged)
+        chunked, _ = serve_phase(torch, profiles=profiles, arch=GEMMA,
+                                 engine_kw=dict(scheduler="chunked"),
+                                 seconds=GEMMA_SIDE_SECONDS, close=True)
+        launches.update(chunked)
+        t_s = time.time()
+        yi = dense_model_check(torch, "yi-6b", paged=False)
+        t_y = time.time()
+        text, err = autoscale.communicate(timeout=600)
+    finally:
+        if autoscale.poll() is None:
+            autoscale.kill()
+            autoscale.wait()
+    if autoscale.returncode != 0:
+        raise AssertionError(f"llm_autoscale exited {autoscale.returncode}:"
+                             f" {err[-2000:]}")
+    if not text.startswith("variant ladder for yi-6b (H100 cards as units)"):
+        raise AssertionError(f"llm_autoscale's default: {text[:200]!r}")
+    for line in text.splitlines():
+        log(f"  llm_autoscale | {line}")
+    summary = {"model": model, "yi": yi, "launches": dict(launches),
+               "wall_s": {"kernels": t_k - t_phase, "model": t_m - t_k,
+                          "graphs": t_g - t_m, "serve": t_s - t_g,
+                          "yi": t_y - t_s,
+                          "phase": time.time() - t_phase}}
+    log("  dense-config summary " + json.dumps(summary, default=str))
+    return rows, dict(launches)
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -3437,10 +3879,13 @@ def main():
     prof, _, measured = profiling_phase(torch, profiles)
     fabric = fabric_phase(torch, profiles)
     evaluation = eval_phase(torch, measured)
+    import torch.nn.functional as F
+    gemma_rows, dense_cfgs = dense_config_phase(torch, F)
     for r in rows:
+        r.update(gemma_rows.get(r["name"], {}))
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
-            evaluation))
+            evaluation, dense_cfgs))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3452,10 +3897,12 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[14] total wall time {time.time() - t_start:.1f}s")
+    log(f"[15] total wall time {time.time() - t_start:.1f}s")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
-                                  for r in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys if k in r},
+         **{k: v for k, v in r.items() if k.startswith(("gemma_", "hd32_"))}}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

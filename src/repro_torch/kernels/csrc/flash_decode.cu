@@ -29,7 +29,8 @@
 // rows is the G rows of a decode step, or in the chunk form whole groups of
 // G rows (j-major: rows j*G .. j*G+G-1 share the bias row of token j), as
 // many as the accumulators hold (rows*hd <= 4096: 64 rows, 8 chunk tokens,
-// at hd 64; 32 at hd 128), so K and V are read once per block for all its
+// at hd 64; 32 at hd 128; 16 at hd 256, gemma-2b's two tokens of its group
+// of 8), so K and V are read once per block for all its
 // query rows. Each CTA takes ceil(C/8) consecutive positions, streams them
 // through a double-buffered shared-memory ring with `cp.async` (the next
 // tile, its K, V and the block's bias rows, is in flight while this one is
@@ -79,10 +80,13 @@ __host__ __device__ constexpr int kvec() { return 16 / sizeof(T); }
 
 // Cache positions per shared-memory tile: 128 in bf16 (one tile holds a
 // split's 72 positions at the serve shape), 64 in fp32 (so G*hd = 4096 at
-// hd 128 still fits the ring in shared memory).
+// hd 128 still fits the ring in shared memory); half that above hd 128, so
+// the K/V ring does not grow with hd (gemma-2b's hd 256: 64 positions in
+// bf16, 133 KB of ring, where 128 would need 266 KB, past one block's
+// 227 KB).
 template <typename T>
-__host__ __device__ constexpr int tile_rows() {
-  return sizeof(T) == 2 ? 128 : 64;
+constexpr int tile_rows(int hd) {
+  return (sizeof(T) == 2 ? 128 : 64) / (hd > 128 ? 2 : 1);
 }
 
 // Shared layout: K ring (2, TR, hd + pad) T | V ring (2, TR, hd) T |
@@ -90,7 +94,7 @@ __host__ __device__ constexpr int tile_rows() {
 // for a block of RB query rows over NJ = RB / G chunk tokens.
 template <typename T>
 size_t smem_bytes(int RB, int NJ, int hd) {
-  constexpr int TR = tile_rows<T>();
+  const int TR = tile_rows<T>(hd);
   return sizeof(T) * 2 * TR * ((size_t)(hd + kvec<T>()) + hd) +
          sizeof(float) * ((size_t)2 * NJ * TR + (size_t)RB * hd +
                           (size_t)RB * TR + 3 * RB);
@@ -99,7 +103,7 @@ size_t smem_bytes(int RB, int NJ, int hd) {
 // Start the copy of `rows` cache positions from j0 of this split: K and V
 // rows (hd elements; K rows land with stride ldk) and the biases of the
 // block's nj chunk tokens (bias rows ldb apart in memory, TR apart in bs).
-template <typename T, bool kChunk>
+template <typename T, bool kChunk, int TR>
 __device__ __forceinline__ void issue_tile(T* ks, T* vs, float* bs, int ldk,
                                            const T* __restrict__ kp,
                                            const T* __restrict__ vp,
@@ -107,7 +111,6 @@ __device__ __forceinline__ void issue_tile(T* ks, T* vs, float* bs, int ldk,
                                            int j0, int rows, int hd, int nj,
                                            int ldb) {
   constexpr int V = kvec<T>();
-  constexpr int TR = tile_rows<T>();
   const int per_row = hd / V;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i % per_row) * V;
@@ -141,7 +144,7 @@ __device__ __forceinline__ size_t row_offset(int b, int h, int row, int ck,
   return ((((size_t)b * ck + j) * KV + h) * G + g) * hd;
 }
 
-template <typename T, bool kChunk>
+template <typename T, bool kChunk, int kTile>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const float* __restrict__ bias,
@@ -149,7 +152,6 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int* __restrict__ arrivals, int KV, int G, int C, int hd,
                     int ck, int RB, float scale, float softcap) {
   constexpr int V = kvec<T>();
-  constexpr int kTile = tile_rows<T>();
   extern __shared__ uint4 smem_raw[];
   __shared__ bool last;
   const int ldk = hd + V;
@@ -186,8 +188,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       bias + (kChunk ? ((size_t)b * ck + row0 / G) * C : (size_t)b * C) + c0;
 
   if (n_tiles > 0) {
-    issue_tile<T, kChunk>(ks, vs, bs, ldk, kp, vp, bp, 0, min(kTile, n), hd,
-                          nj, C);
+    issue_tile<T, kChunk, kTile>(ks, vs, bs, ldk, kp, vp, bp, 0,
+                                 min(kTile, n), hd, nj, C);
     cp_async_commit();
   }
   for (int i = tid; i < RH; i += kThreads)
@@ -210,10 +212,10 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* bt = bs + (t & 1) * NJ * kTile;
     if (t + 1 < n_tiles) {             // prefetch the next tile
       const int nb = (t + 1) & 1;
-      issue_tile<T, kChunk>(ks + nb * kTile * ldk, vs + nb * kTile * hd,
-                            bs + nb * NJ * kTile, ldk, kp, vp, bp,
-                            j0 + kTile, min(kTile, n - j0 - kTile), hd, nj,
-                            C);
+      issue_tile<T, kChunk, kTile>(
+          ks + nb * kTile * ldk, vs + nb * kTile * hd, bs + nb * NJ * kTile,
+          ldk, kp, vp, bp, j0 + kTile, min(kTile, n - j0 - kTile), hd, nj,
+          C);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -348,8 +350,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int RB, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(RB, RB / G, hd);
   // ck = 1 is the decode step: one block of G rows, plain addressing
-  auto kernel = ck == 1 ? flash_decode_kernel<T, false>
-                        : flash_decode_kernel<T, true>;
+  constexpr int TR = tile_rows<T>(0), TR_WIDE = tile_rows<T>(256);
+  auto kernel = hd > 128 ? (ck == 1 ? flash_decode_kernel<T, false, TR_WIDE>
+                                    : flash_decode_kernel<T, true, TR_WIDE>)
+                         : (ck == 1 ? flash_decode_kernel<T, false, TR>
+                                    : flash_decode_kernel<T, true, TR>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -48,10 +48,18 @@
 // 50 MB L2, so the repeated tile loads hit L2) and a persistent grid that
 // prefetches the next tile's Q (slower: its extra state spills).
 //
-// bf16 at hd 128 (off the serve path): the same design on
-// `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16 query rows
-// with its Q fragments in registers (a 128-element row does not fit one
-// 128-byte swizzle row).
+// bf16 at hd 32, 128 and 256 (off tinyllama's serve path; hd 256 is
+// gemma-2b's): the same design on `mma.sync.m16n8k16` fed by `ldmatrix`,
+// each warp owning 16 query rows (a 128-element row does not fit one
+// 128-byte swizzle row). At hd 32 and 128 a CTA is one warpgroup and each
+// warp keeps its Q fragments in registers. At hd 256 a warp's 16 x 256
+// fp32 output slice alone would take 128 registers a thread beside the
+// Q fragments (64) and the scores (32), so the CTA is two warpgroups over
+// the same 64 queries: warps w and w + 4 both score rows 16w .. 16w + 15
+// (the same products, so the same m and l) and each keeps and writes one
+// half of the output columns; Q is read from shared memory at each k-step
+// instead of held. The staged tiles take 5 x 64 x 264 x 2 = 168,960 bytes,
+// one CTA an SM.
 //
 // fp32 keeps fp32 products (no TF32: the fp32 checks hold the kernel to
 // 1e-5 of the plain version, and the fp32 model rungs must give the same
@@ -80,7 +88,8 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int window) {
   return kj <= qi && kj < S && (window <= 0 || kj > qi - window);
 }
 
-// ============================================================ bf16: mma.sync (hd 128)
+// ============================================================ bf16: mma.sync
+// (hd 32, 128, 256)
 
 // bf16 elements per shared-memory row: hd plus 16 bytes, so the 8 rows an
 // `ldmatrix` reads start in 8 different 4-bank groups.
@@ -92,6 +101,16 @@ constexpr size_t mma_smem_bytes() {  // Q | K ring (2) | V ring (2)
   return 5 * (size_t)kBQ * mma_ld<HD>() * sizeof(__nv_bfloat16);
 }
 
+// Warpgroups of an `mma.sync` CTA, each owning HD / n of the output
+// columns: two at hd 256 (see the note at the top), else one.
+template <int HD>
+__host__ __device__ constexpr int mma_col_groups() { return HD > 128 ? 2 : 1; }
+
+template <int HD>
+__host__ __device__ constexpr int mma_threads() {
+  return kThreads * mma_col_groups<HD>();
+}
+
 // Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab into a
 // shared tile; rows at or past S are zero-filled.
 template <int HD>
@@ -99,7 +118,7 @@ __device__ __forceinline__ void issue_tile(__nv_bfloat16* dst,
                                            const __nv_bfloat16* base,
                                            size_t stride, int r0, int S) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < kBK * kChunks; i += mma_threads<HD>()) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = r0 + r < S;
     cp_async16(dst + r * mma_ld<HD>() + c,
@@ -108,17 +127,19 @@ __device__ __forceinline__ void issue_tile(__nv_bfloat16* dst,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(mma_threads<HD>())
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ out, int S, int H, int KV,
                          int window, float scale, float softcap) {
+  constexpr int WN = mma_col_groups<HD>();
   constexpr int LD = mma_ld<HD>();
   constexpr int TILE = kBQ * LD;
   constexpr int KS = HD / 16;        // k-steps of QK^T
-  constexpr int NO = HD / 8;         // 8-wide output column tiles
+  constexpr int NO = HD / 8 / WN;    // this warp's 8-wide output column tiles
   constexpr int NS = kBK / 8;        // 8-wide score column tiles
+  constexpr bool kQRegs = WN == 1;   // Q fragments held in registers
   extern __shared__ uint4 smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + TILE;     // 2 tiles
@@ -127,7 +148,9 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // warp: this warp's 16-row group; col0: its first output column
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int col0 = threadIdx.x / kThreads * (HD / WN);
   const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
   const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
@@ -144,7 +167,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   // rows warp*16 + g (c = 0, 1) and + 8 (c = 2, 3) of the q tile
-  uint32_t qf[KS][4];
+  uint32_t qf[kQRegs ? KS : 1][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -166,11 +189,13 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == kt_begin) {
+    if constexpr (kQRegs) {
+      if (kt == kt_begin) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                (lane >> 4) * 8);
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8);
+      }
     }
     const __nv_bfloat16* Kt = Ks + buf * TILE;
     const __nv_bfloat16* Vt = Vs + buf * TILE;
@@ -184,13 +209,21 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                            (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t r[4];
         ldmatrix_x4(r, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[2 * np], qa, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
       }
     }
 
@@ -249,7 +282,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int np = 0; np < NO / 2; ++np)
         ldmatrix_x4_trans(r[np], Vt + (kk * 16 + (lane & 7) +
                                        ((lane >> 3) & 1) * 8) * LD +
-                                     np * 16 + (lane >> 4) * 8);
+                                     col0 + np * 16 + (lane >> 4) * 8);
       // all hi products, then all lo: no accumulator is reused back to back
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
@@ -276,7 +309,8 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + warp * 16 + g + i * 8;
     if (qi >= S) continue;
     __nv_bfloat16* orow = out + (size_t)b * S * q_stride +
-                          (size_t)qi * q_stride + (size_t)h * HD + 2 * t;
+                          (size_t)qi * q_stride + (size_t)h * HD + col0 +
+                          2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -630,15 +664,16 @@ flash_prefill_simt_kernel(const float* __restrict__ q,
 // ============================================================ launch
 
 template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const void* q, const void* k,
-                   const void* v, void* out, int B, int S, int H, int KV,
-                   int hd, int window, float softcap, cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, size_t smem, int threads, const void* q,
+                   const void* k, const void* v, void* out, int B, int S,
+                   int H, int KV, int hd, int window, float softcap,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // q tiles slowest, so the whole grid runs the heaviest tiles first
   dim3 grid(H, B, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, window,
       1.0f / sqrtf((float)hd), softcap);
@@ -661,19 +696,24 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16 && hd == 64)
     return (int)launch<bf16>(flash_prefill_wgmma_kernel, kWgSmemBytes,
-                             q, k, v, out, B, S, H, KV, hd, window, softcap,
-                             s);
-  if (dtype == kBFloat16 && hd == 128)
-    return (int)launch<bf16>(flash_prefill_mma_kernel<128>,
-                             mma_smem_bytes<128>(), q, k, v, out, B, S, H, KV,
-                             hd, window, softcap, s);
+                             kThreads, q, k, v, out, B, S, H, KV, hd, window,
+                             softcap, s);
+#define REPRO_PREFILL_HD(HD)                                                 \
+  if (dtype == kBFloat16 && hd == HD)                                        \
+    return (int)launch<bf16>(flash_prefill_mma_kernel<HD>,                   \
+                             mma_smem_bytes<HD>(), mma_threads<HD>(), q, k, \
+                             v, out, B, S, H, KV, hd, window, softcap, s);   \
+  if (dtype == kFloat32 && hd == HD)                                         \
+    return (int)launch<float>(flash_prefill_simt_kernel<HD>,                 \
+                              simt_smem_bytes<HD>(), kThreads, q, k, v, out, \
+                              B, S, H, KV, hd, window, softcap, s);
+  REPRO_PREFILL_HD(32)
+  REPRO_PREFILL_HD(128)
+  REPRO_PREFILL_HD(256)
+#undef REPRO_PREFILL_HD
   if (dtype == kFloat32 && hd == 64)
     return (int)launch<float>(flash_prefill_simt_kernel<64>,
-                              simt_smem_bytes<64>(), q, k, v, out, B, S, H,
-                              KV, hd, window, softcap, s);
-  if (dtype == kFloat32 && hd == 128)
-    return (int)launch<float>(flash_prefill_simt_kernel<128>,
-                              simt_smem_bytes<128>(), q, k, v, out, B, S, H,
-                              KV, hd, window, softcap, s);
+                              simt_smem_bytes<64>(), kThreads, q, k, v, out,
+                              B, S, H, KV, hd, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -50,7 +50,8 @@
 //   length and its block's largest length must hold finite V (in the engine
 //   they are the chunk's own positions, written before the call, or earlier
 //   contents of the row's pages).
-// - Everything else (the single-query decode step, fp32, hd 128, page 8):
+// - Everything else (the single-query decode step, fp32, hd 128 and 256,
+//   page 8):
 //   fp32 FMAs on the CUDA cores (decode does ~2 flops per byte). A CTA keeps
 //   its block of query rows resident in shared memory as fp32 and streams
 //   its contiguous slice of positions through a double-buffered `cp.async`
@@ -134,17 +135,19 @@ template <typename T>
 __host__ __device__ constexpr int kvec() { return 16 / sizeof(T); }
 
 // Positions per shared-memory tile: 128 in bf16 (a decode split's 72
-// positions at the serve shape are one tile), 64 in fp32.
+// positions at the serve shape are one tile), 64 in fp32; half that above
+// hd 128, so the K/V ring does not grow with hd (gemma-2b's hd 256: 64
+// positions in bf16, 133 KB of ring, where 128 would need 266 KB).
 template <typename T>
-__host__ __device__ constexpr int tile_rows() {
-  return sizeof(T) == 2 ? 128 : 64;
+constexpr int tile_rows(int hd) {
+  return (sizeof(T) == 2 ? 128 : 64) / (hd > 128 ? 2 : 1);
 }
 
 // Shared layout: K ring (2, TR, hd + pad) T | V ring (2, TR, hd) T | q (RB,
 // hd) | p (RB, TR) | m, l, alpha (RB) fp32 | lengths (RB) int.
 template <typename T>
 size_t simt_smem_bytes(int RB, int hd) {
-  constexpr int TR = tile_rows<T>();
+  const int TR = tile_rows<T>(hd);
   return sizeof(T) * 2 * TR * ((size_t)(hd + kvec<T>()) + hd) +
          sizeof(float) * ((size_t)RB * hd + (size_t)RB * TR + 4 * (size_t)RB);
 }
@@ -166,7 +169,7 @@ __device__ __forceinline__ void issue_positions(
   }
 }
 
-template <typename T>
+template <typename T, int TR>
 __global__ void __launch_bounds__(kSimtThreads)
 paged_decode_simt_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                          const T* __restrict__ vpool,
@@ -177,7 +180,6 @@ paged_decode_simt_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
                          int P, int ps, int hd, int n_pages, int tstride,
                          int RB, float scale, float softcap) {
   constexpr int V = kvec<T>();
-  constexpr int TR = tile_rows<T>();
   extern __shared__ uint4 smem_raw[];
   __shared__ int lmax_s;
   const int ldk = hd + V;
@@ -558,12 +560,14 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
                         int RB, int splits, float softcap,
                         cudaStream_t stream) {
   const size_t smem = simt_smem_bytes<T>(RB, hd);
+  constexpr int TR = tile_rows<T>(0), TR_WIDE = tile_rows<T>(256);
+  auto kernel = hd > 128 ? paged_decode_simt_kernel<T, TR_WIDE>
+                         : paged_decode_simt_kernel<T, TR>;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_simt_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(splits, (ck * G + RB - 1) / RB, B * KV);
-  paged_decode_simt_kernel<T><<<grid, kSimtThreads, smem, stream>>>(
+  kernel<<<grid, kSimtThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), tables, lengths, static_cast<T*>(out),
       partials, arrivals, ck, KV, G, P, ps, hd, n_pages, tstride, RB,

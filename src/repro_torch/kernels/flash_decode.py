@@ -13,7 +13,8 @@ Each is the wrapper of its form: CPU tensors take the plain version; CUDA
 tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
 any launch: the chunk form in bf16 at hd 64 runs on the tensor cores
 (``flash_decode_chunk.cu``: ``wgmma`` over blocks of 64 query rows); the
-decode step, fp32 and hd 128 run on the CUDA cores (``flash_decode.cu``).
+decode step, fp32, hd 128 and hd 256 run on the CUDA cores
+(``flash_decode.cu``).
 A launch splits the cache axis over several CTAs per (b, kv-head, block of
 query rows); each writes its partial softmax sums to a scratch workspace
 and the last to arrive combines them, counted on a per-block arrival
@@ -54,15 +55,22 @@ def chunk_rows(ck: int, G: int, hd: int) -> int:
     return G * max(1, min(ck, MAX_GROUP_WIDTH // (G * hd)))
 
 
+def tile_rows(hd: int, esize: int) -> int:
+    """Cache positions of one shared-memory tile (csrc ``tile_rows``): 128
+    in bf16, 64 in fp32, halved above hd 128 so the ring does not grow with
+    hd."""
+    return (128 if esize == 2 else 64) // (2 if hd > 128 else 1)
+
+
 def smem_bytes(G: int, hd: int, esize: int, rows: int = 0) -> int:
     """Dynamic shared memory of one CTA for a block of ``rows`` query rows
     (default G: the decode step) and elements of ``esize`` bytes (csrc
     ``smem_bytes``): the K ring (rows padded by 16 bytes) and the V ring,
-    two tiles of 128 (bf16) or 64 (fp32) positions each, then in fp32 the
-    biases of both tiles for each of the block's rows / G chunk tokens, q,
-    the tile's probabilities and (m, l, alpha)."""
+    two tiles of ``tile_rows`` positions each, then in fp32 the biases of
+    both tiles for each of the block's rows / G chunk tokens, q, the tile's
+    probabilities and (m, l, alpha)."""
     rows = rows or G
-    tr = 128 if esize == 2 else 64
+    tr = tile_rows(hd, esize)
     return (esize * 2 * tr * (2 * hd + 16 // esize)
             + 4 * (2 * (rows // G) * tr + rows * hd + rows * tr + 3 * rows))
 

@@ -8,9 +8,10 @@ TPU wrapper's relayout to (B,KV,G,S,hd) and padding of S exist only for
 the TPU's tiling and are gone. CPU tensors take the plain version; CUDA
 tensors launch the kernel or raise. The kernel dispatches on dtype and
 head size: bf16 runs its products on the tensor cores with fp32
-accumulation (``wgmma`` at hd 64, ``mma.sync`` at hd 128), fp32 keeps
-fp32 products on the CUDA cores. ``flash_prefill_bshd.launches`` counts
-kernel launches (never plain-version calls).
+accumulation (``wgmma`` at hd 64, ``mma.sync`` at hd 32, 128 and 256),
+fp32 keeps fp32 products on the CUDA cores.
+``flash_prefill_bshd.launches`` counts kernel launches (never
+plain-version calls).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ _C = ctypes.c_void_p
 _ARGTYPES = [_C, _C, _C, _C, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_int, _C]
-HEAD_DIMS = (64, 128)           # instantiated in csrc/flash_prefill.cu
+HEAD_DIMS = (32, 64, 128, 256)  # instantiated in csrc/flash_prefill.cu
 NEG_INF = -1e30
 
 
@@ -57,12 +58,12 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       *, window: int = 0, softcap: float = 0.0
-                       ) -> torch.Tensor:
-    """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd). Causal (+window)."""
-    if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, window=window, softcap=softcap)
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int) -> None:
+    """Raise on what the kernel does not take, before any launch: q
+    (B,S,H,hd), k and v (B,S,KV,hd) of q's dtype, contiguous, 16-byte
+    aligned and on q's device, with S > 0, H a multiple of KV, hd in
+    ``HEAD_DIMS`` and an int window >= 0."""
     dev, dt = q.device, q.dtype
     for name, t in (("q", q), ("k", k), ("v", v)):
         build.check_operand(name, t, dev, dt, 4)
@@ -76,6 +77,18 @@ def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {hd}")
     if not isinstance(window, int) or window < 0:
         raise ValueError(f"window must be an int >= 0, got {window!r}")
+
+
+def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, window: int = 0, softcap: float = 0.0
+                       ) -> torch.Tensor:
+    """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd). Causal (+window)."""
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, window=window, softcap=softcap)
+    check_args(q, k, v, window)
+    dev = q.device
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
     lib = build.load("flash_prefill")
     fn = lib.flash_prefill_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

@@ -26,6 +26,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode import tile_rows
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,10 +40,11 @@ MAX_SMEM_BYTES = 232_448   # dynamic shared memory of one H100 block
 
 def simt_smem_bytes(rows: int, hd: int, esize: int) -> int:
     """Dynamic shared memory of one CUDA-core CTA (csrc ``simt_smem_bytes``):
-    the K ring (rows padded by 16 bytes) and the V ring, two tiles of 128
-    (bf16) or 64 (fp32) positions each, then in fp32 the block's q, the
-    tile's probabilities, (m, l, alpha) and the rows' lengths."""
-    tr = 128 if esize == 2 else 64
+    the K ring (rows padded by 16 bytes) and the V ring, two tiles of
+    ``flash_decode.tile_rows`` positions each (128 in bf16, 64 in fp32,
+    halved above hd 128), then in fp32 the block's q, the tile's
+    probabilities, (m, l, alpha) and the rows' lengths."""
+    tr = tile_rows(hd, esize)
     return (esize * 2 * tr * (2 * hd + 16 // esize)
             + 4 * (rows * hd + rows * tr + 4 * rows))
 
@@ -108,12 +110,17 @@ def _launch_fn():
     return fn
 
 
-def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-            tables: torch.Tensor, lengths: torch.Tensor, softcap: float,
-            chunk: bool) -> torch.Tensor:
-    """Check the operands, launch, return out like q: q (B,ck,KV,G,hd) and
-    lengths (B,ck) with ``chunk``, else q (B,KV,G,hd) and lengths (B,)
-    (the same memory layout with ck = 1)."""
+def check_args(q: torch.Tensor, k_pages: torch.Tensor,
+               v_pages: torch.Tensor, tables: torch.Tensor,
+               lengths: torch.Tensor, chunk: bool
+               ) -> Tuple[int, bool, int, int]:
+    """Raise on what the kernel does not take, before any launch: q
+    (B,ck,KV,G,hd) and lengths (B,ck) with ``chunk``, else q (B,KV,G,hd)
+    and lengths (B,) (the same memory layout with ck = 1); pools
+    (KV,P,ps,hd) of q's dtype; int32 tables (B, n_pages) with unit-stride
+    columns and int32 lengths; everything on q's device; hd a multiple of
+    8 and, on the CUDA cores, the block's shared memory within one H100
+    block. Returns (ck, ``launch_plan``)."""
     dev, dt = q.device, q.dtype
     build.check_operand("q", q, dev, dt, 5 if chunk else 4)
     build.check_operand("k_pages", k_pages, dev, dt, 4)
@@ -148,6 +155,18 @@ def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         raise ValueError(f"paged_decode needs hd % 8 == 0, hd <= "
                          f"{MAX_ROW_WIDTH} and {smem} bytes of shared memory "
                          f"<= {MAX_SMEM_BYTES}, got G={G} hd={hd}")
+    return ck, tc, rows, splits
+
+
+def _launch(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+            tables: torch.Tensor, lengths: torch.Tensor, softcap: float,
+            chunk: bool) -> torch.Tensor:
+    """Check the operands (``check_args``), launch, return out like q."""
+    ck, tc, rows, splits = check_args(q, k_pages, v_pages, tables, lengths,
+                                      chunk)
+    dev = q.device
+    B, KV, G, hd = q.shape[0], k_pages.shape[0], q.shape[-2], q.shape[-1]
+    P, ps, n_pages = k_pages.shape[1], k_pages.shape[2], tables.shape[1]
     n_blocks = B * KV * -(-ck * G // rows)
     fn = _launch_fn()
     out = torch.empty_like(q)

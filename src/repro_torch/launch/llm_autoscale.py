@@ -7,11 +7,10 @@ profile from the analytic roofline of one NVIDIA H100 SXM
 3.35 TB/s HBM a card); the same exact-DP solver and simulator then run the
 20-minute bursty trace, scaled to the ladder's capacity. Host only: the
 profiles are analytic and nothing runs on a card. The default
-architecture is tinyllama-1.1b, the port's registered dense model (the
-reference example's yi-6b is not registered in the port yet).
+architecture is yi-6b, as in the reference example.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.llm_autoscale
-          [--arch tinyllama-1.1b] [--budget 12] [--slo-ms 2000]
+          [--arch yi-6b] [--budget 12] [--slo-ms 2000]
 """
 from __future__ import annotations
 
@@ -30,7 +29,7 @@ def main(argv=None, log=print) -> dict:
     """Print the ladder and the InfAdapter / MS+ results; returns name ->
     ``ExperimentResult``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="yi-6b")
     ap.add_argument("--budget", type=int, default=12, help="H100 cards")
     ap.add_argument("--slo-ms", type=float, default=2000.0)
     args = ap.parse_args(argv)

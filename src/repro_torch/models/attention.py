@@ -6,12 +6,10 @@ against the dense cache (``chunk_prefill_attention``) or the paged pool
 ``repro.models.attention``.
 
 Two execution paths, as in the reference:
-  * plain PyTorch (``gqa_attend``, the reference's jnp branches);
+  * plain PyTorch (``gqa_attend``, the reference's jnp branches; above
+    ``FLASH_JNP_THRESHOLD`` tokens the prefill attends in query blocks,
+    ``flash_attend_qblocks``);
   * the CUDA kernels (``cfg.use_kernels``) via ``repro_torch.kernels.ops``.
-
-Not ported yet: the reference's ``flash_attend_qblocks`` (its jnp path
-above 2048 tokens, which bounds memory by attending in query blocks; the
-plain path here attends over the full (S, S) score matrix at any S).
 """
 from __future__ import annotations
 
@@ -82,6 +80,33 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+# Above this sequence length the plain path switches to the q-block form
+# (never materializes the (S, S) score matrix). The CUDA kernel is used when
+# cfg.use_kernels regardless.
+FLASH_JNP_THRESHOLD = 2048
+FLASH_JNP_BQ = 512
+
+
+def flash_attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: int, softcap: float = 0.0,
+                         bq: int = FLASH_JNP_BQ, q_offset: int = 0
+                         ) -> torch.Tensor:
+    """Blockwise causal attention in plain PyTorch: a loop over query
+    blocks of ``bq`` rows, each attending to the full K/V under
+    ``causal_mask_bias`` (the reference's ``lax.scan``). Memory is O(bq·S)
+    per block instead of O(S²). The last block is short where the
+    reference pads q: rows are independent, so the kept rows are the
+    same. No gradient flows here, so the reference's ``jax.checkpoint``
+    has no counterpart."""
+    S = q.shape[1]
+    T = k.shape[1]
+    outs = [gqa_attend(q[:, i:i + bq], k, v,
+                       causal_mask_bias(min(bq, S - i), T, i + q_offset,
+                                        window, q.device), softcap)
+            for i in range(0, S, bq)]
+    return torch.cat(outs, dim=1)
+
+
 def qkv_project(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -110,6 +135,8 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         out = kops.flash_prefill(q.contiguous(), k.contiguous(),
                                  v.contiguous(), window=int(w),
                                  softcap=cfg.attn_logit_softcap)
+    elif S > FLASH_JNP_THRESHOLD:
+        out = flash_attend_qblocks(q, k, v, int(w), cfg.attn_logit_softcap)
     else:
         bias = causal_mask_bias(S, S, 0, int(w), x.device)
         out = gqa_attend(q, k, v, bias, cfg.attn_logit_softcap)

@@ -59,6 +59,10 @@ DECODE_CASES = [
     (4, 4, 8, 64, 203, 0.0, False),   # C not a multiple of the splits
     (8, 5, 5, 64, 576, 0.0, True),    # hymba-1.5b's group of 5 at C = 576
     (2, 2, 8, 128, 300, 30.0, True),  # hd 128 with softcap, ragged, biased
+    (8, 1, 8, 256, 576, 0.0, False),  # gemma-2b's decode step: MQA, hd 256
+    (2, 8, 1, 256, 96, 0.0, True),    # the reference test's hd 256, G 1
+    (3, 1, 8, 256, 203, 30.0, True),  # hd 256: 64-position tiles, softcap
+    (3, 2, 8, 256, fd.SPLITS - 3, 0.0, True),  # hd 256, C below the splits
 ]
 
 
@@ -102,6 +106,11 @@ CHUNK_CASES = [
     (2, 16, 2, 8, 64, 700, 30.0, "first"),
     (2, 9, 3, 7, 64, 130, 0.0, "causal"),
     (2, 80, 2, 1, 64, 320, 0.0, "causal"),
+    # hd 256 on the CUDA cores: gemma-2b's dense fused tick (MQA, 16 rows
+    # a CTA), all but the first key under the bias, G 1
+    (8, 16, 1, 8, 256, 576, 0.0, "causal"),
+    (8, 16, 1, 8, 256, 576, 30.0, "first"),
+    (2, 5, 8, 1, 256, 100, 0.0, "causal"),
 ]
 
 
@@ -252,6 +261,12 @@ PREFILL_CASES = [
     (1, 300, 8, 2, 64, 100, 0.0),     # window crossing a tile edge
     (2, 200, 8, 2, 128, 48, 30.0),    # hd 128 with G 4, window, softcap
     (8, 512, 25, 5, 64, 256, 0.0),    # hymba-1.5b's heads, window 256
+    (8, 512, 8, 1, 256, 0, 0.0),      # gemma-2b's serve shape: MQA, hd 256
+    (1, 96, 8, 8, 256, 0, 0.0),       # the reference test's hd-256 shape
+    (2, 200, 8, 1, 256, 48, 30.0),    # hd 256, window, softcap
+    (2, 17, 8, 1, 256, 0, 0.0),       # hd 256, S past one warp's rows
+    (2, 128, 4, 4, 32, 32, 0.0),      # the reference test's hd 32, window
+    (2, 130, 4, 2, 32, 8, 30.0),      # hd 32, ragged S, window, softcap
 ]
 
 
@@ -301,6 +316,9 @@ PAGED_CASES = [
     (4, 4, 8, 64, 16, 12, 12, 30.0, False),  # softcap
     (5, 2, 4, 64, 16, 12, 5, 0.0, False),    # n_pages < table width
     (6, 4, 8, 64, 16, 9, 9, 0.0, True),      # NaN pages past each length
+    (8, 1, 8, 256, 16, 36, 36, 0.0, False),  # gemma-2b's decode: hd 256
+    (6, 1, 8, 256, 16, 9, 9, 30.0, True),    # hd 256, softcap, NaN pages
+    (3, 8, 1, 256, 16, 12, 12, 0.0, True),   # hd 256, G 1
 ]
 
 
@@ -333,6 +351,7 @@ PAGED_EDGES = [
     (3, 2, 4, 64, 16, 1, (1, 16, 7)),         # a one-page table
     (2, 1, 8, 128, 8, 1, (8, 5)),             # one page of 8, hd 128
     (3, 4, 8, 64, 16, 36, (9, 1, 65)),        # lengths shorter than a split
+    (4, 1, 8, 256, 16, 36, (0, 3, 203, 576)),  # the same at gemma's hd 256
 ]
 
 
@@ -402,6 +421,9 @@ CHUNK_CASES = [
     (5, 2, 1, 64, 8, 20, 12, 5, 0.0, True),     # G 1, a narrower slice
     (4, 1, 8, 64, 16, 9, 9, 1, 0.0, False),     # ck 1
     (4, 2, 5, 64, 16, 12, 12, 16, 0.0, True),   # G 5: 80 rows, 2 blocks
+    (8, 1, 8, 256, 16, 36, 36, 16, 0.0, True),  # gemma-2b's fused tick
+    (4, 1, 8, 256, 16, 12, 12, 16, 30.0, False),  # hd 256 with softcap
+    (3, 4, 1, 256, 8, 10, 10, 5, 0.0, True),    # hd 256, G 1, page 8
 ]
 
 
@@ -519,6 +541,33 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     assert pd.paged_flash_decode_bkhd.launches == n0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_512_is_refused_before_any_launch(cuda, dtype):
+    """hd 256 is the widest head the kernels take: at hd 512 each wrapper
+    raises (prefill: no instance; the decode kernels: a ring past one
+    block's shared memory) and launches nothing."""
+    def z(*shape):
+        return torch.zeros(shape, device=cuda, dtype=dtype)
+    counts = ops.launch_counts()
+    with pytest.raises(ValueError, match="hd"):
+        fp.flash_prefill_bshd(z(1, 8, 8, 512), z(1, 8, 1, 512),
+                              z(1, 8, 1, 512))
+    bias = torch.zeros((1, 8), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.flash_decode_bkhd(z(1, 1, 8, 512), z(1, 1, 8, 512),
+                             z(1, 1, 8, 512), bias)
+    with pytest.raises(ValueError, match="shared memory"):
+        fd.flash_decode_chunk(z(1, 2, 1, 8, 512), z(1, 1, 8, 512),
+                              z(1, 1, 8, 512), bias[:, None].expand(1, 2, 8)
+                              .contiguous())
+    tables = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        pd.paged_flash_decode_bkhd(z(1, 1, 8, 512), z(1, 2, 16, 512),
+                                   z(1, 2, 16, 512), tables, lengths)
+    assert ops.launch_counts() == counts
+
+
 def test_model_greedy_tokens_kernels_on_equal_off(cuda):
     """fp32 smoke rung: identical greedy continuation with the kernels on
     (CUDA) and off (plain PyTorch) on the card."""
@@ -538,6 +587,40 @@ def test_model_greedy_tokens_kernels_on_equal_off(cuda):
             tok = torch.argmax(logits, dim=-1)
             seq.append(tok)
             logits, cache = lm.decode_step(params, cache, tok)
+        outs.append(torch.stack(seq, 1).cpu().numpy())
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("gemma-2b", dict(num_heads=8, head_dim=256)),    # MQA G 8, hd 256
+    ("yi-6b", dict(num_heads=8, num_kv_heads=2, head_dim=128)),
+    ("deepseek-67b", {})])
+def test_dense_configs_greedy_tokens_kernels_on_equal_off(cuda, arch, over):
+    """fp32 2-layer rungs of the other dense configs (gemma-2b at its
+    published head shape: GeGLU, tied embedding, the embedding scale):
+    identical greedy continuation with the kernels on and off, and a
+    flash_prefill launch per layer per prefill, a flash_decode launch per
+    layer per step."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import LM
+    cfg = smoke_variant(get_config(arch)).replace(d_model=128, num_layers=2,
+                                                  **over)
+    outs = []
+    for on in (False, True):
+        lm = LM(cfg.replace(use_kernels=on))
+        params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (4, 40)), device=cuda)
+        n0 = ops.launch_counts()
+        logits, cache = lm.prefill(params, {"tokens": toks}, max_len=48)
+        seq = []
+        for _ in range(8):
+            tok = torch.argmax(logits, dim=-1)
+            seq.append(tok)
+            logits, cache = lm.decode_step(params, cache, tok)
+        n1 = ops.launch_counts()
+        assert n1["flash_prefill"] - n0["flash_prefill"] == 2 * on
+        assert n1["flash_decode"] - n0["flash_decode"] == 16 * on
         outs.append(torch.stack(seq, 1).cpu().numpy())
     np.testing.assert_array_equal(outs[0], outs[1])
 
@@ -797,6 +880,17 @@ GRAPH_ENGINES = [
      dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True,
           scheduler="chunked", async_tick=True), "continuous"),
     ("mamba2 async", "mamba2-130m", {}, dict(async_tick=True), "continuous"),
+    # gemma-2b's head shape: MQA with G 8 at hd 256, GeGLU, tied embedding
+    ("gemma hd256 dense bf16", "gemma-2b",
+     dict(num_layers=2, num_heads=8, head_dim=256, dtype="bfloat16"), {},
+     "continuous"),
+    ("gemma hd256 paged sharing", "gemma-2b",
+     dict(num_layers=2, num_heads=8, head_dim=256),
+     dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True),
+     "continuous"),
+    ("gemma hd256 chunked", "gemma-2b",
+     dict(num_layers=2, num_heads=8, head_dim=256),
+     dict(scheduler="chunked"), "continuous"),
 ]
 
 

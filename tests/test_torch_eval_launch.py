@@ -18,8 +18,13 @@ import torch
 import _torch_parity  # noqa: F401  (thread limit)
 
 ROOT = Path(__file__).resolve().parents[1]
+# One intra-op thread in the launchers, as ``_torch_parity`` gives the
+# in-process tests: the engine replay profiles its ladder live, and torch's
+# default of a thread per core, on a host the other test workers load,
+# slowed a smoke request past the launcher's 2000 ms SLO (so the
+# controller served nothing) where one thread took ~30 ms.
 ENV = dict(os.environ, PYTHONPATH=str(ROOT / "src"), PYTHONHASHSEED="0",
-           JAX_PLATFORMS="cpu")
+           JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
 
 
 def _start(*args):
@@ -75,19 +80,37 @@ def test_replay_trace_engine_serves_requests(replays):
     assert "predicted=" in port             # the controller stepped
 
 
+def _v5e_patch(argv):
+    """Run ``llm_autoscale.main(argv)`` on the reference's TPU v5e
+    constants."""
+    return ("import repro_torch.core.profiles as p\n"
+            "p.PEAK_FLOPS_BF16, p.HBM_BW = 197e12, 819e9\n"
+            "from repro_torch.launch import llm_autoscale\n"
+            f"llm_autoscale.main({argv!r})\n")
+
+
+def _as_chips(port):
+    return port.replace("H100 cards", "chips").replace("cards", "chips")
+
+
 def test_llm_autoscale_equals_reference_under_v5e_constants():
     """The ladder's roofline on the reference's TPU v5e constants: the same
     profiles, trace and results, in cards where the reference says chips."""
-    patch = ("import repro_torch.core.profiles as p\n"
-             "p.PEAK_FLOPS_BF16, p.HBM_BW = 197e12, 819e9\n"
-             "from repro_torch.launch import llm_autoscale\n"
-             "llm_autoscale.main()\n")
-    port, ref = _both(["-c", patch],
+    port, ref = _both(["-c", _v5e_patch(["--arch", "tinyllama-1.1b"])],
                       ["examples/llm_autoscale_tpu.py", "--arch",
                        "tinyllama-1.1b"])
     assert "H100 cards" in port and "th(4 cards)" in port
-    assert port.replace("H100 cards", "chips").replace("cards", "chips") \
-        == ref
+    assert _as_chips(port) == ref
+
+
+def test_llm_autoscale_defaults_to_the_reference_examples_yi_6b():
+    """With no ``--arch`` both sides take yi-6b: the same ladder text and
+    results under the v5e constants."""
+    port, ref = _both(["-c", _v5e_patch([])],
+                      ["examples/llm_autoscale_tpu.py"])
+    assert port.startswith("variant ladder for yi-6b (H100 cards as units)")
+    assert "yi-6b-L32" in port
+    assert _as_chips(port) == ref
 
 
 def test_replay_trace_store_profiles(tmp_path):
