@@ -216,13 +216,38 @@ phase raises, and the script exits nonzero:
               on vs off at model level; ``python -m
               repro_torch.launch.llm_autoscale`` at its default (yi-6b),
               run alongside in a subprocess;
- 15. output   the ``{"kernels": [...]}`` line (launches summed over the
+ 15. moe      the MoE family: granite-moe-3b-a800m (40 experts, top 8;
+              24 query heads on 8 KV heads of hd 64) at full width, bf16:
+              ``apply_moe`` in fp32 on the card against the CPU, a decode
+              step's 8 tokens (dropless, also against the dense oracle)
+              and a prefill's 8 x 512 at capacity factor 1.0 (experts
+              overflow: slot 0 of each overflowing expert reads zero);
+              every attention kernel at its GQA group of 3 against its
+              plain version in bf16 and fp32, timed beside SDPA and the
+              bound; L32 kernels on vs off (prefill, decode steps, paged
+              steps, both fused ticks), 32 launches per prefill, step and
+              fused tick asserted, the logits held to twice what the
+              kernels-off path moves under a 1e-3 perturbation of its
+              embedding (a deep random MoE reroutes tokens after any bf16
+              rounding), a 2-layer fp32 rung with identical greedy
+              tokens; the device split of an L32 decode step and
+              prefill (attention kernels, expert products, dispatch, the
+              rest) beside its bound; its steps replayed vs eager with
+              launches per step asserted; the 8/16/32 ladder through the
+              InfAdapter loop (dense FIFO, paged + sharing, ``chunked``,
+              10 s each; none rejected), ``memory_allocated`` per load and,
+              after each close and a collection, back at the loop's start
+              within CLOSE_MARGIN (every closing loop of phase 14 too);
+ 16. output   ``memory_allocated`` at the end and the part of it that is
+              cuBLAS's per-stream workspaces (dropped once nothing replays
+              again); the ``{"kernels": [...]}`` line (launches summed over the
               serve loops, the prefix phase, the obs phase's serve, the
-              profile, fabric and eval phases and the gemma-2b loops; the
-              chunk forms' rows carry their verify shape's times, and every
-              attention kernel's row its gemma-2b times under ``gemma_*``
-              keys, flash_prefill's its hd-32 times under ``hd32_*``), then
-              the ok line last.
+              profile, fabric and eval phases, the gemma-2b and the
+              granite loops; the chunk forms' rows carry their verify
+              shape's times, and every attention kernel's row its gemma-2b
+              and granite times under ``gemma_*`` and ``granite_*`` keys,
+              flash_prefill's its hd-32 times under ``hd32_*``), then the
+              ok line last.
 
 The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
@@ -275,6 +300,7 @@ BF16_LOGIT_TOL = 5e-2       # ||on - off|| / ||off|| over the logits, bf16
 FP32_LOGIT_TOL = 1e-4       # the same in fp32: sums in other orders only
 BF16_VS_PLAIN = 1.1         # bf16 kernels' distance from the fp32 logits,
 #                             at most this times the plain bf16 path's
+EMBED_NOISE = 1e-3          # a perturbation under one bf16 rounding (2^-8)
 SSD_CHUNK = 128
 # (h, p, n) of the SSD scan at the serve shape: mamba2-130m, hymba-1.5b
 SSD_HEADS = {"mamba2-130m": (24, 64, 128), "hymba-1.5b": (50, 64, 16)}
@@ -323,6 +349,20 @@ TAIL_MIN_REQUESTS = 100
 GEMMA = "gemma-2b"
 GEMMA_H, GEMMA_KV, GEMMA_HD = 8, 1, 256
 GEMMA_SIDE_SECONDS = 10
+# MoE phase: granite-moe-3b-a800m's attention heads (24 query heads on 8 KV
+# heads of hd 64: GQA group 3), its serve loops' length, and apply_moe's
+# tolerance card vs CPU in fp32 (max |card - CPU| / max |CPU|: sums over
+# 1536 and 512 terms in other orders)
+GRANITE = "granite-moe-3b-a800m"
+GRANITE_H, GRANITE_KV, GRANITE_HD = 24, 8, 64
+MOE_SERVE_SECONDS = 10
+MOE_REL_TOL = 1e-4
+# C1: memory_allocated after an engine's close (every backend retired, a
+# collection, the cache emptied) may exceed the engine's start by this
+# much: what the first engine of a process leaves for good on the one
+# capture stream (cuBLAS's workspace, 33.8 MB on the H100, and the
+# kernels' split workspace)
+CLOSE_MARGIN = 0.1e9
 DEVICE = "cuda"
 
 
@@ -1639,6 +1679,15 @@ def graph_phase(torch):
     return summary
 
 
+def mapped_pages(engine):
+    """Each paged backend's pool checked for consistency; returns the pages
+    still mapped per backend (none after a drain)."""
+    for b in engine.backends.values():
+        b.pool.assert_invariants()
+    return {n: b.pool.used_pages for n, b in engine.backends.items()
+            if b.pool.used_pages}
+
+
 def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
                 engine_kw=None, seconds=SERVE_SECONDS, close=False):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
@@ -1647,8 +1696,10 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
     adds engine options (the async tick, a scheduler, preemption: the
     engine then stamps requests on the loop's elapsed clock, which its
     deadlines are read against) and ``seconds`` sets the loop's length.
-    With ``close`` every backend is retired (closed) after the loop and the
-    card's ``memory_allocated`` printed. Returns (this phase's launch
+    With ``close`` every backend is retired (closed) after the loop, and
+    the card's ``memory_allocated`` after a collection must be back at the
+    loop's start within CLOSE_MARGIN (``close_engine``). Every load prints
+    its readiness and ``memory_allocated``. Returns (this phase's launch
     counts, profiles)."""
     from repro_torch.configs import get_config
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
@@ -1670,6 +1721,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
     geo = GEOMETRY[True]
     kv = dict(kv_cache="paged", kv_page_size=PAGE,
               kv_prefix_sharing=True) if paged else {}
+    base = settled_memory(torch) if close else None
     engine = InProcessServingEngine(variants, use_kernels=True,
                                     device=DEVICE, **geo, **kv, **engine_kw)
     loads = []                 # (variant, readiness s) of every load
@@ -1683,7 +1735,8 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
             f"{b._spec_pair.d.readiness_s:.3f}s "
             f"({len(b._spec_pair.d.graphs)} step graphs)")
         log(f"  loaded {name}: readiness {b.readiness_s:.3f}s "
-            f"({len(b.graphs)} step graphs){drafter}")
+            f"({len(b.graphs)} step graphs){drafter}; memory_allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
         return b
     engine._make_backend = make_logged
     if profiles is None:
@@ -1758,24 +1811,28 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
             spec_tokens_per_step=s.get("spec_tokens_per_step"))
     summary.update(tail_fields(s))
     if paged:
-        for name, b in engine.backends.items():
-            b.pool.assert_invariants()
-            if b.pool.used_pages:
-                raise AssertionError(f"{name}: {b.pool.used_pages} pages "
-                                     f"still mapped after the drain")
+        mapped = mapped_pages(engine)
+        if mapped:
+            raise AssertionError(f"pages still mapped after the drain: "
+                                 f"{mapped}")
         summary["kv_pool"] = engine.kv_pool_stats()
         summary["readiness_s"] = {n: b.readiness_s
                                   for n, b in engine.backends.items()}
     else:
         summary["readiness_s"] = {n: p.rt for n, p in profiles.items()}
-    for name, b in engine.backends.items():
-        if b._pending is not None or b._uncommitted_done or b.active_slots:
-            raise AssertionError(f"{name}: uncommitted work after the drain")
+    # (no loop over backends in this frame: its variable would keep the
+    # last backend, weights and cache, alive past the close below)
+    busy = [n for n, b in engine.backends.items()
+            if b._pending is not None or b._uncommitted_done
+            or b.active_slots]
+    if busy:
+        raise AssertionError(f"{busy}: uncommitted work after the drain")
     log(f"  serve summary ({kind}) " + json.dumps(summary))
     if close:
         log(f"  {kind}: served {s['n_requests']}, rejected "
             f"{s['rejected']}; memory_allocated after close "
-            f"{close_engine(torch, engine) / 1e9:.3f} GB")
+            f"{close_engine(torch, engine, base) / 1e9:.3f} GB (at the "
+            f"loop's start {base / 1e9:.3f})")
     del engine
     torch.cuda.empty_cache()
     return launches, profiles
@@ -2974,15 +3031,39 @@ def eval_controller(kind, profiles, cfg, window):
     return CocktailController(profiles, fc, cfg)
 
 
-def close_engine(torch, eng):
-    """Retire every backend (each is closed: its graphs and pool go) and
-    return the card's ``memory_allocated`` after."""
-    eng.apply_allocation(0.0, {})
-    if eng.backends:
-        raise AssertionError(f"backends left open: {sorted(eng.backends)}")
+def settled_memory(torch):
+    """``memory_allocated`` after a collection and an emptied cache."""
+    import gc
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated()
+
+
+def close_engine(torch, eng, base=None):
+    """Retire every backend (each is closed: its graphs and pool go) and
+    return the card's ``memory_allocated`` after a collection. With
+    ``base`` (the engine's start) it must be back there within
+    CLOSE_MARGIN, or the largest tensors still alive are printed and the
+    check fails."""
+    eng.apply_allocation(0.0, {})
+    if eng.backends:
+        raise AssertionError(f"backends left open: {sorted(eng.backends)}")
+    after = settled_memory(torch)
+    if base is not None and after - base > CLOSE_MARGIN:
+        import gc
+        live = {}
+        for o in gc.get_objects():
+            if isinstance(o, torch.Tensor) and o.is_cuda:
+                st = o.untyped_storage()
+                live[st.data_ptr()] = (st.nbytes(), tuple(o.shape), o.dtype)
+        top = sorted(live.values(), key=lambda v: -v[0])[:8]
+        raise AssertionError(
+            f"memory_allocated {after / 1e9:.3f} GB after the close, "
+            f"{(after - base) / 1e9:.3f} GB above the engine's start; "
+            f"{sum(v[0] for v in live.values()) / 1e9:.3f} GB in live "
+            f"tensors, the largest {top}")
+    return after
 
 
 def served_checks(label, eng, n_sub, max_new, vocab):
@@ -3420,30 +3501,33 @@ def profiling_phase(torch, profiles):
     return launches, summary, {n: measured[n].profile for n in variants}
 
 
-def gemma_inputs(torch, gen, dtype):
-    """Makers of each attention kernel's operands at gemma-2b's serve
-    shapes (8 query heads on one KV head of hd 256; the serve geometry's B
-    8, 512-token prompts, ring C 576, 36 pages of 16, chunks of 16)."""
+def head_inputs(torch, gen, dtype, heads):
+    """Makers of each attention kernel's operands at one config's serve
+    shapes: ``heads`` = (query heads, KV heads, head dim) (gemma-2b: 8 on
+    one KV head of hd 256; granite-moe-3b-a800m: 24 on 8 of hd 64), the
+    serve geometry's B 8, 512-token prompts, ring C 576, 36 pages of 16,
+    chunks of 16."""
     dev = torch.device(DEVICE)
-    G = GEMMA_H // GEMMA_KV
+    H_, KV_, HD_ = heads
+    G = H_ // KV_
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     return {
-        "prefill": lambda: (randn(B, PROMPT, GEMMA_H, GEMMA_HD),
-                            randn(B, PROMPT, GEMMA_KV, GEMMA_HD),
-                            randn(B, PROMPT, GEMMA_KV, GEMMA_HD)),
-        "decode": lambda: (randn(B, GEMMA_KV, G, GEMMA_HD),
-                           randn(B, GEMMA_KV, CAP, GEMMA_HD),
-                           randn(B, GEMMA_KV, CAP, GEMMA_HD),
+        "prefill": lambda: (randn(B, PROMPT, H_, HD_),
+                            randn(B, PROMPT, KV_, HD_),
+                            randn(B, PROMPT, KV_, HD_)),
+        "decode": lambda: (randn(B, KV_, G, HD_),
+                           randn(B, KV_, CAP, HD_),
+                           randn(B, KV_, CAP, HD_),
                            torch.zeros((B, CAP), device=dev)),
-        "chunk": lambda: dense_chunk_inputs(torch, gen, B, CK, GEMMA_KV, G,
-                                            GEMMA_HD, CAP, dtype),
-        "paged": lambda: paged_inputs(torch, gen, B, GEMMA_KV, G, GEMMA_HD,
+        "chunk": lambda: dense_chunk_inputs(torch, gen, B, CK, KV_, G,
+                                            HD_, CAP, dtype),
+        "paged": lambda: paged_inputs(torch, gen, B, KV_, G, HD_,
                                       PAGE, WIDTH, dtype),
         "paged_chunk": lambda: chunk_inputs(
-            torch, gen, B, GEMMA_KV, G, GEMMA_HD, PAGE, WIDTH, WIDTH, CK,
+            torch, gen, B, KV_, G, HD_, PAGE, WIDTH, WIDTH, CK,
             dtype, start_range=(PS_SHARED, PROMPT - CK)),
     }
 
@@ -3466,19 +3550,20 @@ def timed_row(torch, fn, plain, sets, nbytes, flops, dt, library=None,
     return row
 
 
-def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
-    """Every attention kernel at gemma-2b's hd 256 against its plain
-    version in bf16 and fp32 (paged: also NaN pages past every length),
+def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
+    """Every attention kernel at one config's serve shapes (``heads`` =
+    (query heads, KV heads, head dim)) against its plain version in bf16
+    and fp32 (paged: also NaN pages past every length), with ``hd32``
     flash_prefill at hd 32 with a window (the reference kernel test's
     shape), then their times in bf16 (flash_prefill and flash_decode's
-    decode step in fp32 too). Returns {kernel name: {"gemma_<key>": ...,
+    decode step in fp32 too). Returns {kernel name: {"<tag>_<key>": ...,
     "hd32_<key>": ...}} for the JSON line (bf16)."""
-    H_, KV_, HD_ = GEMMA_H, GEMMA_KV, GEMMA_HD
+    H_, KV_, HD_ = heads
     G = H_ // KV_
     errs = {}
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt)[6:]
-        mk = gemma_inputs(torch, gen, dt)
+        mk = head_inputs(torch, gen, dt, heads)
         for key, fn, plain in (
                 ("prefill", fp.flash_prefill_bshd, fp.flash_prefill_plain),
                 ("decode", fd.flash_decode_bkhd, fd.flash_decode_plain),
@@ -3488,7 +3573,7 @@ def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
                 ("paged_chunk", pd.paged_flash_decode_chunk,
                  pd.paged_flash_decode_chunk_plain)):
             a = mk[key]()
-            errs[(key, dt)] = check(f"{key} hd 256 gemma shape {name}",
+            errs[(key, dt)] = check(f"{key} hd {HD_} {tag} shape {name}",
                                     fn(*a), plain(*a), dt)
         for key, a, fn, plain in (
                 ("paged", paged_inputs(torch, gen, B, KV_, G, HD_, PAGE,
@@ -3501,10 +3586,12 @@ def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
                  pd.paged_flash_decode_chunk_plain)):
             out = fn(*a)
             if not torch.isfinite(out).all():
-                raise AssertionError(f"{key} hd 256: non-finite output past "
-                                     f"NaN pages")
-            check(f"{key} hd 256 NaN pages past every length {name}", out,
-                  plain(*a), dt)
+                raise AssertionError(f"{key} hd {HD_} {tag}: non-finite "
+                                     f"output past NaN pages")
+            check(f"{key} hd {HD_} {tag} NaN pages past every length "
+                  f"{name}", out, plain(*a), dt)
+        if not hd32:
+            continue
         q, k, v = (torch.randn(s, generator=gen, device=DEVICE).to(dt)
                    for s in ((2, 128, 4, 32), (2, 128, 4, 32),
                              (2, 128, 4, 32)))
@@ -3526,7 +3613,7 @@ def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
             "flash_decode_chunk": {}, "paged_decode": {}}
     for dt in (torch.bfloat16, torch.float32):
         esz, name = torch.tensor([], dtype=dt).element_size(), str(dt)[6:]
-        mk = gemma_inputs(torch, gen, dt)
+        mk = head_inputs(torch, gen, dt, heads)
         res = {}
         first = mk["prefill"]()
         sets = rotated(first, mk["prefill"], ())
@@ -3578,6 +3665,7 @@ def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
                        + 2 * B * CK * H_ * HD_)
                 + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK,
                 4 * H_ * HD_ * int(lengths.sum()), dt)
+        if dt == torch.bfloat16 and hd32:
             S32, w = 128, 32
             make = lambda: tuple(                           # noqa: E731
                 torch.randn((2, S32, 4, 32), generator=gen,
@@ -3606,26 +3694,84 @@ def gemma_kernel_rows(torch, F, fd, fp, pd, gen):
         err = {"flash_prefill": "prefill", "flash_decode": "decode",
                "flash_decode_chunk": "chunk", "paged_decode": "paged"}
         for kernel, row in rows.items():
-            row.update({f"gemma_{k}": v for k, v in res[kernel].items()},
-                       gemma_max_abs_err=errs[(err[kernel], dt)])
+            row.update({f"{tag}_{k}": v for k, v in res[kernel].items()})
+            row[f"{tag}_max_abs_err"] = errs[(err[kernel], dt)]
         rows["paged_decode"].update(
-            {f"gemma_chunk_{k}": v for k, v in res["paged_chunk"].items()},
-            gemma_chunk_max_abs_err=errs[("paged_chunk", dt)])
-        rows["flash_prefill"].update(
-            {f"hd32_{k}": v for k, v in res["hd32"].items()},
-            hd32_max_abs_err=errs[("hd32", dt)])
+            {f"{tag}_chunk_{k}": v for k, v in res["paged_chunk"].items()})
+        rows["paged_decode"][f"{tag}_chunk_max_abs_err"] = errs[
+            ("paged_chunk", dt)]
+        if hd32:
+            rows["flash_prefill"].update(
+                {f"hd32_{k}": v for k, v in res["hd32"].items()},
+                hd32_max_abs_err=errs[("hd32", dt)])
     return rows
 
 
-def dense_model_check(torch, arch, paged=True):
+def fused_tick_check(torch, arch, lm_on, lm_off, params, toks, tol):
+    """Both fused ticks' calls, kernels on vs off: one CK-token chunk per
+    row at position PROMPT after a prefill of ``toks``, against the dense
+    ring (``prefill_chunk``: one flash_decode chunk-form launch per layer)
+    and through the page pool (``prefill_chunk_paged``: one paged_decode
+    launch per layer), logits held to ``tol``. Returns
+    {"dense"|"paged": (rel err, launches)}."""
+    from repro_torch.kernels import ops
+    dev = toks.device
+    L = lm_on.cfg.num_layers
+    start = torch.full((B,), PROMPT, device=dev)
+    n_valid = torch.full((B,), CK, device=dev)
+    chunk = toks[:, :CK]
+    out = {}
+    for kind, kernel in (("dense", "flash_decode_chunk"),
+                         ("paged", "paged_decode")):
+        logits, got = [], None
+        for lm in (lm_on, lm_off):
+            if kind == "dense":
+                _, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+                step = lm.prefill_chunk
+            else:
+                first, pref = lm.prefill(params, {"tokens": toks},
+                                         max_len=PROMPT)
+                cache = lm.init_paged_cache(B, B * WIDTH + 1, PAGE, WIDTH,
+                                            dev)
+                lm.paged_admit(cache, pref, torch.zeros(
+                    B, dtype=torch.int64, device=dev),
+                    torch.argmax(first, -1),
+                    torch.arange(1, B * WIDTH + 1,
+                                 device=dev).reshape(B, WIDTH),
+                    torch.arange(B, device=dev))
+                step = lm.prefill_chunk_paged
+            n0 = ops.launch_counts()
+            logits.append(step(params, cache, chunk, start, n_valid)[0])
+            n1 = ops.launch_counts()
+            got = got or {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
+            del cache
+        rel = rel_err(logits[:1], logits[1:], lm_on.cfg.vocab_size)
+        log(f"  {arch} L{L} {kind} fused tick (chunk of {CK} at {PROMPT}): "
+            f"logits rel err on vs off {rel:.3e}; launches {got}")
+        if got != {kernel: L} or rel > tol \
+                or not bool(torch.isfinite(logits[0]).all()):
+            raise AssertionError(f"{arch} {kind} fused tick: launches {got}"
+                                 f" (want {L} {kernel}), rel err {rel}")
+        out[kind] = (rel, got[kernel])
+    return out
+
+
+def dense_model_check(torch, arch, paged=True, fused=False,
+                      sensitivity=False):
     """``arch`` at full width (its published depth, bf16) with random
     seeded weights: prefill of B x PROMPT tokens and 8 decode steps with
     the kernels on and off (and, with ``paged``, the steps through the page
-    pool with the kernels on), logits held to BF16_LOGIT_TOL, launches
-    asserted per prefill and per step, wall and device ms (one prefill and
-    one decode step under ``torch.profiler``) printed; then a 2-layer fp32
-    rung of the same widths must give identical greedy tokens kernels on
-    vs off (and paged vs dense). Returns the numbers."""
+    pool with the kernels on; with ``fused``, both fused ticks' calls on
+    and off, ``fused_tick_check``), logits held to BF16_LOGIT_TOL,
+    launches asserted per prefill and per step, wall and device ms (one
+    prefill and one decode step under ``torch.profiler``) printed; then a
+    2-layer fp32 rung of the same widths must give identical greedy tokens
+    kernels on vs off (and paged vs dense). With ``sensitivity`` the logits
+    are held instead to twice what the kernels-off path itself gives with
+    its embedding table perturbed by EMBED_NOISE (relative), where that
+    exceeds BF16_LOGIT_TOL: a deep random MoE routes some token to another
+    expert after any bf16 rounding, and its logits part from there.
+    Returns the numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
@@ -3650,7 +3796,23 @@ def dense_model_check(torch, arch, paged=True):
     rel = rel_err(on, off, cfg.vocab_size)
     first = [int((torch.argmax(a, -1) == torch.argmax(b, -1)).sum())
              for a, b in zip(on, off)]
-    out = {"weight_bytes": wbytes, "prefill_ms_on": t_on[0],
+    tol, noise = BF16_LOGIT_TOL, None
+    if sensitivity:
+        table = params["embed"]["table"]
+        grain = torch.randn(table.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        nudged = {**params, "embed": {**params["embed"], "table": (
+            table.float() * (1 + EMBED_NOISE * grain)).to(table.dtype)}}
+        del grain
+        noisy, _, _ = prefill_decode(torch, lm_off, nudged, toks, feed=seq)
+        noise = rel_err(noisy, off, cfg.vocab_size)
+        tol = max(BF16_LOGIT_TOL, 2 * noise)
+        del nudged, noisy
+        log(f"  {arch} L{L} bf16, kernels off, embedding perturbed by "
+            f"{EMBED_NOISE:g}: logits rel err {noise:.3e}; tolerance on vs "
+            f"off {tol:.3e}")
+    out = {"weight_bytes": wbytes, "logits_tol": tol,
+           "perturbed_rel_err": noise, "prefill_ms_on": t_on[0],
            "prefill_ms_off": t_off[0], "decode_step_ms_on": t_on[1],
            "decode_step_ms_off": t_off[1], "logits_rel_err": rel,
            "launches_per_prefill": got["flash_prefill"],
@@ -3665,7 +3827,7 @@ def dense_model_check(torch, arch, paged=True):
             lm.decode_step(params, cache, cache_tok)))
         del logits, cache
     log(f"  {arch} L{L} bf16 ({wbytes / 1e9:.3f} GB of weights): logits rel "
-        f"err on vs off {rel:.3e} (tol {BF16_LOGIT_TOL:.0e}); greedy tokens "
+        f"err on vs off {rel:.3e} (tol {tol:.3e}); greedy tokens "
         f"on = off per step (of {B}) {first}; launches per prefill "
         f"{got['flash_prefill']} flash_prefill, per decode step "
         f"{got['flash_decode'] / 8:g} flash_decode")
@@ -3686,13 +3848,16 @@ def dense_model_check(torch, arch, paged=True):
             f"on) {out['paged_logits_rel_err']:.3e}; step ms {t_pg[1]:.2f}; "
             f"paged_decode launches per step {t_pg[2]:g}")
         bad |= not all(bool(torch.isfinite(a).all()) for a in pg)
-        if t_pg[2] != L or out["paged_logits_rel_err"] > BF16_LOGIT_TOL:
+        if t_pg[2] != L or out["paged_logits_rel_err"] > tol:
             raise AssertionError(f"{arch} paged: {t_pg[2]} launches a step "
                                  f"(want {L}), rel err "
                                  f"{out['paged_logits_rel_err']}")
-    if bad or rel > BF16_LOGIT_TOL:
+    if bad or rel > tol:
         raise AssertionError(f"{arch} bf16 logits: rel err {rel}, finite "
                              f"{not bad}")
+    if fused:
+        out["fused"] = fused_tick_check(torch, arch, lm_on, lm_off, params,
+                                        toks, tol)
     del params, on, off
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(num_layers=2, dtype="float32", name=f"{arch}-L2-f32")
@@ -3713,6 +3878,33 @@ def dense_model_check(torch, arch, paged=True):
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def step_launch_checks(torch, arch, max_new=MAX_NEW):
+    """``graph_arch`` for ``arch`` at full width on the dense, paged +
+    sharing and dense chunked engines (replay = eager bitwise; requests of
+    ``max_new`` tokens), then one launch of the path's kernel per layer
+    asserted for every replayed step: prefill, decode step, and both fused
+    ticks. Returns the graph summary."""
+    from repro_torch.configs import get_config
+    graphs = graph_arch(torch, arch, max_new,
+                        ("dense", "paged", "dense-chunked"))
+    L = get_config(arch).num_layers
+    want = {"dense": {"prefill": {"flash_prefill": L},
+                      "decode": {"flash_decode": L}},
+            "paged": {"prefill": {"flash_prefill": L},
+                      "fused": {"paged_decode": L},
+                      "decode": {"paged_decode": L}},
+            "dense-chunked": {"fused": {"flash_decode_chunk": L}}}
+    for engine, kinds in want.items():
+        steps = graphs[f"{arch} L{L} {engine}"]["replay"]
+        for kind, launches in kinds.items():
+            if steps[kind]["launches"] != launches:
+                raise AssertionError(
+                    f"{arch} {engine} {kind}: launches per step "
+                    f"{steps[kind]['launches']}, want {launches}")
+    log(f"  {arch} L{L} launches per step as asserted: {want}")
+    return graphs
 
 
 def dense_config_phase(torch, F):
@@ -3753,30 +3945,16 @@ def dense_config_phase(torch, F):
     try:
         memory("at the phase's start")
         gen = torch.Generator(device=DEVICE).manual_seed(25)
-        rows = gemma_kernel_rows(torch, F, fd, fp, pd, gen)
+        rows = head_kernel_rows(torch, F, fd, fp, pd, gen,
+                                (GEMMA_H, GEMMA_KV, GEMMA_HD), "gemma",
+                                hd32=True)
         t_k = time.time()
         memory("after the kernels")
         model = dense_model_check(torch, GEMMA)
         t_m = time.time()
         memory(f"after {GEMMA}'s model check")
-        graphs = graph_arch(torch, GEMMA, MAX_NEW,
-                            ("dense", "paged", "dense-chunked"))
+        graphs = step_launch_checks(torch, GEMMA)
         memory(f"after {GEMMA}'s graphs")
-        L = cfg.num_layers
-        want = {"dense": {"prefill": {"flash_prefill": L},
-                          "decode": {"flash_decode": L}},
-                "paged": {"prefill": {"flash_prefill": L},
-                          "fused": {"paged_decode": L},
-                          "decode": {"paged_decode": L}},
-                "dense-chunked": {"fused": {"flash_decode_chunk": L}}}
-        for engine, kinds in want.items():
-            steps = graphs[f"{GEMMA} L{L} {engine}"]["replay"]
-            for kind, launches in kinds.items():
-                if steps[kind]["launches"] != launches:
-                    raise AssertionError(
-                        f"{GEMMA} {engine} {kind}: launches per step "
-                        f"{steps[kind]['launches']}, want {launches}")
-        log(f"  {GEMMA} L{L} launches per step as asserted: {want}")
         t_g = time.time()
         launches = Counter()
         dense, profiles = serve_phase(torch, arch=GEMMA, close=True)
@@ -3810,6 +3988,212 @@ def dense_config_phase(torch, F):
                           "yi": t_y - t_s,
                           "phase": time.time() - t_phase}}
     log("  dense-config summary " + json.dumps(summary, default=str))
+    return rows, dict(launches)
+
+
+def moe_layer_checks(torch):
+    """``apply_moe`` at granite-moe-3b-a800m's widths (D 1536, 40 experts
+    of F 512, top 8) in fp32 on the card against the same call on the CPU
+    (MOE_REL_TOL): a decode step's B tokens, dropless (C 8, and a token
+    picks an expert once), also against ``apply_moe_dense_oracle`` on the
+    card; and a prefill's B x PROMPT tokens at capacity factor 1.0, where
+    experts overflow: the three metrics equal the CPU's, and slot 0 of
+    every overflowing expert reads zero in the card's buffer (the
+    reference's overflow write). Returns {case: numbers}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(GRANITE).replace(dtype="float32")
+    E, k = cfg.num_experts, cfg.experts_per_token
+    gen = torch.Generator().manual_seed(26)
+    cpu = moe.init_moe(gen, cfg, torch.float32, torch.float32,
+                       torch.device("cpu"))
+    card = {n: t.to(DEVICE) for n, t in cpu.items()}
+    out = {}
+    for label, S, cf in (("decode", 1, None), ("prefill", PROMPT, 1.0)):
+        x = torch.randn((B, S, cfg.d_model), generator=gen)
+        want, m_cpu = moe.apply_moe(cfg, cpu, x, capacity_factor=cf)
+        got, m_card = moe.apply_moe(cfg, card, x.to(DEVICE),
+                                    capacity_factor=cf)
+        scale = float(want.abs().max())
+        rel = float((got.cpu() - want).abs().max()) / scale
+        metrics = {n: (float(m_card[n]), float(m_cpu[n])) for n in m_cpu}
+        row = {"tokens": B * S, "capacity": moe.moe_capacity(
+            B * S, cfg, cf or cfg.moe_capacity_factor), "rel_err": rel,
+            "metrics_card_cpu": metrics}
+        bad = rel > MOE_REL_TOL or any(
+            abs(a - b) > 1e-5 * max(1.0, abs(b)) for a, b in metrics.values())
+        drop = metrics["drop_fraction"][0]
+        if label == "decode":
+            oracle = moe.apply_moe_dense_oracle(cfg, card, x.to(DEVICE))
+            row["oracle_rel_err"] = float(
+                (got - oracle).abs().max()) / scale
+            bad |= drop != 0.0 or row["oracle_rel_err"] > MOE_REL_TOL
+        else:
+            flat = x.to(DEVICE).reshape(B * S, -1)
+            ids = moe.route(cfg, card, flat)[2].reshape(-1)
+            buf, *_, counts = moe._dispatch(flat, ids, E, row["capacity"],
+                                            k)
+            over = counts > row["capacity"]
+            row["overflowing_experts"] = int(over.sum())
+            row["slot0_max_abs"] = float(buf[over, 0].abs().max()) \
+                if bool(over.any()) else None
+            bad |= not drop > 0.0 or not bool(over.any()) \
+                or row["slot0_max_abs"] != 0.0
+        log(f"  apply_moe {label} ({B * S} tokens, C {row['capacity']}, "
+            f"fp32): card vs CPU {rel:.2e} of max |y| {scale:.1f} (tol "
+            f"{MOE_REL_TOL:.0e}); metrics card / CPU {metrics}"
+            + (f"; vs the dense oracle {row['oracle_rel_err']:.2e}"
+               if label == "decode" else
+               f"; {row['overflowing_experts']} experts overflow, their "
+               f"slot 0 max |x| {row['slot0_max_abs']}"))
+        if bad:
+            raise AssertionError(f"apply_moe {label} on the card: {row}")
+        out[label] = row
+    return out
+
+
+def moe_step_split(torch):
+    """Device time of an eager granite-moe-3b-a800m L32 decode step (B 8
+    at position PROMPT) and prefill (B x PROMPT), kernels on, bf16, split
+    by ``launch.profile_step.moe_split`` into the attention kernels, the
+    expert products, the dispatch and the rest, beside each step's bound:
+    the bytes it must move (every weight once, the K/V it reads or writes,
+    the logits) and the operations its tokens need (every layer's products
+    over T tokens with each token's k experts, the attention scores), over
+    the card's rates. Returns {step: numbers}."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profile_step import moe_split
+    from repro_torch.models.model import LM
+    from repro_torch.serving.graphs import tensor_leaves
+    dev = torch.device(DEVICE)
+    cfg = get_config(GRANITE).replace(use_kernels=True)
+    L, D, F_, E, k = (cfg.num_layers, cfg.d_model, cfg.d_ff,
+                      cfg.num_experts, cfg.experts_per_token)
+    H_, KV_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0))
+    weights = sum(t.numel() * t.element_size()
+                  for t in tensor_leaves(params))
+    toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+    tok = torch.argmax(logits, -1)
+    kv_bytes = 2 * L * B * KV_ * PROMPT * hd * 2
+    attn_params = D * (H_ + 2 * KV_) * hd + H_ * hd * D
+    logit_bytes = B * cfg.padded_vocab * 2
+
+    def flops(T, pairs):
+        per_token = 2 * (attn_params + D * E + k * 3 * D * F_)
+        return L * (T * per_token + 4 * B * H_ * pairs * hd) \
+            + 2 * B * D * cfg.padded_vocab
+
+    steps = {"decode": (lambda: lm.decode_step(params, cache, tok),
+                        weights + kv_bytes + logit_bytes,
+                        flops(B, B * (PROMPT + 1))),
+             "prefill": (lambda: lm.prefill(params, {"tokens": toks},
+                                             max_len=CAP),
+                         weights + kv_bytes + logit_bytes,
+                         flops(B * PROMPT, B * PROMPT * (PROMPT + 1) // 2))}
+    out = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for name, (fn, nbytes, nflops) in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        device = sum(e.self_device_time_total for e in ev
+                     if e.device_type == cuda
+                     and not e.key.startswith("moe.")) / 1e3
+        split = moe_split(ev, device)
+        b_ms, b_by = bound(nbytes, nflops, torch.bfloat16)
+        out[name] = {"device_ms": device, **split, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "flops": nflops}
+        log(f"  {GRANITE} L{L} {name} (eager, B {B}): device {device:.3f} "
+            f"ms = attention kernels {split['attention_ms']:.3f} + expert "
+            f"products {split['experts_ms']:.3f} + dispatch "
+            f"{split['dispatch_ms']:.3f} + rest {split['rest_ms']:.3f}; "
+            f"bound {b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.2f} GB, "
+            f"{nflops / 1e12:.2f} TFLOP)")
+        if not split or min(split.values()) < 0.0:
+            raise AssertionError(f"{name}: no MoE split {split}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, F):
+    """The MoE family on the card: granite-moe-3b-a800m (40 experts, top 8;
+    24 query heads on 8 KV heads of hd 64) at full width. ``apply_moe``
+    card vs CPU (``moe_layer_checks``); every attention kernel at its GQA
+    group of 3 against its plain version, timed beside SDPA and the bound
+    (``head_kernel_rows``); L32 kernels on vs off, dense and paged, both
+    fused ticks, launches per prefill and per step asserted
+    (``dense_model_check``); the device split of a decode step and a
+    prefill (``moe_step_split``); its steps replayed vs eager
+    (``step_launch_checks``); its 8/16/32 ladder through the InfAdapter
+    loop on the dense FIFO, paged + sharing and chunked engines, none
+    rejected, ``memory_allocated`` printed per load and held after each
+    close to the loop's start within CLOSE_MARGIN. Returns (kernel rows'
+    granite keys, the serve loops' launch counts)."""
+    import gc
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_decode as pd
+    t_phase = time.time()
+    cfg = get_config(GRANITE)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if heads != (GRANITE_H, GRANITE_KV, GRANITE_HD):
+        raise AssertionError(f"{GRANITE}'s heads {heads} are not the "
+                             f"phase's shapes")
+    log(f"[15] MoE: {GRANITE} ({cfg.num_experts} experts, top "
+        f"{cfg.experts_per_token}; {GRANITE_H} query heads on {GRANITE_KV} "
+        f"KV heads of hd {GRANITE_HD}) at full width")
+
+    def memory(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  memory_allocated {label}: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    memory("at the phase's start")
+    layer = moe_layer_checks(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    rows = head_kernel_rows(torch, F, fd, fp, pd, gen, heads, "granite")
+    t_k = time.time()
+    model = dense_model_check(torch, GRANITE, fused=True, sensitivity=True)
+    split = moe_step_split(torch)
+    t_m = time.time()
+    memory(f"after {GRANITE}'s model checks")
+    # two decode chunks a request: an eager L32 MoE step takes ~0.1 s
+    step_launch_checks(torch, GRANITE, max_new=2 * CHUNK)
+    memory(f"after {GRANITE}'s graphs")
+    t_g = time.time()
+    launches = Counter()
+    dense, profiles = serve_phase(torch, arch=GRANITE, close=True,
+                                  seconds=MOE_SERVE_SECONDS)
+    launches.update(dense)
+    paged, _ = serve_phase(torch, paged=True, profiles=profiles,
+                           arch=GRANITE, seconds=MOE_SERVE_SECONDS,
+                           close=True)
+    launches.update(paged)
+    chunked, _ = serve_phase(torch, profiles=profiles, arch=GRANITE,
+                             engine_kw=dict(scheduler="chunked"),
+                             seconds=MOE_SERVE_SECONDS, close=True)
+    launches.update(chunked)
+    memory("at the phase's end")
+    summary = {"layer": layer, "model": model, "split": split,
+               "launches": dict(launches),
+               "wall_s": {"kernels": t_k - t_phase, "model": t_m - t_k,
+                          "graphs": t_g - t_m, "serve": time.time() - t_g,
+                          "phase": time.time() - t_phase}}
+    log("  moe summary " + json.dumps(summary, default=str))
     return rows, dict(launches)
 
 
@@ -3881,11 +4265,13 @@ def main():
     evaluation = eval_phase(torch, measured)
     import torch.nn.functional as F
     gemma_rows, dense_cfgs = dense_config_phase(torch, F)
+    granite_rows, moe = moe_phase(torch, F)
     for r in rows:
         r.update(gemma_rows.get(r["name"], {}))
+        r.update(granite_rows.get(r["name"], {}))
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
-            evaluation, dense_cfgs))
+            evaluation, dense_cfgs, moe))
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3897,11 +4283,18 @@ def main():
             "verify_device_ms", "verify_library_ms",
             "verify_library_device_ms", "hymba_ms", "hymba_device_ms",
             "hymba_plain_ms", "hymba_bound_ms")
-    log(f"[15] total wall time {time.time() - t_start:.1f}s")
+    # nothing replays from here on: what the process keeps for good is
+    # read off by dropping cuBLAS's per-stream workspaces (C1)
+    end = settled_memory(torch)
+    torch._C._cuda_clearCublasWorkspaces()
+    log(f"[16] memory_allocated at the end {end / 1e9:.3f} GB, of it "
+        f"{(end - settled_memory(torch)) / 1e6:.1f} MB cuBLAS's per-stream "
+        f"workspaces; total wall time {time.time() - t_start:.1f}s")
     print(smi)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys if k in r},
-         **{k: v for k, v in r.items() if k.startswith(("gemma_", "hd32_"))}}
+         **{k: v for k, v in r.items()
+            if k.startswith(("gemma_", "hd32_", "granite_"))}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

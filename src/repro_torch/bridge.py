@@ -19,15 +19,17 @@ from repro_torch.device import torch_dtype
 
 # Leaves kept in the param dtype: the reference uses them in fp32 whatever
 # the compute dtype (norm weights; the SSM's conv taps and bias, decay and
-# step parameters, skip and gated-norm weights; the hybrid's mix scales).
+# step parameters, skip and gated-norm weights; the hybrid's mix scales;
+# the MoE router).
 # Every other leaf is a matrix, cast to the compute dtype before each
 # product in the reference and stored in it here.
 _PARAM_DTYPE_LEAVES = ("ln1", "ln2", "final_norm", "conv_w", "conv_b",
-                       "A_log", "D_skip", "dt_bias", "norm_w", "mix_scale")
+                       "A_log", "D_skip", "dt_bias", "norm_w", "mix_scale",
+                       "router")
 
 
 def expected_shapes(cfg: ModelConfig) -> Dict:
-    """Nested dict of leaf shapes of a dense-, ssm- or hybrid-family
+    """Nested dict of leaf shapes of a dense-, moe-, ssm- or hybrid-family
     ``LM.init``."""
     D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.padded_vocab
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -35,7 +37,7 @@ def expected_shapes(cfg: ModelConfig) -> Dict:
     if not cfg.tie_embeddings:
         emb["unembed"] = (D, V)
     layers: Dict = {"ln1": (L, D)}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "hybrid"):
         layers["attn"] = {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
                           "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}
     if cfg.family in ("ssm", "hybrid"):
@@ -48,7 +50,12 @@ def expected_shapes(cfg: ModelConfig) -> Dict:
                          "out_proj": (L, di, D)}
     if cfg.family == "hybrid":
         layers["mix_scale"] = (L, 2)
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family == "moe":
+        E = cfg.num_experts
+        layers.update(ffn={"router": (L, D, E), "wi": (L, E, D, F),
+                           "wg": (L, E, D, F), "wo": (L, E, F, D)},
+                      ln2=(L, D))
+    elif cfg.family in ("dense", "hybrid"):
         ffn: Dict[str, Tuple] = {"wi": (L, D, F), "wo": (L, F, D)}
         if cfg.mlp_type in ("swiglu", "geglu"):
             ffn["wg"] = (L, D, F)

@@ -16,11 +16,18 @@ steps are one graph, as the engine's decode chunk is). It prints for
 each: wall time (host clock, device synchronised), device time summed over
 kernels, the device busy share (device time / wall), kernel launches, and
 device time split into the port's kernels, matrix products and everything
-else, plus the top kernels by device time.
+else, plus the top kernels by device time. For the MoE family (granite-
+moe-3b-a800m) the eager regions also split the device time into the
+attention kernels, the expert products, the dispatch (router, top-k,
+sort, the gathers and scatters into and out of the expert buffer) and
+the rest, from the profiler ranges ``models/moe.py`` opens
+(``moe_split``); a replayed graph runs no Python, so its regions have no
+such split.
 
 Usage (on the machine with the card):
   PYTHONPATH=src python -m repro_torch.launch.profile_step \
-      [--arch mamba2-130m] [--layers N]   (default: the published depth)
+      [--arch mamba2-130m | granite-moe-3b-a800m] [--layers N]
+      (default: the published depth)
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.models.model import LM
-from repro_torch.serving.graphs import StepGraph, tensor_leaves
+from repro_torch.serving.graphs import (StepGraph, capture_stream,
+                                       tensor_leaves)
 
 B, PROMPT, CAP, STEPS = 8, 512, 576, 8
 PAGE, CHUNK, CHUNKS = 16, 16, 3
@@ -50,6 +58,28 @@ def _classify(name: str) -> str:
     return "other"
 
 
+def moe_split(events, device_ms: float) -> dict:
+    """Device ms of the MoE ranges among ``key_averages()`` ``events``
+    (each range's kernels, its children's included) and the split of
+    ``device_ms``: attention kernels, expert products, dispatch (the
+    ``moe.dispatch`` and ``moe.combine`` ranges) and the rest. Empty when
+    no MoE range ran."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key.startswith("moe.") and e.device_type != cuda}
+    if not ranges:
+        return {}
+    attention = sum(e.self_device_time_total for e in events
+                    if e.device_type == cuda
+                    and _classify(e.key) == "port_kernels") / 1e3
+    experts = ranges.get("moe.experts", 0.0)
+    dispatch = ranges.get("moe.dispatch", 0.0) + ranges.get("moe.combine",
+                                                              0.0)
+    return {"attention_ms": attention, "experts_ms": experts,
+            "dispatch_ms": dispatch,
+            "rest_ms": device_ms - attention - experts - dispatch}
+
+
 def _region(fn, label: str, top: int = 8) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -63,7 +93,8 @@ def _region(fn, label: str, top: int = 8) -> dict:
     rows = []
     for e in prof.key_averages():
         dev_us = e.self_device_time_total
-        if dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA:
+        if dev_us <= 0 or e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.key.startswith("moe."):   # a range's span, no kernel
             continue
         split[_classify(e.key)] += dev_us / 1e3
         launches += e.count
@@ -72,7 +103,9 @@ def _region(fn, label: str, top: int = 8) -> dict:
     out = {"region": label, "wall_ms": wall_ms, "device_ms": dev_ms,
            "busy_share": dev_ms / wall_ms if wall_ms else float("nan"),
            "kernel_launches": launches,
-           **{f"{k}_ms": v for k, v in split.items()}}
+           **{f"{k}_ms": v for k, v in split.items()},
+           **{f"moe_{k}": v for k, v in moe_split(prof.key_averages(),
+                                                  dev_ms).items()}}
     print(json.dumps(out))
     for ms, n, name in sorted(rows, reverse=True)[:top]:
         print(f"    {ms:9.3f} ms  {n:6d}x  {name}")
@@ -162,7 +195,7 @@ def main(argv=None):
         dense_chunks()
 
     # the same calls captured: warm all on the capture stream, then capture
-    stream = torch.cuda.Stream(dev)
+    stream = capture_stream(dev)
     tok = torch.argmax(state["logits"], -1)
 
     def captured():

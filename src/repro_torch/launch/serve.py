@@ -5,10 +5,10 @@ Two ladders of one architecture: the smoke form (``build_ladder``'s
 default, identical to the reference's ``repro.launch.serve.build_ladder``)
 and the full-width form (``full_width=True``: published widths, depths per
 architecture in ``FULL_DEPTHS`` — tinyllama-1.1b 8/15/22, gemma-2b
-6/12/18, yi-6b 8/16/32, mamba2-130m 8/16/24, the deepest rung being the
-published model — in bf16; deepseek-67b has none, its 95 published
-layers being ~134 GB in bf16, so it needs explicit ``depths``). Runs on
-``cuda`` unless ``--device cpu``.
+6/12/18, yi-6b 8/16/32, granite-moe-3b-a800m 8/16/32, mamba2-130m
+8/16/24, the deepest rung being the published model — in bf16;
+deepseek-67b has none, its 95 published layers being ~134 GB in bf16, so
+it needs explicit ``depths``). Runs on ``cuda`` unless ``--device cpu``.
 
 With ``--kv-cache paged`` the loop serves on the paged KV pool
 (``--prefix-sharing`` adds the prefix index). ``--scheduler``
@@ -54,6 +54,8 @@ Usage:
       --full-width --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
       --full-width --kv-cache paged --prefix-sharing --seconds 30
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --full-width --seconds 30
   PYTHONPATH=src python -m repro_torch.launch.serve --kv-cache paged \
       --prefix-sharing --device cpu --seconds 5
   PYTHONPATH=src python -m repro_torch.launch.serve --full-width \
@@ -92,7 +94,8 @@ from repro_torch.serving.engine import InProcessServingEngine
 SMOKE_DEPTHS = (2, 4, 6)
 # full-width depths of each servable architecture (last = published depth)
 FULL_DEPTHS = {"tinyllama-1.1b": (8, 15, 22), "gemma-2b": (6, 12, 18),
-               "yi-6b": (8, 16, 32), "mamba2-130m": (8, 16, 24)}
+               "yi-6b": (8, 16, 32), "granite-moe-3b-a800m": (8, 16, 32),
+               "mamba2-130m": (8, 16, 24)}
 LADDER_ACCS = (70.0, 75.0, 78.0)
 
 # engine geometry and request shape of each form: smoke is the reference

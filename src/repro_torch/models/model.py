@@ -1,14 +1,16 @@
-"""Language model, dense, SSM and hybrid families: the port of
+"""Language model, dense, MoE, SSM and hybrid families: the port of
 ``repro.models.model.LM``.
 
 Parameters are a plain dict with the reference's pytree keys and stacked
 layer leaves (``layers.attn.wq`` is ``(L, D, H·hd)``), so the weight bridge
 maps leaves one to one; layers run in a Python loop over those stacks.
 
-A layer's token mixer is attention (dense), the Mamba-2 SSM (``ssm``:
-no attention, no FFN) or both in parallel (``hybrid``: outputs mixed by
-``sigmoid(mix_scale)`` in fp32, then the FFN), as in the reference's
-``_block``.
+A layer's token mixer is attention (dense, moe), the Mamba-2 SSM
+(``ssm``: no attention, no FFN) or both in parallel (``hybrid``: outputs
+mixed by ``sigmoid(mix_scale)`` in fp32, then the FFN), as in the
+reference's ``_block``. The MoE family's FFN is ``moe.apply_moe`` over
+each call's tokens (B·S at prefill and ``apply``, B at a decode step,
+B·ck in a chunk), as in the reference.
 
 Caches are updated **in place**: ``decode_step`` writes the new token's K/V
 and the SSM's conv/SSD states into the cache tensors it is given and
@@ -29,13 +31,12 @@ Public methods:
   verify_chunk / verify_chunk_paged(params, cache, tokens, start, n_valid)
                                           -> (greedy argmax (B, ck), cache)
 
-Other families (MoE, encoder-decoder, VLM) are not ported yet. The paged,
-chunked and verify forms cover the dense family only (SSM/hybrid state is
-not positional; the reference refuses them too).
+Other families (encoder-decoder, VLM) are not ported yet. The paged,
+chunked and verify forms cover the dense and MoE families only (SSM/hybrid
+state is not positional; the reference refuses them too).
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,6 +45,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import ssd
 from repro_torch.models.layers import (apply_mlp, embed, init_embed, init_mlp,
                                        rms_norm, unembed, vocab_mask)
@@ -72,11 +74,11 @@ def _stack_layers(dicts: List[Dict]) -> Dict:
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "ssm", "hybrid") \
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
                 or cfg.is_encoder_decoder or cfg.frontend:
             raise NotImplementedError(
-                f"{cfg.name!r}: only the dense, ssm and hybrid families are "
-                f"ported (ROADMAP A8, A9 queue MoE, encoder-decoder and VLM)")
+                f"{cfg.name!r}: only the dense, moe, ssm and hybrid families "
+                f"are ported (ROADMAP A9 queues encoder-decoder and VLM)")
         if cfg.rope_theta <= 0:
             raise NotImplementedError(
                 f"{cfg.name!r}: sinusoidal positions are not ported")
@@ -95,14 +97,17 @@ class LM:
         cfg = self.cfg
         wdt, pd = self.compute_dtype, self.param_dtype
         p = {"ln1": torch.zeros(cfg.d_model, dtype=pd, device=device)}
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family in ("dense", "moe", "hybrid"):
             p["attn"] = attn.init_attention(gen, cfg, wdt, device)
         if cfg.family in ("ssm", "hybrid"):
             p["ssm"] = ssd.init_ssm(gen, cfg, wdt, pd, device)
         if cfg.family == "hybrid":   # learned attention/SSM fusion
             p["mix_scale"] = torch.zeros(2, dtype=pd, device=device)
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family == "moe":
+            p["ffn"] = moe.init_moe(gen, cfg, wdt, pd, device)
+        elif cfg.family in ("dense", "hybrid"):
             p["ffn"] = init_mlp(gen, cfg, wdt, device)
+        if "ffn" in p:
             p["ln2"] = torch.zeros(cfg.d_model, dtype=pd, device=device)
         return p
 
@@ -146,13 +151,22 @@ class LM:
                 device=logits.device, dtype=logits.dtype)
         return logits + self._vmask[key]
 
-    def _ffn(self, lp: Dict, x: torch.Tensor) -> torch.Tensor:
-        """The FFN sub-block where the layer has one (not the SSM family)."""
+    def _ffn(self, lp: Dict, x: torch.Tensor,
+             auxes: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """The FFN sub-block where the layer has one (not the SSM family):
+        the gated MLP, or the MoE layer over this call's tokens, whose
+        ``aux_loss`` is appended to ``auxes`` when given."""
         if "ffn" not in lp:
             return x
         cfg = self.cfg
-        return x + apply_mlp(cfg, lp["ffn"], rms_norm(x, lp["ln2"],
-                                                      cfg.norm_eps))
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        if cfg.family != "moe":
+            return x + apply_mlp(cfg, lp["ffn"], h)
+        y, metrics = moe.apply_moe(cfg, lp["ffn"], h,
+                                   metrics=auxes is not None)
+        if auxes is not None:
+            auxes.append(metrics["aux_loss"])
+        return x + y
 
     @staticmethod
     def _mix(lp: Dict, x: torch.Tensor, a: Optional[torch.Tensor],
@@ -176,13 +190,18 @@ class LM:
         x = embed(cfg, params["embed"], tokens, self.compute_dtype)
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
+        auxes: List[torch.Tensor] = []
         for lp, w in zip(self._layers(params), self._windows):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             a = (attn.attention_forward(cfg, lp["attn"], h, positions, w)
                  if "attn" in lp else None)
             s = ssd.ssm_forward(cfg, lp["ssm"], h) if "ssm" in lp else None
-            x = self._ffn(lp, self._mix(lp, x, a, s))
-        return self._logits(params, x), torch.zeros((), device=x.device)
+            x = self._ffn(lp, self._mix(lp, x, a, s), auxes)
+        # the mean of the layers' load-balance losses (0 without MoE), as
+        # the reference's _run_layers
+        aux = (torch.stack(auxes).sum() / cfg.num_layers if auxes
+               else torch.zeros((), device=x.device))
+        return self._logits(params, x), aux
 
     # ------------------------------------------------------------------
     # caches
@@ -521,10 +540,11 @@ class LM:
         return self._logits(params, x)[:, 0], cache
 
 
-@functools.lru_cache(maxsize=64)
-def _cached_lm(cfg: ModelConfig) -> LM:
-    return LM(cfg)
-
-
 def build_model(cfg: ModelConfig) -> LM:
-    return _cached_lm(cfg)
+    """A new ``LM`` for ``cfg``. The reference caches its models per config
+    (each holds its jitted steps); the port keeps none process-wide: an
+    ``LM`` keeps per-layer views of the last params it ran, so a shared
+    cache would hold a retired variant's layer weights for the life of the
+    process. Keep the model with the params it runs, as a serving backend
+    does."""
+    return LM(cfg)

@@ -133,7 +133,8 @@ from repro_torch.obs import Observability, TickRecord
 from repro_torch.obs import trace as ev
 from repro_torch.obs.slo import slo_class_key
 from repro_torch.serving.api import Request, summarize_requests
-from repro_torch.serving.graphs import StepGraph, StepGraphError, tensor_leaves
+from repro_torch.serving.graphs import (StepGraph, StepGraphError,
+                                       capture_stream, tensor_leaves)
 from repro_torch.serving.sched import make_scheduler, migration_target
 
 __all__ = ["Request", "VariantBackend", "PagedVariantBackend", "DraftPair",
@@ -270,7 +271,6 @@ class VariantBackend:
                  clock: Callable[[], float] = time.time,
                  obs: Optional[Observability] = None,
                  step_graphs: bool = True,
-                 graph_stream: Optional["torch.cuda.Stream"] = None,
                  spec_role: Optional[str] = None, spec_k: int = 0):
         self.name = name
         self.device = resolve_device(device)
@@ -337,10 +337,10 @@ class VariantBackend:
             self.chunked = True
         self.step_graphs = step_graphs
         on_card = step_graphs and self.device.type == "cuda"
-        # the capture stream and the memory pool shared by this backend's
-        # graphs (an engine passes one capture stream to all its backends)
-        self._graph_stream = (graph_stream or torch.cuda.Stream(self.device)
-                              ) if on_card else None
+        # the capture stream (the process's one on this device) and the
+        # memory pool shared by this backend's graphs
+        self._graph_stream = capture_stream(self.device) if on_card \
+            else None
         self._graph_pool = torch.cuda.graph_pool_handle() if on_card \
             else None
         self.graphs: Dict[Tuple[str, Optional[int]], StepGraph] = {}
@@ -1831,10 +1831,6 @@ class InProcessServingEngine:
         self.prefill_chunk = prefill_chunk
         self.enforce_units = enforce_units
         self.step_graphs = step_graphs
-        # one capture stream for every backend's graphs (each keeps its own
-        # memory pool, retired with it)
-        self._graph_stream = torch.cuda.Stream(self.device) if (
-            step_graphs and self.device.type == "cuda") else None
         self.backends: Dict[str, VariantBackend] = {}
         self.units: Dict[str, int] = {}
         self.queues: Dict[str, Deque[Request]] = {}
@@ -1871,8 +1867,7 @@ class InProcessServingEngine:
                   # zero-padded prompt)
                   build_chunked=self.async_tick,
                   clock=self.clock, obs=self.obs,
-                  step_graphs=self.step_graphs,
-                  graph_stream=self._graph_stream)
+                  step_graphs=self.step_graphs)
         if variant == self.spec_verifier:
             kw.update(spec_role="verifier", spec_k=self.spec_k)
         if self.kv_cache == "paged":
@@ -1902,7 +1897,7 @@ class InProcessServingEngine:
                   prefill_chunk_tokens=self.prefill_chunk,
                   cache_headroom=self.spec_k + 2, clock=self.clock,
                   obs=self.obs, step_graphs=self.step_graphs,
-                  graph_stream=self._graph_stream, spec_role="drafter",
+                  spec_role="drafter",
                   spec_k=self.spec_k)
         if self.kv_cache == "paged":
             d = PagedVariantBackend(self.spec_drafter, dcfg, dacc,

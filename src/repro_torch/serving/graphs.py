@@ -34,6 +34,13 @@ Rules that make a replay equal the eager step, and what breaks each:
 - A capture that fails, a shape with no graph and a captured tensor that
   was replaced each raise ``StepGraphError`` or the capture's own error;
   nothing falls back to eager.
+- Every engine and backend of the process captures on one stream per
+  device (``capture_stream``). cuBLAS keeps a workspace for each stream it
+  has run on, and the kernels keep their split workspace per stream
+  (``kernels.build.workspace``), both for the life of the process: a new
+  capture stream per engine left tens of MB on the card for every engine
+  that ever loaded (PyTorch hands out up to 32 pooled streams), which no
+  close could release.
 """
 from __future__ import annotations
 
@@ -45,7 +52,20 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ops
 
-__all__ = ["StepGraph", "StepGraphError", "tensor_leaves"]
+__all__ = ["StepGraph", "StepGraphError", "capture_stream", "tensor_leaves"]
+
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The process's one capture stream on ``device`` (created at first
+    use): every backend warms and captures its steps on it, so the
+    per-stream workspaces exist once."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
 
 
 class StepGraphError(RuntimeError):

@@ -26,6 +26,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.models.ssd import ssd_scan_plain
+from repro_torch.serving.graphs import capture_stream
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 SSD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
@@ -63,6 +64,8 @@ DECODE_CASES = [
     (2, 8, 1, 256, 96, 0.0, True),    # the reference test's hd 256, G 1
     (3, 1, 8, 256, 203, 30.0, True),  # hd 256: 64-position tiles, softcap
     (3, 2, 8, 256, fd.SPLITS - 3, 0.0, True),  # hd 256, C below the splits
+    (8, 8, 3, 64, 576, 0.0, False),   # granite-moe's decode step: G 3
+    (3, 8, 3, 64, 203, 30.0, True),   # G 3, ragged C, softcap, biased
 ]
 
 
@@ -111,6 +114,11 @@ CHUNK_CASES = [
     (8, 16, 1, 8, 256, 576, 0.0, "causal"),
     (8, 16, 1, 8, 256, 576, 30.0, "first"),
     (2, 5, 8, 1, 256, 100, 0.0, "causal"),
+    # granite-moe's GQA group of 3 at hd 64: its dense fused tick (48 of a
+    # block's 64 rows on the tensor-core route in bf16), a verify-sized
+    # chunk with every key but the first under the bias
+    (8, 16, 8, 3, 64, 576, 0.0, "causal"),
+    (2, 5, 8, 3, 64, 100, 30.0, "first"),
 ]
 
 
@@ -267,6 +275,8 @@ PREFILL_CASES = [
     (2, 17, 8, 1, 256, 0, 0.0),       # hd 256, S past one warp's rows
     (2, 128, 4, 4, 32, 32, 0.0),      # the reference test's hd 32, window
     (2, 130, 4, 2, 32, 8, 30.0),      # hd 32, ragged S, window, softcap
+    (8, 512, 24, 8, 64, 0, 0.0),      # granite-moe's prefill: G 3
+    (2, 130, 24, 8, 64, 48, 30.0),    # G 3, ragged S, window, softcap
 ]
 
 
@@ -319,6 +329,8 @@ PAGED_CASES = [
     (8, 1, 8, 256, 16, 36, 36, 0.0, False),  # gemma-2b's decode: hd 256
     (6, 1, 8, 256, 16, 9, 9, 30.0, True),    # hd 256, softcap, NaN pages
     (3, 8, 1, 256, 16, 12, 12, 0.0, True),   # hd 256, G 1
+    (8, 8, 3, 64, 16, 36, 36, 0.0, False),   # granite-moe's decode: G 3
+    (4, 8, 3, 64, 16, 12, 12, 30.0, True),   # G 3, softcap, NaN pages
 ]
 
 
@@ -424,6 +436,8 @@ CHUNK_CASES = [
     (8, 1, 8, 256, 16, 36, 36, 16, 0.0, True),  # gemma-2b's fused tick
     (4, 1, 8, 256, 16, 12, 12, 16, 30.0, False),  # hd 256 with softcap
     (3, 4, 1, 256, 8, 10, 10, 5, 0.0, True),    # hd 256, G 1, page 8
+    (8, 8, 3, 64, 16, 36, 36, 16, 0.0, True),   # granite-moe's fused tick
+    (3, 8, 3, 64, 16, 10, 10, 5, 30.0, False),  # G 3 at the verify's ck 5
 ]
 
 
@@ -891,6 +905,20 @@ GRAPH_ENGINES = [
     ("gemma hd256 chunked", "gemma-2b",
      dict(num_layers=2, num_heads=8, head_dim=256),
      dict(scheduler="chunked"), "continuous"),
+    # granite-moe's MoE FFN (routing, sort, dispatch and combine captured)
+    # at its GQA group of 3; the last at capacity factor 1.0, so a
+    # prefill's experts overflow inside the captured step
+    ("granite moe dense bf16", "granite-moe-3b-a800m",
+     dict(num_layers=2, num_heads=6, num_kv_heads=2, dtype="bfloat16"), {},
+     "continuous"),
+    ("granite moe paged sharing", "granite-moe-3b-a800m",
+     dict(num_layers=2, num_heads=6, num_kv_heads=2),
+     dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True),
+     "continuous"),
+    ("granite moe chunked overflowing", "granite-moe-3b-a800m",
+     dict(num_layers=2, num_heads=6, num_kv_heads=2, num_experts=8,
+          moe_capacity_factor=1.0),
+     dict(scheduler="chunked"), "continuous"),
 ]
 
 
@@ -925,8 +953,8 @@ def test_step_graph_replays_equal_eager_steps(cuda, label, arch, over,
         assert eng.kv_pool_stats()["prefix_hits"] > 0
     if b.chunked:
         assert ("fused", 3) in b.graphs
-    ws = build.workspace_buffers(eng._graph_stream.device,
-                                 eng._graph_stream.cuda_stream)
+    stream = capture_stream(cuda)
+    ws = build.workspace_buffers(stream.device, stream.cuda_stream)
     assert ws is not None and int(ws[1].abs().sum()) == 0
 
 
@@ -1561,6 +1589,89 @@ def test_fabric_killed_replica_memory_is_released(cuda):
     assert before - after >= 0.9 * own, (before, after, own)
     eng.drain(0.0)
     assert sorted(r.rid for r in eng.done) == list(range(8))
+
+
+@pytest.mark.parametrize("kv", [{}, dict(kv_cache="paged", kv_page_size=16,
+                                         kv_prefix_sharing=True)],
+                         ids=["dense", "paged"])
+def test_engine_close_returns_memory_to_its_start(cuda, kv):
+    """C1: after ``apply_allocation(t, {})``, a collection and an emptied
+    cache, ``memory_allocated`` is back at the engine's start within 0.1
+    GB while the engine object lives on: granite-moe at full width cut to
+    2 and 4 layers, 1.7 GB of weights and cache. The margin is what the
+    first engine of a process leaves on the one capture stream for good
+    (cuBLAS's workspace, 33.8 MB on the H100, and the kernels')."""
+    import gc
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    from repro_torch.serving.graphs import tensor_leaves
+    base = get_config("granite-moe-3b-a800m")
+    variants = {f"L{n}": (base.replace(num_layers=n, name=f"L{n}"), 70.0)
+                for n in (2, 4)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    eng = InProcessServingEngine(variants, max_batch=4, prompt_len=64,
+                                 max_new=8, decode_chunk=2, use_kernels=True,
+                                 device=cuda, **kv)
+    eng.apply_allocation(0.0, {n: 1 for n in variants})
+    own = sum(t.numel() * t.element_size() for b in eng.backends.values()
+              for t in tensor_leaves(b.params) + tensor_leaves(b.cache))
+    rng = np.random.default_rng(4)
+    for i in range(8):
+        eng.submit(Request(rid=i, tokens=rng.integers(0, base.vocab_size, 64),
+                           max_new=8, arrival=time.time()),
+                   f"L{2 + 2 * (i % 2)}")
+    eng.drain(0.0)
+    eng.apply_allocation(0.0, {})
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert own > 1.5e9 and len(eng.done) == 8
+    assert left <= 0.1e9, (left, own)
+
+
+def test_apply_moe_on_the_card_equals_the_cpu(cuda):
+    """``apply_moe`` at granite's routing (40 experts, top 8) in fp32 on
+    the card against the CPU within 1e-4 of the output's scale: a decode
+    step's 8 tokens (dropless, also against the dense oracle) and 512
+    tokens at capacity factor 1.0, where experts overflow and slot 0 of
+    each overflowing expert reads zero in the card's buffer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-3b-a800m").replace(
+        d_model=256, d_ff=128, dtype="float32")
+    gen = torch.Generator().manual_seed(3)
+    cpu = moe.init_moe(gen, cfg, torch.float32, torch.float32,
+                       torch.device("cpu"))
+    card = {n: t.to(cuda) for n, t in cpu.items()}
+    for shape, cf in (((8, 1), None), ((2, 256), 1.0)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen)
+        want, m_cpu = moe.apply_moe(cfg, cpu, x, capacity_factor=cf)
+        got, m_card = moe.apply_moe(cfg, card, x.to(cuda),
+                                    capacity_factor=cf)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+        for n in m_cpu:
+            assert float(m_card[n]) == pytest.approx(float(m_cpu[n]),
+                                                     rel=1e-5, abs=1e-6)
+        if cf is None:
+            assert float(m_card["drop_fraction"]) == 0.0
+            oracle = moe.apply_moe_dense_oracle(cfg, card, x.to(cuda))
+            assert float((got - oracle).abs().max()) <= 1e-4 * scale
+            continue
+        assert float(m_card["drop_fraction"]) > 0.0
+        T = x.shape[0] * x.shape[1]
+        C = moe.moe_capacity(T, cfg, cf)
+        flat = x.to(cuda).reshape(T, -1)
+        ids = moe.route(cfg, card, flat)[2].reshape(-1)
+        buf, *_, counts = moe._dispatch(flat, ids, cfg.num_experts, C,
+                                        cfg.experts_per_token)
+        over = counts > C
+        assert bool(over.any()) and float(buf[over, 0].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

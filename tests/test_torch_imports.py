@@ -63,6 +63,12 @@ def test_the_scan_covers_the_evaluation_modules():
         "cluster.py", "runner.py"}
 
 
+def test_the_scan_covers_the_moe_modules():
+    assert {"repro_torch.models.moe",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.qwen3_moe_235b_a22b"} <= set(MODULES)
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):

@@ -185,7 +185,7 @@ def test_full_width_ladder_is_published_tinyllama():
         (2048, 32, 4, 64, 5632, 32000, 10_000.0, "swiglu", "bfloat16")
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_unported_families_raise(family):
     cfg = port_config(tiny_variants(1)["small"][0]).replace(family=family)
     with pytest.raises(NotImplementedError):
