@@ -23,8 +23,10 @@ phase raises, and the script exits nonzero:
               fused tick's shape B 8, ck 16, C 576 and softcap, C below the
               split count, hymba-1.5b's group of 5, hd 128, ragged starts
               with an inert row, queries that see only the first key, and
-              the tensor-core route's edges in bf16: C below its splits, C
-              not a multiple of 64, more tiles than splits, G 7 and G 1;
+              the tensor-core route's edges in bf16 at hd 64 and 256: C
+              below its splits, C not a multiple of 64, more tiles than
+              splits, G 7 and G 1; for the paged chunk form also hd 256
+              at page 8 with a softcap;
               both chunk forms at a speculative round's shapes: the verify
               at ck 5 over C 576 / 36 pages, the drafter's resync at ck 1
               over its 582-slot ring / 37 pages), with stated tolerances;
@@ -212,10 +214,12 @@ phase raises, and the script exits nonzero:
               chunked), launches per step asserted; the gemma-2b 6/12/18
               ladder through the InfAdapter loop (dense FIFO 20 s, paged +
               sharing and ``chunked`` 10 s each; served, rejected,
-              launches, memory_allocated after close); yi-6b L32 kernels
-              on vs off at model level; ``python -m
-              repro_torch.launch.llm_autoscale`` at its default (yi-6b),
-              run alongside in a subprocess;
+              launches, memory_allocated after close); both chunk forms
+              at yi-6b's fused tick (hd 128: 32 query heads on 4 KV
+              heads), against the plain versions, timed beside SDPA and
+              the bound; yi-6b L32 kernels on vs off at model level;
+              ``python -m repro_torch.launch.llm_autoscale`` at its
+              default (yi-6b), run alongside in a subprocess;
  15. moe      the MoE family: granite-moe-3b-a800m (40 experts, top 8;
               24 query heads on 8 KV heads of hd 64) at full width, bf16:
               ``apply_moe`` in fp32 on the card against the CPU, a decode
@@ -246,6 +250,7 @@ phase raises, and the script exits nonzero:
               granite loops; the chunk forms' rows carry their verify
               shape's times, and every attention kernel's row its gemma-2b
               and granite times under ``gemma_*`` and ``granite_*`` keys,
+              the chunk forms' rows their yi-6b times under ``yi_*``,
               flash_prefill's its hd-32 times under ``hd32_*``), then the
               ok line last.
 
@@ -259,8 +264,11 @@ flash_prefill and flash_decode of that checkout (event and device times,
 SDPA beside them, bf16 and fp32), flash_decode's chunk form where the
 checkout has it (the dense fused tick's shape, SDPA with a float mask
 beside it; on the tensor-core route also its device time by split
-count), paged_decode (the decode step's call,
-and one layer of the fused tick's ``paged_chunk_prefill_attention`` with
+count), both chunk forms at gemma-2b's, yi-6b's and granite's fused
+ticks with the route the checkout picks (at hd 128 and 256, where the
+checkout takes the split count by head dim, its sweep), paged_decode (the
+decode step's call, and one layer of the fused tick's
+``paged_chunk_prefill_attention`` with
 the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
 hymba-1.5b's serve shapes, bf16, strided views, nonzero initial state,
 held to the plain version) and prints one JSON line, so a parent and a
@@ -349,6 +357,10 @@ TAIL_MIN_REQUESTS = 100
 GEMMA = "gemma-2b"
 GEMMA_H, GEMMA_KV, GEMMA_HD = 8, 1, 256
 GEMMA_SIDE_SECONDS = 10
+# yi-6b's attention heads (32 query heads on 4 KV heads of hd 128): the
+# chunk forms' hd-128 tensor-core instance at its fused tick
+YI = "yi-6b"
+YI_H, YI_KV, YI_HD = 32, 4, 128
 # MoE phase: granite-moe-3b-a800m's attention heads (24 query heads on 8 KV
 # heads of hd 64: GQA group 3), its serve loops' length, and apply_moe's
 # tolerance card vs CPU in fp32 (max |card - CPU| / max |CPU|: sums over
@@ -409,9 +421,12 @@ def time_ms(torch, fn, arg_sets, iters=40):
 def device_ms(torch, fn, arg_sets, iters=20, only=None):
     """Device time per call from ``torch.profiler``: every kernel the calls
     launched (or those whose name holds ``only``), summed (no host time, no
-    gaps between launches). The profiler now and then records no kernel at
-    all: such a trace is taken again, and after three empty traces the
-    time is None (not measured), never 0."""
+    gaps between launches). The profiler now and then records some of a
+    trace's kernels or none, the first most often: each trace starts with
+    three short spin kernels that are not counted, and a trace is kept only
+    when its kernels are a nonzero whole multiple of ``iters`` (every call
+    launches the same kernels), else it is taken again; after three such
+    traces the time is None (not measured), never a partial sum."""
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:2]:
         fn(*a)
@@ -420,15 +435,20 @@ def device_ms(torch, fn, arg_sets, iters=20, only=None):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
             for i in range(iters):
                 fn(*arg_sets[i % len(arg_sets)])
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == cuda
-                    and (only is None or only in e.key))
-        if total > 0:
-            return total / 1e3 / iters
-    log("  device time not measured: three traces recorded no kernel")
+        evs = [e for e in prof.key_averages() if e.device_type == cuda
+               and "spin_kernel" not in e.key
+               and (only is None or only in e.key)]
+        n = sum(e.count for e in evs)
+        if n > 0 and n % iters == 0:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+        log(f"  profiler trace held {n} kernels for {iters} calls: "
+            "taken again")
+    log("  device time not measured: three short traces")
     return None
 
 
@@ -561,10 +581,10 @@ def dense_chunk_checks(torch, fd, gen):
              ("hd 128 softcap, first key only", (2, 7, 2, 4, 128, 100),
               30.0, "first"),
              ("first key only", (B, CK, KV, G, HD, CAP), 0.0, "first"),
-             # the tensor-core route's edges (bf16 at hd 64): C below its
-             # splits, C not a multiple of its 64-position tiles, more
-             # tiles than splits, a short second row block (G 7), 64
-             # tokens a block (G 1)
+             # the tensor-core route's edges (bf16 at hd 64, then 256):
+             # C below its splits, C not a multiple of its 64-position
+             # tiles, more tiles than splits, a short second row block
+             # (G 7), 64 tokens a block (G 1)
              (f"C={fd.TC_SPLITS - 1} below the tensor-core splits",
               (3, 5, 2, 8, HD, fd.TC_SPLITS - 1), 0.0, "ragged"),
              ("C=203 ragged tile", (4, CK, KV, G, HD, 203), 0.0, "ragged"),
@@ -572,7 +592,16 @@ def dense_chunk_checks(torch, fd, gen):
               "first"),
              ("G=7 short row block", (2, 9, 3, 7, HD, 130), 0.0, "ragged"),
              ("G=1 ck=80", (2, 80, 2, 1, HD, 320), 0.0, "ragged"),
-             ("ck=1 chunk layout", (2, 1, 2, G, HD, 50), 0.0, "ragged"))
+             ("ck=1 chunk layout", (2, 1, 2, G, HD, 50), 0.0, "ragged"),
+             ("hd 256 C=3 below the splits", (3, 5, 1, 8, 256, 3), 0.0,
+              "ragged"),
+             ("hd 256 C=203 softcap", (4, CK, 1, 8, 256, 203), 30.0,
+              "ragged"),
+             ("hd 256 C=700 first key only", (2, CK, 1, 8, 256, 700), 0.0,
+              "first"),
+             ("hd 256 G=7 ck=10 two row blocks", (2, 10, 3, 7, 256, 130),
+              0.0, "ragged"),
+             ("hd 256 G=1 ck=80", (2, 80, 2, 1, 256, 320), 0.0, "ragged"))
     err = args = None
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
@@ -625,27 +654,34 @@ def dense_chunk_timing(torch, F, fd, gen, args, kind="fused"):
                 library_device_ms=device_ms(torch, sdpa, sdpa_sets))
 
 
-def dense_chunk_splits(torch, fd, gen, args, splits=(1, 2, 3, 4, 6, 9)):
-    """The tensor-core chunk form's device time at the dense fused tick's
-    shape (bf16) for each count of CTAs per row block (``fd.TC_SPLITS``,
-    which ``launch_plan`` reads at each call), each held to the plain
-    version first: the sweep behind the kernel's split count. Returns
-    {splits: device ms}."""
-    dt = torch.bfloat16
-    sets = rotated(args, lambda: dense_chunk_inputs(
-        torch, gen, B, CK, KV, H // KV, HD, CAP, dt), ())
-    keep, out = fd.TC_SPLITS, {}
+def chunk_splits(torch, mod, attr, fn, plain, sets, label,
+                 splits=(1, 2, 3, 4, 6, 9)):
+    """A tensor-core chunk form's device time (bf16, over ``sets``, the
+    first held to the plain version at each count) for each count of CTAs
+    per row block: ``mod.<attr>``, which ``launch_plan`` reads at each
+    call. The sweep behind the kernel's split count. Returns {splits:
+    device ms}."""
+    keep, out = getattr(mod, attr), {}
     try:
         for n in splits:
-            fd.TC_SPLITS = n
-            check(f"flash_decode_chunk fused shape, {n} splits",
-                  fd.flash_decode_chunk(*args),
-                  fd.flash_decode_chunk_plain(*args), dt)
-            out[n] = device_ms(torch, fd.flash_decode_chunk, sets)
+            setattr(mod, attr, n)
+            check(f"{label}, {n} splits", fn(*sets[0]), plain(*sets[0]),
+                  torch.bfloat16)
+            out[n] = device_ms(torch, fn, sets)
     finally:
-        fd.TC_SPLITS = keep
-    log("  flash_decode_chunk device ms by splits: " + json.dumps(out))
+        setattr(mod, attr, keep)
+    log(f"  {label} device ms by splits: " + json.dumps(out))
     return out
+
+
+def dense_chunk_splits(torch, fd, gen, args):
+    """``chunk_splits`` of flash_decode's chunk form at the dense fused
+    tick's shape (tinyllama, hd 64)."""
+    sets = rotated(args, lambda: dense_chunk_inputs(
+        torch, gen, B, CK, KV, H // KV, HD, CAP, torch.bfloat16), ())
+    return chunk_splits(torch, fd, "TC_SPLITS", fd.flash_decode_chunk,
+                        fd.flash_decode_chunk_plain, sets,
+                        "flash_decode_chunk fused shape")
 
 
 def paged_kernel_checks(torch, pd, gen):
@@ -682,7 +718,9 @@ def paged_kernel_checks(torch, pd, gen):
             ("G=1 n_pages 12 < width 20", (5, 2, 1, HD, 8, 20, 12, 5), 0.0,
              True),
             ("ck=1", (4, 1, G, HD, PAGE, 9, 9, 1), 0.0, False),
-            ("hymba G=5", (4, 2, 5, HD, PAGE, 12, 12, CK), 0.0, True))
+            ("hymba G=5", (4, 2, 5, HD, PAGE, 12, 12, CK), 0.0, True),
+            ("hd=256 ps=8 softcap", (3, 1, 8, 256, 8, 20, 20, 10), 30.0,
+             True))
         for label, shape, sc, poison in chunk_cases:
             q, kp, vp, t, ln = chunk_inputs(torch, gen, *shape, dtype,
                                             poison)
@@ -1079,10 +1117,76 @@ def paged_ab(torch, gen):
     return rows
 
 
+def wide_chunk_ab(torch, fd, gen):
+    """Both chunk forms of the imported ``repro_torch`` in bf16 at the fused
+    ticks of gemma-2b (hd 256), yi-6b (hd 128) and granite-moe-3b-a800m
+    (hd 64, G 3) (``--ab``): timed (``dense_chunk_row``,
+    ``paged_chunk_row``) and held to their plain versions, beside the route
+    the checkout's ``launch_plan`` picks; at hd 128 and 256 each form on
+    the tensor cores also runs ``chunk_splits``, and gemma-2b's paged form
+    ``paged_chunk_starts``."""
+    from repro_torch.kernels import paged_decode as pd
+    rows = []
+    for tag, heads in (("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
+                       ("yi", (YI_H, YI_KV, YI_HD)),
+                       ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD))):
+        H_, KV_, HD_ = heads
+        mk = head_inputs(torch, gen, torch.bfloat16, heads)
+        for name, mod, attr, fn, plain, timed in (
+                ("flash_decode_chunk", fd, "TC_SPLITS", fd.flash_decode_chunk,
+                 fd.flash_decode_chunk_plain, dense_chunk_row),
+                ("paged_decode_chunk", pd, "CHUNK_SPLITS",
+                 pd.paged_flash_decode_chunk,
+                 pd.paged_flash_decode_chunk_plain, paged_chunk_row)):
+            row, sets = timed(torch, mod, mk, heads)
+            label = f"{name} {tag} fused shape hd {HD_}"
+            err = check(f"{label} bfloat16", fn(*sets[0]), plain(*sets[0]),
+                        torch.bfloat16)
+            tc = mod.launch_plan(CK, H_ // KV_, HD_, torch.bfloat16, True)[0]
+            log(f"  {label}: {'tensor' if tc else 'CUDA'} cores, device "
+                f"{ms4(row['device_ms'])} ms, bound {row['bound_ms']:.4f}")
+            row = dict(name=name, shape=f"{tag} fused", hd=HD_,
+                       tensor_cores=tc, max_abs_err=err, **row)
+            if HD_ > 64 and tc:
+                row["splits_device_ms"] = chunk_splits(
+                    torch, mod, attr, fn, plain, sets, label,
+                    splits=(1, 2, 3, 4, 6, 8, 9))
+            if tag == "gemma" and mod is pd:
+                row["starts_device_ms"] = paged_chunk_starts(torch, pd, gen,
+                                                             heads)
+            rows.append(row)
+    return rows
+
+
+def paged_chunk_starts(torch, pd, gen, heads,
+                       starts=(0, 128, 256, 384, 496)):
+    """paged_decode's chunk form in bf16 at one config's fused tick with
+    every row's chunk at one start, for each of ``starts`` (the fused ticks
+    of a chunked 512-token prompt cross them all): device ms by start, the
+    first set of each held to the plain version. Returns {start: ms}."""
+    H_, KV_, HD_ = heads
+    out = {}
+    for s0 in starts:
+        def make(s0=s0):
+            return chunk_inputs(torch, gen, B, KV_, H_ // KV_, HD_, PAGE,
+                                WIDTH, WIDTH, CK, torch.bfloat16,
+                                start_range=(s0, s0))
+        first = make()
+        check(f"paged_decode_chunk hd {HD_} chunk at {s0} bfloat16",
+              pd.paged_flash_decode_chunk(*first),
+              pd.paged_flash_decode_chunk_plain(*first), torch.bfloat16)
+        out[s0] = device_ms(torch, pd.paged_flash_decode_chunk,
+                            rotated(first, make, (3, 4)))
+    log(f"  paged_decode_chunk hd {HD_} device ms by chunk start: "
+        + json.dumps(out))
+    return out
+
+
 def ab_phase(torch):
     """flash_decode and flash_prefill of the imported ``repro_torch`` alone
     at the serve shapes, bf16 and fp32: held to their plain versions, then
-    timed beside SDPA and the bound; then paged_decode's two forms
+    timed beside SDPA and the bound; both chunk forms at the wide-head and
+    G-3 fused ticks (``wide_chunk_ab``); then paged_decode's two forms
     (``paged_ab``) and ssd_scan at both SSM serve shapes (``ssd_ab``)
     (``--ab``: one checkout per process, so a parent and a change compare
     in one call)."""
@@ -1118,6 +1222,7 @@ def ab_phase(torch):
         if hasattr(fd, "TC_SPLITS"):           # the tensor-core route's
             rows[-1]["splits_device_ms"] = dense_chunk_splits(torch, fd, gen,
                                                               args)
+        rows += wide_chunk_ab(torch, fd, gen)
     return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
             + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
@@ -3550,14 +3655,65 @@ def timed_row(torch, fn, plain, sets, nbytes, flops, dt, library=None,
     return row
 
 
-def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
-    """Every attention kernel at one config's serve shapes (``heads`` =
-    (query heads, KV heads, head dim)) against its plain version in bf16
-    and fp32 (paged: also NaN pages past every length), with ``hd32``
-    flash_prefill at hd 32 with a window (the reference kernel test's
-    shape), then their times in bf16 (flash_prefill and flash_decode's
-    decode step in fp32 too). Returns {kernel name: {"<tag>_<key>": ...,
-    "hd32_<key>": ...}} for the JSON line (bf16)."""
+def sdpa_mask(q, k, v, m):
+    """SDPA with a float mask: the chunk forms' and decode step's yardstick
+    (the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                          enable_gqa=True)
+
+
+def dense_chunk_row(torch, fd, mk, heads):
+    """flash_decode's chunk form in bf16 at one config's fused tick (``mk``
+    = ``head_inputs``' makers, ``heads`` = (query heads, KV heads, head
+    dim)): ``timed_row`` over inputs rotated through more than 3x the L2
+    size, beside SDPA with a (B, H, ck, C) float mask. The bound reads q,
+    out, the bias and each row's K/V below its largest query length once;
+    its operations are QK^T and PV over each query's valid keys on the
+    bf16 tensor cores. Returns (row, the rotated sets)."""
+    H_, KV_, HD_ = heads
+    first = mk["chunk"]()
+    sets = rotated(first, mk["chunk"], ())
+    valid = (first[3] == 0).sum(-1)
+    lmax = valid.max(1).values
+    return timed_row(
+        torch, fd.flash_decode_chunk, fd.flash_decode_chunk_plain, sets,
+        2 * (2 * int(lmax.sum()) * KV_ * HD_ + 2 * B * CK * H_ * HD_)
+        + 4 * B * CK * CAP, 4 * H_ * HD_ * int(valid.sum()), torch.bfloat16,
+        library=(sdpa_mask, [(q.reshape(B, CK, H_, HD_).transpose(1, 2), k,
+                              v, m[:, None]) for q, k, v, m in sets])), sets
+
+
+def paged_chunk_row(torch, pd, mk, heads):
+    """paged_decode's chunk form in bf16 at one config's fused tick, as
+    ``dense_chunk_row`` (no single library call). The bound reads q, out,
+    the lengths, the live table entries and each row's K/V below its
+    largest length once; its operations are QK^T and PV over each query's
+    own length. Returns (row, the rotated sets)."""
+    H_, KV_, HD_ = heads
+    first = mk["paged_chunk"]()
+    sets = rotated(first, mk["paged_chunk"], (3, 4))
+    lengths = first[4].long()
+    lmax = lengths.max(1).values
+    return timed_row(
+        torch, pd.paged_flash_decode_chunk, pd.paged_flash_decode_chunk_plain,
+        sets, 2 * (2 * int(lmax.sum()) * KV_ * HD_ + 2 * B * CK * H_ * HD_)
+        + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK,
+        4 * H_ * HD_ * int(lengths.sum()), torch.bfloat16), sets
+
+
+HEAD_KINDS = ("prefill", "decode", "chunk", "paged", "paged_chunk")
+
+
+def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False,
+                     kinds=HEAD_KINDS):
+    """The attention kernels of ``kinds`` at one config's serve shapes
+    (``heads`` = (query heads, KV heads, head dim)) against their plain
+    versions in bf16 and fp32 (paged: also NaN pages past every length),
+    with ``hd32`` flash_prefill at hd 32 with a window (the reference
+    kernel test's shape), then their times in bf16 (flash_prefill and
+    flash_decode's decode step in fp32 too). Returns {kernel name:
+    {"<tag>_<key>": ..., "hd32_<key>": ...}} for the JSON line (bf16)."""
     H_, KV_, HD_ = heads
     G = H_ // KV_
     errs = {}
@@ -3572,6 +3728,8 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
                  pd.paged_flash_decode_plain),
                 ("paged_chunk", pd.paged_flash_decode_chunk,
                  pd.paged_flash_decode_chunk_plain)):
+            if key not in kinds:
+                continue
             a = mk[key]()
             errs[(key, dt)] = check(f"{key} hd {HD_} {tag} shape {name}",
                                     fn(*a), plain(*a), dt)
@@ -3584,6 +3742,8 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
                                              poison=True),
                  pd.paged_flash_decode_chunk,
                  pd.paged_flash_decode_chunk_plain)):
+            if key not in kinds:
+                continue
             out = fn(*a)
             if not torch.isfinite(out).all():
                 raise AssertionError(f"{key} hd {HD_} {tag}: non-finite "
@@ -3601,49 +3761,43 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
             fp.flash_prefill_plain(q, k, v, window=32), dt)
     torch.cuda.synchronize()
 
-    def sdpa_mask(q, k, v, m):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                              enable_gqa=True)
-
     def sdpa_causal(q, k, v):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
 
-    rows = {"flash_prefill": {}, "flash_decode": {},
-            "flash_decode_chunk": {}, "paged_decode": {}}
+    names = {"prefill": "flash_prefill", "decode": "flash_decode",
+             "chunk": "flash_decode_chunk", "paged": "paged_decode"}
+    rows = {names[k]: {} for k in kinds if k in names}
     for dt in (torch.bfloat16, torch.float32):
         esz, name = torch.tensor([], dtype=dt).element_size(), str(dt)[6:]
         mk = head_inputs(torch, gen, dt, heads)
         res = {}
-        first = mk["prefill"]()
-        sets = rotated(first, mk["prefill"], ())
-        pairs = PROMPT * (PROMPT + 1) // 2
-        res["flash_prefill"] = timed_row(
-            torch, fp.flash_prefill_bshd, fp.flash_prefill_plain, sets,
-            esz * 2 * B * PROMPT * (H_ + KV_) * HD_,
-            4 * B * H_ * pairs * HD_, dt, library=(sdpa_causal, [
-                tuple(t.transpose(1, 2).contiguous() for t in st)
-                for st in sets]))
-        first = mk["decode"]()
-        sets = rotated(first, mk["decode"], ())
-        res["flash_decode"] = timed_row(
-            torch, fd.flash_decode_bkhd, fd.flash_decode_plain, sets,
-            esz * (2 * B * H_ * HD_ + 2 * B * KV_ * CAP * HD_) + 4 * B * CAP,
-            4 * B * H_ * CAP * HD_, dt, library=(sdpa_mask, [
-                (q.reshape(B, H_, 1, HD_), k, v, m[:, None, None, :])
-                for q, k, v, m in sets]))
-        if dt == torch.bfloat16:
-            first = mk["chunk"]()
-            sets = rotated(first, mk["chunk"], ())
-            valid = (first[3] == 0).sum(-1)
-            lmax = valid.max(1).values
-            res["flash_decode_chunk"] = timed_row(
-                torch, fd.flash_decode_chunk, fd.flash_decode_chunk_plain,
-                sets, esz * (2 * int(lmax.sum()) * KV_ * HD_
-                             + 2 * B * CK * H_ * HD_) + 4 * B * CK * CAP,
-                4 * H_ * HD_ * int(valid.sum()), dt, library=(sdpa_mask, [
-                    (q.reshape(B, CK, H_, HD_).transpose(1, 2), k, v,
-                     m[:, None]) for q, k, v, m in sets]))
+        if "prefill" in kinds:
+            first = mk["prefill"]()
+            sets = rotated(first, mk["prefill"], ())
+            pairs = PROMPT * (PROMPT + 1) // 2
+            res["flash_prefill"] = timed_row(
+                torch, fp.flash_prefill_bshd, fp.flash_prefill_plain, sets,
+                esz * 2 * B * PROMPT * (H_ + KV_) * HD_,
+                4 * B * H_ * pairs * HD_, dt, library=(sdpa_causal, [
+                    tuple(t.transpose(1, 2).contiguous() for t in st)
+                    for st in sets]))
+        if "decode" in kinds:
+            first = mk["decode"]()
+            sets = rotated(first, mk["decode"], ())
+            res["flash_decode"] = timed_row(
+                torch, fd.flash_decode_bkhd, fd.flash_decode_plain, sets,
+                esz * (2 * B * H_ * HD_ + 2 * B * KV_ * CAP * HD_)
+                + 4 * B * CAP, 4 * B * H_ * CAP * HD_, dt,
+                library=(sdpa_mask, [
+                    (q.reshape(B, H_, 1, HD_), k, v, m[:, None, None, :])
+                    for q, k, v, m in sets]))
+        if dt == torch.bfloat16 and "chunk" in kinds:
+            res["flash_decode_chunk"] = dense_chunk_row(torch, fd, mk,
+                                                        heads)[0]
+        if dt == torch.bfloat16 and "paged_chunk" in kinds:
+            res["paged_chunk"] = paged_chunk_row(torch, pd, mk, heads)[0]
+        if dt == torch.bfloat16 and "paged" in kinds:
             first = mk["paged"]()
             sets = rotated(first, mk["paged"], (3, 4))
             lengths = first[4].long()
@@ -3654,17 +3808,6 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
                 esz * (2 * live * KV_ * HD_ + 2 * B * H_ * HD_)
                 + 4 * int(((lengths + PAGE - 1) // PAGE).sum()) + 4 * B,
                 4 * H_ * live * HD_, dt)
-            first = mk["paged_chunk"]()
-            sets = rotated(first, mk["paged_chunk"], (3, 4))
-            lengths = first[4].long()
-            lmax = lengths.max(1).values
-            res["paged_chunk"] = timed_row(
-                torch, pd.paged_flash_decode_chunk,
-                pd.paged_flash_decode_chunk_plain, sets,
-                esz * (2 * int(lmax.sum()) * KV_ * HD_
-                       + 2 * B * CK * H_ * HD_)
-                + 4 * int(((lmax + PAGE - 1) // PAGE).sum()) + 4 * B * CK,
-                4 * H_ * HD_ * int(lengths.sum()), dt)
         if dt == torch.bfloat16 and hd32:
             S32, w = 128, 32
             make = lambda: tuple(                           # noqa: E731
@@ -3694,12 +3837,14 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False):
         err = {"flash_prefill": "prefill", "flash_decode": "decode",
                "flash_decode_chunk": "chunk", "paged_decode": "paged"}
         for kernel, row in rows.items():
-            row.update({f"{tag}_{k}": v for k, v in res[kernel].items()})
-            row[f"{tag}_max_abs_err"] = errs[(err[kernel], dt)]
-        rows["paged_decode"].update(
-            {f"{tag}_chunk_{k}": v for k, v in res["paged_chunk"].items()})
-        rows["paged_decode"][f"{tag}_chunk_max_abs_err"] = errs[
-            ("paged_chunk", dt)]
+            if kernel in res:
+                row.update({f"{tag}_{k}": v for k, v in res[kernel].items()})
+                row[f"{tag}_max_abs_err"] = errs[(err[kernel], dt)]
+        if "paged_chunk" in res:
+            row = rows.setdefault("paged_decode", {})
+            row.update({f"{tag}_chunk_{k}": v
+                        for k, v in res["paged_chunk"].items()})
+            row[f"{tag}_chunk_max_abs_err"] = errs[("paged_chunk", dt)]
         if hd32:
             rows["flash_prefill"].update(
                 {f"hd32_{k}": v for k, v in res["hd32"].items()},
@@ -3909,11 +4054,12 @@ def step_launch_checks(torch, arch, max_new=MAX_NEW):
 
 def dense_config_phase(torch, F):
     """The other dense configs on the card (gemma-2b, yi-6b): the attention
-    kernels at hd 256; gemma-2b L18 at full width kernels on vs off, dense
-    and paged; its steps replayed vs eager with launches per step
-    asserted; its 6/12/18 ladder through the serve loop on the dense,
-    paged + sharing and chunked engines; yi-6b L32 at model level; and the
-    ``llm_autoscale`` launcher at its default (yi-6b), run alongside.
+    kernels at hd 256, the chunk forms at yi-6b's hd 128; gemma-2b L18 at
+    full width kernels on vs off, dense and paged; its steps replayed vs
+    eager with launches per step asserted; its 6/12/18 ladder through the
+    serve loop on the dense, paged + sharing and chunked engines; yi-6b
+    L32 at model level; and the ``llm_autoscale`` launcher at its default
+    (yi-6b), run alongside.
     ``memory_allocated`` is printed (after a collection) at the phase's
     start and after each of its model stages, beside each serve loop's
     after its close. Returns (kernel rows' gemma keys, the serve loops'
@@ -3948,6 +4094,14 @@ def dense_config_phase(torch, F):
         rows = head_kernel_rows(torch, F, fd, fp, pd, gen,
                                 (GEMMA_H, GEMMA_KV, GEMMA_HD), "gemma",
                                 hd32=True)
+        yi_cfg = get_config(YI)
+        if (yi_cfg.num_heads, yi_cfg.num_kv_heads,
+                yi_cfg.resolved_head_dim) != (YI_H, YI_KV, YI_HD):
+            raise AssertionError(f"{YI}'s heads are not the phase's shapes")
+        for name, row in head_kernel_rows(
+                torch, F, fd, fp, pd, gen, (YI_H, YI_KV, YI_HD), "yi",
+                kinds=("chunk", "paged_chunk")).items():
+            rows[name].update(row)
         t_k = time.time()
         memory("after the kernels")
         model = dense_model_check(torch, GEMMA)
@@ -4294,7 +4448,7 @@ def main():
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys if k in r},
          **{k: v for k, v in r.items()
-            if k.startswith(("gemma_", "hd32_", "granite_"))}}
+            if k.startswith(("gemma_", "yi_", "hd32_", "granite_"))}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

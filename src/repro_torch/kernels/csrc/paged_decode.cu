@@ -22,8 +22,10 @@
 // tick's chunk (ck = 16 tokens, G = 8) reads the same pages for 128 query
 // rows per (b, kv-head): ~0.5 GFLOP against ~4.7 MB, ~110 flops per byte,
 // still below the ~295 at which the bf16 tensor cores become the limit, but
-// far above what the CUDA cores sustain; one single-query call per chunk
-// token would read every page ck times.
+// far above what the CUDA cores sustain (gemma-2b's fused tick, one KV head
+// of hd 256, has the same bytes and flops; yi-6b's, four of hd 128, twice
+// both); one single-query call per chunk token would read every page ck
+// times.
 //
 // What the design does about it. Both forms split each (b, kv-head, block of
 // query rows) over several CTAs along the positions (one launch); each CTA
@@ -33,25 +35,41 @@
 // design: a thread-block cluster was slower there). A split with no live
 // position has m = -1e30, l = 0 and zeros, so it adds nothing.
 //
-// - Chunk form, bf16 at hd 64 (the fused tick): the ck*G query rows of a
-//   (b, kv-head), ordered j-major, in blocks of 64 (one `wgmma` M); QK^T and
-//   PV on `wgmma` m64n64k16 from 128-byte-swizzled shared memory, P from
-//   registers as hi + lo bf16 (one bf16 P moves an output by up to 2^-9 of
-//   its size, past the 1e-2 check at |out| in [2, 4)), the machinery of
-//   flash_prefill.cu (wgmma.cuh). The one difference is the tile loader: a
-//   64-position K/V tile is gathered with `cp.async` from the pages the
-//   row's table names (4 contiguous 2 KB pages at ps 16), double-buffered,
-//   once per (b, kv-head, row block) for all ck chunk tokens. The tiles
-//   below the block's largest length go to the splits in turn (split s takes
-//   tiles s, s + S, ...: 9 tiles of a 576-position table over S = 4 splits
-//   is 3, 2, 2, 2); the per-row mask t < lengths[b, j] is evaluated only on
+// - Chunk form, bf16 at hd 64, 128 and 256 (the fused tick): the ck*G
+//   query rows of a (b, kv-head), ordered j-major, in blocks of 64 (one
+//   `wgmma` M); QK^T as HD / 16 m64n64k16 steps and PV as one m64n{HD}k16
+//   a 16-position step from 128-byte-swizzled shared memory (HD / 64
+//   sub-tiles of 64 x 64 a tile), P from registers as hi + lo bf16 (one
+//   bf16 P moves an output by up to 2^-9 of its size, past the 1e-2 check
+//   at |out| in [2, 4)), the machinery of flash_decode_chunk.cu
+//   (wgmma.cuh), one template instance per head dim. The one difference is
+//   the tile loader: a 64-position K/V tile is gathered with `cp.async`
+//   from the pages the row's table names (4 pages at ps 16, 8 at ps 8;
+//   a page row is HD * 2 contiguous bytes), double-buffered, once per (b,
+//   kv-head, row block) for all ck chunk tokens; a thread reads the table
+//   entries of four of its rows before issuing any of their copies, one
+//   entry serving K and V. The tiles below the
+//   block's largest length go to the splits in turn (split s takes tiles
+//   s, s + S, ...: 9 tiles of a 576-position table over S = 4 splits is 3,
+//   2, 2, 2); the per-row mask t < lengths[b, j] is evaluated only on
 //   tiles that reach past the block's smallest length. A row past its own
-//   length multiplies V by a zero probability, so positions between a row's
-//   length and its block's largest length must hold finite V (in the engine
-//   they are the chunk's own positions, written before the call, or earlier
-//   contents of the row's pages).
-// - Everything else (the single-query decode step, fp32, hd 128 and 256,
-//   page 8):
+//   length multiplies V by a zero probability, so positions between a
+//   row's length and its block's largest length must hold finite V (in the
+//   engine they are the chunk's own positions, written before the call, or
+//   earlier contents of the row's pages). ptxas (-Xptxas -v, sm_90a): 230
+//   registers a thread at hd 256, 128 at 128, 108 at 64, no spill; shared
+//   memory 164,864 bytes at hd 256 (one CTA an SM), 82,944 at 128, 41,984
+//   at 64. The last split's combine is wg_arrive_and_combine (wgmma.cuh,
+//   shared with flash_decode_chunk.cu), with up to 16 partial reads in
+//   flight a thread. Splits (chip_smoke.py --ab's sweep, device ms on an
+//   H100 at 700 W): at gemma-2b's fused tick (hd 256, 16 row blocks)
+//   0.047 at S = 1, 0.035 at 2, 0.033 at 3, 0.027 at 4, 0.032 at 6, 0.030
+//   at 8, 0.037 at 9; at yi-6b's (hd 128, 64 row blocks) 0.030 at 1,
+//   0.023 at 2, 0.024 at 3 and 4, 0.038 at 6, 0.041 at 8, 0.044 at 9 (2
+//   is ~1 us faster there); S = 4 at every head dim, one count for the
+//   route (CHUNK_SPLITS in paged_decode.py).
+// - Everything else (the single-query decode step, fp32, other head
+//   dims):
 //   fp32 FMAs on the CUDA cores (decode does ~2 flops per byte). A CTA keeps
 //   its block of query rows resident in shared memory as fp32 and streams
 //   its contiguous slice of positions through a double-buffered `cp.async`
@@ -338,25 +356,52 @@ constexpr int kWgThreads = 128;   // one warpgroup
 constexpr int kWgRows = 64;       // query rows per CTA (the wgmma M)
 constexpr int kWgPos = 64;        // positions per K/V tile
 
-// Q | K ring (2) | V ring (2), plus room to align the base to 1024 bytes
-constexpr size_t kWgSmemBytes = 5 * kWgTile + 1024;
+// A 64-row tile of Q, K or V at head dim HD is HD / 64 swizzled
+// sub-tiles; shared memory holds Q | K ring (2) | V ring (2), plus room to
+// align the base to 1024 bytes.
+template <int HD>
+__host__ __device__ constexpr int wg_tile_bytes() {
+  return HD / 64 * kWgTile;
+}
+template <int HD>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  return 5 * (size_t)wg_tile_bytes<HD>() + 1024;
+}
 
-// Start the copy of positions [t0, t0+64) of one row's pages (hd 64) into
-// a swizzled tile at shared address `dst`; positions at or past `lmax` are
-// zero-filled and their table entries never read.
-__device__ __forceinline__ void issue_page_tile(
-    uint32_t dst, const __nv_bfloat16* __restrict__ pool,
-    const int* __restrict__ trow, int t0, int lmax, int ps) {
-  for (int i = threadIdx.x; i < kWgPos * 8; i += kWgThreads) {
-    const int r = i / 8, c = i % 8;
-    const int p = t0 + r;
-    const bool ok = p < lmax;
-    const size_t row = ok ? (size_t)__ldg(trow + p / ps) * ps + p % ps : 0;
-    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), pool + row * 64 + c * 8,
-               ok);
+// Start the copies of positions [t0, t0+64) of one row's pages into the
+// swizzled K and V tiles at shared addresses `kdst` and `vdst`; positions
+// at or past `lmax` are zero-filled and their table entries never read. A
+// thread's 16-byte chunks sit in rows r0, r0 + R, ... (R = 128 / (HD / 8)
+// rows a pass), and the table entries of four rows are read before any of
+// their copies is issued, one entry serving K and V.
+template <int HD>
+__device__ __forceinline__ void issue_page_tiles(
+    uint32_t kdst, uint32_t vdst, const __nv_bfloat16* __restrict__ kpool,
+    const __nv_bfloat16* __restrict__ vpool, const int* __restrict__ trow,
+    int t0, int lmax, int ps) {
+  constexpr int kChunks = HD / 8, kR = kWgThreads / kChunks;
+  constexpr int kPasses = kWgPos / kR;
+  static_assert(kWgThreads % kChunks == 0 && kPasses % 4 == 0, "tile");
+  const int c = threadIdx.x % kChunks, r0 = threadIdx.x / kChunks;
+#pragma unroll
+  for (int q = 0; q < kPasses; q += 4) {
+    int row[4];                        // pool row of each position, or -1
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int p = t0 + r0 + (q + u) * kR;
+      row[u] = p < lmax ? __ldg(trow + p / ps) * ps + p % ps : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t at = wg_tile_off(r0 + (q + u) * kR, c);
+      const size_t src = (size_t)max(row[u], 0) * HD + c * 8;
+      cp_async16(kdst + at, kpool + src, row[u] >= 0);
+      cp_async16(vdst + at, vpool + src, row[u] >= 0);
+    }
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kWgThreads)
 paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ kpool,
@@ -368,12 +413,13 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                          int* __restrict__ arrivals, int ck, int KV, int G,
                          int P, int ps, int n_pages, int tstride, float scale,
                          float softcap) {
-  constexpr int HD = 64;
+  constexpr int kTile = wg_tile_bytes<HD>();
+  constexpr int kChunks = HD / 8;            // 16-byte chunks of a row
   extern __shared__ uint4 smem_raw[];
   __shared__ int lmax_s, lmin_s;
   const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t Ks = Qs + kWgTile;          // 2 tiles
-  const uint32_t Vs = Ks + 2 * kWgTile;      // 2 tiles
+  const uint32_t Ks = Qs + kTile;            // 2 tiles
+  const uint32_t Vs = Ks + 2 * kTile;        // 2 tiles
 
   const int split = blockIdx.x, splits = gridDim.x;
   const int rb = blockIdx.y, n_rb = gridDim.y;
@@ -411,24 +457,23 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int mine = n_tiles > split ? (n_tiles - 1 - split) / splits + 1 : 0;
 
   if (mine > 0) {
-    for (int i = threadIdx.x; i < kWgRows * 8; i += kWgThreads) {
-      const int r = i / 8, c = i % 8;
+    for (int i = threadIdx.x; i < kWgRows * kChunks; i += kWgThreads) {
+      const int r = i / kChunks, c = i % kChunks;
       const bool ok = r < nr;
-      cp_async16(Qs + r * 128 + ((c ^ (r & 7)) << 4),
+      cp_async16(Qs + wg_tile_off(r, c),
                  q + (ok ? row_offset(b, h, R0 + r, ck, KV, G, HD) : 0) +
                      c * 8,
                  ok);
     }
-    issue_page_tile(Ks, kp, trow, split * kWgPos, lmax, ps);
-    issue_page_tile(Vs, vp, trow, split * kWgPos, lmax, ps);
+    issue_page_tiles<HD>(Ks, Vs, kp, vp, trow, split * kWgPos, lmax, ps);
     cp_async_commit();
   }
 
   // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
   // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
-  float o[32];
+  float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
   float l[2] = {0.f, 0.f};              // this thread's share of the sum
   const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
@@ -438,8 +483,8 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int kt = split + i * splits, buf = i & 1;
     if (i + 1 < mine) {                // prefetch the next tile
       const int t1 = (kt + splits) * kWgPos;
-      issue_page_tile(Ks + (buf ^ 1) * kWgTile, kp, trow, t1, lmax, ps);
-      issue_page_tile(Vs + (buf ^ 1) * kWgTile, vp, trow, t1, lmax, ps);
+      issue_page_tiles<HD>(Ks + (buf ^ 1) * kTile, Vs + (buf ^ 1) * kTile,
+                           kp, vp, trow, t1, lmax, ps);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -449,17 +494,20 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     // through the async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    const uint32_t Kt = Ks + buf * kWgTile, Vt = Vs + buf * kWgTile;
+    const uint32_t Kt = Ks + buf * kTile, Vt = Vs + buf * kTile;
     const int t0 = kt * kWgPos;
 
-    // S = Q K^T (64 rows x 64 positions): four k-steps of 16 along hd
+    // S = Q K^T (64 rows x 64 positions): HD / 16 k-steps of 16 along hd,
+    // four in each 64-column sub-tile
     float s[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wg_ss(s, wg_desc(Qs + kk * 32), wg_desc(Kt + kk * 32), kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kWgTile + (kk % 4) * 32;
+      wg_ss(s, wg_desc(Qs + at), wg_desc(Kt + at), kk > 0);
+    }
     wg_commit();
     wg_wait0();
     wg_fence_regs(s);
@@ -490,7 +538,7 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       m[r] = m_new;
       l[r] *= alpha;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < HD / 8; ++n) {
         o[4 * n + 2 * r] *= alpha;
         o[4 * n + 2 * r + 1] *= alpha;
       }
@@ -502,8 +550,9 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       l[(e >> 1) & 1] += p;
     }
 
-    // O += P V, P as hi + lo bf16 A fragments; k-step kk covers positions
-    // 16kk .. 16kk+15: 16 rows of V, 2048 bytes
+    // O += P V (one m64nHDk16 a k-step), P as hi + lo bf16 A fragments;
+    // k-step kk covers positions 16kk .. 16kk+15: 16 rows of V, 2048 bytes
+    // into each sub-tile, the next 64 columns of hd kWgTile bytes on
     uint32_t ph[4][4], pl[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -514,11 +563,14 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       split_bf16(p1[0], p1[1], ph[kk][2], pl[kk][2]);
       split_bf16(p1[2], p1[3], ph[kk][3], pl[kk][3]);
     }
+    constexpr uint32_t lbo = HD > 64 ? kWgTile : 1024;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048));
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048, lbo));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048, lbo));
     wg_commit();
     wg_wait0();
     wg_fence_regs(o);
@@ -535,7 +587,7 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = warp * 16 + g + r * 8;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < HD / 8; ++n) {
       my[row * HD + 8 * n + 2 * t] = o[4 * n + 2 * r];
       my[row * HD + 8 * n + 2 * t + 1] = o[4 * n + 2 * r + 1];
     }
@@ -545,9 +597,10 @@ paged_chunk_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __threadfence();
-  arrive_and_combine(pb, arrivals + (size_t)bh * n_rb + rb, splits, kWgRows,
-                     nr, HD, reinterpret_cast<float*>(smem_raw), out, b, h,
-                     R0, ck, KV, G);
+  // m is in log2 units already
+  wg_arrive_and_combine<HD>(pb, arrivals + (size_t)bh * n_rb + rb, splits,
+                            nr, 1.f, reinterpret_cast<float*>(smem_raw), out,
+                            b, h, R0, ck, KV, G);
 }
 
 // ============================================================ launch
@@ -575,6 +628,7 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <int HD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int* tables, const int* lengths, void* out,
                          float* partials, int* arrivals, int B, int ck,
@@ -582,16 +636,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int tstride, int splits, float softcap,
                          cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
+  constexpr size_t smem = wg_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      paged_chunk_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kWgSmemBytes);
+      paged_chunk_wgmma_kernel<HD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(splits, (ck * G + kWgRows - 1) / kWgRows, B * KV);
-  paged_chunk_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, stream>>>(
+  paged_chunk_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), tables, lengths, static_cast<bf16*>(out),
       partials, arrivals, ck, KV, G, P, ps, n_pages, tstride,
-      1.0f / sqrtf(64.f), softcap);
+      1.0f / sqrtf((float)HD), softcap);
   return cudaGetLastError();
 }
 
@@ -601,11 +656,12 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 // C interface (ctypes). Returns the cudaError_t of the launch (0 = ok).
 // q, out (B, ck, KV, G, hd); k, v (KV, P, ps, hd); tables (B, >= n_pages)
 // int32 with row stride `tstride`; lengths (B, ck) int32. `rows` is the
-// query rows per CTA (64 with `tensor_cores`, which takes bf16 at hd 64;
-// else rows * hd <= 4096) and `splits` the CTAs per (b, kv-head, row
-// block). `partials` holds B*KV*ceil(ck*G/rows)*splits*(rows*hd + 2*rows)
-// floats; `arrivals` holds B*KV*ceil(ck*G/rows) ints, zero before the
-// launch and left at zero after it.
+// query rows per CTA (64 with `tensor_cores`, which takes bf16 at hd 64,
+// 128 and 256; else rows * hd <= 4096) and `splits` the CTAs per (b,
+// kv-head, row block). `partials` holds
+// B*KV*ceil(ck*G/rows)*splits*(rows*hd + 2*rows) floats; `arrivals` holds
+// B*KV*ceil(ck*G/rows) ints, zero before the launch and left at zero after
+// it.
 extern "C" int paged_decode_launch(const void* q, const void* k,
                                    const void* v, const void* tables,
                                    const void* lengths, void* out,
@@ -626,10 +682,24 @@ extern "C" int paged_decode_launch(const void* q, const void* k,
   auto pp = static_cast<float*>(partials);
   auto ap = static_cast<int*>(arrivals);
   if (tensor_cores) {
-    if (dtype != kBFloat16 || hd != 64 || rows != kWgRows)
+    if (dtype != kBFloat16 || rows != kWgRows)
       return (int)cudaErrorInvalidValue;
-    return (int)launch_wgmma(q, k, v, tp, lp, out, pp, ap, B, ck, KV, G, P,
-                             ps, n_pages, tstride, splits, softcap, s);
+    switch (hd) {
+      case 64:
+        return (int)launch_wgmma<64>(q, k, v, tp, lp, out, pp, ap, B, ck, KV,
+                                     G, P, ps, n_pages, tstride, splits,
+                                     softcap, s);
+      case 128:
+        return (int)launch_wgmma<128>(q, k, v, tp, lp, out, pp, ap, B, ck,
+                                      KV, G, P, ps, n_pages, tstride, splits,
+                                      softcap, s);
+      case 256:
+        return (int)launch_wgmma<256>(q, k, v, tp, lp, out, pp, ap, B, ck,
+                                      KV, G, P, ps, n_pages, tstride, splits,
+                                      softcap, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (rows * hd > kSimtThreads * kMaxAcc) return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32)

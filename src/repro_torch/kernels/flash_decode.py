@@ -11,9 +11,9 @@ plain PyTorch version, in two forms:
 
 Each is the wrapper of its form: CPU tensors take the plain version; CUDA
 tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
-any launch: the chunk form in bf16 at hd 64 runs on the tensor cores
-(``flash_decode_chunk.cu``: ``wgmma`` over blocks of 64 query rows); the
-decode step, fp32, hd 128 and hd 256 run on the CUDA cores
+any launch: the chunk form in bf16 at hd 64, 128 and 256 runs on the
+tensor cores (``flash_decode_chunk.cu``: ``wgmma`` over blocks of 64 query
+rows); the decode step and fp32 run on the CUDA cores
 (``flash_decode.cu``).
 A launch splits the cache axis over several CTAs per (b, kv-head, block of
 query rows); each writes its partial softmax sums to a scratch workspace
@@ -43,7 +43,9 @@ SPLITS = 8                      # CTAs per (b, kv-head, row block) (kSplits)
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
 TC_ROWS = 64                    # query rows of a tensor-core CTA (kRows)
 TC_SPLITS = 4                   # its CTAs per (b, kv-head, row block)
-TC_SMEM_BYTES = 5 * 64 * 128 + 1024   # Q, K and V rings, alignment (csrc)
+# head dim -> the tensor-core route's shared memory: a Q tile, K and V
+# rings of two 64-position tiles, 1024 bytes of alignment (csrc Shape)
+TC_SMEM_BYTES = {hd: 5 * TC_ROWS * 2 * hd + 1024 for hd in (64, 128, 256)}
 
 
 def chunk_rows(ck: int, G: int, hd: int) -> int:
@@ -78,12 +80,12 @@ def smem_bytes(G: int, hd: int, esize: int, rows: int = 0) -> int:
 def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
                 ) -> Tuple[bool, int, int]:
     """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
-    form in bf16 at hd 64 runs on ``wgmma`` in blocks of 64 query rows
-    (``flash_decode_chunk.cu``), whatever ck and G; every other launch (the
-    decode step, fp32, hd 128) on the CUDA cores (``flash_decode.cu``),
-    with whole groups of G rows as the accumulators hold
-    (``chunk_rows``)."""
-    if chunk and dtype == torch.bfloat16 and hd == 64:
+    form in bf16 at hd 64, 128 and 256 runs on ``wgmma`` in blocks of 64
+    query rows (``flash_decode_chunk.cu``), whatever ck and G, with
+    ``TC_SPLITS`` CTAs per block; every other launch (the decode step,
+    fp32, other head dims) on the CUDA cores (``flash_decode.cu``), with
+    whole groups of G rows as the accumulators hold (``chunk_rows``)."""
+    if chunk and dtype == torch.bfloat16 and hd in TC_SMEM_BYTES:
         return True, TC_ROWS, TC_SPLITS
     return False, chunk_rows(ck, G, hd) if chunk else G, SPLITS
 
@@ -129,11 +131,12 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Raise on what neither kernel takes, before any launch: q
     (B,ck,KV,G,hd) and bias (B,ck,C) with ``chunk``, else q (B,KV,G,hd)
     and bias (B,C); k, v (B,KV,C,hd) of q's dtype; every operand
-    contiguous, 16-byte aligned and on q's device, the bias fp32; on the
-    CUDA cores also hd a multiple of 8, a group of G rows within the
-    accumulators and the block's shared memory within one H100 block (the
-    tensor-core route takes bf16 at hd 64 at any G). Returns (ck,
-    ``launch_plan``)."""
+    contiguous, 16-byte aligned and on q's device, the bias fp32; the
+    block's shared memory within one H100 block (``TC_SMEM_BYTES`` on the
+    tensor cores, ``smem_bytes`` on the CUDA cores); on the CUDA cores also
+    hd a multiple of 8 and a group of G rows within the accumulators (the
+    tensor-core route takes bf16 at hd 64, 128 and 256 at any G). Returns
+    (ck, ``launch_plan``)."""
     dev, dt = q.device, q.dtype
     for name, t, tdt, nd in (("q", q, dt, 5 if chunk else 4),
                              ("k", k, dt, 4), ("v", v, dt, 4),
@@ -151,13 +154,13 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
     tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
-    if not tc:
-        smem = smem_bytes(G, hd, q.element_size(), rows)
-        if hd % 8 or rows * hd > MAX_GROUP_WIDTH or smem > MAX_SMEM_BYTES:
-            raise ValueError(f"flash_decode needs hd % 8 == 0, G*hd <= "
-                             f"{MAX_GROUP_WIDTH} and {smem} bytes of shared "
-                             f"memory <= {MAX_SMEM_BYTES}, got G={G} "
-                             f"hd={hd}")
+    smem = (TC_SMEM_BYTES[hd] if tc
+            else smem_bytes(G, hd, q.element_size(), rows))
+    if smem > MAX_SMEM_BYTES or not tc and (hd % 8
+                                            or rows * hd > MAX_GROUP_WIDTH):
+        raise ValueError(f"flash_decode needs hd % 8 == 0, G*hd <= "
+                         f"{MAX_GROUP_WIDTH} and {smem} bytes of shared "
+                         f"memory <= {MAX_SMEM_BYTES}, got G={G} hd={hd}")
     return ck, tc, rows, splits
 
 
@@ -176,7 +179,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     partials, arrivals = build.workspace(
         dev, stream, n_blocks * splits * (rows * hd + 2 * rows), n_blocks)
     # the tensor-core kernel takes its split count where the CUDA-core one
-    # takes its rows per CTA (64 rows and 8 splits are its constants)
+    # takes its rows per CTA (64 rows and 8 splits are their constants)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
             G, C, hd, ck, splits if tc else rows, float(softcap),
@@ -210,8 +213,9 @@ def flash_decode_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,ck,KV,G,hd); k, v (B,KV,C,hd); bias (B,ck,C) float32 -> like
     q: query token j of row b attends under the bias row (b, j), exactly as
     ``flash_decode_bkhd(q[:, j], k, v, bias[:, j])`` would, in one launch
-    (in bf16 at hd 64 on the tensor cores, whose sum order differs from the
-    single form's; elsewhere the same arithmetic in the same order).
+    (in bf16 at hd 64, 128 and 256 on the tensor cores, whose sum order
+    differs from the single form's; elsewhere the same arithmetic in the
+    same order).
     Preconditions: every position of a query row whose bias is -1e9 still
     enters its sums with a zero weight, so the cache must be finite there
     (in the engine it holds stale but finite entries); rows are

@@ -10,10 +10,13 @@ PyTorch version, in two forms:
   launch.
 
 Each is the wrapper of its form: CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise. A launch splits each (b, kv-head,
-block of query rows) over several CTAs along the positions; the last to
-arrive combines their partials through the workspace that flash_decode
-uses (``build.workspace``). Both forms count their launches on
+tensors launch the kernel or raise. ``launch_plan`` picks its route
+before any launch: the chunk form in bf16 at hd 64, 128 and 256 on the
+tensor cores (``wgmma`` over blocks of 64 query rows), every other launch
+on the CUDA cores. A launch splits each (b, kv-head, block of query rows)
+over several CTAs along the positions; the last to arrive combines their
+partials through the workspace that flash_decode uses
+(``build.workspace``). Both forms count their launches on
 ``paged_flash_decode_bkhd.launches`` (the ``paged_decode`` entry of
 ``ops.launch_counts()``; never plain-version calls).
 """
@@ -36,6 +39,10 @@ SPLITS = 8                 # CTAs per (b, kv-head) in the decode form
 CHUNK_SPLITS = 4           # CTAs per (b, kv-head, row block), chunk form
 TC_ROWS = 64               # query rows of a tensor-core CTA (csrc kWgRows)
 MAX_SMEM_BYTES = 232_448   # dynamic shared memory of one H100 block
+# head dim -> the tensor-core route's shared memory: a Q tile, K and V
+# rings of two 64-position tiles, 1024 bytes of alignment (csrc
+# wg_smem_bytes)
+TC_SMEM_BYTES = {hd: 5 * TC_ROWS * 2 * hd + 1024 for hd in (64, 128, 256)}
 
 
 def simt_smem_bytes(rows: int, hd: int, esize: int) -> int:
@@ -52,10 +59,11 @@ def simt_smem_bytes(rows: int, hd: int, esize: int) -> int:
 def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
                 ) -> Tuple[bool, int, int]:
     """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
-    form in bf16 at hd 64 runs on ``wgmma`` in blocks of 64 rows; every
-    other launch on the CUDA cores, with as many rows as fit its
-    accumulators (all G rows of a decode step)."""
-    if chunk and dtype == torch.bfloat16 and hd == 64:
+    form in bf16 at hd 64, 128 and 256 runs on ``wgmma`` in blocks of 64
+    rows, ``CHUNK_SPLITS`` CTAs per block; every other launch on the CUDA
+    cores, with as many rows as fit its accumulators (all G rows of a
+    decode step)."""
+    if chunk and dtype == torch.bfloat16 and hd in TC_SMEM_BYTES:
         return True, TC_ROWS, CHUNK_SPLITS
     return (False, min(ck * G, MAX_ROW_WIDTH // hd),
             CHUNK_SPLITS if chunk else SPLITS)
@@ -119,8 +127,9 @@ def check_args(q: torch.Tensor, k_pages: torch.Tensor,
     and lengths (B,) (the same memory layout with ck = 1); pools
     (KV,P,ps,hd) of q's dtype; int32 tables (B, n_pages) with unit-stride
     columns and int32 lengths; everything on q's device; hd a multiple of
-    8 and, on the CUDA cores, the block's shared memory within one H100
-    block. Returns (ck, ``launch_plan``)."""
+    8 and the block's shared memory within one H100 block
+    (``TC_SMEM_BYTES`` on the tensor cores, ``simt_smem_bytes`` on the
+    CUDA cores). Returns (ck, ``launch_plan``)."""
     dev, dt = q.device, q.dtype
     build.check_operand("q", q, dev, dt, 5 if chunk else 4)
     build.check_operand("k_pages", k_pages, dev, dt, 4)
@@ -150,8 +159,9 @@ def check_args(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{tuple(tables.shape)} lengths "
                          f"{tuple(lengths.shape)}")
     tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
-    smem = simt_smem_bytes(rows, hd, q.element_size())
-    if hd % 8 or rows < 1 or (not tc and smem > MAX_SMEM_BYTES):
+    smem = (TC_SMEM_BYTES[hd] if tc
+            else simt_smem_bytes(rows, hd, q.element_size()))
+    if hd % 8 or rows < 1 or smem > MAX_SMEM_BYTES:
         raise ValueError(f"paged_decode needs hd % 8 == 0, hd <= "
                          f"{MAX_ROW_WIDTH} and {smem} bytes of shared memory "
                          f"<= {MAX_SMEM_BYTES}, got G={G} hd={hd}")
@@ -215,12 +225,12 @@ def paged_flash_decode_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     lengths (B,ck) int32 -> like q: query token j of row b attends to the
     row's first ``min(lengths[b, j], n_pages·ps)`` positions, exactly as
     ``paged_flash_decode_bkhd(q[:, j], ..., lengths[:, j])`` would. Table
-    entries as there, for the largest length of each row. In bf16 at hd 64
-    (tensor cores), positions between a query's length and the largest
-    length of its block of 64 query rows must hold finite V: they enter the
-    product with a zero weight (in the engine they are the chunk's own
-    positions, written before the call, or earlier contents of the row's
-    pages)."""
+    entries as there, for the largest length of each row. In bf16 at hd
+    64, 128 and 256 (tensor cores), positions between a query's length and
+    the largest length of its block of 64 query rows must hold finite V:
+    they enter the product with a zero weight (in the engine they are the
+    chunk's own positions, written before the call, or earlier contents of
+    the row's pages)."""
     if q.device.type == "cpu":
         return paged_flash_decode_chunk_plain(q, k_pages, v_pages, tables,
                                               lengths, softcap=softcap)

@@ -232,14 +232,15 @@ def test_launch_plan(ck, G, hd, rows, dtype):
     heads share its bias row), as many tokens as 4096 accumulators hold, at
     most ck; the decode step takes its G rows. The block's shared memory
     fits one H100 block at G 8 and hd 64/128 in both dtypes. In bf16 at hd
-    64 the chunk form plans the tensor-core route's 64 rows instead."""
+    64 and 128 the chunk form plans the tensor-core route's 64 rows
+    instead."""
     assert fd.chunk_rows(ck, G, hd) == rows
     esize = torch.tensor([], dtype=dtype).element_size()
     assert fd.smem_bytes(G, hd, esize, rows) <= fd.MAX_SMEM_BYTES
     q = torch.zeros((2, ck, 2, G, hd), dtype=dtype)
     k = torch.zeros((2, 2, 40, hd), dtype=dtype)
     tc, plan_rows, splits = fd.launch_plan(ck, G, hd, dtype, True)
-    assert tc == (dtype == torch.bfloat16 and hd == 64)
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 128, 256))
     assert plan_rows == (fd.TC_ROWS if tc else rows)
     assert fd.check_args(q, k, k, torch.zeros((2, ck, 40)), True) == \
         (ck, tc, plan_rows, splits)
@@ -280,25 +281,26 @@ def test_check_args_refuses(case):
     (1, 8, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),   # ck 1
     (4, 80, 64, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),  # G*hd 5120
     (16, 8, 64, torch.float32, True, (False, 64, fd.SPLITS)),
-    (16, 8, 128, torch.bfloat16, True, (False, 32, fd.SPLITS)),
+    (16, 8, 128, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),
     (16, 5, 128, torch.float32, True, (False, 30, fd.SPLITS)),
     (1, 8, 64, torch.bfloat16, False, (False, 8, fd.SPLITS)),     # decode
     (1, 5, 128, torch.float32, False, (False, 5, fd.SPLITS)),
 ])
 def test_tensor_core_launch_plan(ck, G, hd, dtype, chunk, want):
     """The route, rows and splits of one launch: the chunk form in bf16 at
-    hd 64 on the tensor cores, 64 query rows a CTA at any G (a block spans
-    64 // G + 1 tokens or fewer) and ``TC_SPLITS`` CTAs per row block,
-    with at least four CTAs' shared memory on one SM; the decode step
-    (ck 1), fp32 and hd 128 on the CUDA cores as before, in the shared
-    memory of one H100 block. ``check_args`` returns the same plan."""
+    hd 64 and 128 on the tensor cores, 64 query rows a CTA at any G (a
+    block spans 64 // G + 1 tokens or fewer) and ``TC_SPLITS`` CTAs per
+    row block, with four CTAs' shared memory on one SM at hd 64 and two at
+    128; the decode step (ck 1) and fp32 on the CUDA cores as before, in
+    the shared memory of one H100 block. ``check_args`` returns the same
+    plan."""
     plan = fd.launch_plan(ck, G, hd, dtype, chunk)
     assert plan == want
     tc, rows, _ = plan
     esize = torch.tensor([], dtype=dtype).element_size()
     if tc:
-        assert 4 * fd.TC_SMEM_BYTES <= fd.MAX_SMEM_BYTES
-        assert fd.TC_SMEM_BYTES == 5 * fd.TC_ROWS * hd * esize + 1024
+        assert (256 // hd) * fd.TC_SMEM_BYTES[hd] <= fd.MAX_SMEM_BYTES
+        assert fd.TC_SMEM_BYTES[hd] == 5 * fd.TC_ROWS * hd * esize + 1024
     else:
         assert rows % G == 0 and rows * hd <= fd.MAX_GROUP_WIDTH
         assert fd.smem_bytes(G, hd, esize, rows) <= fd.MAX_SMEM_BYTES
@@ -307,6 +309,29 @@ def test_tensor_core_launch_plan(ck, G, hd, dtype, chunk, want):
     k = torch.zeros((2, 2, 40, hd), dtype=dtype)
     bias = torch.zeros((2, ck, 40) if chunk else (2, 40))
     assert fd.check_args(q, k, k, bias, chunk) == (ck, *want)
+
+
+@pytest.mark.parametrize("ck", [1, 5, 16])
+@pytest.mark.parametrize("G", [8, 1, 3])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
+    """The chunk form in bf16 at hd 128 (yi-6b) and 256 (gemma-2b) plans
+    the tensor-core route at any G and ck: 64 query rows a CTA,
+    ``TC_SPLITS`` CTAs per row block, a Q tile and two-tile K and V
+    rings of HD / 64 swizzled 8 KB sub-tiles in one H100 block (one CTA an
+    SM at hd 256, two at 128); ``check_args`` returns that plan. The same
+    shape in fp32 and the bf16 decode step keep the CUDA cores."""
+    bf = torch.bfloat16
+    assert fd.launch_plan(ck, G, hd, bf, True) == (
+        True, fd.TC_ROWS, fd.TC_SPLITS)
+    assert fd.TC_SMEM_BYTES[hd] == 5 * 64 * hd * 2 + 1024
+    assert (256 // hd) * fd.TC_SMEM_BYTES[hd] <= fd.MAX_SMEM_BYTES
+    k = torch.zeros((2, 2, 40, hd), dtype=bf)
+    assert fd.check_args(torch.zeros((2, ck, 2, G, hd), dtype=bf), k, k,
+                         torch.zeros((2, ck, 40)), True) == (
+        ck, True, fd.TC_ROWS, fd.TC_SPLITS)
+    assert not fd.launch_plan(ck, G, hd, torch.float32, True)[0]
+    assert fd.launch_plan(1, G, hd, bf, False) == (False, G, fd.SPLITS)
 
 
 def _tc_refusal_cases():
@@ -340,7 +365,9 @@ def test_check_args_refuses_tensor_core_route(case):
 @pytest.mark.parametrize("dtype,hd,chunk,lib", [
     (torch.bfloat16, 64, True, "flash_decode_chunk"),
     (torch.float32, 64, True, "flash_decode"),
-    (torch.bfloat16, 128, True, "flash_decode"),
+    (torch.bfloat16, 128, True, "flash_decode_chunk"),
+    (torch.bfloat16, 256, True, "flash_decode_chunk"),
+    (torch.float32, 256, True, "flash_decode"),
     (torch.bfloat16, 64, False, "flash_decode"),
 ])
 def test_wrapper_loads_the_planned_kernel_after_the_checks(monkeypatch,
@@ -348,9 +375,10 @@ def test_wrapper_loads_the_planned_kernel_after_the_checks(monkeypatch,
                                                            lib):
     """On a non-CPU tensor (here meta) the wrapper checks, then loads the
     planned kernel's library: a refused operand raises before any library
-    is loaded, and a valid one asks for the tensor-core library in bf16 at
-    hd 64 and for the CUDA-core one otherwise; nothing falls back to the
-    plain version, and no launch is counted."""
+    is loaded, and a valid one asks for the tensor-core library for the
+    chunk form in bf16 (hd 64, 128, 256) and for the CUDA-core one
+    otherwise; nothing falls back to the plain version, and no launch is
+    counted."""
     asked = []
 
     def load(name):

@@ -97,7 +97,7 @@ CHUNK_CASES = [
     (8, 16, 4, 8, 64, 576, 30.0, "causal"),   # softcap
     (3, 5, 2, 8, 64, fd.SPLITS - 3, 0.0, "causal"),  # C below the splits
     (8, 16, 5, 5, 64, 576, 0.0, "causal"),    # hymba-1.5b's group of 5
-    (2, 16, 2, 8, 128, 300, 0.0, "causal"),   # hd 128: 32 rows a CTA
+    (2, 16, 2, 8, 128, 300, 0.0, "causal"),   # hd 128 (fp32: 32 rows a CTA)
     (2, 7, 2, 4, 128, 100, 30.0, "first"),
     (4, 16, 4, 8, 64, 576, 0.0, "first"),
     (2, 1, 2, 8, 64, 50, 0.0, "causal"),      # ck 1 in the chunk layout
@@ -109,11 +109,27 @@ CHUNK_CASES = [
     (2, 16, 2, 8, 64, 700, 30.0, "first"),
     (2, 9, 3, 7, 64, 130, 0.0, "causal"),
     (2, 80, 2, 1, 64, 320, 0.0, "causal"),
-    # hd 256 on the CUDA cores: gemma-2b's dense fused tick (MQA, 16 rows
-    # a CTA), all but the first key under the bias, G 1
+    # hd 256 (bf16 on the tensor cores, fp32 on the CUDA cores at 16 rows
+    # a CTA): gemma-2b's dense fused tick (MQA), all but the first key
+    # under the bias, G 1
     (8, 16, 1, 8, 256, 576, 0.0, "causal"),
     (8, 16, 1, 8, 256, 576, 30.0, "first"),
     (2, 5, 8, 1, 256, 100, 0.0, "causal"),
+    # the tensor-core route's edges at hd 256 and 128 (yi-6b's fused tick
+    # first): C below the splits, C not a multiple of the 64-position
+    # tiles, more tiles than splits with a softcap, G 7 (a short second
+    # row block), G 1 (64 tokens a block)
+    (3, 5, 1, 8, 256, fd.TC_SPLITS - 1, 0.0, "causal"),
+    (4, 16, 1, 8, 256, 203, 0.0, "causal"),
+    (2, 16, 1, 8, 256, 700, 30.0, "first"),
+    (2, 9, 3, 7, 256, 130, 0.0, "causal"),
+    (2, 80, 2, 1, 256, 320, 0.0, "causal"),
+    (8, 16, 4, 8, 128, 576, 0.0, "causal"),
+    (3, 5, 2, 8, 128, fd.TC_SPLITS - 1, 0.0, "causal"),
+    (4, 16, 4, 8, 128, 203, 0.0, "causal"),
+    (2, 16, 2, 8, 128, 700, 30.0, "first"),
+    (2, 9, 3, 7, 128, 130, 0.0, "causal"),
+    (2, 80, 2, 1, 128, 320, 0.0, "causal"),
     # granite-moe's GQA group of 3 at hd 64: its dense fused tick (48 of a
     # block's 64 rows on the tensor-core route in bf16), a verify-sized
     # chunk with every key but the first under the bias
@@ -141,9 +157,10 @@ def test_flash_decode_chunk_kernel_matches_plain(cuda, B, ck, KV, G, hd, C,
                                                  softcap, kind, dtype):
     """The chunk form, one launch, against its plain version (the stack of
     single-query plain calls), and its launch counted on its own key; bf16
-    at hd 64 plans the tensor-core route, everything else the CUDA cores."""
+    at hd 64, 128 and 256 plans the tensor-core route, fp32 the CUDA
+    cores."""
     tc, rows, _ = fd.launch_plan(ck, G, hd, dtype, True)
-    assert tc == (dtype == torch.bfloat16 and hd == 64)
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 128, 256))
     assert rows == (fd.TC_ROWS if tc else fd.chunk_rows(ck, G, hd))
     rng = np.random.default_rng(B * ck + C)
     q = _randn(rng, (B, ck, KV, G, hd), dtype, cuda)
@@ -187,12 +204,14 @@ def test_flash_decode_chunk_equals_single_query_kernels(cuda, dtype):
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 64, "flash_decode_chunk_kernel"),
     (torch.float32, 64, "flash_decode_kernel"),
-    (torch.bfloat16, 128, "flash_decode_kernel"),
+    (torch.bfloat16, 128, "flash_decode_chunk_kernel"),
+    (torch.bfloat16, 256, "flash_decode_chunk_kernel"),
+    (torch.float32, 256, "flash_decode_kernel"),
 ])
 def test_flash_decode_chunk_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees the chunk form launch the kernel its plan names:
-    the tensor-core kernel in bf16 at hd 64, the CUDA-core one otherwise
-    (a trace that records no kernel at all is taken again)."""
+    the tensor-core kernel in bf16 (hd 64, 128, 256), the CUDA-core one
+    in fp32 (a trace that records no kernel at all is taken again)."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(6)
     q = _randn(rng, (2, 16, 2, 8, hd), dtype, cuda)
@@ -436,6 +455,23 @@ CHUNK_CASES = [
     (8, 1, 8, 256, 16, 36, 36, 16, 0.0, True),  # gemma-2b's fused tick
     (4, 1, 8, 256, 16, 12, 12, 16, 30.0, False),  # hd 256 with softcap
     (3, 4, 1, 256, 8, 10, 10, 5, 0.0, True),    # hd 256, G 1, page 8
+    # the tensor-core route's edges at hd 256 and 128 (yi-6b's fused tick
+    # first): 32 positions, fewer tiles than splits; 208, not a multiple
+    # of the 64-position tiles; 11 tiles over the splits with a softcap;
+    # G 7 (a short second row block); G 1 (64 tokens a block); page 8
+    (3, 1, 8, 256, 16, 2, 2, 5, 0.0, True),
+    (4, 1, 8, 256, 16, 13, 13, 16, 0.0, True),
+    (2, 1, 8, 256, 16, 44, 44, 16, 30.0, False),
+    (2, 3, 7, 256, 16, 9, 9, 10, 0.0, True),
+    (2, 2, 1, 256, 16, 12, 12, 80, 0.0, True),
+    (4, 1, 8, 256, 8, 72, 72, 16, 30.0, True),
+    (8, 4, 8, 128, 16, 36, 36, 16, 0.0, True),
+    (3, 2, 8, 128, 16, 2, 2, 5, 0.0, True),
+    (4, 4, 8, 128, 16, 13, 13, 16, 0.0, True),
+    (2, 2, 8, 128, 16, 44, 44, 16, 30.0, False),
+    (2, 3, 7, 128, 16, 9, 9, 10, 0.0, True),
+    (2, 2, 1, 128, 16, 12, 12, 80, 0.0, True),
+    (4, 2, 8, 128, 8, 72, 72, 16, 30.0, True),
     (8, 8, 3, 64, 16, 36, 36, 16, 0.0, True),   # granite-moe's fused tick
     (3, 8, 3, 64, 16, 10, 10, 5, 30.0, False),  # G 3 at the verify's ck 5
 ]
@@ -447,6 +483,10 @@ CHUNK_CASES = [
 def test_paged_chunk_kernel_matches_plain(cuda, B, KV, G, hd, ps, width,
                                           n_pages, ck, softcap, poison,
                                           dtype):
+    """The chunk form, one launch, against its plain version: bf16 at hd 64,
+    128 and 256 plans the tensor-core route, fp32 the CUDA cores."""
+    tc = pd.launch_plan(ck, G, hd, dtype, True)[0]
+    assert tc == (dtype == torch.bfloat16 and hd in (64, 128, 256))
     rng = np.random.default_rng(11)
     q, kp, vp, tables, lengths = _chunk_inputs(
         rng, B, KV, G, hd, ps, width, n_pages, ck, dtype, cuda, poison)
@@ -905,6 +945,14 @@ GRAPH_ENGINES = [
     ("gemma hd256 chunked", "gemma-2b",
      dict(num_layers=2, num_heads=8, head_dim=256),
      dict(scheduler="chunked"), "continuous"),
+    # both fused ticks in bf16 at hd 256: the chunk forms' tensor-core route
+    ("gemma hd256 chunked bf16, tensor-core fused tick", "gemma-2b",
+     dict(num_layers=2, num_heads=8, head_dim=256, dtype="bfloat16"),
+     dict(scheduler="chunked"), "continuous"),
+    ("gemma hd256 paged sharing bf16, tensor-core fused tick", "gemma-2b",
+     dict(num_layers=2, num_heads=8, head_dim=256, dtype="bfloat16"),
+     dict(kv_cache="paged", kv_page_size=8, kv_prefix_sharing=True),
+     "continuous"),
     # granite-moe's MoE FFN (routing, sort, dispatch and combine captured)
     # at its GQA group of 3; the last at capacity factor 1.0, so a
     # prefill's experts overflow inside the captured step

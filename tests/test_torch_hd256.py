@@ -174,7 +174,9 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     """The CUDA wrappers' checks pass at gemma-2b's serve shapes (B 8, S
     512, 8 heads on one KV head, hd 256; the ring C 576; the fused tick's
     ck 16; pages of 16) with every block's shared memory within one H100
-    block: 64-position K/V tiles in bf16, 32 in fp32."""
+    block: 64-position K/V tiles in bf16, 32 in fp32. The chunk forms run
+    on the tensor cores in bf16 (64 query rows a CTA) and on the CUDA cores
+    in fp32 (16 rows)."""
     es = torch.tensor([], dtype=dtype).element_size()
     z = lambda *s: torch.zeros(s, dtype=dtype)            # noqa: E731
     fp.check_args(z(8, 512, 8, 256), z(8, 512, 1, 256), z(8, 512, 1, 256), 0)
@@ -184,8 +186,10 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     k = z(8, 1, 576, 256)
     assert fd.check_args(z(8, 1, 8, 256), k, k, torch.zeros(8, 576),
                          False) == (1, False, 8, fd.SPLITS)
+    bf = dtype == torch.bfloat16
     assert fd.check_args(z(8, 16, 1, 8, 256), k, k, torch.zeros(8, 16, 576),
-                         True) == (16, False, 16, fd.SPLITS)
+                         True) == ((16, True, 64, fd.TC_SPLITS) if bf
+                                   else (16, False, 16, fd.SPLITS))
     assert fd.chunk_rows(16, 8, 256) == 16
     for rows in (8, 16):
         assert fd.smem_bytes(8, 256, es, rows) <= fd.MAX_SMEM_BYTES
@@ -198,13 +202,17 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
         (1, False, 8, pd.SPLITS)
     assert pd.check_args(z(8, 16, 1, 8, 256), pool, pool, tables,
                          torch.ones((8, 16), dtype=torch.int32), True) == \
-        (16, False, 16, pd.CHUNK_SPLITS)
+        ((16, True, 64, pd.CHUNK_SPLITS) if bf
+         else (16, False, 16, pd.CHUNK_SPLITS))
+    assert fd.TC_SMEM_BYTES[256] <= fd.MAX_SMEM_BYTES
+    assert pd.TC_SMEM_BYTES[256] <= pd.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shapes_out_of_the_domain_still_raise(dtype):
     """hd 512 (and a prefill head dim with no instance) raise in the
-    checks, before any launch."""
+    checks, before any launch: both chunk forms have no tensor-core
+    instance there, and the CUDA-core block exceeds one H100 block."""
     z = lambda *s: torch.zeros(s, dtype=dtype)            # noqa: E731
     for hd in (48, 512):
         with pytest.raises(ValueError, match="hd in"):
@@ -219,6 +227,9 @@ def test_shapes_out_of_the_domain_still_raise(dtype):
     with pytest.raises(ValueError, match="shared memory"):
         pd.check_args(z(1, 1, 8, 512), pool, pool, tables,
                       torch.ones(1, dtype=torch.int32), False)
+    with pytest.raises(ValueError, match="shared memory"):
+        pd.check_args(z(1, 2, 1, 8, 512), pool, pool, tables,
+                      torch.ones((1, 2), dtype=torch.int32), True)
 
 
 # ---------------------------------------------------------- q-block prefill

@@ -135,19 +135,44 @@ def test_paged_chunk_prefill_attention_one_launch_path(kv, softcap):
 @pytest.mark.parametrize("ck,G,hd,dtype,chunk,want", [
     (16, 8, 64, torch.bfloat16, True, (True, 64, pd.CHUNK_SPLITS)),
     (16, 8, 64, torch.float32, True, (False, 64, pd.CHUNK_SPLITS)),
-    (5, 4, 128, torch.bfloat16, True, (False, 20, pd.CHUNK_SPLITS)),
+    (5, 4, 128, torch.bfloat16, True, (True, 64, pd.CHUNK_SPLITS)),
     (16, 5, 128, torch.float32, True, (False, 32, pd.CHUNK_SPLITS)),
     (1, 8, 64, torch.bfloat16, False, (False, 8, pd.SPLITS)),
     (1, 8, 128, torch.float32, False, (False, 8, pd.SPLITS)),
 ])
 def test_launch_plan(ck, G, hd, dtype, chunk, want):
     """The plan the wrapper passes the kernel: the chunk form in bf16 at
-    hd 64 on the tensor cores in blocks of 64 query rows; every other
-    launch on the CUDA cores with at most 4096 accumulators a CTA, in the
-    shared memory of one H100 block; more CTAs per row block for the
-    decode step than for the chunk."""
+    hd 64, 128 and 256 on the tensor cores in blocks of 64 query rows;
+    every other launch on the CUDA cores with at most 4096 accumulators a
+    CTA; each in the shared memory of one H100 block; more CTAs per row
+    block for the decode step than for the chunk."""
     tc, rows, splits = pd.launch_plan(ck, G, hd, dtype, chunk)
     assert (tc, rows, splits) == want
     assert rows * hd <= pd.MAX_ROW_WIDTH or tc
     esize = torch.tensor([], dtype=dtype).element_size()
-    assert pd.simt_smem_bytes(rows, hd, esize) <= pd.MAX_SMEM_BYTES
+    assert (pd.TC_SMEM_BYTES[hd] if tc else pd.simt_smem_bytes(
+        rows, hd, esize)) <= pd.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("ck", [1, 5, 16])
+@pytest.mark.parametrize("G", [8, 1, 3])
+@pytest.mark.parametrize("hd", [128, 256])
+def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
+    """The chunk form in bf16 at hd 128 (yi-6b) and 256 (gemma-2b) plans
+    the tensor-core route at any G and ck: 64 query rows a CTA,
+    ``CHUNK_SPLITS`` CTAs per row block, a Q tile and two-tile K and V
+    rings of HD / 64 swizzled 8 KB sub-tiles in one H100 block (one CTA an
+    SM at hd 256, two at 128); ``check_args`` returns that plan. The same
+    shape in fp32 and the bf16 decode step keep the CUDA cores."""
+    bf = torch.bfloat16
+    assert pd.launch_plan(ck, G, hd, bf, True) == (
+        True, pd.TC_ROWS, pd.CHUNK_SPLITS)
+    assert pd.TC_SMEM_BYTES[hd] == 5 * 64 * hd * 2 + 1024
+    assert (256 // hd) * pd.TC_SMEM_BYTES[hd] <= pd.MAX_SMEM_BYTES
+    pool = torch.zeros((2, 9, 8, hd), dtype=bf)
+    tables = torch.zeros((3, 4), dtype=torch.int32)
+    assert pd.check_args(torch.zeros((3, ck, 2, G, hd), dtype=bf), pool,
+                         pool, tables, torch.ones((3, ck), dtype=torch.int32),
+                         True) == (ck, True, pd.TC_ROWS, pd.CHUNK_SPLITS)
+    assert not pd.launch_plan(ck, G, hd, torch.float32, True)[0]
+    assert pd.launch_plan(1, G, hd, bf, False) == (False, G, pd.SPLITS)
