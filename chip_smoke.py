@@ -206,7 +206,14 @@ phase raises, and the script exits nonzero:
               pages of 16, also with NaN pages past every length) and
               flash_prefill at hd 32 with a window, against the plain
               versions in bf16 and fp32, then timed beside SDPA and the
-              bound; gemma-2b L18 at full width (bf16: GeGLU, MQA, the tied
+              bound, with the kernel the profiler sees launched asserted to
+              be the planned one (at hd 256 in bf16 flash_prefill's
+              two-head ``wgmma`` kernel and the decode step's tensor-core
+              kernel); flash_prefill and the decode step at hd 256 on their
+              routes' edges (S 1, 63, 65, 129, G 3 and 7; C 1, C around the
+              step's split count, only the first key unbiased, G 3 and 7,
+              several tiles a split); gemma-2b L18 at full width (bf16:
+              GeGLU, MQA, the tied
               256000 x 2048 table) kernels on vs off, dense and paged, 18
               launches per prefill and per step asserted, wall and device
               ms, and a 2-layer fp32 rung with identical greedy tokens; its
@@ -249,7 +256,9 @@ phase raises, and the script exits nonzero:
               profile, fabric and eval phases, the gemma-2b and the
               granite loops; the chunk forms' rows carry their verify
               shape's times, and every attention kernel's row its gemma-2b
-              and granite times under ``gemma_*`` and ``granite_*`` keys,
+              and granite times under ``gemma_*`` and ``granite_*`` keys
+              (with ``gemma_kernel``, the kernel each launched, and
+              ``gemma_launches``, its launches in the gemma-2b loops),
               the chunk forms' rows their yi-6b times under ``yi_*``,
               flash_prefill's its hd-32 times under ``hd32_*``), then the
               ok line last.
@@ -266,7 +275,11 @@ checkout has it (the dense fused tick's shape, SDPA with a float mask
 beside it; on the tensor-core route also its device time by split
 count), both chunk forms at gemma-2b's, yi-6b's and granite's fused
 ticks with the route the checkout picks (at hd 128 and 256, where the
-checkout takes the split count by head dim, its sweep), paged_decode (the
+checkout takes the split count by head dim, its sweep), flash_prefill and
+the decode step in bf16 at gemma-2b's and granite's serve shapes with the
+kernel each launches (at gemma's decode step the split sweep of the
+checkout's tensor-core step route, where it has one, and the chunk kernel
+called with ck 1 as a yardstick), paged_decode (the
 decode step's call, and one layer of the fused tick's
 ``paged_chunk_prefill_attention`` with
 the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
@@ -418,15 +431,15 @@ def time_ms(torch, fn, arg_sets, iters=40):
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(torch, fn, arg_sets, iters=20, only=None):
-    """Device time per call from ``torch.profiler``: every kernel the calls
-    launched (or those whose name holds ``only``), summed (no host time, no
-    gaps between launches). The profiler now and then records some of a
-    trace's kernels or none, the first most often: each trace starts with
-    three short spin kernels that are not counted, and a trace is kept only
-    when its kernels are a nonzero whole multiple of ``iters`` (every call
+def kernel_events(torch, fn, arg_sets, iters=20, only=None):
+    """``torch.profiler``'s events of the kernels that ``iters`` calls of
+    ``fn`` cycling through ``arg_sets`` launched (or of those whose name
+    holds ``only``). The profiler now and then records some of a trace's
+    kernels or none, the first most often: each trace starts with three
+    short spin kernels that are not counted, and a trace is kept only when
+    its kernels are a nonzero whole multiple of ``iters`` (every call
     launches the same kernels), else it is taken again; after three such
-    traces the time is None (not measured), never a partial sum."""
+    traces the result is None, never a partial trace."""
     from torch.profiler import ProfilerActivity, profile
     for a in arg_sets[:2]:
         fn(*a)
@@ -445,11 +458,21 @@ def device_ms(torch, fn, arg_sets, iters=20, only=None):
                and (only is None or only in e.key)]
         n = sum(e.count for e in evs)
         if n > 0 and n % iters == 0:
-            return sum(e.self_device_time_total for e in evs) / 1e3 / iters
+            return evs
         log(f"  profiler trace held {n} kernels for {iters} calls: "
             "taken again")
-    log("  device time not measured: three short traces")
+    log("  profiler: three short traces")
     return None
+
+
+def device_ms(torch, fn, arg_sets, iters=20, only=None):
+    """Device time per call from ``kernel_events``: every kernel the calls
+    launched (or those whose name holds ``only``), summed (no host time, no
+    gaps between launches); None (not measured) when the profiler gave no
+    whole trace."""
+    evs = kernel_events(torch, fn, arg_sets, iters, only)
+    return (None if evs is None
+            else sum(e.self_device_time_total for e in evs) / 1e3 / iters)
 
 
 def ms4(x):
@@ -1182,14 +1205,61 @@ def paged_chunk_starts(torch, pd, gen, heads,
     return out
 
 
+def head_step_ab(torch, fd, fp, gen):
+    """flash_prefill and flash_decode's decode step of the imported
+    ``repro_torch`` in bf16 at gemma-2b's (hd 256) and granite's (G 3)
+    serve shapes (``--ab``): held to their plain versions and timed
+    (``prefill_row``, ``decode_row``: beside SDPA and the bound), with the
+    kernel each checkout launches as the profiler sees it. At gemma's decode
+    step also the device time by split count where the checkout has the
+    tensor-core step route (``STEP_SPLITS``), and the yardstick of the
+    tensor-core chunk kernel called with ck = 1 (8 live rows of its 64) at
+    4 and 9 splits."""
+    bf = torch.bfloat16
+    rows = []
+    for tag, heads in (("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
+                       ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD))):
+        mk = head_inputs(torch, gen, bf, heads)
+        for name, timed, mod, fn, plain in (
+                ("flash_prefill", prefill_row, fp, fp.flash_prefill_bshd,
+                 fp.flash_prefill_plain),
+                ("flash_decode", decode_row, fd, fd.flash_decode_bkhd,
+                 fd.flash_decode_plain)):
+            row, sets = timed(torch, mod, mk, heads, bf)
+            label = f"{name} {tag} serve shape hd {heads[2]}"
+            err = check(f"{label} bfloat16", fn(*sets[0]), plain(*sets[0]),
+                        bf)
+            row = dict(name=name, shape=f"{tag} serve", hd=heads[2],
+                       kernel=kernels_seen(torch, fn, sets[0]),
+                       max_abs_err=err, **row)
+            log(f"  {label}: {row['kernel']}, device "
+                f"{ms4(row['device_ms'])} ms, SDPA device "
+                f"{ms4(row['library_device_ms'])}, bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']})")
+            if tag == "gemma" and name == "flash_decode":
+                if hasattr(fd, "STEP_SPLITS"):   # the step route's sweep
+                    row["splits_device_ms"] = chunk_splits(
+                        torch, fd, "STEP_SPLITS", fn, plain, sets, label,
+                        splits=(8, 12, 16, 18, 24, 32, 36))
+                one = [(q[:, None].contiguous(), k, v, m[:, None].contiguous())
+                       for q, k, v, m in sets]
+                row["chunk_ck1_device_ms"] = chunk_splits(
+                    torch, fd, "TC_SPLITS", fd.flash_decode_chunk,
+                    fd.flash_decode_chunk_plain, one,
+                    f"{label}, the chunk kernel at ck 1", splits=(4, 9))
+            rows.append(row)
+    return rows
+
+
 def ab_phase(torch):
     """flash_decode and flash_prefill of the imported ``repro_torch`` alone
     at the serve shapes, bf16 and fp32: held to their plain versions, then
     timed beside SDPA and the bound; both chunk forms at the wide-head and
-    G-3 fused ticks (``wide_chunk_ab``); then paged_decode's two forms
-    (``paged_ab``) and ssd_scan at both SSM serve shapes (``ssd_ab``)
-    (``--ab``: one checkout per process, so a parent and a change compare
-    in one call)."""
+    G-3 fused ticks (``wide_chunk_ab``); flash_prefill and the decode step
+    at gemma-2b's and granite's serve shapes (``head_step_ab``); then
+    paged_decode's two forms (``paged_ab``) and ssd_scan at both SSM serve
+    shapes (``ssd_ab``) (``--ab``: one checkout per process, so a parent
+    and a change compare in one call)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill as fp
@@ -1223,6 +1293,8 @@ def ab_phase(torch):
             rows[-1]["splits_device_ms"] = dense_chunk_splits(torch, fd, gen,
                                                               args)
         rows += wide_chunk_ab(torch, fd, gen)
+    rows += head_step_ab(torch, fd, fp,
+                         torch.Generator(device=DEVICE).manual_seed(4))
     return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
             + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
@@ -3702,10 +3774,109 @@ def paged_chunk_row(torch, pd, mk, heads):
         4 * H_ * HD_ * int(lengths.sum()), torch.bfloat16), sets
 
 
+def sdpa_causal(q, k, v):
+    """Causal SDPA: flash_prefill's yardstick (the port never calls it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+
+
+def prefill_row(torch, fp, mk, heads, dt):
+    """flash_prefill in ``dt`` at one config's prefill (``mk`` =
+    ``head_inputs``' makers, ``heads`` = (query heads, KV heads, head
+    dim)): ``timed_row`` over inputs rotated through more than 3x the L2
+    size, beside causal SDPA. The bound reads q, k, v and writes out once;
+    its operations are QK^T and PV over the causal pairs. Returns (row,
+    the rotated sets)."""
+    H_, KV_, HD_ = heads
+    esz = torch.tensor([], dtype=dt).element_size()
+    first = mk["prefill"]()
+    sets = rotated(first, mk["prefill"], ())
+    pairs = PROMPT * (PROMPT + 1) // 2
+    return timed_row(
+        torch, fp.flash_prefill_bshd, fp.flash_prefill_plain, sets,
+        esz * 2 * B * PROMPT * (H_ + KV_) * HD_, 4 * B * H_ * pairs * HD_,
+        dt, library=(sdpa_causal, [tuple(t.transpose(1, 2).contiguous()
+                                         for t in st) for st in sets])), sets
+
+
+def decode_row(torch, fd, mk, heads, dt):
+    """flash_decode's decode step in ``dt`` at one config's serve shape,
+    as ``prefill_row``, beside SDPA with a (B, 1, 1, C) float mask. The
+    bound reads q, the bias and K/V and writes out once; its operations
+    are QK^T and PV over the C positions. Returns (row, the rotated
+    sets)."""
+    H_, KV_, HD_ = heads
+    esz = torch.tensor([], dtype=dt).element_size()
+    first = mk["decode"]()
+    sets = rotated(first, mk["decode"], ())
+    return timed_row(
+        torch, fd.flash_decode_bkhd, fd.flash_decode_plain, sets,
+        esz * (2 * B * H_ * HD_ + 2 * B * KV_ * CAP * HD_) + 4 * B * CAP,
+        4 * B * H_ * CAP * HD_, dt, library=(sdpa_mask, [
+            (q.reshape(B, H_, 1, HD_), k, v, m[:, None, None, :])
+            for q, k, v, m in sets])), sets
+
+
+def kernels_seen(torch, fn, args):
+    """Short names (up to the argument list) of the port's CUDA kernels
+    that ``fn(*args)`` launches, from ``kernel_events``; None when the
+    profiler gave no whole trace."""
+    import re
+    evs = kernel_events(torch, fn, [args])
+    if evs is None:
+        return None
+    return sorted({m.group(0) for e in evs for m in [
+        re.search(r"(flash|paged|ssd)_\w+(<[^()]*>)?", e.key)] if m})
+
+
+def wide_edge_checks(torch, fd, fp, gen):
+    """flash_prefill and flash_decode's decode step at hd 256 on the edges
+    of their bf16 routes, against the plain versions in bf16 and fp32 (as
+    in tests/test_torch_cuda.py): the prefill at S 1, 63, 65 and 129 on
+    gemma's heads, at B 1 with a softcap, G 3 on two KV heads with a window
+    and G 7 (an unpaired head); the decode step at C 1, C just below and
+    just above its split count, only the first key unbiased, G 3 and G 7,
+    and a split of several 64-position tiles."""
+    dev = torch.device(DEVICE)
+    splits = getattr(fd, "STEP_SPLITS", fd.SPLITS)
+    pre = ((2, 1, 8, 1, 0, 0.0), (2, 63, 8, 1, 0, 0.0), (2, 65, 8, 1, 0, 0.0),
+           (1, 129, 8, 1, 0, 30.0), (2, 130, 6, 2, 48, 0.0),
+           (1, 200, 7, 1, 0, 0.0))
+    dec = ((8, 1, 8, 1, 0.0, False), (8, 1, 8, splits - 1, 0.0, False),
+           (8, 1, 8, splits + 1, 30.0, True), (8, 1, 8, CAP, 0.0, "first"),
+           (4, 2, 3, 203, 0.0, True), (4, 1, 7, CAP, 30.0, False),
+           (2, 1, 8, 2000, 0.0, True))
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        for b, s, h, kv, w, sc in pre:
+            q, k, v = randn(b, s, h, 256), randn(b, s, kv, 256), \
+                randn(b, s, kv, 256)
+            check(f"flash_prefill hd 256 B={b} S={s} H/KV={h}/{kv} "
+                  f"window={w} softcap={sc} {name}",
+                  fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
+                  fp.flash_prefill_plain(q, k, v, window=w, softcap=sc), dt)
+        for b, kv, g, c, sc, masked in dec:
+            q, k, v = randn(b, kv, g, 256), randn(b, kv, c, 256), \
+                randn(b, kv, c, 256)
+            bias = torch.zeros((b, c), device=dev)
+            if masked == "first":
+                bias[:, 1:] = -1e9
+            elif masked:
+                bias[:, c // 2:] = -1e9
+            check(f"flash_decode hd 256 B={b} KV={kv} G={g} C={c} "
+                  f"softcap={sc} bias={masked} {name}",
+                  fd.flash_decode_bkhd(q, k, v, bias, softcap=sc),
+                  fd.flash_decode_plain(q, k, v, bias, softcap=sc), dt)
+
+
 HEAD_KINDS = ("prefill", "decode", "chunk", "paged", "paged_chunk")
 
 
-def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False,
+def head_kernel_rows(torch, fd, fp, pd, gen, heads, tag, hd32=False,
                      kinds=HEAD_KINDS):
     """The attention kernels of ``kinds`` at one config's serve shapes
     (``heads`` = (query heads, KV heads, head dim)) against their plain
@@ -3761,10 +3932,6 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False,
             fp.flash_prefill_plain(q, k, v, window=32), dt)
     torch.cuda.synchronize()
 
-    def sdpa_causal(q, k, v):
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-
     names = {"prefill": "flash_prefill", "decode": "flash_decode",
              "chunk": "flash_decode_chunk", "paged": "paged_decode"}
     rows = {names[k]: {} for k in kinds if k in names}
@@ -3772,26 +3939,23 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False,
         esz, name = torch.tensor([], dtype=dt).element_size(), str(dt)[6:]
         mk = head_inputs(torch, gen, dt, heads)
         res = {}
-        if "prefill" in kinds:
-            first = mk["prefill"]()
-            sets = rotated(first, mk["prefill"], ())
-            pairs = PROMPT * (PROMPT + 1) // 2
-            res["flash_prefill"] = timed_row(
-                torch, fp.flash_prefill_bshd, fp.flash_prefill_plain, sets,
-                esz * 2 * B * PROMPT * (H_ + KV_) * HD_,
-                4 * B * H_ * pairs * HD_, dt, library=(sdpa_causal, [
-                    tuple(t.transpose(1, 2).contiguous() for t in st)
-                    for st in sets]))
-        if "decode" in kinds:
-            first = mk["decode"]()
-            sets = rotated(first, mk["decode"], ())
-            res["flash_decode"] = timed_row(
-                torch, fd.flash_decode_bkhd, fd.flash_decode_plain, sets,
-                esz * (2 * B * H_ * HD_ + 2 * B * KV_ * CAP * HD_)
-                + 4 * B * CAP, 4 * B * H_ * CAP * HD_, dt,
-                library=(sdpa_mask, [
-                    (q.reshape(B, H_, 1, HD_), k, v, m[:, None, None, :])
-                    for q, k, v, m in sets]))
+        for key, timed, mod in (("prefill", prefill_row, fp),
+                                ("decode", decode_row, fd)):
+            if key not in kinds:
+                continue
+            row, sets = timed(torch, mod, mk, heads, dt)
+            # the kernel the checkout's plan picks, as the profiler sees it
+            # (None: the profiler gave no whole trace, logged)
+            row["kernel"] = kernels_seen(
+                torch, fp.flash_prefill_bshd if mod is fp
+                else fd.flash_decode_bkhd, sets[0])
+            want = (fp.launch_plan(HD_, dt)[0] if mod is fp else fd.KERNELS[
+                fd.launch_plan(1, G, HD_, dt, False)[0], False][1])
+            if row["kernel"] is not None and (
+                    len(row["kernel"]) != 1 or want not in row["kernel"][0]):
+                raise AssertionError(f"{names[key]} {tag} {name}: kernels "
+                                     f"{row['kernel']}, planned {want}")
+            res[names[key]] = row
         if dt == torch.bfloat16 and "chunk" in kinds:
             res["flash_decode_chunk"] = dense_chunk_row(torch, fd, mk,
                                                         heads)[0]
@@ -3828,10 +3992,13 @@ def head_kernel_rows(torch, F, fd, fp, pd, gen, heads, tag, hd32=False,
             lib = ("no single library call" if r["library_ms"] is None else
                    f"SDPA {r['library_ms']:.4f} (device "
                    f"{ms4(r['library_device_ms'])})")
+            seen = (f"  {r['kernel'] or ['kernel not seen']}"
+                    if "kernel" in r else "")
             log(f"  {key:<18s} {name:<9s} hd "
                 f"{32 if key == 'hd32' else HD_}: kernel {r['ms']:.4f} "
                 f"(device {ms4(r['device_ms'])})  plain {r['plain_ms']:.4f}"
-                f"  {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})")
+                f"  {lib}  bound {r['bound_ms']:.4f} ({r['bound_by']})"
+                f"{seen}")
         if dt != torch.bfloat16:
             continue
         err = {"flash_prefill": "prefill", "flash_decode": "decode",
@@ -4052,7 +4219,7 @@ def step_launch_checks(torch, arch, max_new=MAX_NEW):
     return graphs
 
 
-def dense_config_phase(torch, F):
+def dense_config_phase(torch):
     """The other dense configs on the card (gemma-2b, yi-6b): the attention
     kernels at hd 256, the chunk forms at yi-6b's hd 128; gemma-2b L18 at
     full width kernels on vs off, dense and paged; its steps replayed vs
@@ -4091,15 +4258,19 @@ def dense_config_phase(torch, F):
     try:
         memory("at the phase's start")
         gen = torch.Generator(device=DEVICE).manual_seed(25)
-        rows = head_kernel_rows(torch, F, fd, fp, pd, gen,
+        rows = head_kernel_rows(torch, fd, fp, pd, gen,
                                 (GEMMA_H, GEMMA_KV, GEMMA_HD), "gemma",
                                 hd32=True)
+        wide_edge_checks(torch, fd, fp, gen)
+        # the bf16 decode step at hd 256 has a kernel of its own
+        rows["flash_decode"]["gemma_source"] = (
+            "src/repro_torch/kernels/csrc/flash_decode_step.cu")
         yi_cfg = get_config(YI)
         if (yi_cfg.num_heads, yi_cfg.num_kv_heads,
                 yi_cfg.resolved_head_dim) != (YI_H, YI_KV, YI_HD):
             raise AssertionError(f"{YI}'s heads are not the phase's shapes")
         for name, row in head_kernel_rows(
-                torch, F, fd, fp, pd, gen, (YI_H, YI_KV, YI_HD), "yi",
+                torch, fd, fp, pd, gen, (YI_H, YI_KV, YI_HD), "yi",
                 kinds=("chunk", "paged_chunk")).items():
             rows[name].update(row)
         t_k = time.time()
@@ -4280,7 +4451,7 @@ def moe_step_split(torch):
     return out
 
 
-def moe_phase(torch, F):
+def moe_phase(torch):
     """The MoE family on the card: granite-moe-3b-a800m (40 experts, top 8;
     24 query heads on 8 KV heads of hd 64) at full width. ``apply_moe``
     card vs CPU (``moe_layer_checks``); every attention kernel at its GQA
@@ -4319,7 +4490,7 @@ def moe_phase(torch, F):
     memory("at the phase's start")
     layer = moe_layer_checks(torch)
     gen = torch.Generator(device=DEVICE).manual_seed(26)
-    rows = head_kernel_rows(torch, F, fd, fp, pd, gen, heads, "granite")
+    rows = head_kernel_rows(torch, fd, fp, pd, gen, heads, "granite")
     t_k = time.time()
     model = dense_model_check(torch, GRANITE, fused=True, sensitivity=True)
     split = moe_step_split(torch)
@@ -4417,15 +4588,17 @@ def main():
     prof, _, measured = profiling_phase(torch, profiles)
     fabric = fabric_phase(torch, profiles)
     evaluation = eval_phase(torch, measured)
-    import torch.nn.functional as F
-    gemma_rows, dense_cfgs = dense_config_phase(torch, F)
-    granite_rows, moe = moe_phase(torch, F)
+    gemma_rows, dense_cfgs = dense_config_phase(torch)
+    granite_rows, moe = moe_phase(torch)
     for r in rows:
         r.update(gemma_rows.get(r["name"], {}))
         r.update(granite_rows.get(r["name"], {}))
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
             evaluation, dense_cfgs, moe))
+        # of them gemma-2b's loops' (bf16, hd 256: its prefill on the
+        # two-head wgmma kernel, its decode step on the step kernel)
+        r["gemma_launches"] = dense_cfgs.get(r["name"], 0)
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -48,18 +48,63 @@
 // 50 MB L2, so the repeated tile loads hit L2) and a persistent grid that
 // prefetches the next tile's Q (slower: its extra state spills).
 //
-// bf16 at hd 32, 128 and 256 (off tinyllama's serve path; hd 256 is
-// gemma-2b's): the same design on `mma.sync.m16n8k16` fed by `ldmatrix`,
-// each warp owning 16 query rows (a 128-element row does not fit one
-// 128-byte swizzle row). At hd 32 and 128 a CTA is one warpgroup and each
-// warp keeps its Q fragments in registers. At hd 256 a warp's 16 x 256
-// fp32 output slice alone would take 128 registers a thread beside the
-// Q fragments (64) and the scores (32), so the CTA is two warpgroups over
-// the same 64 queries: warps w and w + 4 both score rows 16w .. 16w + 15
-// (the same products, so the same m and l) and each keeps and writes one
-// half of the output columns; Q is read from shared memory at each k-step
-// instead of held. The staged tiles take 5 x 64 x 264 x 2 = 168,960 bytes,
-// one CTA an SM.
+// bf16 at hd 32 and 128 (off tinyllama's serve path): the same design on
+// `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16 query rows and
+// keeping its Q fragments in registers (a 128-element row does not fit one
+// 128-byte swizzle row).
+//
+// bf16 at hd 256 (gemma-2b's prefill: B 8, S 512, 8 query heads on one KV
+// head): what bounds it is bytes, barely. q, k, v and out are 37.7 MB
+// (11.3 us at 3.35 TB/s) against 8.6 GFLOP of causal QK^T and PV, 8.7 us
+// on the bf16 tensor cores, or 13 us with PV doubled by P's hi + lo terms;
+// so the products must run on `wgmma` near its rate. The design
+// (`flash_prefill_wide_kernel`):
+// - A CTA is two warpgroups over one K/V stream: the two query heads 2p
+//   and 2p + 1 of one KV head at one 64-query tile (their key-tile ranges
+//   are the same; at odd G the group's last CTA has one head, and its
+//   second warpgroup computes on a copy of it and stores nothing, which
+//   keeps the products off any divergent path: ptxas serialises `wgmma`s
+//   on one). Pairing two q tiles of one head instead was not tried. Each
+//   warpgroup owns its head's 64 query rows and all 256 output columns
+//   (128 fp32 accumulators a thread) and computes its QK^T once: 16
+//   `wgmma` m64n64k16 k-steps from swizzled
+//   shared memory (a 64 x 256 tile is four 8 KB sub-tiles), PV as four
+//   m64n256k16 k-steps a term with P from registers and V's leading byte
+//   offset stepping over its sub-tiles (wgmma.cuh).
+// - Softmax overlaps the products. Step i issues QK^T of key tile i and
+//   then PV of tile i - 1, waits for QK^T alone (`wgmma.wait_group 1`),
+//   and runs tile i's mask and exponentials while PV_{i-1} is in flight;
+//   only the rescale of the accumulator waits for it. Between the CTA's
+//   one barrier a step the two warpgroups run on their own, so one's
+//   products can also run under the other's softmax.
+// - K streams one tile ahead and V one step behind it through two-tile
+//   rings (`cp.async` by all 256 threads): Q of both heads 64 KB, K and V
+//   128 KB, 197,632 bytes with the alignment: one CTA an SM. Tiles above
+//   the causal frontier or before the window are never loaded; the mask
+//   is evaluated only on tiles that cross it; the ragged S is zero-filled;
+//   scale, then softcap, then mask; l is floored at 1e-30; a row with no
+//   visible key keeps alpha = p = 0. The heaviest q tiles start first.
+// - Each thread's copies of a tile share one swizzle (an add and a
+//   compare each), and the output tile is staged in the warpgroup's
+//   finished Q tile and stored as whole 512-byte rows.
+// ptxas: 246 registers, no spill. Measured (device ms at gemma's prefill,
+// NVIDIA H100 80GB HBM3 at 700 W): 0.0399 in chip_smoke --ab, SDPA
+// 0.0337, bound 0.0113 (bytes). What holds it back: the two warpgroups
+// meet at the CTA's barrier every key tile, so their QK^T run together
+// and contend for shared memory (an m64n64k16 with both operands there
+// reads 4 KB in its 32 cycles); one CTA an SM runs two waves of 11
+// serial steps and hides no prologue or epilogue. kernel_variants.py,
+// one call (this kernel 0.0398): the accumulator layout's own 4-byte
+// stores 0.0483, a generic copy loop 0.0429; the copies issued before
+// the products 0.0393, skipping the rescale of a warp whose rows keep
+// their max 0.0403 (neither kept: within 1.5%); with wrong results, to
+// see where the time goes, no PV 0.0338, no lo term 0.0347, no softmax
+// 0.0351, no refills 0.0351, no barrier 0.0384: no one part dominates.
+// Tried and left out: `mma.sync` with two warpgroups a CTA over the same
+// 64 queries, each keeping half the output columns (the first hd-256
+// route; 184 registers): both warpgroups computed the whole QK^T, every
+// warp `ldmatrix`-read the whole K tile and re-read Q at each k-step, and
+// nothing overlapped the softmax, 0.0924 (chip_smoke --ab).
 //
 // fp32 keeps fp32 products (no TF32: the fp32 checks hold the kernel to
 // 1e-5 of the plain version, and the fp32 model rungs must give the same
@@ -89,7 +134,7 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int window) {
 }
 
 // ============================================================ bf16: mma.sync
-// (hd 32, 128, 256)
+// (hd 32 and 128)
 
 // bf16 elements per shared-memory row: hd plus 16 bytes, so the 8 rows an
 // `ldmatrix` reads start in 8 different 4-bank groups.
@@ -101,16 +146,6 @@ constexpr size_t mma_smem_bytes() {  // Q | K ring (2) | V ring (2)
   return 5 * (size_t)kBQ * mma_ld<HD>() * sizeof(__nv_bfloat16);
 }
 
-// Warpgroups of an `mma.sync` CTA, each owning HD / n of the output
-// columns: two at hd 256 (see the note at the top), else one.
-template <int HD>
-__host__ __device__ constexpr int mma_col_groups() { return HD > 128 ? 2 : 1; }
-
-template <int HD>
-__host__ __device__ constexpr int mma_threads() {
-  return kThreads * mma_col_groups<HD>();
-}
-
 // Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab into a
 // shared tile; rows at or past S are zero-filled.
 template <int HD>
@@ -118,7 +153,7 @@ __device__ __forceinline__ void issue_tile(__nv_bfloat16* dst,
                                            const __nv_bfloat16* base,
                                            size_t stride, int r0, int S) {
   constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBK * kChunks; i += mma_threads<HD>()) {
+  for (int i = threadIdx.x; i < kBK * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = r0 + r < S;
     cp_async16(dst + r * mma_ld<HD>() + c,
@@ -127,19 +162,17 @@ __device__ __forceinline__ void issue_tile(__nv_bfloat16* dst,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(mma_threads<HD>())
+__global__ void __launch_bounds__(kThreads)
 flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ out, int S, int H, int KV,
                          int window, float scale, float softcap) {
-  constexpr int WN = mma_col_groups<HD>();
   constexpr int LD = mma_ld<HD>();
   constexpr int TILE = kBQ * LD;
   constexpr int KS = HD / 16;        // k-steps of QK^T
-  constexpr int NO = HD / 8 / WN;    // this warp's 8-wide output column tiles
+  constexpr int NO = HD / 8;         // 8-wide output column tiles
   constexpr int NS = kBK / 8;        // 8-wide score column tiles
-  constexpr bool kQRegs = WN == 1;   // Q fragments held in registers
   extern __shared__ uint4 smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + TILE;     // 2 tiles
@@ -148,9 +181,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int kvh = h / (H / KV);
-  // warp: this warp's 16-row group; col0: its first output column
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int col0 = threadIdx.x / kThreads * (HD / WN);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
   const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
   const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
@@ -167,7 +198,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   // rows warp*16 + g (c = 0, 1) and + 8 (c = 2, 3) of the q tile
-  uint32_t qf[kQRegs ? KS : 1][4];
+  uint32_t qf[KS][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -189,13 +220,11 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kQRegs) {
-      if (kt == kt_begin) {
+    if (kt == kt_begin) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                                  (lane >> 4) * 8);
-      }
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
+                                (lane >> 4) * 8);
     }
     const __nv_bfloat16* Kt = Ks + buf * TILE;
     const __nv_bfloat16* Vt = Vs + buf * TILE;
@@ -209,21 +238,13 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      uint32_t qa[4];
-      if constexpr (kQRegs) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-      } else {
-        ldmatrix_x4(qa, Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t r[4];
         ldmatrix_x4(r, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
                            kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qa, r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
+        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
       }
     }
 
@@ -282,7 +303,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int np = 0; np < NO / 2; ++np)
         ldmatrix_x4_trans(r[np], Vt + (kk * 16 + (lane & 7) +
                                        ((lane >> 3) & 1) * 8) * LD +
-                                     col0 + np * 16 + (lane >> 4) * 8);
+                                     np * 16 + (lane >> 4) * 8);
       // all hi products, then all lo: no accumulator is reused back to back
 #pragma unroll
       for (int np = 0; np < NO / 2; ++np) {
@@ -309,8 +330,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int qi = q0 + warp * 16 + g + i * 8;
     if (qi >= S) continue;
     __nv_bfloat16* orow = out + (size_t)b * S * q_stride +
-                          (size_t)qi * q_stride + (size_t)h * HD + col0 +
-                          2 * t;
+                          (size_t)qi * q_stride + (size_t)h * HD + 2 * t;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
@@ -483,6 +503,265 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8) =
           pack_bf16(o[4 * n + 2 * r] * l[r], o[4 * n + 2 * r + 1] * l[r]);
+  }
+}
+
+// ======================================================= bf16: wgmma, hd 256
+
+constexpr int kWideHD = 256;
+constexpr int kWideThreads = 2 * kThreads;           // two warpgroups
+constexpr int kWideTile = kWideHD / 64 * kWgTile;    // 64 x 256: 32 KB
+// Q of both heads | K ring (2) | V ring (2), plus room to align the base to
+// 1024 bytes: 197,632 bytes
+constexpr size_t kWideSmemBytes = 6 * (size_t)kWideTile + 1024;
+
+// Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab with 256
+// columns into a swizzled tile (four 64-column sub-tiles) at shared address
+// `dst`, by all the CTA's threads; rows at or past S are zero-filled.
+// Thread t copies 16-byte chunk t % 32 of rows t / 32 + 8j (j < 8): the
+// eight share one swizzle, so each copy is an add and a compare.
+__device__ __forceinline__ void issue_wide_tile(uint32_t dst,
+                                                const __nv_bfloat16* base,
+                                                size_t stride, int r0, int S) {
+  const int r = threadIdx.x / 32, c = threadIdx.x % 32;
+  const uint32_t d = dst + wg_tile_off(r, c);
+  const __nv_bfloat16* src = base + (size_t)(r0 + r) * stride + c * 8;
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    const bool ok = r0 + r + 8 * j < S;
+    cp_async16(d + j * 8 * 128, ok ? src + (size_t)8 * j * stride : base, ok);
+  }
+}
+
+// One CTA: two query heads of one KV head (heads 2p and 2p + 1 of its group
+// of G; at odd G the group's last CTA has one) at one 64-query tile. Warp-
+// group w owns head 2p + w: its 64 query rows and all 256 output columns.
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                          int window, float scale, float softcap) {
+  constexpr int HD = kWideHD;
+  extern __shared__ uint4 smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // 2 tiles
+  const uint32_t Ks = Qs + 2 * kWideTile;                       // 2 tiles
+  const uint32_t Vs = Ks + 2 * kWideTile;                       // 2 tiles
+
+  const int G = H / KV, pairs = (G + 1) / 2;
+  const int kvh = blockIdx.x / pairs, g0 = blockIdx.x % pairs * 2;
+  const bool two = g0 + 1 < G;           // the pair has its second head
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int wg = threadIdx.x / kThreads;
+  const int h = kvh * G + g0 + wg;       // past the group when !two
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
+  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
+  const __nv_bfloat16* qb =
+      q + (size_t)b * S * q_stride + (size_t)(kvh * G + g0) * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const uint32_t Qw = Qs + wg * kWideTile;
+
+  const int n_tiles = (S + kBK - 1) / kBK;
+  const int kt_end = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int n = kt_end - kt_begin;       // key tiles of this q tile, >= 1
+
+  // Q of both heads (an unpaired second warpgroup computes on a copy of
+  // the first head's and stores nothing: the products stay on one path,
+  // which `wgmma` needs to overlap), K of the first key tile
+  issue_wide_tile(Qs, qb, q_stride, q0, S);
+  issue_wide_tile(Qs + kWideTile, two ? qb + HD : qb, q_stride, q0, S);
+  issue_wide_tile(Ks, kb, kv_stride, kt_begin * kBK, S);
+  cp_async_commit();
+
+  // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
+  // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
+  uint32_t ph[4][4], pl[4][4];          // the last tile's P, hi + lo bf16
+  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+
+  // Step i scores key tile i and adds tile i - 1's P V: QK^T_i and
+  // PV_{i-1} are issued together, and the softmax of tile i runs while
+  // PV_{i-1} is in flight. K runs one tile ahead and V one step behind it
+  // through two-tile rings: at step i the buffers of K_{i-1} and V_{i-2}
+  // are free and take K_{i+1} and V_i. Steps 0 (QK^T alone) and n (PV
+  // alone) are peeled off, so that every step between commits both groups
+  // unconditionally: ptxas serialises the products when it cannot tell
+  // which group a wait leaves in flight.
+  auto arrive = [&] {                   // K_i and V_{i-1} have landed
+    cp_async_wait<0>();
+    // cp.async wrote the tiles through the generic proxy; wgmma reads them
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+  // refill the buffers step i frees (the products in flight read K_i and
+  // V_{i-1}, in the other buffers), after the step's products are issued
+  auto refill = [&](int i) {
+    const int kt = kt_begin + i;
+    if (i + 1 < n)
+      issue_wide_tile(Ks + ((i + 1) & 1) * kWideTile, kb, kv_stride,
+                      (kt + 1) * kBK, S);
+    if (i < n)
+      issue_wide_tile(Vs + (i & 1) * kWideTile, vb, kv_stride, kt * kBK, S);
+    cp_async_commit();
+  };
+  // S = Q K^T (64 x 64): sixteen k-steps of 16 along hd, four in each
+  // 64-column sub-tile
+  auto qk = [&](int i, float (&s)[32]) {
+    const uint32_t Kt = Ks + (i & 1) * kWideTile;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t at = (kk / 4) * kWgTile + (kk % 4) * 32;
+      wg_ss(s, wg_desc(Qw + at), wg_desc(Kt + at), kk > 0);
+    }
+    wg_commit();
+  };
+  // O += P_i V_i (one m64n256k16 a k-step of 16 keys), P as hi + lo bf16
+  // A fragments; V's leading byte offset steps over its sub-tiles
+  auto pv = [&](int i) {
+    const uint32_t Vt = Vs + (i & 1) * kWideTile;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048, kWgTile));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048, kWgTile));
+    wg_commit();
+  };
+  // softcap, mask; online softmax per row (4 lanes share a row): s becomes
+  // P, alpha the rescale of the rows' sums
+  auto softmax = [&](int i, float (&s)[32], float (&alpha)[2]) {
+    const int k0 = (kt_begin + i) * kBK;
+    const bool masked = tile_needs_mask(q0, k0, S, window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      float x = s[e];
+      if (softcap > 0.f) x = tanhf(x * cap_in) * softcap;
+      if (masked && !visible(q0 + warp * 16 + g + ((e >> 1) & 1) * 8,
+                             k0 + (e >> 2) * 8 + 2 * t + (e & 1), S, window))
+        x = -INFINITY;
+      s[e] = x;
+      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+    }
+    float mc[2];                       // the new max, times c
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // a row with no visible key yet keeps alpha = p = 0
+      mc[r] = m_new == -INFINITY ? 0.f : m_new * c;
+      alpha[r] = ex2(fmaf(m[r], c, -mc[r]));
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const float p = ex2(fmaf(s[e], c, -mc[(e >> 1) & 1]));
+      s[e] = p;
+      l[(e >> 1) & 1] += p;
+    }
+  };
+  // with no product in flight: rescale o, split P into the next PV's A
+  // fragments (k-step kk covers keys 16kk .. 16kk+15)
+  auto rescale_split = [&](const float (&s)[32], const float (&alpha)[2]) {
+#pragma unroll
+    for (int nn = 0; nn < HD / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o[4 * nn + 2 * r] *= alpha[r];
+        o[4 * nn + 2 * r + 1] *= alpha[r];
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* p0 = s + 8 * kk;      // 8-column block 2kk
+      const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
+      split_bf16(p0[0], p0[1], ph[kk][0], pl[kk][0]);
+      split_bf16(p0[2], p0[3], ph[kk][1], pl[kk][1]);
+      split_bf16(p1[0], p1[1], ph[kk][2], pl[kk][2]);
+      split_bf16(p1[2], p1[3], ph[kk][3], pl[kk][3]);
+    }
+  };
+
+  {                                     // step 0: QK^T_0 alone
+    arrive();
+    float s[32], alpha[2];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    wg_fence();
+    qk(0, s);
+    refill(0);
+    wg_wait<0>();
+    wg_fence_regs(s);
+    softmax(0, s, alpha);
+    rescale_split(s, alpha);
+  }
+  for (int i = 1; i < n; ++i) {
+    arrive();
+    float s[32], alpha[2];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    wg_fence();
+    qk(i, s);
+    pv(i - 1);
+    refill(i);
+    wg_wait<1>();                       // S_i is in; PV_{i-1} runs on
+    wg_fence_regs(s);
+    softmax(i, s, alpha);
+    wg_wait<0>();                       // PV_{i-1} is done with o and P
+    wg_fence_regs(o);
+    wg_fence_regs(ph);
+    wg_fence_regs(pl);
+    rescale_split(s, alpha);
+  }
+  arrive();                             // step n: PV_{n-1} alone
+  wg_fence();
+  pv(n - 1);
+  wg_wait<0>();
+  wg_fence_regs(o);
+  // O / l in bf16, staged in this warpgroup's Q tile (its products are
+  // done) in the same swizzle (conflict-free), then stored as whole
+  // 512-byte rows of 16-byte chunks
+  const uint32_t Os = Qw;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    const int row = warp * 16 + g + r * 8;
+#pragma unroll
+    for (int nn = 0; nn < HD / 8; ++nn) {
+      const uint32_t pair = pack_bf16(o[4 * nn + 2 * r] * l[r],
+                                      o[4 * nn + 2 * r + 1] * l[r]);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                       Os + wg_tile_off(row, nn) + 4 * t), "r"(pair));
+    }
+  }
+  // this warpgroup's 128 threads only
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kThreads));
+  if (wg == 1 && !two) return;
+  const int tw = threadIdx.x % kThreads;
+#pragma unroll
+  for (int j = 0; j < kBQ * 32 / kThreads; ++j) {
+    const int row = tw / 32 + j * (kThreads / 32), ch = tw % 32;
+    if (q0 + row >= S) break;
+    uint4 chunk;
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(chunk.x), "=r"(chunk.y), "=r"(chunk.z), "=r"(chunk.w)
+                 : "r"(Os + wg_tile_off(row, ch)));
+    *reinterpret_cast<uint4*>(out + (size_t)b * S * q_stride +
+                              (size_t)(q0 + row) * q_stride + (size_t)h * HD +
+                              ch * 8) = chunk;
   }
 }
 
@@ -663,16 +942,18 @@ flash_prefill_simt_kernel(const float* __restrict__ q,
 
 // ============================================================ launch
 
+// `heads` CTAs along x: one a query head, or at hd 256 in bf16 one a pair
+// of heads of a KV head (KV * ceil(G / 2)).
 template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, int threads, const void* q,
-                   const void* k, const void* v, void* out, int B, int S,
-                   int H, int KV, int hd, int window, float softcap,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, size_t smem, int threads, int heads,
+                   const void* q, const void* k, const void* v, void* out,
+                   int B, int S, int H, int KV, int hd, int window,
+                   float softcap, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // q tiles slowest, so the whole grid runs the heaviest tiles first
-  dim3 grid(H, B, (S + kBQ - 1) / kBQ);
+  dim3 grid(heads, B, (S + kBQ - 1) / kBQ);
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, window,
@@ -696,24 +977,28 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16 && hd == 64)
     return (int)launch<bf16>(flash_prefill_wgmma_kernel, kWgSmemBytes,
-                             kThreads, q, k, v, out, B, S, H, KV, hd, window,
-                             softcap, s);
+                             kThreads, H, q, k, v, out, B, S, H, KV, hd,
+                             window, softcap, s);
+  if (dtype == kBFloat16 && hd == kWideHD)
+    return (int)launch<bf16>(flash_prefill_wide_kernel, kWideSmemBytes,
+                             kWideThreads, KV * ((H / KV + 1) / 2), q, k, v,
+                             out, B, S, H, KV, hd, window, softcap, s);
+#define REPRO_PREFILL_SIMT(HD)                                               \
+  if (dtype == kFloat32 && hd == HD)                                         \
+    return (int)launch<float>(flash_prefill_simt_kernel<HD>,                 \
+                              simt_smem_bytes<HD>(), kThreads, H, q, k, v,   \
+                              out, B, S, H, KV, hd, window, softcap, s);
 #define REPRO_PREFILL_HD(HD)                                                 \
   if (dtype == kBFloat16 && hd == HD)                                        \
     return (int)launch<bf16>(flash_prefill_mma_kernel<HD>,                   \
-                             mma_smem_bytes<HD>(), mma_threads<HD>(), q, k, \
-                             v, out, B, S, H, KV, hd, window, softcap, s);   \
-  if (dtype == kFloat32 && hd == HD)                                         \
-    return (int)launch<float>(flash_prefill_simt_kernel<HD>,                 \
-                              simt_smem_bytes<HD>(), kThreads, q, k, v, out, \
-                              B, S, H, KV, hd, window, softcap, s);
+                             mma_smem_bytes<HD>(), kThreads, H, q, k, v,     \
+                             out, B, S, H, KV, hd, window, softcap, s);      \
+  REPRO_PREFILL_SIMT(HD)
   REPRO_PREFILL_HD(32)
   REPRO_PREFILL_HD(128)
-  REPRO_PREFILL_HD(256)
+  REPRO_PREFILL_SIMT(256)
+  REPRO_PREFILL_SIMT(64)
 #undef REPRO_PREFILL_HD
-  if (dtype == kFloat32 && hd == 64)
-    return (int)launch<float>(flash_prefill_simt_kernel<64>,
-                              simt_smem_bytes<64>(), kThreads, q, k, v, out,
-                              B, S, H, KV, hd, window, softcap, s);
+#undef REPRO_PREFILL_SIMT
   return (int)cudaErrorInvalidValue;
 }

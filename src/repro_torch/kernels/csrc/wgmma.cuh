@@ -1,8 +1,8 @@
 // Hopper tensor-core helpers shared by the kernels that run `wgmma` or
-// `mma.sync` (flash_prefill.cu, flash_decode_chunk.cu, paged_decode.cu,
-// ssd_scan.cu): fast exp2, bf16 packing with the hi + lo split, warp-level
-// `mma.sync` fed by `ldmatrix`, and warpgroup matrix multiply from
-// 128-byte-swizzled shared memory.
+// `mma.sync` (flash_prefill.cu, flash_decode_chunk.cu, flash_decode_step.cu,
+// paged_decode.cu, ssd_scan.cu): fast exp2, bf16 packing with the hi + lo
+// split, warp-level `mma.sync` fed by `ldmatrix`, and warpgroup matrix
+// multiply from 128-byte-swizzled shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -94,11 +94,25 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups of products are still in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keep the compiler from moving accesses to accumulators across a wait.
 template <int N>
 __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments in registers that a product still in flight
+// reads: they stay live, unchanged, until the wait.
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
 }
 
 #define WG_D32                                                              \
@@ -183,9 +197,11 @@ __device__ __forceinline__ void wg_rs(float (&d)[128],
 }
 
 // ---- the split combine of the tensor-core chunk forms
-// (flash_decode_chunk.cu, paged_decode.cu). This CTA has written its
-// partial for a block of 64 query rows, acc (64, HD), then m (64), then l
-// (64) in fp32, and every thread has fenced its own stores. Arrive on the
+// (flash_decode_chunk.cu, paged_decode.cu) and decode step
+// (flash_decode_step.cu). This CTA has written its partial for a block of
+// kR query rows (64 in the chunk forms, 16 in the decode step), acc (kR,
+// HD), then m (kR), then l (kR) in fp32, and every thread has fenced its
+// own stores. Arrive on the
 // block's counter; if last, combine the `splits` partials at `pb` into rows
 // R0 .. R0+nr-1 of `out` ((B, ck, KV, G, HD) bf16, row = j*G + g): split s
 // weighs 2^((m_s - M) * m_log2) / L, L the sum of its l_s so weighted,
@@ -193,15 +209,15 @@ __device__ __forceinline__ void wg_rs(float (&d)[128],
 // the latency of reading splits x 64 x HD floats from L2: m and l of every
 // split are staged in shared memory by all threads at once (each m then
 // overwritten by its split's weight), then each thread keeps 4 rows'
-// 16-byte loads of up to 4 splits in flight. `smem` holds 2 * splits * 64
-// floats (32 KB at the 64 splits the launchers allow).
-template <int HD>
+// 16-byte loads of up to 4 splits in flight. `smem` holds 2 * splits * kR
+// floats (32 KB at the 64 splits the launchers allow and kR 64).
+template <int HD, int kR = 64>
 __device__ void wg_arrive_and_combine(const float* pb, int* counter,
                                       int splits, int nr, float m_log2,
                                       float* smem,
                                       __nv_bfloat16* __restrict__ out, int b,
                                       int h, int R0, int ck, int KV, int G) {
-  constexpr int kR = 64, kQ = HD / 4, kU = 4;
+  constexpr int kQ = HD / 4, kU = 4;
   constexpr size_t kSplit = (size_t)kR * HD + 2 * kR;
   __shared__ bool last;
   __syncthreads();
@@ -212,8 +228,8 @@ __device__ void wg_arrive_and_combine(const float* pb, int* counter,
   }
   __syncthreads();
   if (!last) return;
-  float* w_s = smem;                   // (splits, 64): m, then weights
-  float* l_s = w_s + splits * kR;      // (splits, 64)
+  float* w_s = smem;                   // (splits, kR): m, then weights
+  float* l_s = w_s + splits * kR;      // (splits, kR)
   for (int i = threadIdx.x; i < splits * kR; i += blockDim.x) {
     const float* ml = pb + (size_t)(i / kR) * kSplit + (size_t)kR * HD;
     w_s[i] = __ldcg(ml + i % kR);

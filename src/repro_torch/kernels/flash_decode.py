@@ -1,7 +1,8 @@
 """GQA decode attention over a dense KV cache: the CUDA kernels
-``csrc/flash_decode.cu`` and ``csrc/flash_decode_chunk.cu`` (replacing the
-TPU kernel ``repro/kernels/flash_decode.py:flash_decode_bkhd``) and their
-plain PyTorch version, in two forms:
+``csrc/flash_decode.cu``, ``csrc/flash_decode_chunk.cu`` and
+``csrc/flash_decode_step.cu`` (replacing the TPU kernel
+``repro/kernels/flash_decode.py:flash_decode_bkhd``) and their plain
+PyTorch version, in two forms:
 
 - ``flash_decode_bkhd``: one query token per row (the decode step);
 - ``flash_decode_chunk``: ``ck`` query tokens per row with a bias row each
@@ -11,9 +12,12 @@ plain PyTorch version, in two forms:
 
 Each is the wrapper of its form: CPU tensors take the plain version; CUDA
 tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
-any launch: the chunk form in bf16 at hd 64, 128 and 256 runs on the
-tensor cores (``flash_decode_chunk.cu``: ``wgmma`` over blocks of 64 query
-rows); the decode step and fp32 run on the CUDA cores
+any launch (``KERNELS`` names it): the chunk form in bf16 at hd 64, 128
+and 256 runs on the tensor cores (``flash_decode_chunk.cu``: ``wgmma`` over
+blocks of 64 query rows), and so does the decode step in bf16 at hd 256
+(``flash_decode_step.cu``: ``mma.sync`` with the G query rows as its M,
+``STEP_SPLITS`` CTAs per (b, kv-head)); every other launch (fp32, the
+decode step at other head dims) runs on the CUDA cores
 (``flash_decode.cu``).
 A launch splits the cache axis over several CTAs per (b, kv-head, block of
 query rows); each writes its partial softmax sums to a scratch workspace
@@ -46,6 +50,23 @@ TC_SPLITS = 4                   # its CTAs per (b, kv-head, row block)
 # head dim -> the tensor-core route's shared memory: a Q tile, K and V
 # rings of two 64-position tiles, 1024 bytes of alignment (csrc Shape)
 TC_SMEM_BYTES = {hd: 5 * TC_ROWS * 2 * hd + 1024 for hd in (64, 128, 256)}
+# The decode step's tensor-core route (bf16, hd 256): query rows of the
+# mma M (G <= 16 live), CTAs per (b, kv-head) and shared memory: Q, a K
+# and a V tile of 64 positions in rows of hd + 8 bf16, then P (16 x 68)
+# and the four warps' row max and sum in fp32 (csrc kSmemBytes). 18
+# splits: 144 CTAs at gemma-2b's B 8 on one KV head, the fastest count
+# that fills the 132 SMs in chip_smoke --ab's sweep (fewer, longer splits
+# read faster still: the last CTA's combine grows with the count)
+STEP_HD = 256
+STEP_ROWS = 16
+STEP_SPLITS = 18
+STEP_SMEM_BYTES = 2 * (STEP_ROWS + 2 * 64) * (STEP_HD + 8) \
+    + 4 * (STEP_ROWS * 68 + 2 * 4 * STEP_ROWS)
+# (tensor cores, chunk form) of a plan -> its library and CUDA kernel
+KERNELS = {(True, True): ("flash_decode_chunk", "flash_decode_chunk_kernel"),
+           (True, False): ("flash_decode_step", "flash_decode_step_kernel"),
+           (False, True): ("flash_decode", "flash_decode_kernel"),
+           (False, False): ("flash_decode", "flash_decode_kernel")}
 
 
 def chunk_rows(ck: int, G: int, hd: int) -> int:
@@ -82,20 +103,31 @@ def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
     """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
     form in bf16 at hd 64, 128 and 256 runs on ``wgmma`` in blocks of 64
     query rows (``flash_decode_chunk.cu``), whatever ck and G, with
-    ``TC_SPLITS`` CTAs per block; every other launch (the decode step,
-    fp32, other head dims) on the CUDA cores (``flash_decode.cu``), with
-    whole groups of G rows as the accumulators hold (``chunk_rows``)."""
-    if chunk and dtype == torch.bfloat16 and hd in TC_SMEM_BYTES:
-        return True, TC_ROWS, TC_SPLITS
+    ``TC_SPLITS`` CTAs per block; the decode step in bf16 at hd 256 with G
+    <= 16 on ``mma.sync`` with its G rows in a 16-row M
+    (``flash_decode_step.cu``), ``STEP_SPLITS`` CTAs per (b, kv-head);
+    every other launch (the decode step at other head dims, fp32) on the
+    CUDA cores (``flash_decode.cu``), with whole groups of G rows as the
+    accumulators hold (``chunk_rows``). ``KERNELS[tc, chunk]`` names the
+    kernel."""
+    if dtype == torch.bfloat16:
+        if chunk and hd in TC_SMEM_BYTES:
+            return True, TC_ROWS, TC_SPLITS
+        if not chunk and hd == STEP_HD and G <= STEP_ROWS:
+            return True, STEP_ROWS, STEP_SPLITS
     return False, chunk_rows(ck, G, hd) if chunk else G, SPLITS
 
 
-def _launch_fn(tc: bool):
-    """The C entry point of the tensor-core (``tc``) or CUDA-core kernel,
-    its argument types set once (the two take the same arguments)."""
-    lib = build.load("flash_decode_chunk" if tc else "flash_decode")
-    fn = lib.flash_decode_chunk_launch if tc else lib.flash_decode_launch
-    if fn.argtypes is None:
+_FNS = {}                       # (tc, chunk) -> its C entry point
+
+
+def _launch_fn(tc: bool, chunk: bool):
+    """The C entry point of the planned kernel (``KERNELS``), its argument
+    types set once (the three take the same arguments)."""
+    fn = _FNS.get((tc, chunk))
+    if fn is None:
+        name = KERNELS[tc, chunk][0]
+        fn = _FNS[tc, chunk] = getattr(build.load(name), f"{name}_launch")
         fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     return fn
 
@@ -154,7 +186,7 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
     tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
-    smem = (TC_SMEM_BYTES[hd] if tc
+    smem = ((TC_SMEM_BYTES[hd] if chunk else STEP_SMEM_BYTES) if tc
             else smem_bytes(G, hd, q.element_size(), rows))
     if smem > MAX_SMEM_BYTES or not tc and (hd % 8
                                             or rows * hd > MAX_GROUP_WIDTH):
@@ -173,13 +205,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, KV, C = k.shape[0], k.shape[1], k.shape[2]
     G, hd = q.shape[-2], q.shape[-1]
     n_blocks = B * KV * -(-ck * G // rows)
-    fn = _launch_fn(tc)
+    fn = _launch_fn(tc, chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partials, arrivals = build.workspace(
         dev, stream, n_blocks * splits * (rows * hd + 2 * rows), n_blocks)
-    # the tensor-core kernel takes its split count where the CUDA-core one
-    # takes its rows per CTA (64 rows and 8 splits are their constants)
+    # the tensor-core kernels take their split count where the CUDA-core
+    # one takes its rows per CTA (their rows and its 8 splits are constants)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
             G, C, hd, ck, splits if tc else rows, float(softcap),
@@ -191,7 +223,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         with torch.cuda.device(dev):
             err = fn(*args)
-    build.check_launch("flash_decode_chunk" if tc else "flash_decode", err)
+    build.check_launch(KERNELS[tc, chunk][0], err)
     return out
 
 

@@ -7,16 +7,17 @@ PyTorch version.
 TPU wrapper's relayout to (B,KV,G,S,hd) and padding of S exist only for
 the TPU's tiling and are gone. CPU tensors take the plain version; CUDA
 tensors launch the kernel or raise. The kernel dispatches on dtype and
-head size: bf16 runs its products on the tensor cores with fp32
-accumulation (``wgmma`` at hd 64, ``mma.sync`` at hd 32, 128 and 256),
-fp32 keeps fp32 products on the CUDA cores.
-``flash_prefill_bshd.launches`` counts kernel launches (never
-plain-version calls).
+head size (``launch_plan`` mirrors it): bf16 runs its products on the
+tensor cores with fp32 accumulation (``wgmma`` at hd 64 and, two query
+heads a CTA, at hd 256; ``mma.sync`` at hd 32 and 128), fp32 keeps fp32
+products on the CUDA cores. ``flash_prefill_bshd.launches`` counts kernel
+launches (never plain-version calls).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -28,6 +29,39 @@ _ARGTYPES = [_C, _C, _C, _C, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _C]
 HEAD_DIMS = (32, 64, 128, 256)  # instantiated in csrc/flash_prefill.cu
 NEG_INF = -1e30
+MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
+BQ = 64                         # query rows of a CTA, keys of a K/V tile
+WG_TILE = 64 * 128              # bytes of one swizzled 64 x 64 bf16 tile
+
+
+def launch_plan(hd: int, dtype: torch.dtype) -> Tuple[str, int, int]:
+    """(kernel, threads, query heads a CTA) of one launch, as
+    ``flash_prefill_launch`` dispatches: bf16 at hd 64 on ``wgmma``, one
+    warpgroup a head; bf16 at hd 256 on ``wgmma``, two warpgroups a CTA,
+    one for each of two query heads of a KV head (the grid has KV *
+    ceil(G / 2) CTAs along the heads); bf16 at hd 32 and 128 on
+    ``mma.sync``; fp32 on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        if hd == 64:
+            return "flash_prefill_wgmma_kernel", 128, 1
+        if hd == 256:
+            return "flash_prefill_wide_kernel", 256, 2
+        return "flash_prefill_mma_kernel", 128, 1
+    return "flash_prefill_simt_kernel", 128, 1
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA of ``launch_plan``'s kernel: the
+    ``wgmma`` kernels a swizzled Q tile per head (hd / 64 sub-tiles) and
+    two-tile K and V rings, plus 1024 bytes of alignment; ``mma.sync`` the
+    same five tiles in rows of hd + 8 bf16; fp32 Q^T, K^T, V and P^T
+    tiles."""
+    kernel, _, heads = launch_plan(hd, dtype)
+    if kernel == "flash_prefill_simt_kernel":
+        return 4 * (3 * hd * BQ + BQ * BQ)
+    if kernel == "flash_prefill_mma_kernel":
+        return 5 * BQ * (hd + 8) * 2
+    return (heads + 4) * (hd // 64) * WG_TILE + 1024
 
 
 def causal_window_mask(S: int, window: int, device) -> torch.Tensor:

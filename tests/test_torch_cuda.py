@@ -49,7 +49,8 @@ def _randn(rng, shape, dtype, device):
 
 
 DECODE_CASES = [
-    # B, KV, G, hd, C, softcap, masked_rows (-1e9 bias on slots C//2 ..)
+    # B, KV, G, hd, C, softcap, masked (True: -1e9 bias on slots C//2 ..;
+    # "first": on every slot but the first)
     (8, 4, 8, 64, 576, 0.0, False),   # serve path: tinyllama at C = 512+64
     (2, 2, 4, 64, 100, 0.0, True),    # ragged C, -1e9 bias on some slots
     (3, 1, 8, 128, 64, 30.0, False),  # MQA, hd 128, softcap
@@ -64,6 +65,17 @@ DECODE_CASES = [
     (2, 8, 1, 256, 96, 0.0, True),    # the reference test's hd 256, G 1
     (3, 1, 8, 256, 203, 30.0, True),  # hd 256: 64-position tiles, softcap
     (3, 2, 8, 256, fd.SPLITS - 3, 0.0, True),  # hd 256, C below the splits
+    # the bf16 hd-256 decode step's tensor-core route (STEP_SPLITS CTAs per
+    # (b, kv-head)): C 1, C just below and just above its split count, only
+    # the first key unbiased, G 3 and G 7, a split of several 64-position
+    # tiles
+    (8, 1, 8, 256, 1, 0.0, False),
+    (8, 1, 8, 256, fd.STEP_SPLITS - 1, 0.0, False),
+    (8, 1, 8, 256, fd.STEP_SPLITS + 1, 30.0, True),
+    (8, 1, 8, 256, 576, 0.0, "first"),
+    (4, 2, 3, 256, 203, 0.0, True),
+    (4, 1, 7, 256, 576, 30.0, False),
+    (2, 1, 8, 256, 2000, 0.0, True),
     (8, 8, 3, 64, 576, 0.0, False),   # granite-moe's decode step: G 3
     (3, 8, 3, 64, 203, 30.0, True),   # G 3, ragged C, softcap, biased
 ]
@@ -78,7 +90,9 @@ def test_flash_decode_kernel_matches_plain(cuda, B, KV, G, hd, C, softcap,
     k = _randn(rng, (B, KV, C, hd), dtype, cuda)
     v = _randn(rng, (B, KV, C, hd), dtype, cuda)
     bias = torch.zeros((B, C), device=cuda)
-    if masked:
+    if masked == "first":
+        bias[:, 1:] = -1e9
+    elif masked:
         bias[:, C // 2:] = -1e9
     n0 = fd.flash_decode_bkhd.launches
     out = fd.flash_decode_bkhd(q, k, v, bias, softcap=softcap)
@@ -201,6 +215,23 @@ def test_flash_decode_chunk_equals_single_query_kernels(cuda, dtype):
                                        atol=TOL[dtype], rtol=0)
 
 
+def _device_kernels(fn, *args):
+    """Names of the CUDA kernels the profiler sees ``fn(*args)`` launch (a
+    trace that records no kernel at all is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 64, "flash_decode_chunk_kernel"),
     (torch.float32, 64, "flash_decode_kernel"),
@@ -212,21 +243,11 @@ def test_flash_decode_chunk_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees the chunk form launch the kernel its plan names:
     the tensor-core kernel in bf16 (hd 64, 128, 256), the CUDA-core one
     in fp32 (a trace that records no kernel at all is taken again)."""
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(6)
     q = _randn(rng, (2, 16, 2, 8, hd), dtype, cuda)
     k = _randn(rng, (2, 2, 300, hd), dtype, cuda)
     bias = _chunk_bias(rng, 2, 16, 300, "causal", cuda)
-    fd.flash_decode_chunk(q, k, k, bias)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fd.flash_decode_chunk(q, k, k, bias)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
-            break
+    names = _device_kernels(fd.flash_decode_chunk, q, k, k, bias)
     ran = [n for n in names if "flash_decode" in n]
     assert len(ran) == 1 and kernel in ran[0], names
 
@@ -292,6 +313,15 @@ PREFILL_CASES = [
     (1, 96, 8, 8, 256, 0, 0.0),       # the reference test's hd-256 shape
     (2, 200, 8, 1, 256, 48, 30.0),    # hd 256, window, softcap
     (2, 17, 8, 1, 256, 0, 0.0),       # hd 256, S past one warp's rows
+    # the bf16 hd-256 route (two heads of a KV head a CTA): S 1, around one
+    # and two 64-row tiles, B 1 with a softcap, G 3 and G 7 (an unpaired
+    # head; G 3 on two KV heads with a window)
+    (2, 1, 8, 1, 256, 0, 0.0),
+    (2, 63, 8, 1, 256, 0, 0.0),
+    (2, 65, 8, 1, 256, 0, 0.0),
+    (1, 129, 8, 1, 256, 0, 30.0),
+    (2, 130, 6, 2, 256, 48, 0.0),
+    (1, 200, 7, 1, 256, 0, 0.0),
     (2, 128, 4, 4, 32, 32, 0.0),      # the reference test's hd 32, window
     (2, 130, 4, 2, 32, 8, 30.0),      # hd 32, ragged S, window, softcap
     (8, 512, 24, 8, 64, 0, 0.0),      # granite-moe's prefill: G 3
@@ -314,6 +344,64 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
     want = fp.flash_prefill_plain(q, k, v, window=window, softcap=softcap)
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 256, "flash_prefill_wide_kernel"),
+    (torch.float32, 256, "flash_prefill_simt_kernel"),
+    (torch.bfloat16, 64, "flash_prefill_wgmma_kernel"),
+    (torch.bfloat16, 128, "flash_prefill_mma_kernel"),
+])
+def test_flash_prefill_runs_the_planned_kernel(cuda, dtype, hd, kernel):
+    """The profiler sees flash_prefill launch the kernel ``launch_plan``
+    names: at gemma-2b's hd 256 the two-head ``wgmma`` kernel in bf16 and
+    the CUDA-core one in fp32."""
+    assert fp.launch_plan(hd, dtype)[0] == kernel
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (2, 130, 8, hd), dtype, cuda)
+    k = _randn(rng, (2, 130, 1, hd), dtype, cuda)
+    names = _device_kernels(fp.flash_prefill_bshd, q, k, k)
+    ran = [n for n in names if "flash_prefill" in n]
+    assert len(ran) == 1 and kernel in ran[0], names
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 256, "flash_decode_step_kernel"),
+    (torch.float32, 256, "flash_decode_kernel"),
+    (torch.bfloat16, 64, "flash_decode_kernel"),
+])
+def test_flash_decode_step_runs_the_planned_kernel(cuda, dtype, hd, kernel):
+    """The profiler sees the decode step launch the kernel its plan names:
+    at gemma-2b's hd 256 the tensor-core step kernel in bf16 (over
+    ``STEP_SPLITS`` CTAs a (b, kv-head)) and the CUDA-core one in fp32; at
+    hd 64 the CUDA-core one in both."""
+    tc, _, _ = fd.launch_plan(1, 8, hd, dtype, False)
+    assert fd.KERNELS[tc, False][1] == kernel
+    rng = np.random.default_rng(8)
+    q = _randn(rng, (8, 1, 8, hd), dtype, cuda)
+    k = _randn(rng, (8, 1, 576, hd), dtype, cuda)
+    names = _device_kernels(fd.flash_decode_bkhd, q, k, k,
+                            torch.zeros((8, 576), device=cuda))
+    ran = [n for n in names if "flash_decode" in n]
+    assert len(ran) == 1 and kernel in ran[0], names
+
+
+def test_flash_decode_step_is_deterministic(cuda):
+    """The step kernel's last CTA combines the splits in split order: two
+    calls on the same inputs are bitwise equal, and the arrival counters
+    are back at zero."""
+    rng = np.random.default_rng(9)
+    bf = torch.bfloat16
+    q = _randn(rng, (8, 1, 8, 256), bf, cuda)
+    k = _randn(rng, (8, 1, 576, 256), bf, cuda)
+    v = _randn(rng, (8, 1, 576, 256), bf, cuda)
+    bias = torch.zeros((8, 576), device=cuda)
+    bias[:, 400:] = -1e9
+    first = fd.flash_decode_bkhd(q, k, v, bias)
+    for _ in range(3):
+        assert torch.equal(fd.flash_decode_bkhd(q, k, v, bias), first)
+    torch.cuda.synchronize()
+    assert int(_arrivals(cuda).abs().sum()) == 0
 
 
 def _paged_inputs(rng, B, KV, G, hd, ps, width, dtype, device,

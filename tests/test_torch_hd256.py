@@ -176,17 +176,27 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     ck 16; pages of 16) with every block's shared memory within one H100
     block: 64-position K/V tiles in bf16, 32 in fp32. The chunk forms run
     on the tensor cores in bf16 (64 query rows a CTA) and on the CUDA cores
-    in fp32 (16 rows)."""
+    in fp32 (16 rows); so does the decode step, in bf16 on its own
+    tensor-core kernel (16 rows, ``STEP_SPLITS`` CTAs per (b, kv-head):
+    144 CTAs at B 8 on one KV head), in fp32 on the CUDA-core one (its G
+    rows, ``SPLITS``); flash_prefill in bf16 on its two-head ``wgmma``
+    kernel."""
     es = torch.tensor([], dtype=dtype).element_size()
     z = lambda *s: torch.zeros(s, dtype=dtype)            # noqa: E731
     fp.check_args(z(8, 512, 8, 256), z(8, 512, 1, 256), z(8, 512, 1, 256), 0)
     fp.check_args(z(2, 128, 4, 32), z(2, 128, 4, 32), z(2, 128, 4, 32), 32)
     assert fd.tile_rows(256, es) == (64 if es == 2 else 32)
     assert fd.tile_rows(64, es) == (128 if es == 2 else 64)
+    bf = dtype == torch.bfloat16
+    assert fp.smem_bytes(256, dtype) <= fp.MAX_SMEM_BYTES
+    assert fp.launch_plan(256, dtype)[0] == (
+        "flash_prefill_wide_kernel" if bf else "flash_prefill_simt_kernel")
     k = z(8, 1, 576, 256)
     assert fd.check_args(z(8, 1, 8, 256), k, k, torch.zeros(8, 576),
-                         False) == (1, False, 8, fd.SPLITS)
-    bf = dtype == torch.bfloat16
+                         False) == ((1, True, fd.STEP_ROWS, fd.STEP_SPLITS)
+                                    if bf else (1, False, 8, fd.SPLITS))
+    assert 8 * fd.STEP_SPLITS >= 132        # B 8 x KV 1 fills the 132 SMs
+    assert fd.STEP_SMEM_BYTES <= fd.MAX_SMEM_BYTES // 2   # two CTAs an SM
     assert fd.check_args(z(8, 16, 1, 8, 256), k, k, torch.zeros(8, 16, 576),
                          True) == ((16, True, 64, fd.TC_SPLITS) if bf
                                    else (16, False, 16, fd.SPLITS))
@@ -230,6 +240,89 @@ def test_shapes_out_of_the_domain_still_raise(dtype):
     with pytest.raises(ValueError, match="shared memory"):
         pd.check_args(z(1, 2, 1, 8, 512), pool, pool, tables,
                       torch.ones((1, 2), dtype=torch.int32), True)
+
+
+@pytest.mark.parametrize("hd,G,dtype,want", [
+    (256, 8, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (256, 1, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (256, 3, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (256, 7, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (256, 16, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (256, 8, torch.float32, (False, 8, "flash_decode_kernel")),
+    (256, 3, torch.float32, (False, 3, "flash_decode_kernel")),
+    (128, 8, torch.bfloat16, (False, 8, "flash_decode_kernel")),
+    (128, 8, torch.float32, (False, 8, "flash_decode_kernel")),
+    (64, 8, torch.bfloat16, (False, 8, "flash_decode_kernel")),
+    (64, 3, torch.bfloat16, (False, 3, "flash_decode_kernel")),
+    (64, 8, torch.float32, (False, 8, "flash_decode_kernel")),
+])
+def test_decode_step_plan_by_head_dim_and_dtype(hd, G, dtype, want):
+    """Only the bf16 decode step at hd 256 takes the tensor-core step
+    kernel (any G up to its 16-row M, ``STEP_SPLITS`` CTAs per (b,
+    kv-head)); fp32 and the decode step at hd 64 and 128 keep the CUDA-core
+    kernel with their G rows and ``SPLITS``. ``check_args`` returns the
+    plan, with the CTA's shared memory within one H100 block."""
+    tc, rows, kernel = want
+    splits = fd.STEP_SPLITS if tc else fd.SPLITS
+    assert fd.launch_plan(1, G, hd, dtype, False) == (tc, rows, splits)
+    assert fd.KERNELS[tc, False][1] == kernel
+    k = torch.zeros((2, 1, 40, hd), dtype=dtype)
+    assert fd.check_args(torch.zeros((2, 1, G, hd), dtype=dtype), k, k,
+                         torch.zeros((2, 40)), False) == (1, tc, rows, splits)
+    if tc:
+        assert fd.STEP_SMEM_BYTES == 2 * (16 + 128) * 264 + 4 * (
+            16 * 68 + 128) == 80_896
+        assert fd.STEP_ROWS * hd + 2 * fd.STEP_ROWS == 4128   # a partial
+
+
+def test_decode_step_above_the_step_route_still_raises():
+    """At hd 256 a group wider than the step kernel's 16-row M leaves the
+    bf16 decode step on the CUDA cores, whose 4096 accumulators a group
+    cannot hold: refused before any launch, as before."""
+    bf = torch.bfloat16
+    assert fd.launch_plan(1, 17, 256, bf, False) == (False, 17, fd.SPLITS)
+    k = torch.zeros((1, 1, 8, 256), dtype=bf)
+    with pytest.raises(ValueError, match="G\\*hd"):
+        fd.check_args(torch.zeros((1, 1, 17, 256), dtype=bf), k, k,
+                      torch.zeros(1, 8), False)
+
+
+PREFILL_PLANS = {
+    # (hd, dtype) -> (kernel, threads, query heads a CTA, shared bytes)
+    (32, "bfloat16"): ("flash_prefill_mma_kernel", 128, 1, 25_600),
+    (64, "bfloat16"): ("flash_prefill_wgmma_kernel", 128, 1, 41_984),
+    (128, "bfloat16"): ("flash_prefill_mma_kernel", 128, 1, 87_040),
+    (256, "bfloat16"): ("flash_prefill_wide_kernel", 256, 2, 197_632),
+    (32, "float32"): ("flash_prefill_simt_kernel", 128, 1, 40_960),
+    (64, "float32"): ("flash_prefill_simt_kernel", 128, 1, 65_536),
+    (128, "float32"): ("flash_prefill_simt_kernel", 128, 1, 114_688),
+    (256, "float32"): ("flash_prefill_simt_kernel", 128, 1, 212_992),
+}
+
+
+@pytest.mark.parametrize("hd,dtype", sorted(PREFILL_PLANS))
+def test_prefill_launch_plan_mirrors_the_dispatch(hd, dtype):
+    """``launch_plan`` and ``smem_bytes`` of flash_prefill at every head dim
+    it is built for, in both dtypes, as ``flash_prefill_launch``
+    dispatches: every CTA within one H100 block (gemma-2b's hd-256 bf16
+    route: Q of two heads and two-tile K and V rings of 32 KB tiles, 1 KB
+    of alignment), and ``check_args`` passes there."""
+    dt = getattr(torch, dtype)
+    kernel, threads, heads, smem = PREFILL_PLANS[hd, dtype]
+    assert fp.launch_plan(hd, dt) == (kernel, threads, heads)
+    assert fp.smem_bytes(hd, dt) == smem <= fp.MAX_SMEM_BYTES
+    z = lambda *s: torch.zeros(s, dtype=dt)               # noqa: E731
+    fp.check_args(z(2, 65, 8, hd), z(2, 65, 1, hd), z(2, 65, 1, hd), 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 48, 512])
+def test_prefill_head_dims_without_an_instance_are_refused(hd, dtype):
+    """A head dim flash_prefill has no instance for (hd 512 among them)
+    raises in ``check_args``, before any launch."""
+    z = lambda *s: torch.zeros(s, dtype=dtype)            # noqa: E731
+    with pytest.raises(ValueError, match="hd in"):
+        fp.check_args(z(1, 8, 8, hd), z(1, 8, 1, hd), z(1, 8, 1, hd), 0)
 
 
 # ---------------------------------------------------------- q-block prefill
