@@ -249,12 +249,31 @@ phase raises, and the script exits nonzero:
               10 s each; none rejected), ``memory_allocated`` per load and,
               after each close and a collection, back at the loop's start
               within CLOSE_MARGIN (every closing loop of phase 14 too);
- 16. output   ``memory_allocated`` at the end and the part of it that is
+ 16. train    the training path (no kernel of the port: it runs with
+              ``use_kernels`` off, and the kernels refuse autograd; the
+              phase asserts none launched): tinyllama-1.1b at full width
+              (22 layers, bf16 compute, fp32 params and Adam moments,
+              remat) on B 8 x S 512 synthetic-token batches: 3 warm-up and
+              10 timed steps at TRAIN_ADAM (ms a step, tokens/s, peak
+              memory, the FLOPs share of the bf16 dense peak), the peaks
+              with remat off, one step's device split (matrix products,
+              elementwise, cross-entropy, Adam; the top kernels), 60
+              steps at the tiny-LM example's optimizer (its 512-token
+              vocabulary) held to its "learned" criterion; resume from a
+              checkpoint bitwise; at 2 layers in fp32 one train step card
+              = CPU and microbatches 2 = 1; the paper's LSTM for 40 of
+              the example's 300 steps (loss falls, a CPU twin's first 20
+              losses, one
+              step's kernels and busy share, MAE and under-prediction of
+              LSTM, MovingMax and their ensemble), then the InfAdapter
+              loop with it as the forecaster for 10 s on the dense
+              full-width ladder (served, rejected, decisions);
+ 17. output   ``memory_allocated`` at the end and the part of it that is
               cuBLAS's per-stream workspaces (dropped once nothing replays
               again); the ``{"kernels": [...]}`` line (launches summed over the
               serve loops, the prefix phase, the obs phase's serve, the
               profile, fabric and eval phases, the gemma-2b and the
-              granite loops; the chunk forms' rows carry their verify
+              granite loops, the LSTM-driven loop; the chunk forms' rows carry their verify
               shape's times, and every attention kernel's row its gemma-2b
               and granite times under ``gemma_*`` and ``granite_*`` keys
               (with ``gemma_kernel``, the kernel each launched, and
@@ -388,6 +407,28 @@ MOE_REL_TOL = 1e-4
 # capture stream (cuBLAS's workspace, 33.8 MB on the H100, and the
 # kernels' split workspace)
 CLOSE_MARGIN = 0.1e9
+# train phase: tinyllama-1.1b at full width on B x S token batches (warm-up
+# and timed steps at TRAIN_ADAM, then the tiny-LM example's optimizer for
+# LEARN_STEPS); the card-vs-CPU twin at full width and TWIN_LAYERS layers
+# in fp32 (Adam's first update moves an element by at most ~lr, 3e-6 at
+# TRAIN_ADAM's first step: params within TWIN_PARAM_ATOL; losses within
+# TRAIN_LOSS_RTOL: fp32 sums in other orders); the paper's LSTM, a CPU
+# twin of 20 steps within LSTM_REL_TOL, then the InfAdapter loop with it
+# as the forecaster. Step counts keep the phase near 150 s: the LSTM runs
+# 40 of the example's 300 steps (a step takes 0.4-0.5 s on an H100 80GB
+# HBM3 at 700 W, launch-bound), the learning run 60
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_WARMUP, TRAIN_TIMED, LEARN_STEPS = 3, 10, 60
+# the learning run draws its tokens from the tiny-LM example's 512-token
+# vocabulary: over all 32000 the chain's 256k transitions are each seen a
+# few times in 80 steps, and the loss only falls to the uniform floor
+# (10.711 -> 10.431 on an H100 80GB HBM3 at 700 W)
+LEARN_VOCAB = 512
+TWIN_LAYERS, TWIN_B, TWIN_S = 2, 2, 64
+TWIN_PARAM_ATOL, TRAIN_LOSS_RTOL = 1e-5, 1e-5
+LSTM_STEPS, LSTM_TWIN_STEPS, LSTM_REL_TOL = 40, 20, 1e-4
+LSTM_SERVE_SECONDS = 10
 DEVICE = "cuda"
 
 
@@ -1866,7 +1907,8 @@ def mapped_pages(engine):
 
 
 def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
-                engine_kw=None, seconds=SERVE_SECONDS, close=False):
+                engine_kw=None, seconds=SERVE_SECONDS, close=False,
+                forecaster=None):
     """The InfAdapter loop on the dense engine (calibrating the ladder's
     profiles first), or on the paged engine with prefix sharing using the
     given dense profiles, over ``arch``'s full-width ladder; ``engine_kw``
@@ -1875,9 +1917,10 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
     deadlines are read against) and ``seconds`` sets the loop's length.
     With ``close`` every backend is retired (closed) after the loop, and
     the card's ``memory_allocated`` after a collection must be back at the
-    loop's start within CLOSE_MARGIN (``close_engine``). Every load prints
-    its readiness and ``memory_allocated``. Returns (this phase's launch
-    counts, profiles)."""
+    loop's start within CLOSE_MARGIN (``close_engine``). ``forecaster``
+    replaces the controller's ``MovingMaxForecaster(window=10)``. Every
+    load prints its readiness and ``memory_allocated``. Returns (this
+    phase's launch counts, profiles)."""
     from repro_torch.configs import get_config
     from repro_torch.core.adapter import ControllerConfig, InfAdapterController
     from repro_torch.core.forecaster import MovingMaxForecaster
@@ -1927,7 +1970,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
             f"p(1) {p.p99_ms(1):.0f} ms")
     slo_ms = 5000.0
     ctrl = InfAdapterController(
-        profiles, MovingMaxForecaster(window=10),
+        profiles, forecaster or MovingMaxForecaster(window=10),
         ControllerConfig(interval_s=5.0, budget=3, slo_ms=slo_ms, beta=0.05,
                          gamma=0.05, reactive=True, queue_aware=True))
     vocab = next(iter(variants.values()))[0].vocab_size
@@ -1977,6 +2020,7 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
                "avg_cost_units": s["avg_cost_units"],
                "accuracy_loss": s["accuracy_loss"], "slo_ms": slo_ms,
                "wall_s": wall, "launches": launches, "loads": loads,
+               "decisions": len(ctrl.decisions),
                "options": {k: v for k, v in engine_kw.items()
                            if k != "clock"},
                "preempted": int(engine.metrics.value("requests.preempted"))}
@@ -2007,7 +2051,8 @@ def serve_phase(torch, paged=False, profiles=None, arch="tinyllama-1.1b",
     log(f"  serve summary ({kind}) " + json.dumps(summary))
     if close:
         log(f"  {kind}: served {s['n_requests']}, rejected "
-            f"{s['rejected']}; memory_allocated after close "
+            f"{s['rejected']}, {len(ctrl.decisions)} decisions; "
+            f"memory_allocated after close "
             f"{close_engine(torch, engine, base) / 1e9:.3f} GB (at the "
             f"loop's start {base / 1e9:.3f})")
     del engine
@@ -4522,6 +4567,459 @@ def moe_phase(torch):
     return rows, dict(launches)
 
 
+def _finite(pairs, label):
+    """Raise unless every (loss, grad_norm) tensor pair is finite."""
+    bad = [i for i, (l, g) in enumerate(pairs)
+           if not (bool(l.isfinite()) and bool(g.isfinite()))]
+    if bad:
+        raise AssertionError(f"{label}: non-finite loss or grad_norm at "
+                             f"steps {bad[:10]}")
+
+
+def train_flops(cfg, batch, seq):
+    """(model FLOPs, hardware FLOPs) of one train step at (batch, seq):
+    6·N·T over the N matrix-product params (every layer's projections and
+    the unembedding; the embedding is a gather) plus the attention's
+    score and value products over the full S x S the plain path computes,
+    3x (forward, two in the backward pass); the hardware count adds the
+    remat's second forward pass of the layers."""
+    D, F_, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    H_, KV_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    per_layer = D * (H_ + 2 * KV_) * hd + H_ * hd * D + 3 * D * F_
+    n_mm = L * per_layer + D * cfg.padded_vocab
+    T = batch * seq
+    attn_fwd = L * 4 * batch * H_ * seq * seq * hd
+    model = 6 * n_mm * T + 3 * attn_fwd
+    recompute = 2 * L * per_layer * T + attn_fwd if cfg.remat else 0
+    return model, model + recompute, n_mm
+
+
+def train_split(torch, lm, adam_cfg, params, opt, batch):
+    """Device ms of one train step, split: the loss and its gradients
+    (one ``torch.profiler`` trace: matrix products, cross-entropy — the
+    log-softmax and the label gather, forward and backward — and the
+    elementwise rest) and Adam's update (a second trace). Returns
+    {part: ms} and the kernels each trace held."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.optimizer import adam_update, value_and_grad
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def trace(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        return out, [e for e in prof.key_averages()
+                     if e.device_type == cuda and e.self_device_time_total > 0]
+
+    (_, grads), fb = trace(lambda: value_and_grad(lm.loss, params, batch))
+    _, adam = trace(lambda: adam_update(adam_cfg, grads, opt, params))
+    del grads
+    split = {"matmul_ms": 0.0, "cross_entropy_ms": 0.0,
+             "elementwise_ms": 0.0}
+    for e in fb:
+        n = e.key.lower()
+        if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma",
+                                "cublas", "nvjet")):
+            part = "matmul_ms"
+        elif "logsoftmax" in n or "scatter_gather" in n:
+            part = "cross_entropy_ms"
+        else:
+            part = "elementwise_ms"
+        split[part] += e.self_device_time_total / 1e3
+    split["adam_ms"] = sum(e.self_device_time_total for e in adam) / 1e3
+    split["device_ms"] = sum(split.values())
+    split["kernels"] = {"loss_and_grads": sum(e.count for e in fb),
+                        "adam": sum(e.count for e in adam)}
+    split["top"] = [(round(e.self_device_time_total / 1e3, 3), e.count,
+                     e.key[:80]) for e in sorted(
+        fb, key=lambda e: -e.self_device_time_total)[:8]]
+    return split
+
+
+def train_full(torch, tmp):
+    """(a) and (c): tinyllama-1.1b at its published width and depth (22
+    layers, bf16 compute, fp32 params and Adam moments, remat on, the
+    plain paths: ``use_kernels`` off) on ``SyntheticTokenPipeline`` batches
+    of TRAIN_B x TRAIN_S. TRAIN_WARMUP steps at TRAIN_ADAM, then
+    TRAIN_TIMED timed with CUDA events (the batches drawn first): ms a
+    step, tokens/s, ``max_memory_allocated``; the device split of one step
+    (``train_split``) and its FLOPs shares of the bf16 dense peak; one
+    step with remat off and both passes' peaks. Then LEARN_STEPS at
+    ``launch.train_tiny_lm``'s optimizer (lr 1e-3, warmup 20) from a fresh
+    Adam state on batches over its LEARN_VOCAB tokens, held to its
+    "learned" criterion (last loss < first - 0.5);
+    the state before the last step is checkpointed, restored into a fresh
+    tree and stepped again on the same batch: bitwise the run's last
+    state. Returns the numbers."""
+    import gc
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokenPipeline
+    from repro_torch.launch.steps import TRAIN_ADAM, make_train_step
+    from repro_torch.models.model import LM
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (AdamConfig, adam_init,
+                                             adam_update, tree_leaves,
+                                             value_and_grad)
+    dev = torch.device(DEVICE)
+    cfg = get_config(TRAIN_ARCH)
+    if not (cfg.remat and not cfg.use_kernels and cfg.dtype == "bfloat16"
+            and cfg.param_dtype == "float32"):
+        raise AssertionError(f"{TRAIN_ARCH}: not the trainer's config {cfg}")
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=dev).manual_seed(0),
+                     dtype=torch.float32)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    opt = adam_init(params)
+    log(f"  (a) {TRAIN_ARCH} L{cfg.num_layers}: {n_params / 1e9:.3f} B "
+        f"params (fp32), bf16 compute, remat, B {TRAIN_B} x S {TRAIN_S}; "
+        f"params + Adam moments {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB")
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab_size, seq_len=TRAIN_S,
+                                  batch=TRAIN_B, seed=0, device=dev)
+    step = make_train_step(cfg)
+    t0 = time.time()
+    for _ in range(TRAIN_WARMUP):
+        params, opt, m = step(params, opt, pipe.next_batch())
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    batches = [pipe.next_batch() for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    pairs = []
+    e0.record()
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        pairs.append((m["loss"], m["grad_norm"]))
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / TRAIN_TIMED
+    peak_step = torch.cuda.max_memory_allocated()
+    _finite(pairs, "TRAIN_ADAM steps")
+    tokens_s = TRAIN_B * TRAIN_S / (step_ms / 1e3)
+    model_f, hw_f, n_mm = train_flops(cfg, TRAIN_B, TRAIN_S)
+    peak = PEAK_FLOPS["torch.bfloat16"]
+    out = {"params": n_params, "matmul_params": n_mm, "step_ms": step_ms,
+           "tokens_per_s": tokens_s, "warmup_s": warm_s,
+           "peak_step_gb": peak_step / 1e9,
+           "model_flops": model_f, "hardware_flops": hw_f,
+           "model_flops_share": model_f / (step_ms / 1e3) / peak,
+           "hardware_flops_share": hw_f / (step_ms / 1e3) / peak,
+           "losses": [float(l) for l, _ in pairs]}
+    log(f"  (a) TRAIN_ADAM: {step_ms:.2f} ms a step over {TRAIN_TIMED} "
+        f"steps (CUDA events, after {TRAIN_WARMUP} warm-up steps in "
+        f"{warm_s:.1f} s), {tokens_s:.0f} tokens/s; max_memory_allocated "
+        f"{peak_step / 1e9:.2f} GB; model FLOPs {model_f / 1e12:.2f} T a "
+        f"step = {100 * out['model_flops_share']:.1f}% of the bf16 dense "
+        f"peak, with the remat's recompute {hw_f / 1e12:.2f} T = "
+        f"{100 * out['hardware_flops_share']:.1f}%")
+    # the peaks of the loss and its gradients alone, remat on and off, and
+    # one remat-off step's time
+    for remat in (True, False):
+        lm_r = LM(cfg.replace(remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, _), g = value_and_grad(lm_r.loss, params, batches[0])
+        torch.cuda.synchronize()
+        out[f"peak_loss_grads_gb_remat_{'on' if remat else 'off'}"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
+        del g
+    plain = make_train_step(cfg.replace(remat=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0.record()
+    p2, o2, m2 = plain(params, opt, batches[0])
+    e1.record()
+    torch.cuda.synchronize()
+    out["step_ms_remat_off"] = e0.elapsed_time(e1)
+    out["peak_step_gb_remat_off"] = torch.cuda.max_memory_allocated() / 1e9
+    _finite([(m2["loss"], m2["grad_norm"])], "remat-off step")
+    del p2, o2, m2
+    log(f"  (a) peak of loss + gradients: remat on "
+        f"{out['peak_loss_grads_gb_remat_on']:.2f} GB, off "
+        f"{out['peak_loss_grads_gb_remat_off']:.2f} GB; of a whole step "
+        f"(Adam's new tree beside the old): on {peak_step / 1e9:.2f} GB, "
+        f"off {out['peak_step_gb_remat_off']:.2f} GB; one remat-off step "
+        f"{out['step_ms_remat_off']:.2f} ms")
+    if not (out["peak_loss_grads_gb_remat_on"]
+            < out["peak_loss_grads_gb_remat_off"]):
+        raise AssertionError("remat does not lower the peak")
+    split = train_split(torch, lm, TRAIN_ADAM, params, opt, batches[0])
+    out["split"] = split
+    log(f"  (a) device split of one step: {split['device_ms']:.2f} ms = "
+        f"matrix products {split['matmul_ms']:.2f} + elementwise "
+        f"{split['elementwise_ms']:.2f} + cross-entropy "
+        f"{split['cross_entropy_ms']:.2f} + Adam {split['adam_ms']:.2f} "
+        f"({split['kernels']['loss_and_grads']} + "
+        f"{split['kernels']['adam']} kernels)")
+    for ms_, n, name in split["top"]:
+        log(f"      {ms_:8.3f} ms  {n:5d}x  {name}")
+    del batches
+    # the example's optimizer from a fresh state; (c) at its last step
+    learn = AdamConfig(lr=1e-3, warmup_steps=20, total_steps=LEARN_STEPS)
+
+    def learn_step(p, o, b):
+        (loss, _), g = value_and_grad(lm.loss, p, b)
+        p, o, om = adam_update(learn, g, o, p)
+        return p, o, (loss, om["grad_norm"])
+
+    opt = adam_init(params)
+    pipe = SyntheticTokenPipeline(vocab=LEARN_VOCAB, seq_len=TRAIN_S,
+                                  batch=TRAIN_B, seed=0, device=dev)
+    pairs = []
+    t0 = time.time()
+    for i in range(LEARN_STEPS):
+        b = pipe.next_batch()
+        if i == LEARN_STEPS - 1:
+            t_save = time.time()
+            path = ckpt.save(tmp, i - 1, {"params": params, "opt": opt})
+            save_s = time.time() - t_save
+            last = b
+        params, opt, pair = learn_step(params, opt, b)
+        pairs.append(pair)
+    torch.cuda.synchronize()
+    learn_s = time.time() - t0 - save_s
+    _finite(pairs, "learning run")
+    first, final = float(pairs[0][0]), float(pairs[-1][0])
+    out.update(learn_first_loss=first, learn_last_loss=final,
+               learn_s=learn_s)
+    log(f"  (a) {LEARN_STEPS} steps at lr 1e-3, warmup 20, tokens of "
+        f"{LEARN_VOCAB}: loss {first:.3f} "
+        f"-> {final:.3f} ({'learned' if final < first - 0.5 else 'check lr'}"
+        f"), {learn_s:.1f} s with the pipeline's draws")
+    if not final < first - 0.5:
+        raise AssertionError(f"the trainer did not learn: {first} -> "
+                             f"{final}")
+    size = sum(f.stat().st_size for f in Path(path).iterdir())
+    t_load = time.time()
+    state, _ = ckpt.restore(tmp, {"params": params, "opt": opt})
+    load_s = time.time() - t_load
+    p2, o2, _ = learn_step(state["params"], state["opt"], last)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((params, opt)), tree_leaves((p2, o2))))
+    log(f"  (c) resume: step {LEARN_STEPS - 2}'s checkpoint "
+        f"({size / 1e9:.2f} GB: params and moments, fp32) saved in "
+        f"{save_s:.1f} s, restored in {load_s:.1f} s; step "
+        f"{LEARN_STEPS - 1} from it bitwise the uninterrupted run's: {same}")
+    out.update(ckpt_gb=size / 1e9, ckpt_save_s=save_s, ckpt_load_s=load_s,
+               resume_bitwise=same)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not same:
+        raise AssertionError("the resumed step differs from the "
+                             "uninterrupted run")
+    del params, opt, state, p2, o2, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_twin(torch):
+    """(b): tinyllama at full width and TWIN_LAYERS layers in fp32 (TF32
+    off): one ``make_train_step`` on the card against the same step on
+    the CPU from one state on one batch (loss within TRAIN_LOSS_RTOL
+    relative, params within TWIN_PARAM_ATOL), and ``microbatches=2``
+    against 1 on the card (params within 1e-5, loss within 1e-4, the
+    reference test's bounds). Returns the errors."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import SyntheticTokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import adam_init, tree_leaves, tree_map
+    dev = torch.device(DEVICE)
+    cfg = get_config(TRAIN_ARCH).replace(num_layers=TWIN_LAYERS,
+                                         dtype="float32")
+    card = LM(cfg).init(torch.Generator(device=dev).manual_seed(1),
+                        dtype=torch.float32)
+    cpu = tree_map(lambda t: t.cpu(), card)
+    batch = SyntheticTokenPipeline(vocab=cfg.vocab_size, seq_len=TWIN_S,
+                                   batch=TWIN_B, seed=1,
+                                   device="cpu").next_batch()
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
+    step = make_train_step(cfg)
+    t0 = time.time()
+    pc, oc, mc = step(card, adam_init(card), batch_d)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    t0 = time.time()
+    pp, op, mp = step(cpu, adam_init(cpu), batch)
+    t_cpu = time.time() - t0
+    loss_rel = abs(float(mc["loss"]) - float(mp["loss"])) / abs(
+        float(mp["loss"]))
+    gn_rel = abs(float(mc["grad_norm"]) - float(mp["grad_norm"])) / abs(
+        float(mp["grad_norm"]))
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves((pc, oc)), tree_leaves((pp, op))))
+    p2, _, m2 = make_train_step(cfg, microbatches=2)(card, adam_init(card),
+                                                     batch_d)
+    mb_err = max(float((a - b).abs().max())
+                 for a, b in zip(tree_leaves(pc), tree_leaves(p2)))
+    mb_loss = abs(float(mc["loss"]) - float(m2["loss"]))
+    log(f"  (b) L{TWIN_LAYERS} fp32, B {TWIN_B} x S {TWIN_S}: card vs CPU "
+        f"loss {loss_rel:.2e} relative, grad_norm {gn_rel:.2e}, params and "
+        f"moments max |diff| {p_err:.2e} (bound {TWIN_PARAM_ATOL}); "
+        f"microbatches 2 vs 1 on the card: params {mb_err:.2e}, loss "
+        f"{mb_loss:.2e}; step {t_card:.2f} s on the card (first call), "
+        f"{t_cpu:.2f} s on the CPU")
+    if loss_rel > TRAIN_LOSS_RTOL or gn_rel > TRAIN_LOSS_RTOL \
+            or p_err > TWIN_PARAM_ATOL:
+        raise AssertionError("the card's train step is not the CPU's")
+    if mb_err >= 1e-5 or mb_loss >= 1e-4:
+        raise AssertionError("microbatches 2 != 1 on the card")
+    del card, cpu, pc, oc, pp, op, p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_rel": loss_rel, "grad_norm_rel": gn_rel,
+            "param_err": p_err, "microbatch_param_err": mb_err,
+            "microbatch_loss_err": mb_loss}
+
+
+def train_lstm(torch):
+    """(d): the paper's LSTM trained as ``launch.train_forecaster`` does
+    (``synthetic_twitter_trace`` of 4 h, seed 2, split 75/25; hidden 25,
+    history 600, horizon 60, batch 64) for LSTM_STEPS on the card, the
+    loss falling; a CPU twin of LSTM_TWIN_STEPS from the same seed (one
+    init, the same batch indices) within LSTM_REL_TOL; the device time
+    and kernels of one step beside its wall time; MAE and under-prediction
+    rate of LSTM, MovingMax and the ensemble on the test split. Returns
+    (the trained forecaster, the numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import forecaster as pf
+    from repro_torch.data.traces import synthetic_twitter_trace
+    from repro_torch.train.optimizer import (AdamConfig, adam_init,
+                                             adam_update, value_and_grad)
+    trace = synthetic_twitter_trace(seconds=4 * 3600, seed=2)
+    split = int(len(trace) * 0.75)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fc, losses = pf.train_lstm_forecaster(trace[:split], steps=LSTM_STEPS,
+                                          device=DEVICE)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / LSTM_STEPS * 1e3
+    t0 = time.time()
+    _, cpu = pf.train_lstm_forecaster(trace[:split], steps=LSTM_TWIN_STEPS,
+                                      device="cpu")
+    cpu_ms = (time.time() - t0) / LSTM_TWIN_STEPS * 1e3
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu))
+    # one step under the profiler: its kernels and their device time
+    xs, ys = pf._windows(trace[:split], pf.HISTORY, pf.HORIZON)
+    scale = float(max(trace[:split].max(), 1.0))
+    xb = torch.from_numpy(xs[:64] / scale).to(DEVICE)
+    yb = torch.from_numpy(ys[:64] / scale).to(DEVICE)
+    params = fc.params
+    opt = adam_init(params)
+    cfg = AdamConfig(lr=3e-3, warmup_steps=20, total_steps=LSTM_STEPS,
+                     grad_clip=1.0)
+
+    def one():
+        (_, _), g = value_and_grad(pf._mse, params, xb, yb)
+        return adam_update(cfg, g, opt, params)
+
+    one()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.time()
+        one()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    ev = [e for e in prof.key_averages() if e.device_type == cuda
+          and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+    n_k = sum(e.count for e in ev)
+    test = trace[split:]
+    rows = {"LSTM (paper)": fc, "MovingMax": pf.MovingMaxForecaster(),
+            "Ensemble(max)": pf.EnsembleMaxForecaster(
+                members=(fc, pf.MovingMaxForecaster()))}
+    mae = {n: pf.forecast_mae(f, test, stride=240) for n, f in rows.items()}
+    out = {"first_loss": losses[0], "last_loss": losses[-1],
+           "ms_per_step": ms, "cpu_ms_per_step": cpu_ms,
+           "twin_rel": rel, "profiled_step_wall_ms": wall,
+           "profiled_step_device_ms": dev_ms, "profiled_step_kernels": n_k,
+           "mae": mae}
+    log(f"  (d) LSTM {LSTM_STEPS} steps on the card: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f}, {ms:.1f} ms a step (host clock); CPU twin "
+        f"{LSTM_TWIN_STEPS} steps at {cpu_ms:.1f} ms a step, first "
+        f"{LSTM_TWIN_STEPS} losses within {rel:.2e} relative; one step "
+        f"under the profiler: {n_k} kernels, {dev_ms:.2f} ms device in "
+        f"{wall:.1f} ms wall ({100 * dev_ms / wall:.1f}% busy)")
+    for n, m in mae.items():
+        log(f"      {n:<16} MAE {m['mae']:8.2f}  under-predict "
+            f"{m['under_rate']:7.2%}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the LSTM's loss did not fall: {losses[0]} -> "
+                             f"{losses[-1]}")
+    if rel > LSTM_REL_TOL:
+        raise AssertionError(f"LSTM card vs CPU losses {rel} apart")
+    return fc, out
+
+
+class ForecastFromHistory:
+    """The trained LSTM as the controller's forecaster. The reference's
+    ``LSTMForecaster.predict`` raises on an empty history (``np.pad``'s
+    "edge" mode), which the loop's first decision at t = 0 passes: that
+    one forecast is 0 (the controller floors it at ``min_load``); every
+    other is the LSTM's, counted in ``calls``."""
+
+    def __init__(self, lstm):
+        self.lstm = lstm
+        self.calls = []
+
+    def predict(self, recent):
+        if len(recent) == 0:
+            return 0.0
+        y = self.lstm.predict(recent)
+        self.calls.append(y)
+        return y
+
+
+def train_phase(torch, profiles):
+    """The training path on the card (A10, A11): (a) tinyllama-1.1b at
+    full width, (b) its card = CPU and microbatch checks, (c) resume
+    bitwise (``train_full``, ``train_twin``); (d) the paper's LSTM
+    (``train_lstm``), then the InfAdapter loop on the dense full-width
+    ladder with the trained LSTM as its forecaster for
+    LSTM_SERVE_SECONDS. The training path launches no kernel of the port
+    (it runs with ``use_kernels`` off, and the kernels refuse autograd):
+    asserted. Returns the serve loop's launch counts."""
+    import tempfile
+    from repro_torch.kernels import ops
+    t_phase = time.time()
+    log(f"[16] train: {TRAIN_ARCH} at full width, the paper's LSTM")
+    ops.reset_launch_counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    full = train_full(torch, tmp)
+    t_a = time.time()
+    twin = train_twin(torch)
+    t_b = time.time()
+    fc, lstm = train_lstm(torch)
+    t_d = time.time()
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the training path launched port kernels: "
+                             f"{ops.launch_counts()}")
+    forecaster = ForecastFromHistory(fc)
+    launches, _ = serve_phase(torch, profiles=profiles,
+                              forecaster=forecaster,
+                              seconds=LSTM_SERVE_SECONDS, close=True)
+    if not forecaster.calls:
+        raise AssertionError("the controller never asked the LSTM")
+    lstm["controller_forecasts"] = forecaster.calls
+    log(f"  (d) the LSTM forecast {len(forecaster.calls)} times in the "
+        f"loop: {[round(y, 2) for y in forecaster.calls]} req/s")
+    summary = {"full": full, "twin": twin, "lstm": lstm,
+               "wall_s": {"full": t_a - t_phase, "twin": t_b - t_a,
+                          "lstm": t_d - t_b, "serve": time.time() - t_d,
+                          "phase": time.time() - t_phase}}
+    log("  train summary " + json.dumps(summary, default=str))
+    return launches
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -4590,12 +5088,13 @@ def main():
     evaluation = eval_phase(torch, measured)
     gemma_rows, dense_cfgs = dense_config_phase(torch)
     granite_rows, moe = moe_phase(torch)
+    trained = train_phase(torch, profiles)
     for r in rows:
         r.update(gemma_rows.get(r["name"], {}))
         r.update(granite_rows.get(r["name"], {}))
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
-            evaluation, dense_cfgs, moe))
+            evaluation, dense_cfgs, moe, trained))
         # of them gemma-2b's loops' (bf16, hd 256: its prefill on the
         # two-head wgmma kernel, its decode step on the step kernel)
         r["gemma_launches"] = dense_cfgs.get(r["name"], 0)
@@ -4614,7 +5113,7 @@ def main():
     # read off by dropping cuBLAS's per-stream workspaces (C1)
     end = settled_memory(torch)
     torch._C._cuda_clearCublasWorkspaces()
-    log(f"[16] memory_allocated at the end {end / 1e9:.3f} GB, of it "
+    log(f"[17] memory_allocated at the end {end / 1e9:.3f} GB, of it "
         f"{(end - settled_memory(torch)) / 1e6:.1f} MB cuBLAS's per-stream "
         f"workspaces; total wall time {time.time() - t_start:.1f}s")
     print(smi)

@@ -1,4 +1,6 @@
-"""Weight bridge: the reference ``LM.init`` pytree -> the port's params.
+"""Weight bridge: the reference ``LM.init`` pytree -> the port's params;
+the reference's LSTM forecaster params and its ``AdamState`` -> the port's
+trees (``lstm_params_from_jax``, ``adam_state_from_jax``).
 
 The reference draws its weights from ``jax.random``; tests hand those same
 numbers (as numpy arrays, the pytree's keys unchanged) to the port, so
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.train.optimizer import AdamState
 
 # Leaves kept in the param dtype: the reference uses them in fp32 whatever
 # the compute dtype (norm weights; the SSM's conv taps and bias, decay and
@@ -91,3 +94,34 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
                                                          dtype=leaf_dt)
 
     return walk(tree, expected_shapes(cfg), "")
+
+
+LSTM_SHAPES = ("wx", "wh", "b", "dense_w", "dense_b")
+
+
+def tree_from_numpy(tree, device):
+    """A nested dict of arrays -> the same dict of tensors on ``device``,
+    each array's dtype kept (copies)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.array(tree)).to(device)
+
+
+def lstm_params_from_jax(tree: Mapping, device) -> Dict:
+    """The reference's ``lstm_init`` params -> the port's (fp32 tensors,
+    the same keys)."""
+    if set(tree) != set(LSTM_SHAPES):
+        raise ValueError(f"LSTM params: keys {sorted(tree)}, expected "
+                         f"{sorted(LSTM_SHAPES)}")
+    return {k: torch.tensor(np.asarray(tree[k]), dtype=torch.float32,
+                            device=device) for k in LSTM_SHAPES}
+
+
+def adam_state_from_jax(state, device):
+    """The reference's ``AdamState`` (a NamedTuple of ``step``, ``mu``,
+    ``nu``) -> the port's: ``step`` an int32 0-d tensor, the moments
+    trees of fp32 tensors with the same keys."""
+    return AdamState(step=torch.tensor(int(np.asarray(state.step)),
+                                       dtype=torch.int32, device=device),
+                     mu=tree_from_numpy(state.mu, device),
+                     nu=tree_from_numpy(state.nu, device))

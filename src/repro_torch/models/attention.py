@@ -20,6 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -96,14 +97,24 @@ def flash_attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``causal_mask_bias`` (the reference's ``lax.scan``). Memory is O(bq·S)
     per block instead of O(S²). The last block is short where the
     reference pads q: rows are independent, so the kept rows are the
-    same. No gradient flows here, so the reference's ``jax.checkpoint``
-    has no counterpart."""
+    same. Under autograd each block is checkpointed, as the reference's
+    ``jax.checkpoint`` of its block: the (bq, S) scores are recomputed in
+    the backward pass, not stored."""
     S = q.shape[1]
     T = k.shape[1]
-    outs = [gqa_attend(q[:, i:i + bq], k, v,
-                       causal_mask_bias(min(bq, S - i), T, i + q_offset,
-                                        window, q.device), softcap)
-            for i in range(0, S, bq)]
+
+    def block(i: int) -> torch.Tensor:
+        return gqa_attend(q[:, i:i + bq], k, v,
+                          causal_mask_bias(min(bq, S - i), T, i + q_offset,
+                                           window, q.device), softcap)
+
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        outs = [checkpoint(block, i, use_reentrant=False,
+                           preserve_rng_state=False)
+                for i in range(0, S, bq)]
+    else:
+        outs = [block(i) for i in range(0, S, bq)]
     return torch.cat(outs, dim=1)
 
 

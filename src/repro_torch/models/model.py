@@ -18,9 +18,19 @@ advances ``cache["pos"]``, where the reference rebuilds its cache
 functionally and donates the old buffers. The paged methods do the same to
 the page pool, the block table and ``pos``.
 
+Training: ``loss`` is the reference's masked next-token cross-entropy plus
+``aux_loss_coef`` times the MoE load-balance loss; under
+``apply(train=True)`` with ``cfg.remat`` each layer runs through
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+block), so its activations are recomputed in the backward pass. Gradients
+come from ``torch.autograd`` through the plain paths: the CUDA kernels have
+no backward (the reference defines none), so training runs with
+``use_kernels=False`` and the kernel wrappers refuse autograd on the card.
+
 Public methods:
-  init(gen)                               -> params
-  apply(params, batch)                    -> (logits, aux) (teacher forcing)
+  init(gen, dtype=None)                   -> params
+  apply(params, batch, train=False)       -> (logits, aux) (teacher forcing)
+  loss(params, batch)                     -> (scalar, {ce_loss, aux_loss})
   init_cache(batch_size, max_len, device) -> cache dict
   prefill(params, batch, max_len)         -> (last-token logits, cache)
   decode_step(params, cache, tokens)      -> (logits, cache)
@@ -41,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
@@ -59,10 +70,20 @@ def _layer_windows(cfg: ModelConfig) -> np.ndarray:
     return w
 
 
-def _layer_slice(tree, i: int):
+def _unstack(tree, n: int) -> List:
+    """The ``n`` per-layer views of stacked leaves (``unbind``: under
+    autograd the layers' gradients come back as one stack, not as ``n``
+    full-size scatters)."""
     if isinstance(tree, dict):
-        return {k: _layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per_key[k][i] for k in per_key} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
 
 
 def _stack_layers(dicts: List[Dict]) -> Dict:
@@ -93,9 +114,10 @@ class LM:
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def _init_layer(self, gen: torch.Generator, device) -> Dict:
+    def _init_layer(self, gen: torch.Generator, device,
+                    wdt: torch.dtype) -> Dict:
         cfg = self.cfg
-        wdt, pd = self.compute_dtype, self.param_dtype
+        pd = self.param_dtype
         p = {"ln1": torch.zeros(cfg.d_model, dtype=pd, device=device)}
         if cfg.family in ("dense", "moe", "hybrid"):
             p["attn"] = attn.init_attention(gen, cfg, wdt, device)
@@ -111,22 +133,26 @@ class LM:
             p["ln2"] = torch.zeros(cfg.d_model, dtype=pd, device=device)
         return p
 
-    def init(self, gen: torch.Generator) -> Dict:
+    def init(self, gen: torch.Generator,
+             dtype: Optional[torch.dtype] = None) -> Dict:
         """Params on ``gen.device`` drawn from ``gen``: the reference's
         distributions (truncated normal, σ = 1/√fan_in; zero norms). Matrices
-        are stored in the compute dtype — the reference casts its fp32
-        params to it before every product, so the products are the same —
-        and the leaves it uses in fp32 (norms, the SSM's conv, decay, step,
-        skip and gate weights, the hybrid's mix scales) in the param
-        dtype."""
+        are stored in ``dtype``, by default the compute dtype — the
+        reference casts its fp32 params to it before every product, so the
+        products are the same — and the leaves it uses in fp32 (norms, the
+        SSM's conv, decay, step, skip and gate weights, the hybrid's mix
+        scales) in the param dtype. Training passes the param dtype: the
+        reference keeps every leaf in it, and Adam updates them there. The
+        draws do not depend on ``dtype``."""
         cfg = self.cfg
         dev = gen.device
+        wdt = dtype or self.compute_dtype
         params: Dict = {
-            "embed": init_embed(gen, cfg, self.compute_dtype, dev),
+            "embed": init_embed(gen, cfg, wdt, dev),
             "final_norm": torch.zeros(cfg.d_model, dtype=self.param_dtype,
                                       device=dev)}
         params["layers"] = _stack_layers(
-            [self._init_layer(gen, dev) for _ in range(cfg.num_layers)])
+            [self._init_layer(gen, dev, wdt) for _ in range(cfg.num_layers)])
         return params
 
     # ------------------------------------------------------------------
@@ -134,11 +160,18 @@ class LM:
     # ------------------------------------------------------------------
     def _layers(self, params: Dict) -> List[Dict]:
         """Per-layer views of the stacked leaves, cached for the last params
-        seen (the hot decode loop would otherwise re-slice every step)."""
+        seen (the hot decode loop would otherwise re-slice every step).
+        Under autograd they are made anew for each call and never cached:
+        the gradients must flow through this call's views into this call's
+        leaves, and a cached view would keep the last step's graph and
+        leaves alive."""
         stacked = params["layers"]
+        L = self.cfg.num_layers
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in _leaves(stacked)):
+            return _unstack(stacked, L)
         if self._layers_of is None or self._layers_of[0] is not stacked:
-            self._layers_of = (stacked, [_layer_slice(stacked, i)
-                                         for i in range(self.cfg.num_layers)])
+            self._layers_of = (stacked, _unstack(stacked, L))
         return self._layers_of[1]
 
     def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -181,10 +214,27 @@ class LM:
         return x + (sc[0] * a.float() + sc[1] * s.float()).to(x.dtype)
 
     # ------------------------------------------------------------------
-    # full-sequence forward (teacher forcing)
+    # full-sequence forward (teacher forcing) and the training loss
     # ------------------------------------------------------------------
+    def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+               w: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer over the full sequence -> (x, the MoE layer's
+        ``aux_loss`` or None)."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a = (attn.attention_forward(cfg, lp["attn"], h, positions, w)
+             if "attn" in lp else None)
+        s = ssd.ssm_forward(cfg, lp["ssm"], h) if "ssm" in lp else None
+        auxes: List[torch.Tensor] = []
+        x = self._ffn(lp, self._mix(lp, x, a, s), auxes)
+        return x, (auxes[0] if auxes else None)
+
     def apply(self, params: Dict, batch: Dict, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (logits (B, S, V), the layers' mean MoE
+        ``aux_loss``, 0 without MoE). With ``train`` and ``cfg.remat`` each
+        layer is checkpointed: only its input is kept for the backward
+        pass, which runs the layer again."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = embed(cfg, params["embed"], tokens, self.compute_dtype)
@@ -192,16 +242,36 @@ class LM:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
         auxes: List[torch.Tensor] = []
         for lp, w in zip(self._layers(params), self._windows):
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-            a = (attn.attention_forward(cfg, lp["attn"], h, positions, w)
-                 if "attn" in lp else None)
-            s = ssd.ssm_forward(cfg, lp["ssm"], h) if "ssm" in lp else None
-            x = self._ffn(lp, self._mix(lp, x, a, s), auxes)
+            if cfg.remat and train:
+                x, aux = checkpoint(self._block, lp, x, positions, w,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = self._block(lp, x, positions, w)
+            if aux is not None:
+                auxes.append(aux)
         # the mean of the layers' load-balance losses (0 without MoE), as
         # the reference's _run_layers
         aux = (torch.stack(auxes).sum() / cfg.num_layers if auxes
                else torch.zeros((), device=x.device))
         return self._logits(params, x), aux
+
+    def loss(self, params: Dict, batch: Dict
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross-entropy over the labels >= 0 (label -1 is
+        masked), in fp32, plus ``aux_loss_coef`` times the MoE aux loss ->
+        (total, {"ce_loss", "aux_loss"}), as the reference's ``loss``."""
+        cfg = self.cfg
+        logits, aux = self.apply(params, batch, train=True)
+        labels = batch["labels"]
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        mask = (labels >= 0).float()
+        labels = torch.clamp(labels, min=0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = loss + cfg.aux_loss_coef * aux
+        return total, {"ce_loss": loss, "aux_loss": aux}
 
     # ------------------------------------------------------------------
     # caches

@@ -1967,3 +1967,218 @@ def test_controller_drives_the_engine_on_the_card(cuda, kind):
         assert {r.backend for r in eng.done} <= set().union(*ensembles)
     eng.apply_allocation(0.0, {})
     assert not eng.backends
+
+
+# ---------------------------------------------------------------------------
+# the training path (A10, A11): plain tensor code under autograd on the
+# card, held to the same step on the CPU; the kernels refuse autograd
+# ---------------------------------------------------------------------------
+
+def _train_cfg(**kw):
+    """tinyllama's smoke variant (fp32, 2 layers, d_model 256, vocab
+    512) with ``kw``."""
+    from repro_torch.configs import get_config, smoke_variant
+    return smoke_variant(get_config("tinyllama-1.1b")).replace(**kw)
+
+
+def _train_state(cfg, device, seed=0):
+    """fp32 params (the param dtype) drawn on the CPU, and a fresh Adam
+    state, on ``device``."""
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import adam_init, tree_map
+    params = LM(cfg).init(torch.Generator().manual_seed(seed),
+                          dtype=torch.float32)
+    params = tree_map(lambda t: t.to(device), params)
+    return params, adam_init(params)
+
+
+def _token_batches(cfg, n, B, S, device, seed=0):
+    from repro_torch.data.tokens import SyntheticTokenPipeline
+    pipe = SyntheticTokenPipeline(vocab=cfg.vocab_size, seq_len=S, batch=B,
+                                  seed=seed, device=device)
+    return [pipe.next_batch() for _ in range(n)]
+
+
+# Adam's first update moves each element by at most ~lr (3e-6 at
+# TRAIN_ADAM's first step): params of the two devices within 1e-5
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_LOSS_RTOL = 1e-5
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """Two ``make_train_step`` steps in fp32 (TF32 off) on the card and on
+    the CPU from one state on the same batches: loss and ``grad_norm``
+    within 1e-5 relative, params and moments within 1e-5 absolute."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _train_cfg()
+    step = make_train_step(cfg)
+    runs = {}
+    for dev in ("cpu", cuda):
+        params, opt = _train_state(cfg, dev)
+        out = []
+        for batch in _token_batches(cfg, 2, 4, 64, dev):
+            params, opt, m = step(params, opt, batch)
+            out.append({k: float(v) for k, v in m.items()})
+        runs[str(dev)] = (out, [t.cpu() for t in tree_leaves((params, opt))])
+    (m_cpu, t_cpu), (m_card, t_card) = runs["cpu"], runs["cuda"]
+    for a, b in zip(m_cpu, m_card):
+        for k in ("loss", "grad_norm"):
+            assert b[k] == pytest.approx(a[k], rel=TRAIN_LOSS_RTOL), k
+    for a, b in zip(t_cpu, t_card):
+        assert float((a.float() - b.float()).abs().max()) <= TRAIN_PARAM_ATOL
+
+
+def test_microbatched_train_step_on_the_card(cuda):
+    """``microbatches=2`` against 1 on the card: params within 1e-5, loss
+    within 1e-4 (the reference test's bounds)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _train_cfg()
+    params, opt = _train_state(cfg, cuda)
+    batch = _token_batches(cfg, 1, 8, 64, cuda)[0]
+    p1, _, m1 = make_train_step(cfg, microbatches=1)(params, opt, batch)
+    p2, _, m2 = make_train_step(cfg, microbatches=2)(params, opt, batch)
+    err = max(float((a - b).abs().max())
+              for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert err < 1e-5
+    assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-4
+
+
+def test_resume_on_the_card_is_bitwise(cuda, tmp_path):
+    """bf16 compute on fp32 params with remat: three steps straight, and
+    two steps, a checkpoint, a restore into a fresh state and the third
+    step; the params and the Adam state are bitwise the same."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = _train_cfg(dtype="bfloat16", remat=True)
+    step = make_train_step(cfg)
+    batches = _token_batches(cfg, 3, 4, 64, cuda)
+    params, opt = _train_state(cfg, cuda)
+    for i, batch in enumerate(batches):
+        params, opt, _ = step(params, opt, batch)
+        if i == 1:
+            ckpt.save(str(tmp_path), i, {"params": params, "opt": opt})
+    fresh_p, fresh_o = _train_state(cfg, cuda, seed=9)
+    state, _ = ckpt.restore(str(tmp_path), {"params": fresh_p,
+                                            "opt": fresh_o})
+    p2, o2, _ = step(state["params"], state["opt"], batches[2])
+    for a, b in zip(tree_leaves((params, opt)), tree_leaves((p2, o2))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_remat_on_the_card_equals_off_and_takes_less_memory(cuda):
+    """tinyllama at full width and 4 layers, bf16 compute, B 4 x 512: the
+    checkpointed layers give the same loss and gradients, bitwise, and a
+    lower peak of ``max_memory_allocated`` over the loss and backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import tree_leaves, value_and_grad
+    base = get_config("tinyllama-1.1b").replace(num_layers=4)
+    params, _ = _train_state(base, cuda)
+    batch = _token_batches(base, 1, 4, 512, cuda)[0]
+    out = {}
+    for remat in (False, True):
+        lm = LM(base.replace(remat=remat))
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, _), grads = value_and_grad(lm.loss, params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (loss, tree_leaves(grads),
+                      torch.cuda.max_memory_allocated() - start)
+        del grads
+    assert torch.equal(out[False][0], out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        assert torch.equal(a, b)
+    assert out[True][2] < out[False][2]
+
+
+def test_lstm_training_on_the_card_equals_the_cpu(cuda):
+    """The paper's LSTM trained as ``launch.train_forecaster`` does (the
+    4 h trace of seed 2, 75% split, batch 64) on both devices: one seed,
+    one set of initial params and the same numpy batch indices; the first
+    20 losses within 1e-4 relative (fp32 sums in other orders over 600
+    recurrent steps)."""
+    from repro_torch.core import forecaster as pf
+    from repro_torch.data.traces import synthetic_twitter_trace
+    trace = synthetic_twitter_trace(seconds=4 * 3600, seed=2)
+    train = trace[:int(len(trace) * 0.75)]
+    _, cpu = pf.train_lstm_forecaster(train, steps=20, device="cpu")
+    fc, card = pf.train_lstm_forecaster(train, steps=20, device=cuda)
+    np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=0)
+    assert fc.params["wh"].is_cuda and fc.predict(trace[:3600]) >= 0.0
+
+
+def test_training_with_kernels_on_the_card_raises(cuda):
+    """``use_kernels=True`` on the card: ``LM.loss(...).backward()`` raises
+    at the first attention kernel instead of leaving the gradients of
+    ``wq``, ``wk`` and ``wv`` empty; without grad the same forward runs
+    the kernels."""
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+    cfg = _train_cfg(use_kernels=True)
+    params, _ = _train_state(cfg, cuda)
+    batch = _token_batches(cfg, 1, 2, 64, cuda)[0]
+    live = tree_unflatten(params, [p.detach().requires_grad_()
+                                   for p in tree_leaves(params)])
+    lm = LM(cfg)
+    with pytest.raises(RuntimeError, match="no backward"):
+        loss, _ = lm.loss(live, batch)
+        loss.backward()
+    assert all(p.grad is None for p in tree_leaves(live))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = lm.apply(live, batch)
+    assert ops.launch_counts()["flash_prefill"] == cfg.num_layers
+    assert bool(torch.isfinite(logits).all())
+
+
+def _entry_point_calls(dev, grad=False):
+    """Each ``ops`` entry point with small float inputs on ``dev``, those
+    inputs requiring grad with ``grad``."""
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).requires_grad_(grad)
+
+    tables = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    return {
+        "flash_prefill": lambda: ops.flash_prefill(
+            r(1, 16, 4, 64), r(1, 16, 2, 64), r(1, 16, 2, 64)),
+        "flash_decode": lambda: ops.flash_decode(
+            r(1, 1, 4, 64), r(1, 16, 2, 64), r(1, 16, 2, 64),
+            torch.zeros(1, 16, device=dev)),
+        "flash_decode_bkchd": lambda: ops.flash_decode_bkchd(
+            r(1, 2, 2, 64), r(1, 2, 16, 64), r(1, 2, 16, 64),
+            torch.zeros(1, 16, device=dev)),
+        "flash_decode_chunk": lambda: ops.flash_decode_chunk(
+            r(1, 3, 2, 2, 64), r(1, 2, 16, 64), r(1, 2, 16, 64),
+            torch.zeros(1, 3, 16, device=dev)),
+        "paged_flash_decode": lambda: ops.paged_flash_decode(
+            r(1, 2, 2, 64), r(2, 4, 16, 64), r(2, 4, 16, 64), tables,
+            torch.tensor([20], dtype=torch.int32, device=dev)),
+        "paged_flash_decode_chunk": lambda: ops.paged_flash_decode_chunk(
+            r(1, 3, 2, 2, 64), r(2, 4, 16, 64), r(2, 4, 16, 64), tables,
+            torch.tensor([[18, 19, 20]], dtype=torch.int32, device=dev)),
+        "ssd_scan": lambda: ops.ssd_scan(
+            r(1, 16, 2, 32), torch.rand((1, 16, 2), generator=g, device=dev),
+            -torch.rand((2,), generator=g, device=dev), r(1, 16, 16),
+            r(1, 16, 16), chunk=8),
+    }
+
+
+@pytest.mark.parametrize("name", list(_entry_point_calls("cpu")))
+def test_kernel_entry_points_refuse_autograd_on_the_card(cuda, name):
+    """Every entry point raises on the card when grad mode is on and an
+    input requires grad, and launches as before under ``no_grad`` or when
+    no input requires grad."""
+    with_grad = _entry_point_calls(cuda, grad=True)[name]
+    with pytest.raises(RuntimeError, match="no backward"):
+        with_grad()
+    with torch.no_grad():
+        out = with_grad()
+    first = out[0] if isinstance(out, tuple) else out
+    assert bool(torch.isfinite(first).all()) and not first.requires_grad
+    _entry_point_calls(cuda)[name]()         # inputs without grad: runs

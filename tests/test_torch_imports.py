@@ -69,6 +69,16 @@ def test_the_scan_covers_the_moe_modules():
             "repro_torch.configs.qwen3_moe_235b_a22b"} <= set(MODULES)
 
 
+def test_the_scan_covers_the_training_modules():
+    assert {"repro_torch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.data.tokens",
+            "repro_torch.core.forecaster", "repro_torch.launch.steps",
+            "repro_torch.launch.train", "repro_torch.launch.train_tiny_lm",
+            "repro_torch.launch.train_forecaster"} <= set(MODULES)
+    assert {p.name for p in (PKG / "train").rglob("*.py")} == {
+        "__init__.py", "optimizer.py", "checkpoint.py"}
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):
