@@ -193,6 +193,7 @@ phase raises, and the script exits nonzero:
               after its run; decisions, served, rejected, cost and
               accuracy loss printed, P99, violation rate and goodput over
               TAIL_MIN_REQUESTS; (b) ``launch.replay_trace --engine
+              --engine-seconds EVAL_REPLAY_SECONDS
               --full-width`` in process (the simulated panels, then the
               trace on a ``chunked`` engine: flash_decode's chunk form
               launches); (c) ``run_experiment`` of the five controllers on
@@ -217,10 +218,11 @@ phase raises, and the script exits nonzero:
               256000 x 2048 table) kernels on vs off, dense and paged, 18
               launches per prefill and per step asserted, wall and device
               ms, and a 2-layer fp32 rung with identical greedy tokens; its
-              steps replayed vs eager (dense, paged + sharing, dense
-              chunked), launches per step asserted; the gemma-2b 6/12/18
-              ladder through the InfAdapter loop (dense FIFO 20 s, paged +
-              sharing and ``chunked`` 10 s each; served, rejected,
+              steps replayed vs eager on the L6 rung (dense, paged +
+              sharing, dense chunked), launches per step asserted; the
+              gemma-2b 6/12/18
+              ladder through the InfAdapter loop (dense FIFO, paged +
+              sharing and ``chunked``, 10 s each; served, rejected,
               launches, memory_allocated after close); both chunk forms
               at yi-6b's fused tick (hd 128: 32 query heads on 4 KV
               heads), against the plain versions, timed beside SDPA and
@@ -244,7 +246,8 @@ phase raises, and the script exits nonzero:
               tokens; the device split of an L32 decode step and
               prefill (attention kernels, expert products, dispatch, the
               rest) beside its bound; its steps replayed vs eager with
-              launches per step asserted; the 8/16/32 ladder through the
+              launches per step asserted on the ladder's L8 rung
+              (GRAPH_DEPTH); the 8/16/32 ladder through the
               InfAdapter loop (dense FIFO, paged + sharing, ``chunked``,
               10 s each; none rejected), ``memory_allocated`` per load and,
               after each close and a collection, back at the loop's start
@@ -268,14 +271,46 @@ phase raises, and the script exits nonzero:
               LSTM, MovingMax and their ensemble), then the InfAdapter
               loop with it as the forecaster for 10 s on the dense
               full-width ladder (served, rejected, decisions);
+ 18. whisper  the encoder-decoder family: whisper-tiny at its
+              published size (4 + 4 layers, d_model 384, 6 heads of hd 64
+              on 6 KV heads: G 1, 1500 frames); every attention kernel at
+              its heads against its plain version in bf16 and fp32, timed
+              beside SDPA and the bound; B 8 x 64 decoder tokens after
+              seeded frames and 64 decode steps, bf16, kernels on vs off,
+              4 flash_prefill launches a prefill, 4 flash_decode launches
+              a step and none in the encoder asserted; ms of encode,
+              prefill and a decode step, and the share of a step that
+              projects the cached encoder output to K and V again (the
+              reference's arithmetic); fp32 with the kernels on, card
+              against the CPU (B 2, 8 steps);
+ 19. vlm      the VLM family: internvl2-26b (48 query heads on 8 KV heads
+              of hd 128: G 6) at full width; every attention kernel at its
+              heads against its plain version, timed beside SDPA and the
+              bound; L48 (39.7 GB of bf16 weights drawn on the card, the
+              time printed) kernels on vs off with a 256-token image
+              prefix before the 512-token prompt, the logits held as the
+              MoE phase holds them, 48 launches a prefill, a step and a
+              fused tick asserted, peak memory printed; its steps replayed
+              vs eager at GRAPH_DEPTH layers; its 8/16/48 ladder served
+              text-only (as the reference's engine serves it) through the
+              InfAdapter loop, dense FIFO, paged + sharing and
+              ``chunked``, 10 s each, every close back at its start;
+ 20. resnet   the paper's ResNet family (cuDNN convolutions, no port
+              kernel; none may launch) at 224 x 224 in fp32, TF32 off:
+              each variant's logits card vs CPU at B 2, then ms, images/s
+              and the share of the fp32 peak that ``resnet_flops`` counts
+              at B 1, 8 and 32. Phases 18-20 run between 15 and 16.
  17. output   ``memory_allocated`` at the end and the part of it that is
               cuBLAS's per-stream workspaces (dropped once nothing replays
               again); the ``{"kernels": [...]}`` line (launches summed over the
               serve loops, the prefix phase, the obs phase's serve, the
-              profile, fabric and eval phases, the gemma-2b and the
-              granite loops, the LSTM-driven loop; the chunk forms' rows carry their verify
+              profile, fabric and eval phases, the gemma-2b, the
+              granite and the internvl2-26b loops, the LSTM-driven loop;
+              the chunk forms' rows carry their verify
               shape's times, and every attention kernel's row its gemma-2b
-              and granite times under ``gemma_*`` and ``granite_*`` keys
+              and granite times under ``gemma_*`` and ``granite_*`` keys,
+              whisper-tiny's and internvl2-26b's under ``whisper_*`` and
+              ``internvl_*``
               (with ``gemma_kernel``, the kernel each launched, and
               ``gemma_launches``, its launches in the gemma-2b loops),
               the chunk forms' rows their yi-6b times under ``yi_*``,
@@ -286,7 +321,9 @@ The SSD scan's outputs grow with the sequence, so it is held to a relative
 tolerance (``SSD_REL_TOL``: max |kernel - plain| / max |plain|) where the
 attention kernels take the absolute ``TOL``.
 
-Usage: ``python3 chip_smoke.py`` from the repository root (one card).
+Usage: ``python3 chip_smoke.py`` from the repository root (one card);
+``python3 chip_smoke.py --phases whisper,vlm,resnet`` builds the kernels
+and runs only the named ones of phases 18-20 (no result line).
 ``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
 flash_prefill and flash_decode of that checkout (event and device times,
 SDPA beside them, bf16 and fp32), flash_decode's chunk form where the
@@ -345,7 +382,9 @@ SSD_CHUNK = 128
 # (h, p, n) of the SSD scan at the serve shape: mamba2-130m, hymba-1.5b
 SSD_HEADS = {"mamba2-130m": (24, 64, 128), "hymba-1.5b": (50, 64, 16)}
 HYMBA_H, HYMBA_KV = 25, 5   # hymba-1.5b attention heads: GQA group 5
-SERVE_SECONDS = 20          # each of the dense and the paged serve loops
+# each of the dense and the paged tinyllama serve loops and the mamba2
+# loop (20 s until the script neared its time limit)
+SERVE_SECONDS = 10
 # prefix phase: the reference's shared-system-prompt study at full width
 PS_N, PS_SHARED = 24, 384
 AS_N = 12                   # async phase: requests in its fixed list
@@ -376,6 +415,7 @@ FAB_SERVE_SECONDS, FAB_FAIL_AT = 15, 5.0
 # EVAL_SLO_MS; the trace is scaled so that its base (EVAL_BASE req/s) is
 # EVAL_BASE_SHARE of what the L22 rung sustains at the full budget
 EVAL_SECONDS, EVAL_INTERVAL = 20, 5.0
+EVAL_REPLAY_SECONDS = 10    # the replay launcher's engine run
 EVAL_T0, EVAL_BASE, EVAL_BASE_SHARE = 595, 40.0, 0.5
 EVAL_BUDGET, EVAL_SLO_MS = 3, 2000.0
 EVAL_CONTROLLERS = ("InfAdapter", "MS+", "VPA+", "INFaaS", "Cocktail")
@@ -389,6 +429,7 @@ TAIL_MIN_REQUESTS = 100
 GEMMA = "gemma-2b"
 GEMMA_H, GEMMA_KV, GEMMA_HD = 8, 1, 256
 GEMMA_SIDE_SECONDS = 10
+GEMMA_GRAPH_DEPTH = 6       # replay vs eager on the ladder's first rung
 # yi-6b's attention heads (32 query heads on 4 KV heads of hd 128): the
 # chunk forms' hd-128 tensor-core instance at its fused tick
 YI = "yi-6b"
@@ -401,6 +442,30 @@ GRANITE = "granite-moe-3b-a800m"
 GRANITE_H, GRANITE_KV, GRANITE_HD = 24, 8, 64
 MOE_SERVE_SECONDS = 10
 MOE_REL_TOL = 1e-4
+# the MoE and VLM phases replay their steps against eager on the ladders'
+# 8-layer rungs (gemma-2b on its 6-layer one): at L32 / L48 an eager step
+# is host-bound at ~0.1 s and the comparison took 77 s a phase (the
+# published depth's launches are asserted by each phase's model check)
+GRAPH_DEPTH = 8
+# encoder-decoder phase: whisper-tiny at its published size (4 + 4 layers,
+# d_model 384, 6 heads of hd 64 on 6 KV heads: G 1, 1500 frames): B x
+# WHISPER_PROMPT decoder tokens and WHISPER_STEPS decode steps; its fp32
+# card-vs-CPU twin at WHISPER_TWIN_B rows and 8 steps, logits within
+# FP32_CPU_REL_TOL (||card - CPU|| / ||CPU||: fp32 sums in other orders)
+WHISPER = "whisper-tiny"
+WHISPER_PROMPT, WHISPER_STEPS, WHISPER_TWIN_B = 64, 64, 2
+FP32_CPU_REL_TOL = 1e-4
+# VLM phase: internvl2-26b's heads (48 query heads on 8 KV heads of hd 128:
+# G 6), its image prefix (256 projected patches before the 512-token
+# prompt), its serve loops' length
+INTERNVL = "internvl2-26b"
+INTERNVL_PREFIX = 256
+VLM_SERVE_SECONDS = 10
+# ResNet phase: the paper's five variants at 224 x 224 in fp32 (TF32 off),
+# card vs CPU at RESNET_TWIN_B images within RESNET_REL_TOL of the logits'
+# largest magnitude, timed at each of RESNET_BATCHES
+RESNET_BATCHES = (1, 8, 32)
+RESNET_TWIN_B, RESNET_REL_TOL = 2, 1e-5
 # C1: memory_allocated after an engine's close (every backend retired, a
 # collection, the cache emptied) may exceed the engine's start by this
 # much: what the first engine of a process leaves for good on the one
@@ -1493,24 +1558,28 @@ def kernel_phase(torch):
     return [r for r in rows if r.get("dtype", "bfloat16") == "bfloat16"]
 
 
-def prefill_decode(torch, lm, params, toks, feed=None):
-    """Prefill + 8 decode steps; feeds ``feed`` tokens when given, else its
-    own greedy tokens. Returns (logits list, tokens, (prefill ms, decode
-    step ms))."""
+def prefill_decode(torch, lm, params, toks, feed=None, extra=None, cap=CAP,
+                   steps=8):
+    """Prefill (of ``toks`` and the batch entries in ``extra``: an image
+    prefix's ``patch_embeds``, an encoder's ``frames``) into a cache of
+    ``cap`` + ``steps`` decode steps; feeds ``feed`` tokens when given,
+    else its own greedy tokens. Returns (logits list, tokens, (prefill ms,
+    decode step ms))."""
     torch.cuda.synchronize()
     t0 = time.time()
-    logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+    logits, cache = lm.prefill(params, {"tokens": toks, **(extra or {})},
+                               max_len=cap)
     torch.cuda.synchronize()
     t1 = time.time()
     outs, seq = [logits], []
-    for i in range(8):
+    for i in range(steps):
         tok = torch.argmax(logits, -1) if feed is None else feed[i]
         seq.append(tok)
         logits, cache = lm.decode_step(params, cache, tok)
         outs.append(logits)
     torch.cuda.synchronize()
     t2 = time.time()
-    return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / 8)
+    return outs, seq, ((t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps)
 
 
 def paged_prefill_decode(torch, lm, params, toks, feed=None):
@@ -1791,10 +1860,11 @@ def graph_drive(torch, b, prompts, engine):
     return out, {r.rid: r.output for r in reqs}, state
 
 
-def graph_arch(torch, arch, max_new, engines):
+def graph_arch(torch, arch, max_new, engines, depth=None):
     """``graph_phase``'s comparison for one architecture at full width over
-    the given engines ("dense", "paged", "dense-chunked"). Returns
-    {"<arch> L<layers> <engine>": summary}."""
+    the given engines ("dense", "paged", "dense-chunked"), at its published
+    depth or at ``depth`` layers. Returns {"<arch> L<layers> <engine>":
+    summary}."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models.model import LM
@@ -1802,6 +1872,8 @@ def graph_arch(torch, arch, max_new, engines):
     dev = torch.device(DEVICE)
     summary = {}
     cfg = get_config(arch).replace(use_kernels=True)
+    if depth:
+        cfg = cfg.replace(num_layers=depth)
     params = LM(cfg).init(torch.Generator(device=dev).manual_seed(0))
     prompts = np.random.default_rng(5).integers(0, cfg.vocab_size,
                                                 (B, PROMPT))
@@ -3390,7 +3462,7 @@ def eval_replay(torch, profiles, scale):
     t0 = time.time()
     out = replay_trace.main(
         ["--engine", "--full-width", "--device", DEVICE, "--engine-seconds",
-         str(EVAL_SECONDS), "--engine-scale", f"{scale:.5f}"],
+         str(EVAL_REPLAY_SECONDS), "--engine-scale", f"{scale:.5f}"],
         profiles=profiles, log=lambda m: log("    " + m))
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -4114,7 +4186,7 @@ def fused_tick_check(torch, arch, lm_on, lm_off, params, toks, tol):
 
 
 def dense_model_check(torch, arch, paged=True, fused=False,
-                      sensitivity=False):
+                      sensitivity=False, prefix=0):
     """``arch`` at full width (its published depth, bf16) with random
     seeded weights: prefill of B x PROMPT tokens and 8 decode steps with
     the kernels on and off (and, with ``paged``, the steps through the page
@@ -4127,8 +4199,14 @@ def dense_model_check(torch, arch, paged=True, fused=False,
     are held instead to twice what the kernels-off path itself gives with
     its embedding table perturbed by EMBED_NOISE (relative), where that
     exceeds BF16_LOGIT_TOL: a deep random MoE routes some token to another
-    expert after any bf16 rounding, and its logits part from there.
-    Returns the numbers."""
+    expert after any bf16 rounding, and its logits part from there. With
+    ``prefix`` (the VLM) the prefill, the decode steps and the fp32 rung
+    run after an image prefix of that many seeded ``patch_embeds`` (the
+    cache grows by it), while the paged steps and the fused ticks stay
+    text-only, as the engine serves the family (paged: against a
+    text-only dense run). The params' init time and the peak of
+    ``memory_allocated`` over the check are printed. Returns the
+    numbers."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import LM
@@ -4139,12 +4217,27 @@ def dense_model_check(torch, arch, paged=True, fused=False,
     toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
     lm_off, lm_on = LM(cfg), LM(cfg.replace(use_kernels=True))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_init = time.time()
     params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.time() - t_init
     wbytes = sum(t.numel() * t.element_size() for t in tensor_leaves(params))
-    prefill_decode(torch, lm_on, params, toks)                 # warm-up
-    off, seq, t_off = prefill_decode(torch, lm_off, params, toks)
+
+    def image(dtype):
+        return {"patch_embeds": torch.randn(
+            (B, prefix, 1024), device=dev, generator=torch.Generator(
+                device=dev).manual_seed(4)).to(dtype)} if prefix else None
+
+    extra, cap = image(lm_on.compute_dtype), CAP + prefix
+    prefill_decode(torch, lm_on, params, toks, extra=extra,
+                   cap=cap)                                    # warm-up
+    off, seq, t_off = prefill_decode(torch, lm_off, params, toks,
+                                     extra=extra, cap=cap)
     n0 = ops.launch_counts()
-    on, seq_on, t_on = prefill_decode(torch, lm_on, params, toks, feed=seq)
+    on, seq_on, t_on = prefill_decode(torch, lm_on, params, toks, feed=seq,
+                                      extra=extra, cap=cap)
     n1 = ops.launch_counts()
     got = {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}
     if got != {"flash_prefill": L, "flash_decode": 8 * L}:
@@ -4161,14 +4254,16 @@ def dense_model_check(torch, arch, paged=True, fused=False,
         nudged = {**params, "embed": {**params["embed"], "table": (
             table.float() * (1 + EMBED_NOISE * grain)).to(table.dtype)}}
         del grain
-        noisy, _, _ = prefill_decode(torch, lm_off, nudged, toks, feed=seq)
+        noisy, _, _ = prefill_decode(torch, lm_off, nudged, toks, feed=seq,
+                                     extra=extra, cap=cap)
         noise = rel_err(noisy, off, cfg.vocab_size)
         tol = max(BF16_LOGIT_TOL, 2 * noise)
         del nudged, noisy
         log(f"  {arch} L{L} bf16, kernels off, embedding perturbed by "
             f"{EMBED_NOISE:g}: logits rel err {noise:.3e}; tolerance on vs "
             f"off {tol:.3e}")
-    out = {"weight_bytes": wbytes, "logits_tol": tol,
+    out = {"weight_bytes": wbytes, "init_s": t_init, "prefix": prefix,
+           "logits_tol": tol,
            "perturbed_rel_err": noise, "prefill_ms_on": t_on[0],
            "prefill_ms_off": t_off[0], "decode_step_ms_on": t_on[1],
            "decode_step_ms_off": t_off[1], "logits_rel_err": rel,
@@ -4176,14 +4271,16 @@ def dense_model_check(torch, arch, paged=True, fused=False,
            "launches_per_decode_step": got["flash_decode"] / 8,
            "greedy_agree_per_step": first}
     cache_tok = seq[0]
+    batch = {"tokens": toks, **(extra or {})}
     for path, lm in (("on", lm_on), ("off", lm_off)):
-        logits, cache = lm.prefill(params, {"tokens": toks}, max_len=CAP)
+        logits, cache = lm.prefill(params, batch, max_len=cap)
         out[f"prefill_device_ms_{path}"], _ = profiled(torch, lambda: (
-            lm.prefill(params, {"tokens": toks}, max_len=CAP)))
+            lm.prefill(params, batch, max_len=cap)))
         out[f"decode_device_ms_{path}"], _ = profiled(torch, lambda: (
             lm.decode_step(params, cache, cache_tok)))
         del logits, cache
-    log(f"  {arch} L{L} bf16 ({wbytes / 1e9:.3f} GB of weights): logits rel "
+    log(f"  {arch} L{L} bf16 ({wbytes / 1e9:.3f} GB of weights, drawn in "
+        f"{t_init:.2f}s{f'; an image prefix of {prefix} tokens' if prefix else ''}): logits rel "
         f"err on vs off {rel:.3e} (tol {tol:.3e}); greedy tokens "
         f"on = off per step (of {B}) {first}; launches per prefill "
         f"{got['flash_prefill']} flash_prefill, per decode step "
@@ -4196,9 +4293,14 @@ def dense_model_check(torch, arch, paged=True, fused=False,
         f"{out['decode_device_ms_off']:.3f}")
     bad = not all(bool(torch.isfinite(a).all()) for a in on)
     if paged:
+        txt, txt_seq = on, seq
+        if prefix:               # the engine serves the family text-only
+            _, txt_seq, _ = prefill_decode(torch, lm_off, params, toks)
+            txt, _, _ = prefill_decode(torch, lm_on, params, toks,
+                                       feed=txt_seq)
         pg, _, t_pg = paged_prefill_decode(torch, lm_on, params, toks,
-                                           feed=seq)
-        out.update(paged_logits_rel_err=rel_err(pg, on, cfg.vocab_size),
+                                           feed=txt_seq)
+        out.update(paged_logits_rel_err=rel_err(pg, txt, cfg.vocab_size),
                    decode_step_ms_paged=t_pg[1],
                    paged_launches_per_step=t_pg[2])
         log(f"  {arch} L{L} paged: logits rel err (paged vs dense, kernels "
@@ -4215,20 +4317,28 @@ def dense_model_check(torch, arch, paged=True, fused=False,
     if fused:
         out["fused"] = fused_tick_check(torch, arch, lm_on, lm_off, params,
                                         toks, tol)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {arch} L{L}: peak memory_allocated {out['peak_gb']:.3f} GB")
     del params, on, off
     torch.cuda.empty_cache()
     cfg32 = cfg.replace(num_layers=2, dtype="float32", name=f"{arch}-L2-f32")
     lm_off, lm_on = LM(cfg32), LM(cfg32.replace(use_kernels=True))
     params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
-    _, s_off, _ = prefill_decode(torch, lm_off, params, toks)
-    _, s_on, _ = prefill_decode(torch, lm_on, params, toks)
+    extra = image(torch.float32)
+    _, s_off, _ = prefill_decode(torch, lm_off, params, toks, extra=extra,
+                                 cap=cap)
+    _, s_on, _ = prefill_decode(torch, lm_on, params, toks, extra=extra,
+                                cap=cap)
     same = all(bool((a == b).all()) for a, b in zip(s_on, s_off))
     same_pg = True
     if paged:
         _, s_pg, _ = paged_prefill_decode(torch, lm_on, params, toks)
-        same_pg = all(bool((a == b).all()) for a, b in zip(s_pg, s_on))
-    log(f"  {arch} L2 fp32: greedy 8 tokens x {B} rows identical on vs off: "
-        f"{same}; paged vs dense: {same_pg}")
+        s_txt = prefill_decode(torch, lm_on, params, toks)[1] if prefix \
+            else s_on
+        same_pg = all(bool((a == b).all()) for a, b in zip(s_pg, s_txt))
+    log(f"  {arch} L2 fp32{' after the image prefix' if prefix else ''}: "
+        f"greedy 8 tokens x {B} rows identical on vs off: {same}; paged vs "
+        f"dense (text-only): {same_pg}")
     if not (same and same_pg):
         raise AssertionError(f"{arch} fp32 greedy tokens differ: kernels "
                              f"on/off {same}, paged/dense {same_pg}")
@@ -4237,16 +4347,16 @@ def dense_model_check(torch, arch, paged=True, fused=False,
     return out
 
 
-def step_launch_checks(torch, arch, max_new=MAX_NEW):
-    """``graph_arch`` for ``arch`` at full width on the dense, paged +
-    sharing and dense chunked engines (replay = eager bitwise; requests of
-    ``max_new`` tokens), then one launch of the path's kernel per layer
-    asserted for every replayed step: prefill, decode step, and both fused
-    ticks. Returns the graph summary."""
+def step_launch_checks(torch, arch, max_new=MAX_NEW, depth=None):
+    """``graph_arch`` for ``arch`` at full width (at ``depth`` layers where
+    given) on the dense, paged + sharing and dense chunked engines (replay
+    = eager bitwise; requests of ``max_new`` tokens), then one launch of
+    the path's kernel per layer asserted for every replayed step: prefill,
+    decode step, and both fused ticks. Returns the graph summary."""
     from repro_torch.configs import get_config
     graphs = graph_arch(torch, arch, max_new,
-                        ("dense", "paged", "dense-chunked"))
-    L = get_config(arch).num_layers
+                        ("dense", "paged", "dense-chunked"), depth)
+    L = depth or get_config(arch).num_layers
     want = {"dense": {"prefill": {"flash_prefill": L},
                       "decode": {"flash_decode": L}},
             "paged": {"prefill": {"flash_prefill": L},
@@ -4268,7 +4378,8 @@ def dense_config_phase(torch):
     """The other dense configs on the card (gemma-2b, yi-6b): the attention
     kernels at hd 256, the chunk forms at yi-6b's hd 128; gemma-2b L18 at
     full width kernels on vs off, dense and paged; its steps replayed vs
-    eager with launches per step asserted; its 6/12/18 ladder through the
+    eager on its L6 rung with launches per step asserted; its 6/12/18
+    ladder through the
     serve loop on the dense, paged + sharing and chunked engines; yi-6b
     L32 at model level; and the ``llm_autoscale`` launcher at its default
     (yi-6b), run alongside.
@@ -4323,11 +4434,12 @@ def dense_config_phase(torch):
         model = dense_model_check(torch, GEMMA)
         t_m = time.time()
         memory(f"after {GEMMA}'s model check")
-        graphs = step_launch_checks(torch, GEMMA)
+        graphs = step_launch_checks(torch, GEMMA, depth=GEMMA_GRAPH_DEPTH)
         memory(f"after {GEMMA}'s graphs")
         t_g = time.time()
         launches = Counter()
-        dense, profiles = serve_phase(torch, arch=GEMMA, close=True)
+        dense, profiles = serve_phase(torch, arch=GEMMA, close=True,
+                                      seconds=GEMMA_SIDE_SECONDS)
         launches.update(dense)
         paged, _ = serve_phase(torch, paged=True, profiles=profiles,
                                arch=GEMMA, seconds=GEMMA_SIDE_SECONDS,
@@ -4504,8 +4616,9 @@ def moe_phase(torch):
     (``head_kernel_rows``); L32 kernels on vs off, dense and paged, both
     fused ticks, launches per prefill and per step asserted
     (``dense_model_check``); the device split of a decode step and a
-    prefill (``moe_step_split``); its steps replayed vs eager
-    (``step_launch_checks``); its 8/16/32 ladder through the InfAdapter
+    prefill (``moe_step_split``); its steps replayed vs eager at
+    GRAPH_DEPTH layers (``step_launch_checks``); its 8/16/32 ladder
+    through the InfAdapter
     loop on the dense FIFO, paged + sharing and chunked engines, none
     rejected, ``memory_allocated`` printed per load and held after each
     close to the loop's start within CLOSE_MARGIN. Returns (kernel rows'
@@ -4541,8 +4654,10 @@ def moe_phase(torch):
     split = moe_step_split(torch)
     t_m = time.time()
     memory(f"after {GRANITE}'s model checks")
-    # two decode chunks a request: an eager L32 MoE step takes ~0.1 s
-    step_launch_checks(torch, GRANITE, max_new=2 * CHUNK)
+    # two decode chunks a request: an eager MoE step takes ~0.1 s at L32;
+    # replay vs eager runs on the ladder's L16 rung (the L32 model checks
+    # above assert its launches) to keep the script within its time limit
+    step_launch_checks(torch, GRANITE, max_new=2 * CHUNK, depth=GRAPH_DEPTH)
     memory(f"after {GRANITE}'s graphs")
     t_g = time.time()
     launches = Counter()
@@ -4565,6 +4680,302 @@ def moe_phase(torch):
                           "phase": time.time() - t_phase}}
     log("  moe summary " + json.dumps(summary, default=str))
     return rows, dict(launches)
+
+
+def whisper_phase(torch):
+    """The encoder-decoder family on the card: whisper-tiny at its
+    published size. Every attention kernel at its heads (G 1, hd 64)
+    against its plain version in bf16 and fp32, timed beside SDPA and the
+    bound (``head_kernel_rows``); B x WHISPER_PROMPT decoder tokens after
+    B x 1500 seeded frames and WHISPER_STEPS greedy decode steps in bf16,
+    kernels on vs off (logits held to BF16_LOGIT_TOL), 4 flash_prefill
+    launches a prefill, 4 flash_decode launches a step and none in the
+    encoder asserted; ms of encode, prefill and a decode step, and the
+    share of a step spent projecting the cached encoder output to K and V
+    again (the reference's cross-attention arithmetic: ROADMAP B); then
+    the fp32 model with the kernels on, card against the CPU. Returns
+    (kernel rows' whisper keys, the numbers)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.models import attention as attn
+    from repro_torch.models.model import AUDIO_FRAME_DIM, LM
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    cfg = get_config(WHISPER)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    L, T = cfg.num_layers, cfg.enc_seq
+    log(f"[18] encoder-decoder: {WHISPER} ({cfg.enc_layers} + {L} layers, "
+        f"d_model {cfg.d_model}, {heads[0]} heads on {heads[1]} KV heads of "
+        f"hd {heads[2]}, {T} frames) at its published size")
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows = head_kernel_rows(torch, fd, fp, pd, gen, heads, "whisper")
+    t_k = time.time()
+    lm_off, lm_on = LM(cfg), LM(cfg.replace(use_kernels=True))
+    params = lm_off.init(torch.Generator(device=dev).manual_seed(0))
+    frames = torch.randn((B, T, AUDIO_FRAME_DIM), device=dev, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, WHISPER_PROMPT), device=dev,
+                         generator=gen)
+    batch = {"tokens": toks, "frames": frames}
+    cap = WHISPER_PROMPT + WHISPER_STEPS
+
+    def run(lm, feed=None):
+        return prefill_decode(torch, lm, params, toks, feed=feed,
+                              extra={"frames": frames}, cap=cap,
+                              steps=WHISPER_STEPS)
+
+    def launched(fn):
+        n0 = ops.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c - n0[k] for k, c in ops.launch_counts().items()
+                     if c != n0[k]}
+
+    run(lm_on)                                                  # warm-up
+    off, seq, t_off = run(lm_off)
+    (on, _, t_on), run_n = launched(lambda: run(lm_on, feed=seq))
+    (_, cache), pre_n = launched(lambda: lm_on.prefill(params, batch,
+                                                       max_len=cap))
+    _, enc_n = launched(lambda: lm_on.encode(params, frames))
+    for i in range(WHISPER_STEPS):          # the cache at the run's end
+        lm_on.decode_step(params, cache, seq[i])
+    step_n = {k: v - pre_n.get(k, 0) for k, v in run_n.items()
+              if v != pre_n.get(k, 0)}
+    rel = rel_err(on, off, cfg.vocab_size)
+    agree = float(np.mean([float((torch.argmax(a, -1) == torch.argmax(
+        b, -1)).float().mean()) for a, b in zip(on, off)]))
+    enc_ms = time_ms(torch, lambda f: lm_on.encode(params, f), [(frames,)],
+                     iters=10)
+    tok = seq[-1]
+    step_ms = time_ms(torch, lambda: lm_on.decode_step(
+        params, {**cache, "pos": cache["pos"].clone()}, tok), [()],
+        iters=20)
+    enc = cache["enc"]
+    layers = lm_on._layers(params)
+    kv_ms = time_ms(torch, lambda: [enc @ lp["xattn"][w] for lp in layers
+                                    for w in ("wk", "wv")], [()], iters=20)
+    # the encoder's unmasked attention (plain fp32 scores and softmax, as
+    # the reference's): its 4 layers' calls alone, beside one SDPA call a
+    # layer computing the same function (a yardstick the port never calls)
+    h = torch.randn((B, T, cfg.d_model), device=dev,
+                    generator=gen).to(lm_on.compute_dtype)
+    enc_layers = lm_on._layers(params, "enc_layers")
+    enc_attn_ms = time_ms(torch, lambda: [attn.bidirectional_attention(
+        cfg, lp["attn"], h) for lp in enc_layers], [()], iters=10)
+
+    def sdpa_layers():
+        for lp in enc_layers:
+            q, k, v = (torch.nn.functional.linear(
+                h, lp["attn"][w].t()).reshape(B, T, -1, heads[2])
+                .transpose(1, 2) for w in ("wq", "wk", "wv"))
+            o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+            o.transpose(1, 2).reshape(B, T, -1) @ lp["attn"]["wo"]
+
+    enc_sdpa_ms = time_ms(torch, sdpa_layers, [()], iters=10)
+    dec_dev, _ = profiled(torch, lambda: lm_on.decode_step(
+        params, {**cache, "pos": cache["pos"].clone()}, tok))
+    kv_dev, _ = profiled(torch, lambda: [enc @ lp["xattn"][w]
+                                         for lp in layers
+                                         for w in ("wk", "wv")])
+    # a trace that kept no kernel (PERF.md §7) measures nothing
+    kv_share = kv_dev / dec_dev if kv_dev > 0 and dec_dev > 0 else None
+    out = {"logits_rel_err": rel, "greedy_agree": agree,
+           "launches_prefill": pre_n, "launches_per_step": {
+               k: v / WHISPER_STEPS for k, v in step_n.items()},
+           "launches_encode": enc_n, "encode_ms": enc_ms,
+           "prefill_ms_on": t_on[0], "prefill_ms_off": t_off[0],
+           "decode_step_ms_on": t_on[1], "decode_step_ms_off": t_off[1],
+           "decode_step_ms": step_ms, "cross_kv_ms": kv_ms,
+           "cross_kv_share": kv_ms / step_ms, "decode_device_ms": dec_dev,
+           "cross_kv_device_ms": kv_dev,
+           "cross_kv_device_share": kv_share,
+           "encoder_attention_ms": enc_attn_ms,
+           "encoder_attention_sdpa_ms": enc_sdpa_ms}
+    log(f"  {WHISPER} bf16, B {B}, {T} frames, {WHISPER_PROMPT}-token prompt,"
+        f" {WHISPER_STEPS} steps: logits rel err on vs off {rel:.3e} (tol "
+        f"{BF16_LOGIT_TOL:.0e}), greedy agreement {agree:.3f}; launches: "
+        f"prefill {pre_n}, per step {out['launches_per_step']}, encoder "
+        f"{enc_n or 'none'}")
+    log(f"  {WHISPER}: encode {enc_ms:.3f} ms; prefill (encoder included) "
+        f"on {t_on[0]:.2f} off {t_off[0]:.2f} ms; decode step on "
+        f"{t_on[1]:.3f} off {t_off[1]:.3f} ms (timed alone {step_ms:.3f}, "
+        f"device {dec_dev:.3f}); the cross K/V projections of the cached "
+        f"encoder output {kv_ms:.3f} ms (device {kv_dev:.3f}): "
+        f"{100 * kv_ms / step_ms:.1f}% of a step's wall time, "
+        + (f"{100 * kv_share:.1f}%" if kv_share else "not measured (a "
+           "profiler trace without kernels)")
+        + f" of its device time; the encoder's "
+        f"{cfg.enc_layers} unmasked attentions (projections included) "
+        f"{enc_attn_ms:.3f} ms of the encode, {enc_sdpa_ms:.3f} ms through "
+        f"SDPA")
+    if pre_n != {"flash_prefill": L} or step_n != {
+            "flash_decode": L * WHISPER_STEPS} or enc_n:
+        raise AssertionError(f"{WHISPER}: launches prefill {pre_n}, steps "
+                             f"{step_n}, encoder {enc_n}")
+    if rel > BF16_LOGIT_TOL or not all(bool(torch.isfinite(a).all())
+                                       for a in on):
+        raise AssertionError(f"{WHISPER} bf16 logits: rel err {rel}")
+    del params, cache, enc, layers, enc_layers, h
+    # fp32, kernels on: the card against the CPU on the same weights
+    cfg32 = cfg.replace(dtype="float32", use_kernels=True)
+    card = LM(cfg32).init(torch.Generator(device=dev).manual_seed(0))
+    cpu = _tree_to(card, "cpu")
+    b32 = {"tokens": toks[:WHISPER_TWIN_B],
+           "frames": frames[:WHISPER_TWIN_B]}
+    res = {}
+    for where, p in (("cuda", card), ("cpu", cpu)):
+        outs, seq32, _ = prefill_decode(
+            torch, LM(cfg32), p, b32["tokens"].to(where),
+            extra={"frames": b32["frames"].to(where)},
+            cap=WHISPER_PROMPT + 8)
+        res[where] = ([x.cpu() for x in outs], [t.cpu() for t in seq32])
+    rel32 = rel_err(res["cuda"][0], res["cpu"][0], cfg.vocab_size)
+    same = all(bool((a == b).all()) for a, b in zip(res["cuda"][1],
+                                                     res["cpu"][1]))
+    out.update(fp32_card_cpu_rel_err=rel32, fp32_card_cpu_tokens_equal=same)
+    log(f"  {WHISPER} fp32, kernels on, B {WHISPER_TWIN_B}: card vs CPU "
+        f"logits rel err {rel32:.3e} (tol {FP32_CPU_REL_TOL:.0e}), greedy "
+        f"8 tokens equal {same}")
+    if rel32 > FP32_CPU_REL_TOL or not same:
+        raise AssertionError(f"{WHISPER} fp32 card vs CPU: rel err "
+                             f"{rel32}, tokens equal {same}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    out["wall_s"] = {"kernels": t_k - t_phase,
+                     "phase": time.time() - t_phase}
+    log("  whisper summary " + json.dumps(out, default=str))
+    return rows, out
+
+
+def _tree_to(tree, device):
+    """A params tree with every leaf moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def vlm_phase(torch):
+    """The VLM family on the card: internvl2-26b (48 query heads on 8 KV
+    heads of hd 128: G 6) at full width. Every attention kernel at its
+    heads against its plain version in bf16 and fp32, timed beside SDPA
+    and the bound (``head_kernel_rows``); L48 (~40 GB of bf16 weights,
+    drawn on the card from a seed, the time printed) kernels on vs off
+    with a 256-token image prefix before the 512-token prompt (S 768),
+    the logits held as the MoE phase holds them, 48 launches a prefill, a
+    step and a fused tick asserted, paged steps and fused ticks text-only,
+    peak memory printed (``dense_model_check``); its steps replayed vs
+    eager at GRAPH_DEPTH layers (``step_launch_checks``); its 8/16/48
+    ladder served text-only
+    (as the reference's engine serves it) through the InfAdapter loop on
+    the dense FIFO, paged + sharing and chunked engines, VLM_SERVE_SECONDS
+    each, every closing loop back at its start memory within CLOSE_MARGIN.
+    Returns (kernel rows' internvl keys, the serve loops' launch
+    counts)."""
+    import gc
+    from collections import Counter
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import paged_decode as pd
+    t_phase = time.time()
+    cfg = get_config(INTERNVL)
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
+    log(f"[19] VLM: {INTERNVL} ({heads[0]} query heads on {heads[1]} KV "
+        f"heads of hd {heads[2]}, d_model {cfg.d_model}, "
+        f"{cfg.num_layers} layers) at full width")
+
+    def memory(label):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  memory_allocated {label}: "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+
+    memory("at the phase's start")
+    gen = torch.Generator(device=DEVICE).manual_seed(28)
+    rows = head_kernel_rows(torch, fd, fp, pd, gen, heads, "internvl")
+    t_k = time.time()
+    model = dense_model_check(torch, INTERNVL, fused=True, sensitivity=True,
+                              prefix=INTERNVL_PREFIX)
+    t_m = time.time()
+    memory(f"after {INTERNVL}'s model check")
+    step_launch_checks(torch, INTERNVL, max_new=2 * CHUNK,
+                       depth=GRAPH_DEPTH)
+    memory(f"after {INTERNVL}'s graphs")
+    t_g = time.time()
+    launches = Counter()
+    dense, profiles = serve_phase(torch, arch=INTERNVL, close=True,
+                                  seconds=VLM_SERVE_SECONDS)
+    launches.update(dense)
+    paged, _ = serve_phase(torch, paged=True, profiles=profiles,
+                           arch=INTERNVL, seconds=VLM_SERVE_SECONDS,
+                           close=True)
+    launches.update(paged)
+    chunked, _ = serve_phase(torch, profiles=profiles, arch=INTERNVL,
+                             engine_kw=dict(scheduler="chunked"),
+                             seconds=VLM_SERVE_SECONDS, close=True)
+    launches.update(chunked)
+    memory("at the phase's end")
+    summary = {"model": model, "launches": dict(launches),
+               "wall_s": {"kernels": t_k - t_phase, "model": t_m - t_k,
+                          "graphs": t_g - t_m, "serve": time.time() - t_g,
+                          "phase": time.time() - t_phase}}
+    log("  vlm summary " + json.dumps(summary, default=str))
+    return rows, dict(launches)
+
+
+def resnet_phase(torch):
+    """The paper's ResNet family (``repro_torch.models.resnet``: cuDNN
+    convolutions, no kernel of the port) at 224 x 224 in fp32 with TF32
+    off: each variant's logits on the card against the CPU at
+    RESNET_TWIN_B images (RESNET_REL_TOL of their largest magnitude), then
+    ms a batch (CUDA events, inputs made on the card), images/s and the
+    share of the card's fp32 peak (67 TFLOP/s) that ``resnet_flops``'
+    count reaches, at each of RESNET_BATCHES. Returns the numbers."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet
+    t_phase = time.time()
+    dev = torch.device(DEVICE)
+    log(f"[20] ResNet: {', '.join(resnet.RESNET_SPECS)} at 224 x 224, fp32 "
+        f"(TF32 off)")
+    out = {}
+    n0 = ops.launch_counts()
+    for name in resnet.RESNET_SPECS:
+        cpu = resnet.init_resnet(torch.Generator().manual_seed(0), name)
+        card = _tree_to(cpu, dev)
+        x = torch.randn((RESNET_TWIN_B, 224, 224, 3),
+                        generator=torch.Generator().manual_seed(1))
+        want = resnet.apply_resnet(cpu, name, x)
+        got = resnet.apply_resnet(card, name, x.to(dev)).cpu()
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        row = {"card_cpu_rel_err": rel}
+        if rel > RESNET_REL_TOL or got.shape != (RESNET_TWIN_B, 1000):
+            raise AssertionError(f"{name}: card vs CPU {rel}, shape "
+                                 f"{tuple(got.shape)}")
+        for b in RESNET_BATCHES:
+            xs = [(torch.randn((b, 224, 224, 3), device=dev),)
+                  for _ in range(2)]
+            ms = time_ms(torch, lambda v: resnet.apply_resnet(card, name, v),
+                         xs, iters=10)
+            flops = resnet.resnet_flops(name) * b
+            row[f"b{b}"] = {"ms": ms, "images_per_s": b / ms * 1e3,
+                            "fp32_peak_share": flops / (ms / 1e3)
+                            / PEAK_FLOPS["torch.float32"]}
+        out[name] = row
+        log(f"  {name}: card vs CPU {rel:.2e} of max |logit|; " + "; ".join(
+            f"B {b} {row[f'b{b}']['ms']:.3f} ms, "
+            f"{row[f'b{b}']['images_per_s']:.0f} images/s, "
+            f"{100 * row[f'b{b}']['fp32_peak_share']:.1f}% of fp32 peak"
+            for b in RESNET_BATCHES))
+        del cpu, card
+    if ops.launch_counts() != n0:
+        raise AssertionError("a port kernel launched in the ResNet phase")
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t_phase
+    log("  resnet summary " + json.dumps(out))
+    return out
 
 
 def _finite(pairs, label):
@@ -5030,6 +5441,10 @@ def main():
                          "hymba-1.5b's serve shapes) of the repro_torch "
                          "under SRC (a checkout's src/), print one JSON line "
                          "and stop")
+    ap.add_argument("--phases", default=None, metavar="NAMES",
+                    help="after the build, run only these of the later "
+                         "phases (comma-separated: whisper, vlm, resnet) "
+                         "and print no result line")
     args = ap.parse_args()
     src = Path(args.ab).resolve() if args.ab else ROOT / "src"
     import torch
@@ -5066,35 +5481,58 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"    {n}: {line.strip()}")
 
-    rows = kernel_phase(torch)
-    model_phase(torch)
-    ssm_model_phase(torch)
-    graph_phase(torch)
-    dense, profiles = serve_phase(torch)
-    paged, _ = serve_phase(torch, paged=True, profiles=profiles)
-    prefix = prefix_phase(torch)
-    ssm, _ = serve_phase(torch, arch="mamba2-130m")
-    async_phase(torch)
-    chunked, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
-        async_tick=True, scheduler="chunked", preemption="requeue"),
-        seconds=ASYNC_SERVE_SECONDS)
-    spec_phase(torch)
-    spec, _ = serve_phase(torch, profiles=profiles, engine_kw=dict(
-        speculative="tinyllama-1.1b-L8:tinyllama-1.1b-L22", spec_k=SPEC_K),
-        seconds=SPEC_SERVE_SECONDS)
-    obs = obs_phase(torch, profiles)
-    prof, _, measured = profiling_phase(torch, profiles)
-    fabric = fabric_phase(torch, profiles)
-    evaluation = eval_phase(torch, measured)
-    gemma_rows, dense_cfgs = dense_config_phase(torch)
-    granite_rows, moe = moe_phase(torch)
-    trained = train_phase(torch, profiles)
+    if args.phases:
+        for name in args.phases.split(","):
+            {"whisper": whisper_phase, "vlm": vlm_phase,
+             "resnet": resnet_phase}[name](torch)
+        log(f"phases {args.phases}: total wall time "
+            f"{time.time() - t_start:.1f}s")
+        return
+    walls = {}              # phase -> wall s: the script's time limit
+
+    def timed(name, fn, *args, **kw):
+        t = time.time()
+        out = fn(*args, **kw)
+        walls[name] = round(time.time() - t, 1)
+        return out
+
+    rows = timed("kernels", kernel_phase, torch)
+    timed("model", model_phase, torch)
+    timed("ssm model", ssm_model_phase, torch)
+    timed("graphs", graph_phase, torch)
+    dense, profiles = timed("serve dense", serve_phase, torch)
+    paged, _ = timed("serve paged", serve_phase, torch, paged=True,
+                     profiles=profiles)
+    prefix = timed("prefix", prefix_phase, torch)
+    ssm, _ = timed("serve ssm", serve_phase, torch, arch="mamba2-130m")
+    timed("async", async_phase, torch)
+    chunked, _ = timed("serve async", serve_phase, torch, profiles=profiles,
+                       engine_kw=dict(async_tick=True, scheduler="chunked",
+                                      preemption="requeue"),
+                       seconds=ASYNC_SERVE_SECONDS)
+    timed("spec", spec_phase, torch)
+    spec, _ = timed("serve spec", serve_phase, torch, profiles=profiles,
+                    engine_kw=dict(speculative="tinyllama-1.1b-L8:"
+                                   "tinyllama-1.1b-L22", spec_k=SPEC_K),
+                    seconds=SPEC_SERVE_SECONDS)
+    obs = timed("obs", obs_phase, torch, profiles)
+    prof, _, measured = timed("profile", profiling_phase, torch, profiles)
+    fabric = timed("fabric", fabric_phase, torch, profiles)
+    evaluation = timed("eval", eval_phase, torch, measured)
+    gemma_rows, dense_cfgs = timed("dense configs", dense_config_phase,
+                                   torch)
+    granite_rows, moe = timed("moe", moe_phase, torch)
+    whisper_rows, _ = timed("whisper", whisper_phase, torch)
+    internvl_rows, vlm = timed("vlm", vlm_phase, torch)
+    timed("resnet", resnet_phase, torch)
+    trained = timed("train", train_phase, torch, profiles)
     for r in rows:
-        r.update(gemma_rows.get(r["name"], {}))
-        r.update(granite_rows.get(r["name"], {}))
+        for extra in (gemma_rows, granite_rows, whisper_rows,
+                      internvl_rows):
+            r.update(extra.get(r["name"], {}))
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             dense, paged, prefix, ssm, chunked, spec, obs, prof, fabric,
-            evaluation, dense_cfgs, moe, trained))
+            evaluation, dense_cfgs, moe, vlm, trained))
         # of them gemma-2b's loops' (bf16, hd 256: its prefill on the
         # two-head wgmma kernel, its decode step on the step kernel)
         r["gemma_launches"] = dense_cfgs.get(r["name"], 0)
@@ -5115,12 +5553,14 @@ def main():
     torch._C._cuda_clearCublasWorkspaces()
     log(f"[17] memory_allocated at the end {end / 1e9:.3f} GB, of it "
         f"{(end - settled_memory(torch)) / 1e6:.1f} MB cuBLAS's per-stream "
-        f"workspaces; total wall time {time.time() - t_start:.1f}s")
+        f"workspaces; total wall time {time.time() - t_start:.1f}s; by "
+        f"phase {json.dumps(walls)}")
     print(smi)
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys if k in r},
          **{k: v for k, v in r.items()
-            if k.startswith(("gemma_", "yi_", "hd32_", "granite_"))}}
+            if k.startswith(("gemma_", "yi_", "hd32_", "granite_",
+                             "whisper_", "internvl_"))}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Weight bridge: the reference ``LM.init`` pytree -> the port's params;
-the reference's LSTM forecaster params and its ``AdamState`` -> the port's
-trees (``lstm_params_from_jax``, ``adam_state_from_jax``).
+the reference's LSTM forecaster params, its ``AdamState`` and its ResNet
+params -> the port's trees (``lstm_params_from_jax``,
+``adam_state_from_jax``, ``resnet_params_from_jax``).
 
 The reference draws its weights from ``jax.random``; tests hand those same
 numbers (as numpy arrays, the pytree's keys unchanged) to the port, so
@@ -18,31 +19,45 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import torch_dtype
+from repro_torch.models.model import AUDIO_FRAME_DIM, VISION_EMBED_DIM
+from repro_torch.models.resnet import resnet_shapes
 from repro_torch.train.optimizer import AdamState
 
 # Leaves kept in the param dtype: the reference uses them in fp32 whatever
 # the compute dtype (norm weights; the SSM's conv taps and bias, decay and
 # step parameters, skip and gated-norm weights; the hybrid's mix scales;
-# the MoE router).
+# the MoE router; the cross-attention's and the encoder's final norms).
 # Every other leaf is a matrix, cast to the compute dtype before each
 # product in the reference and stored in it here.
 _PARAM_DTYPE_LEAVES = ("ln1", "ln2", "final_norm", "conv_w", "conv_b",
                        "A_log", "D_skip", "dt_bias", "norm_w", "mix_scale",
-                       "router")
+                       "router", "lnx", "enc_norm")
 
 
 def expected_shapes(cfg: ModelConfig) -> Dict:
-    """Nested dict of leaf shapes of a dense-, moe-, ssm- or hybrid-family
-    ``LM.init``."""
+    """Nested dict of leaf shapes of ``LM.init`` for any family: the
+    decoder ``layers`` (with ``xattn`` and ``lnx`` in the encoder-decoder
+    family), the encoder's ``enc_layers``, ``enc_in`` and ``enc_norm``, the
+    VLM's ``vis_proj``."""
     D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.padded_vocab
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     emb: Dict[str, Tuple] = {"table": (V, D)}
     if not cfg.tie_embeddings:
         emb["unembed"] = (D, V)
+
+    def attn(n):
+        return {"wq": (n, D, H * hd), "wk": (n, D, KV * hd),
+                "wv": (n, D, KV * hd), "wo": (n, H * hd, D)}
+
+    def mlp(n):
+        ffn: Dict[str, Tuple] = {"wi": (n, D, F), "wo": (n, F, D)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            ffn["wg"] = (n, D, F)
+        return ffn
+
     layers: Dict = {"ln1": (L, D)}
-    if cfg.family in ("dense", "moe", "hybrid"):
-        layers["attn"] = {"wq": (L, D, H * hd), "wk": (L, D, KV * hd),
-                          "wv": (L, D, KV * hd), "wo": (L, H * hd, D)}
+    if cfg.family in ("dense", "moe", "vlm", "audio", "hybrid"):
+        layers["attn"] = attn(L)
     if cfg.family in ("ssm", "hybrid"):
         di, N, Hs = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         ch = di + 2 * N
@@ -58,23 +73,25 @@ def expected_shapes(cfg: ModelConfig) -> Dict:
         layers.update(ffn={"router": (L, D, E), "wi": (L, E, D, F),
                            "wg": (L, E, D, F), "wo": (L, E, F, D)},
                       ln2=(L, D))
-    elif cfg.family in ("dense", "hybrid"):
-        ffn: Dict[str, Tuple] = {"wi": (L, D, F), "wo": (L, F, D)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            ffn["wg"] = (L, D, F)
-        layers.update(ffn=ffn, ln2=(L, D))
-    return {"embed": emb, "final_norm": (D,), "layers": layers}
+    elif cfg.family in ("dense", "vlm", "audio", "hybrid"):
+        layers.update(ffn=mlp(L), ln2=(L, D))
+    tree = {"embed": emb, "final_norm": (D,), "layers": layers}
+    if cfg.is_encoder_decoder:
+        layers.update(xattn=attn(L), lnx=(L, D))
+        Le = cfg.enc_layers
+        tree.update(enc_layers={"ln1": (Le, D), "attn": attn(Le),
+                                "ln2": (Le, D), "ffn": mlp(Le)},
+                    enc_in=(AUDIO_FRAME_DIM, D), enc_norm=(D,))
+    if cfg.frontend == "vision_patches":
+        tree["vis_proj"] = (VISION_EMBED_DIM, D)
+    return tree
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
-                    dtype: Optional[torch.dtype] = None) -> Dict:
-    """Copy a reference params pytree onto ``device``. Matrices are stored
-    in ``dtype`` (default: the config's compute dtype), the leaves the
-    reference uses in fp32 (``_PARAM_DTYPE_LEAVES``) in the config's param
-    dtype — the port's ``LM.init`` storage."""
-    wdt = dtype or torch_dtype(cfg.dtype)
-    ndt = torch_dtype(cfg.param_dtype)
-
+def _copy_tree(tree: Mapping, want: Dict, device, dtype_of) -> Dict:
+    """``tree``'s arrays as tensors on ``device``, each leaf in
+    ``dtype_of(its dotted path)``, checked key for key and shape for shape
+    against ``want`` (nested dicts of shapes): a missing or extra leaf, or
+    a wrong shape, raises."""
     def walk(node, want, path):
         if isinstance(want, dict):
             if not isinstance(node, Mapping):
@@ -88,12 +105,22 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
         arr = np.asarray(node)
         if arr.shape != want:
             raise ValueError(f"{path}: shape {arr.shape}, expected {want}")
-        leaf_dt = (ndt if path.split(".")[-1] in _PARAM_DTYPE_LEAVES
-                   else wdt)
-        return torch.tensor(arr, dtype=torch.float32).to(device=device,
-                                                         dtype=leaf_dt)
+        return torch.tensor(arr, dtype=torch.float32).to(
+            device=device, dtype=dtype_of(path))
 
-    return walk(tree, expected_shapes(cfg), "")
+    return walk(tree, want, "")
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig, device,
+                    dtype: Optional[torch.dtype] = None) -> Dict:
+    """Copy a reference params pytree onto ``device``. Matrices are stored
+    in ``dtype`` (default: the config's compute dtype), the leaves the
+    reference uses in fp32 (``_PARAM_DTYPE_LEAVES``) in the config's param
+    dtype — the port's ``LM.init`` storage."""
+    wdt = dtype or torch_dtype(cfg.dtype)
+    ndt = torch_dtype(cfg.param_dtype)
+    return _copy_tree(tree, expected_shapes(cfg), device, lambda path: (
+        ndt if path.split(".")[-1] in _PARAM_DTYPE_LEAVES else wdt))
 
 
 LSTM_SHAPES = ("wx", "wh", "b", "dense_w", "dense_b")
@@ -125,3 +152,12 @@ def adam_state_from_jax(state, device):
                                        dtype=torch.int32, device=device),
                      mu=tree_from_numpy(state.mu, device),
                      nu=tree_from_numpy(state.nu, device))
+
+
+def resnet_params_from_jax(tree: Mapping, name: str, device,
+                           num_classes: int = 1000) -> Dict:
+    """The reference's ``init_resnet`` params -> the port's: fp32 tensors
+    with the same keys and layouts (convolutions HWIO, the head (C, classes)).
+    A missing or extra key, or a wrong shape, raises."""
+    return _copy_tree(tree, resnet_shapes(name, num_classes), device,
+                      lambda path: torch.float32)

@@ -5,10 +5,11 @@ one field dict builds both (the reference's ``use_pallas`` is
 ``use_kernels`` here: it routes attention and the SSD scan through the
 hand-written CUDA kernels). ``REGISTRY`` maps ``--arch <id>`` names to full published configs;
 ``smoke_variant(cfg)`` derives the reduced CPU-testable config (<=2 layers,
-d_model<=512, <=4 experts) from the same family. Registered so far: the
-architectures of the ported families (dense tinyllama-1.1b, gemma-2b,
+d_model<=512, <=4 experts) from the same family. Registered: every
+architecture of the reference's registry (dense tinyllama-1.1b, gemma-2b,
 yi-6b and deepseek-67b, MoE granite-moe-3b-a800m and qwen3-moe-235b-a22b,
-SSM mamba2-130m, hybrid hymba-1.5b); the others come with their families.
+SSM mamba2-130m, hybrid hymba-1.5b, VLM internvl2-26b, encoder-decoder
+whisper-tiny).
 """
 from __future__ import annotations
 

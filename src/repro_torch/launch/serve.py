@@ -6,9 +6,17 @@ default, identical to the reference's ``repro.launch.serve.build_ladder``)
 and the full-width form (``full_width=True``: published widths, depths per
 architecture in ``FULL_DEPTHS`` — tinyllama-1.1b 8/15/22, gemma-2b
 6/12/18, yi-6b 8/16/32, granite-moe-3b-a800m 8/16/32, mamba2-130m
-8/16/24, the deepest rung being the published model — in bf16;
-deepseek-67b has none, its 95 published layers being ~134 GB in bf16, so
-it needs explicit ``depths``). Runs on ``cuda`` unless ``--device cpu``.
+8/16/24, internvl2-26b 8/16/48, the deepest rung being the published model
+— in bf16; deepseek-67b has none, its 95 published layers being ~134 GB in
+bf16, so it needs explicit ``depths``). internvl2-26b serves text-only, as
+the reference's engine does (requests carry tokens, no image); its
+ladder's three rungs hold ~63 GB of bf16 weights at once (~0.39 B
+parameters a layer, 1.14 B in the untied embedding and unembedding), so a
+middle rung of 24 or 32 layers would not fit beside the 48-layer one on an
+80 GB card. whisper-tiny has no ladder that serves: the engine feeds
+tokens only, and its dense backend fails at the warm-up prefill without
+``frames`` (paged: refused), as in the reference. Runs on ``cuda`` unless
+``--device cpu``.
 
 With ``--kv-cache paged`` the loop serves on the paged KV pool
 (``--prefix-sharing`` adds the prefix index). ``--scheduler``
@@ -95,7 +103,7 @@ SMOKE_DEPTHS = (2, 4, 6)
 # full-width depths of each servable architecture (last = published depth)
 FULL_DEPTHS = {"tinyllama-1.1b": (8, 15, 22), "gemma-2b": (6, 12, 18),
                "yi-6b": (8, 16, 32), "granite-moe-3b-a800m": (8, 16, 32),
-               "mamba2-130m": (8, 16, 24)}
+               "mamba2-130m": (8, 16, 24), "internvl2-26b": (8, 16, 48)}
 LADDER_ACCS = (70.0, 75.0, 78.0)
 
 # engine geometry and request shape of each form: smoke is the reference

@@ -6,6 +6,11 @@ serve steps.
   make_prefill_step(cfg, max_len)    -> prefill_step(params, batch)
   make_serve_step(cfg)               -> serve_step(params, cache, tokens)
 
+A batch is a dict of tensors with the batch first: ``tokens`` and
+``labels``, and the stub frontends' ``frames`` (encoder-decoder) or
+``patch_embeds`` (VLM); every one of them is sliced for the microbatches
+and handed to the model, as in the reference.
+
 The steps are functions of their inputs as in the reference: a train step
 returns new params and a new optimizer state and leaves its inputs as they
 were. The reference's ``ShapeDtypeStruct`` half (``sds``,

@@ -2,7 +2,8 @@
 decode against the dense per-slot ring cache or the paged pool
 (``PagedKVCache`` + ``paged_decode_attention``), and prefill continuation
 against the dense cache (``chunk_prefill_attention``) or the paged pool
-(``paged_chunk_prefill_attention``) — the port of
+(``paged_chunk_prefill_attention``), and the encoder-decoder family's
+unmasked encoder self-attention and decoder cross-attention — the port of
 ``repro.models.attention``.
 
 Two execution paths, as in the reference:
@@ -29,7 +30,10 @@ from repro_torch.obs.registry import NULL_REGISTRY
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-                   device: torch.device) -> Dict:
+                   device: torch.device, cross: bool = False) -> Dict:
+    """The four projections ``wq``, ``wk``, ``wv``, ``wo``. A decoder
+    layer's cross-attention (``cross``) draws the same four: its K and V
+    project the encoder's output, of the same width D."""
     D, H, KV, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     return {
@@ -153,6 +157,35 @@ def attention_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         out = gqa_attend(q, k, v, bias, cfg.attn_logit_softcap)
     out = out.reshape(x.shape[0], S, H * hd) @ p["wo"].to(dt)
     return (out, k, v) if return_kv else out
+
+
+def _attend_unmasked(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                     kv_in: torch.Tensor) -> torch.Tensor:
+    """Attention of ``x``'s queries over every position of ``kv_in`` (no
+    mask, no RoPE), through ``gqa_attend``: the reference's fp32 scores and
+    softmax, probabilities cast to V's dtype."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = _split_heads(x @ p["wq"].to(dt), H, hd)
+    k = _split_heads(kv_in @ p["wk"].to(dt), KV, hd)
+    v = _split_heads(kv_in @ p["wv"].to(dt), KV, hd)
+    out = gqa_attend(q, k, v, None)
+    return out.reshape(x.shape[0], x.shape[1], H * hd) @ p["wo"].to(dt)
+
+
+def bidirectional_attention(cfg: ModelConfig, p: Dict,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Encoder self-attention (whisper-style: no mask, no RoPE). Plain
+    tensor code: the reference reaches no kernel here either."""
+    return _attend_unmasked(cfg, p, x, x)
+
+
+def cross_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                    enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross-attention of x (B,S,D) over the encoder's output enc
+    (B,T,D). K and V are projected from ``enc`` on every call, a decode
+    step's included, as in the reference."""
+    return _attend_unmasked(cfg, p, x, enc)
 
 
 def decode_attention(cfg: ModelConfig, p: Dict, x: torch.Tensor,

@@ -1,5 +1,6 @@
 """Shared neural building blocks: functions on tensors, mirroring
-``repro.models.layers`` exactly (norm, RoPE, MLP, embedding).
+``repro.models.layers`` exactly (norms, RoPE, sinusoidal positions, MLP,
+embedding).
 
 Products take operands in the compute dtype; where the reference casts its
 fp32 params to the compute dtype before a product (``w.astype(dt)``), the
@@ -39,6 +40,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * (1.0 + weight.float())).to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Mean-centred norm in fp32, scaled by ``weight`` plus ``bias``."""
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -63,6 +75,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, d_model: int) -> np.ndarray:
+    """(max_len, d_model) fp32 table: sin at even columns, cos at odd, of
+    pos / 10000^(2i / d_model), the angles in float64 (numpy)."""
+    pos = np.arange(max_len)[:, None]
+    dim = np.arange(d_model // 2)[None, :]
+    angle = pos / np.power(10_000.0, 2 * dim / d_model)
+    out = np.zeros((max_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(angle)
+    out[:, 1::2] = np.cos(angle)
+    return out
 
 
 # ---------------------------------------------------------------------------

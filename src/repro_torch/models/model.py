@@ -1,5 +1,5 @@
-"""Language model, dense, MoE, SSM and hybrid families: the port of
-``repro.models.model.LM``.
+"""Language model, every family of the reference (dense, MoE, SSM,
+hybrid, VLM, encoder-decoder): the port of ``repro.models.model.LM``.
 
 Parameters are a plain dict with the reference's pytree keys and stacked
 layer leaves (``layers.attn.wq`` is ``(L, D, H·hd)``), so the weight bridge
@@ -11,6 +11,22 @@ mixed by ``sigmoid(mix_scale)`` in fp32, then the FFN), as in the
 reference's ``_block``. The MoE family's FFN is ``moe.apply_moe`` over
 each call's tokens (B·S at prefill and ``apply``, B at a decode step,
 B·ck in a chunk), as in the reference.
+
+The VLM family (internvl2-26b) is a dense decoder whose input may start
+with ``batch["patch_embeds"]`` (B, P, 1024), stub ViT embeddings projected
+by ``vis_proj``: the image prefix comes first and positions run over the
+whole sequence; without it the model is text-only, as the engine serves
+it. The encoder-decoder family (whisper-tiny) runs ``encode`` over
+``batch["frames"]`` (B, T, 80) — ``enc_in``, sinusoidal positions, its own
+stack of unmasked attention + MLP layers, ``enc_norm`` — and each decoder
+layer adds cross-attention over that output (``xattn`` after ``lnx``)
+between its self-attention and its FFN; ``prefill`` keeps the encoder
+output in ``cache["enc"]`` for the decode steps, which project its K and
+V again at every step, as the reference does. A config with
+``rope_theta <= 0`` adds sinusoidal positions to its embeddings: the
+full-sequence paths the numpy table ``sinusoidal_positions``, the
+per-position paths (decode steps, chunks, the paged step) ``_sinusoid_pe``
+computed on the device in fp32, each where the reference uses it.
 
 Caches are updated **in place**: ``decode_step`` writes the new token's K/V
 and the SSM's conv/SSD states into the cache tensors it is given and
@@ -41,9 +57,11 @@ Public methods:
   verify_chunk / verify_chunk_paged(params, cache, tokens, start, n_valid)
                                           -> (greedy argmax (B, ck), cache)
 
-Other families (encoder-decoder, VLM) are not ported yet. The paged,
-chunked and verify forms cover the dense and MoE families only (SSM/hybrid
-state is not positional; the reference refuses them too).
+  encode(params, frames)                  -> encoder output (B, T, D)
+
+The paged, chunked and verify forms cover the dense, MoE and VLM families
+only (SSM/hybrid state is not positional, the encoder-decoder family adds a
+cross cache; the reference refuses them too).
 """
 from __future__ import annotations
 
@@ -59,7 +77,13 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import ssd
 from repro_torch.models.layers import (apply_mlp, embed, init_embed, init_mlp,
-                                       rms_norm, unembed, vocab_mask)
+                                       rms_norm, sinusoidal_positions,
+                                       truncated_normal_init, unembed,
+                                       vocab_mask)
+
+AUDIO_FRAME_DIM = 80     # stub frontend: mel-frame embedding width
+VISION_EMBED_DIM = 1024  # stub frontend: ViT patch embedding width
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid")
 
 
 def _layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -86,30 +110,42 @@ def _leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
-def _stack_layers(dicts: List[Dict]) -> Dict:
-    first = dicts[0]
-    if isinstance(first, dict):
-        return {k: _stack_layers([d[k] for d in dicts]) for k in first}
-    return torch.stack(dicts)
+def _draw_stacked(n: int, draw) -> Dict:
+    """The stacked leaves of ``n`` layers, ``draw()`` called once a layer
+    in order and each layer copied into its slice of stacks allocated up
+    front: the peak is the stacks plus one layer, where stacking a list of
+    drawn layers would hold every layer twice (internvl2-26b's 48 layers
+    are 37 GB in bf16)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return t.new_empty((n,) + tuple(t.shape))
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    layer = draw()
+    stacked = alloc(layer)
+    for i in range(n):
+        put(stacked, layer if i == 0 else draw(), i)
+    return stacked
 
 
 class LM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid") \
-                or cfg.is_encoder_decoder or cfg.frontend:
-            raise NotImplementedError(
-                f"{cfg.name!r}: only the dense, moe, ssm and hybrid families "
-                f"are ported (ROADMAP A9 queues encoder-decoder and VLM)")
-        if cfg.rope_theta <= 0:
-            raise NotImplementedError(
-                f"{cfg.name!r}: sinusoidal positions are not ported")
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.dtype)
         self.param_dtype = torch_dtype(cfg.param_dtype)
         self._vmask_np = vocab_mask(cfg)
         self._vmask: Dict = {}
         self._windows = [int(w) for w in _layer_windows(cfg)]
-        self._layers_of = None       # (stacked layers dict, per-layer views)
+        # stack key ("layers", "enc_layers") -> (stacked dict, its views)
+        self._layers_of: Dict[str, Tuple[Dict, List[Dict]]] = {}
+        self._pos_tables: Dict = {}  # (S, device, dtype) -> sinusoid rows
 
     # ------------------------------------------------------------------
     # init
@@ -119,7 +155,7 @@ class LM:
         cfg = self.cfg
         pd = self.param_dtype
         p = {"ln1": torch.zeros(cfg.d_model, dtype=pd, device=device)}
-        if cfg.family in ("dense", "moe", "hybrid"):
+        if cfg.family in _ATTN_FAMILIES:
             p["attn"] = attn.init_attention(gen, cfg, wdt, device)
         if cfg.family in ("ssm", "hybrid"):
             p["ssm"] = ssd.init_ssm(gen, cfg, wdt, pd, device)
@@ -127,11 +163,24 @@ class LM:
             p["mix_scale"] = torch.zeros(2, dtype=pd, device=device)
         if cfg.family == "moe":
             p["ffn"] = moe.init_moe(gen, cfg, wdt, pd, device)
-        elif cfg.family in ("dense", "hybrid"):
+        elif cfg.family in ("dense", "vlm", "audio", "hybrid"):
             p["ffn"] = init_mlp(gen, cfg, wdt, device)
         if "ffn" in p:
             p["ln2"] = torch.zeros(cfg.d_model, dtype=pd, device=device)
+        if cfg.is_encoder_decoder:
+            p["xattn"] = attn.init_attention(gen, cfg, wdt, device,
+                                             cross=True)
+            p["lnx"] = torch.zeros(cfg.d_model, dtype=pd, device=device)
         return p
+
+    def _init_encoder_layer(self, gen: torch.Generator, device,
+                            wdt: torch.dtype) -> Dict:
+        cfg = self.cfg
+        pd = self.param_dtype
+        return {"ln1": torch.zeros(cfg.d_model, dtype=pd, device=device),
+                "attn": attn.init_attention(gen, cfg, wdt, device),
+                "ln2": torch.zeros(cfg.d_model, dtype=pd, device=device),
+                "ffn": init_mlp(gen, cfg, wdt, device)}
 
     def init(self, gen: torch.Generator,
              dtype: Optional[torch.dtype] = None) -> Dict:
@@ -151,28 +200,79 @@ class LM:
             "embed": init_embed(gen, cfg, wdt, dev),
             "final_norm": torch.zeros(cfg.d_model, dtype=self.param_dtype,
                                       device=dev)}
-        params["layers"] = _stack_layers(
-            [self._init_layer(gen, dev, wdt) for _ in range(cfg.num_layers)])
+        params["layers"] = _draw_stacked(
+            cfg.num_layers, lambda: self._init_layer(gen, dev, wdt))
+        if cfg.is_encoder_decoder:
+            params["enc_layers"] = _draw_stacked(
+                cfg.enc_layers,
+                lambda: self._init_encoder_layer(gen, dev, wdt))
+            params["enc_in"] = truncated_normal_init(
+                gen, (AUDIO_FRAME_DIM, cfg.d_model), 1.0, wdt, dev)
+            params["enc_norm"] = torch.zeros(cfg.d_model,
+                                             dtype=self.param_dtype,
+                                             device=dev)
+        if cfg.frontend == "vision_patches":
+            params["vis_proj"] = truncated_normal_init(
+                gen, (VISION_EMBED_DIM, cfg.d_model), 1.0, wdt, dev)
         return params
 
     # ------------------------------------------------------------------
     # helpers
     # ------------------------------------------------------------------
-    def _layers(self, params: Dict) -> List[Dict]:
-        """Per-layer views of the stacked leaves, cached for the last params
-        seen (the hot decode loop would otherwise re-slice every step).
-        Under autograd they are made anew for each call and never cached:
-        the gradients must flow through this call's views into this call's
-        leaves, and a cached view would keep the last step's graph and
-        leaves alive."""
-        stacked = params["layers"]
-        L = self.cfg.num_layers
+    def _layers(self, params: Dict, key: str = "layers") -> List[Dict]:
+        """Per-layer views of the stacked leaves of ``params[key]`` (the
+        decoder's ``layers``, ``num_layers`` of them, or the encoder's
+        ``enc_layers``, ``enc_layers`` of them), cached per stack for the
+        last params seen (the hot decode loop would otherwise re-slice
+        every step). Under autograd they are made anew for each call and
+        never cached: the gradients must flow through this call's views
+        into this call's leaves, and a cached view would keep the last
+        step's graph and leaves alive."""
+        stacked = params[key]
+        n = self.cfg.num_layers if key == "layers" else self.cfg.enc_layers
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in _leaves(stacked)):
-            return _unstack(stacked, L)
-        if self._layers_of is None or self._layers_of[0] is not stacked:
-            self._layers_of = (stacked, _unstack(stacked, L))
-        return self._layers_of[1]
+            return _unstack(stacked, n)
+        seen = self._layers_of.get(key)
+        if seen is None or seen[0] is not stacked:
+            seen = self._layers_of[key] = (stacked, _unstack(stacked, n))
+        return seen[1]
+
+    def _positions_table(self, S: int, device,
+                         dtype: torch.dtype) -> torch.Tensor:
+        """``sinusoidal_positions(S, D)`` on ``device`` in ``dtype``, made
+        once per (S, device, dtype): a host-to-device copy cannot run
+        inside a captured step."""
+        key = (S, device, dtype)
+        if key not in self._pos_tables:
+            self._pos_tables[key] = torch.as_tensor(sinusoidal_positions(
+                S, self.cfg.d_model)).to(device=device, dtype=dtype)
+        return self._pos_tables[key]
+
+    def _sinusoid_pe(self, positions: torch.Tensor) -> torch.Tensor:
+        """Sinusoidal rows for integer ``positions`` of any shape ->
+        ``positions.shape + (d_model,)`` fp32, with fp32 angles computed on
+        the device (the reference's per-position form; it differs from
+        ``sinusoidal_positions``' float64 angles in the last bits at large
+        positions)."""
+        half = self.cfg.d_model // 2
+        inv = 1.0 / (10_000.0 ** (torch.arange(
+            half, device=positions.device) / half))
+        ang = positions[..., None].float() * inv
+        pe = torch.zeros(positions.shape + (self.cfg.d_model,),
+                         dtype=torch.float32, device=positions.device)
+        pe[..., 0::2] = torch.sin(ang)
+        pe[..., 1::2] = torch.cos(ang)
+        return pe
+
+    def _cross(self, lp: Dict, x: torch.Tensor,
+               enc: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoder-decoder layer's cross-attention sub-block over the
+        encoder output ``enc`` (nothing without one)."""
+        if enc is None:
+            return x
+        h = rms_norm(x, lp["lnx"], self.cfg.norm_eps)
+        return x + attn.cross_attention(self.cfg, lp["xattn"], h, enc)
 
     def _logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -217,7 +317,8 @@ class LM:
     # full-sequence forward (teacher forcing) and the training loss
     # ------------------------------------------------------------------
     def _block(self, lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-               w: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               w: int, enc: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One layer over the full sequence -> (x, the MoE layer's
         ``aux_loss`` or None)."""
         cfg = self.cfg
@@ -226,28 +327,65 @@ class LM:
              if "attn" in lp else None)
         s = ssd.ssm_forward(cfg, lp["ssm"], h) if "ssm" in lp else None
         auxes: List[torch.Tensor] = []
-        x = self._ffn(lp, self._mix(lp, x, a, s), auxes)
+        x = self._ffn(lp, self._cross(lp, self._mix(lp, x, a, s), enc),
+                      auxes)
         return x, (auxes[0] if auxes else None)
+
+    # ------------------------------------------------------------------
+    # encoder (whisper) and the embedded input sequence
+    # ------------------------------------------------------------------
+    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, T, AUDIO_FRAME_DIM) -> the encoder's output (B, T, D):
+        ``enc_in``, the sinusoid table, ``enc_layers`` layers of unmasked
+        self-attention and MLP (plain tensor code: the reference reaches no
+        kernel here), ``enc_norm``."""
+        cfg = self.cfg
+        dt = self.compute_dtype
+        x = frames.to(dt) @ params["enc_in"].to(dt)
+        x = x + self._positions_table(frames.shape[1], x.device, dt)[None]
+        for lp in self._layers(params, "enc_layers"):
+            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + attn.bidirectional_attention(cfg, lp["attn"], h)
+            h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            x = x + apply_mlp(cfg, lp["ffn"], h2)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _embed_inputs(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The token embeddings, after the projected image prefix where the
+        batch has ``patch_embeds`` (VLM), plus the sinusoid table over the
+        whole sequence for ``rope_theta <= 0`` and the encoder-decoder
+        family -> (B, S, D), S counting the prefix."""
+        cfg = self.cfg
+        dt = self.compute_dtype
+        x = embed(cfg, params["embed"], batch["tokens"], dt)
+        if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+            vis = batch["patch_embeds"].to(dt) @ params["vis_proj"].to(dt)
+            x = torch.cat([vis, x], dim=1)
+        if cfg.rope_theta <= 0 or cfg.is_encoder_decoder:
+            x = x + self._positions_table(x.shape[1], x.device, dt)[None]
+        return x
 
     def apply(self, params: Dict, batch: Dict, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (logits (B, S, V), the layers' mean MoE
-        ``aux_loss``, 0 without MoE). With ``train`` and ``cfg.remat`` each
-        layer is checkpointed: only its input is kept for the backward
-        pass, which runs the layer again."""
+        """tokens (B, S) (with ``patch_embeds`` for the VLM, ``frames`` for
+        the encoder-decoder family) -> (logits (B, P + S, V), P the image
+        prefix, the layers' mean MoE ``aux_loss``, 0 without MoE). With
+        ``train`` and ``cfg.remat`` each layer is checkpointed: only its
+        input is kept for the backward pass, which runs the layer again."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed(cfg, params["embed"], tokens, self.compute_dtype)
-        B, S = tokens.shape
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        enc = (self.encode(params, batch["frames"])
+               if cfg.is_encoder_decoder else None)
+        x = self._embed_inputs(params, batch)
+        B, S = x.shape[0], x.shape[1]
+        positions = torch.arange(S, device=x.device).expand(B, S)
         auxes: List[torch.Tensor] = []
         for lp, w in zip(self._layers(params), self._windows):
             if cfg.remat and train:
-                x, aux = checkpoint(self._block, lp, x, positions, w,
+                x, aux = checkpoint(self._block, lp, x, positions, w, enc,
                                     use_reentrant=False,
                                     preserve_rng_state=False)
             else:
-                x, aux = self._block(lp, x, positions, w)
+                x, aux = self._block(lp, x, positions, w, enc)
             if aux is not None:
                 auxes.append(aux)
         # the mean of the layers' load-balance losses (0 without MoE), as
@@ -260,7 +398,8 @@ class LM:
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross-entropy over the labels >= 0 (label -1 is
         masked), in fp32, plus ``aux_loss_coef`` times the MoE aux loss ->
-        (total, {"ce_loss", "aux_loss"}), as the reference's ``loss``."""
+        (total, {"ce_loss", "aux_loss"}), as the reference's ``loss``; the
+        logits of an image prefix have no labels and are dropped."""
         cfg = self.cfg
         logits, aux = self.apply(params, batch, train=True)
         labels = batch["labels"]
@@ -290,7 +429,8 @@ class LM:
                    device: torch.device) -> Dict:
         """``pos`` (B,); ``k``/``v`` (L,B,KV,C,hd) except for the SSM family;
         for SSM and hybrid ``conv`` (L,B,cw-1,di+2N) in the compute dtype and
-        ``ssd`` (L,B,H,hp,N) in fp32."""
+        ``ssd`` (L,B,H,hp,N) in fp32; for the encoder-decoder family the
+        encoder output ``enc`` (B, enc_seq, D)."""
         cfg = self.cfg
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
         cache = {"pos": torch.zeros(batch_size, dtype=torch.int64,
@@ -311,6 +451,10 @@ class LM:
             cache["ssd"] = torch.zeros(
                 (L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
                  cfg.ssm_state), dtype=torch.float32, device=device)
+        if cfg.is_encoder_decoder:
+            cache["enc"] = torch.zeros((batch_size, cfg.enc_seq, cfg.d_model),
+                                       dtype=self.compute_dtype,
+                                       device=device)
         return cache
 
     # ------------------------------------------------------------------
@@ -318,18 +462,25 @@ class LM:
     # ------------------------------------------------------------------
     def prefill(self, params: Dict, batch: Dict, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
+        """The prompt (an image prefix and the encoder's output included)
+        through every layer -> (last position's logits (B, V), a fresh
+        cache of capacity ``max_len`` (default: the sequence) with ``pos``
+        at the sequence's length S, the prefix counted)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        dev = tokens.device
+        enc = (self.encode(params, batch["frames"])
+               if cfg.is_encoder_decoder else None)
+        x = self._embed_inputs(params, batch)
+        B, S = x.shape[0], x.shape[1]
+        dev = x.device
         C = self.cache_capacity(max_len or S)
         cache = self.init_cache(B, max_len or S, dev)
         cache["pos"].fill_(S)
+        if enc is not None:
+            cache["enc"] = enc
         positions = torch.arange(S, device=dev).expand(B, S)
         if S >= C:
             # keep the last C positions, ring-aligned: slot = pos % C
             slots = (torch.arange(C, device=dev) + (S - C) % C) % C
-        x = embed(cfg, params["embed"], tokens, self.compute_dtype)
         for i, (lp, w) in enumerate(zip(self._layers(params), self._windows)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             a = s = None
@@ -355,7 +506,7 @@ class LM:
                                                        return_cache=True)
                 cache["conv"][i].copy_(conv_st)
                 cache["ssd"][i].copy_(ssd_st)
-            x = self._ffn(lp, self._mix(lp, x, a, s))
+            x = self._ffn(lp, self._cross(lp, self._mix(lp, x, a, s), enc))
         return self._logits(params, x[:, -1:])[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -365,10 +516,15 @@ class LM:
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B,) -> (logits (B, V), cache): the token's K/V and the
         SSM's new conv/SSD states land in ``cache`` in place and
-        ``cache["pos"]`` advances by one."""
+        ``cache["pos"]`` advances by one. The encoder-decoder family
+        attends over ``cache["enc"]``, projecting its K and V anew."""
         cfg = self.cfg
+        dt = self.compute_dtype
         pos = cache["pos"]
-        x = embed(cfg, params["embed"], tokens[:, None], self.compute_dtype)
+        x = embed(cfg, params["embed"], tokens[:, None], dt)
+        if cfg.rope_theta <= 0 or cfg.is_encoder_decoder:
+            x = x + self._sinusoid_pe(pos)[:, None, :].to(dt)
+        enc = cache.get("enc")
         for i, (lp, w) in enumerate(zip(self._layers(params), self._windows)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             a = s = None
@@ -382,7 +538,7 @@ class LM:
                                                     cache["ssd"][i])
                 cache["conv"][i].copy_(conv_st)
                 cache["ssd"][i].copy_(ssd_st)
-            x = self._ffn(lp, self._mix(lp, x, a, s))
+            x = self._ffn(lp, self._cross(lp, self._mix(lp, x, a, s), enc))
         pos.add_(1)
         return self._logits(params, x)[:, 0], cache
 
@@ -502,7 +658,12 @@ class LM:
         cfg = self.cfg
         assert self.supports_chunked_prefill(), \
             f"chunked prefill unsupported for config {cfg.name!r}"
-        x = embed(cfg, params["embed"], tokens, self.compute_dtype)
+        dt = self.compute_dtype
+        x = embed(cfg, params["embed"], tokens, dt)
+        if cfg.rope_theta <= 0:
+            positions = start[:, None] + torch.arange(
+                tokens.shape[1], device=tokens.device)[None, :]
+            x = x + self._sinusoid_pe(positions).to(dt)
         if not paged:          # one validity bias for every layer
             bias = attn.chunk_bias(start, tokens.shape[1],
                                    cache["k"][0].shape[2])
@@ -597,8 +758,11 @@ class LM:
         all layers. Pool writes and the ``pos`` advance happen in place."""
         cfg = self.cfg
         assert self.supports_paged_cache(), cfg.name
+        dt = self.compute_dtype
         pos = cache["pos"]
-        x = embed(cfg, params["embed"], tokens[:, None], self.compute_dtype)
+        x = embed(cfg, params["embed"], tokens[:, None], dt)
+        if cfg.rope_theta <= 0:
+            x = x + self._sinusoid_pe(pos)[:, None, :].to(dt)
         pt = cache["pt"]
         for i, lp in enumerate(self._layers(params)):
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)

@@ -78,6 +78,12 @@ DECODE_CASES = [
     (2, 1, 8, 256, 2000, 0.0, True),
     (8, 8, 3, 64, 576, 0.0, False),   # granite-moe's decode step: G 3
     (3, 8, 3, 64, 203, 30.0, True),   # G 3, ragged C, softcap, biased
+    # whisper-tiny's decoder (6 heads on 6 KV heads of hd 64: G 1) at its
+    # 64-token prompt + 64 steps, and internvl2-26b's decode step (48 heads
+    # on 8 of hd 128: G 6, on the CUDA cores: STEP_HD is 256)
+    (8, 6, 1, 64, 128, 0.0, False),
+    (8, 8, 6, 128, 576, 0.0, False),
+    (3, 8, 6, 128, 203, 30.0, True),
 ]
 
 
@@ -149,6 +155,11 @@ CHUNK_CASES = [
     # chunk with every key but the first under the bias
     (8, 16, 8, 3, 64, 576, 0.0, "causal"),
     (2, 5, 8, 3, 64, 100, 30.0, "first"),
+    # internvl2-26b's dense fused tick and verify (G 6 at hd 128: 96 rows,
+    # blocks of 64 straddling a token's group) and whisper's heads (G 1)
+    (8, 16, 8, 6, 128, 576, 0.0, "causal"),
+    (2, 5, 8, 6, 128, 100, 30.0, "first"),
+    (8, 16, 6, 1, 64, 576, 0.0, "causal"),
 ]
 
 
@@ -326,6 +337,9 @@ PREFILL_CASES = [
     (2, 130, 4, 2, 32, 8, 30.0),      # hd 32, ragged S, window, softcap
     (8, 512, 24, 8, 64, 0, 0.0),      # granite-moe's prefill: G 3
     (2, 130, 24, 8, 64, 48, 30.0),    # G 3, ragged S, window, softcap
+    (8, 64, 6, 6, 64, 0, 0.0),        # whisper-tiny's decoder prompt: G 1
+    (2, 768, 48, 8, 128, 0, 0.0),     # internvl2-26b: 256 image + 512 text
+    (2, 130, 48, 8, 128, 48, 30.0),   # G 6, ragged S, window, softcap
 ]
 
 
@@ -386,6 +400,64 @@ def test_flash_decode_step_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     assert len(ran) == 1 and kernel in ran[0], names
 
 
+def _new_head_inputs(route, H, KV, hd, dtype, device):
+    """One call's operands of ``route`` at a config's heads (B 8, prompt
+    64, ring 576, 36 pages of 16, chunks of 16)."""
+    rng = np.random.default_rng(11)
+    G = H // KV
+    if route == "prefill":
+        return (fp.flash_prefill_bshd, fp.flash_prefill_plain,
+                (_randn(rng, (8, 64, H, hd), dtype, device),
+                 _randn(rng, (8, 64, KV, hd), dtype, device),
+                 _randn(rng, (8, 64, KV, hd), dtype, device)))
+    if route in ("decode", "chunk"):
+        k = _randn(rng, (8, KV, 576, hd), dtype, device)
+        v = _randn(rng, (8, KV, 576, hd), dtype, device)
+        if route == "decode":
+            return (fd.flash_decode_bkhd, fd.flash_decode_plain,
+                    (_randn(rng, (8, KV, G, hd), dtype, device), k, v,
+                     torch.zeros((8, 576), device=device)))
+        return (fd.flash_decode_chunk, fd.flash_decode_chunk_plain,
+                (_randn(rng, (8, 16, KV, G, hd), dtype, device), k, v,
+                 _chunk_bias(rng, 8, 16, 576, "causal", device)))
+    if route == "paged":
+        return (pd.paged_flash_decode_bkhd, pd.paged_flash_decode_plain,
+                _paged_inputs(rng, 8, KV, G, hd, 16, 36, dtype, device))
+    return (pd.paged_flash_decode_chunk, pd.paged_flash_decode_chunk_plain,
+            _chunk_inputs(rng, 8, KV, G, hd, 16, 36, 36, 16, dtype, device))
+
+
+def _planned(route, G, hd, dtype):
+    """The kernel name each route's plan picks."""
+    if route == "prefill":
+        return fp.launch_plan(hd, dtype)[0]
+    if route in ("decode", "chunk"):
+        chunk = route == "chunk"
+        return fd.KERNELS[fd.launch_plan(16 if chunk else 1, G, hd, dtype,
+                                         chunk)[0], chunk][1]
+    tc = pd.launch_plan(16, G, hd, dtype, route == "paged_chunk")[0]
+    return "paged_chunk_wgmma_kernel" if tc else "paged_decode_simt_kernel"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["prefill", "decode", "chunk", "paged",
+                                   "paged_chunk"])
+@pytest.mark.parametrize("H,KV,hd", [(6, 6, 64), (48, 8, 128)],
+                         ids=["whisper-G1-64", "internvl-G6-128"])
+def test_new_head_shapes_run_the_planned_kernel(cuda, H, KV, hd, route,
+                                                dtype):
+    """Every route at whisper-tiny's heads (G 1, hd 64) and internvl2-26b's
+    (G 6, hd 128) launches the kernel its plan names, as the profiler sees
+    it, and agrees with its plain version."""
+    fn, plain, args = _new_head_inputs(route, H, KV, hd, dtype, cuda)
+    torch.testing.assert_close(fn(*args).float(), plain(*args).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    names = _device_kernels(fn, *args)
+    ran = [n for n in names if "flash_" in n or "paged_" in n]
+    want = _planned(route, H // KV, hd, dtype)
+    assert len(ran) == 1 and want in ran[0], (names, want)
+
+
 def test_flash_decode_step_is_deterministic(cuda):
     """The step kernel's last CTA combines the splits in split order: two
     calls on the same inputs are bitwise equal, and the arrival counters
@@ -438,6 +510,9 @@ PAGED_CASES = [
     (3, 8, 1, 256, 16, 12, 12, 0.0, True),   # hd 256, G 1
     (8, 8, 3, 64, 16, 36, 36, 0.0, False),   # granite-moe's decode: G 3
     (4, 8, 3, 64, 16, 12, 12, 30.0, True),   # G 3, softcap, NaN pages
+    (8, 8, 6, 128, 16, 36, 36, 0.0, False),  # internvl2-26b's decode: G 6
+    (4, 8, 6, 128, 16, 12, 12, 30.0, True),  # G 6, softcap, NaN pages
+    (8, 6, 1, 64, 16, 36, 36, 0.0, True),    # whisper's heads: G 1
 ]
 
 
@@ -562,6 +637,9 @@ CHUNK_CASES = [
     (4, 2, 8, 128, 8, 72, 72, 16, 30.0, True),
     (8, 8, 3, 64, 16, 36, 36, 16, 0.0, True),   # granite-moe's fused tick
     (3, 8, 3, 64, 16, 10, 10, 5, 30.0, False),  # G 3 at the verify's ck 5
+    (8, 8, 6, 128, 16, 36, 36, 16, 0.0, True),  # internvl2-26b's fused tick
+    (3, 8, 6, 128, 16, 10, 10, 5, 30.0, False),  # G 6 at the verify's ck 5
+    (8, 6, 1, 64, 16, 36, 36, 16, 0.0, True),   # whisper's heads: G 1
 ]
 
 
@@ -2182,3 +2260,140 @@ def test_kernel_entry_points_refuse_autograd_on_the_card(cuda, name):
     first = out[0] if isinstance(out, tuple) else out
     assert bool(torch.isfinite(first).all()) and not first.requires_grad
     _entry_point_calls(cuda)[name]()         # inputs without grad: runs
+
+
+# ------------------------------------------------ whisper-tiny, internvl2-26b
+def _multimodal_batch(cfg, B, S, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen)}
+    if cfg.frontend == "vision_patches":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.num_frontend_tokens, 1024), generator=gen)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((B, cfg.enc_seq, 80), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch,layers", [("whisper-tiny", None),
+                                         ("internvl2-26b", 2)])
+def test_multimodal_model_on_the_card_equals_the_cpu(cuda, arch, layers):
+    """whisper-tiny at its published size (4 + 4 layers, 1500 frames) and
+    internvl2-26b at full width cut to 2 layers (256 image tokens), fp32,
+    kernels on: a prefill of 32 tokens and 4 decode steps on the card
+    against the same calls on the CPU (plain paths) on the same weights,
+    logits within 1e-3 of their largest magnitude (fp32 sums in other
+    orders over 1500 frames or d_model 6144), greedy tokens equal;
+    launches one per layer a prefill and a decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config(arch).replace(dtype="float32", use_kernels=True)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    L = cfg.num_layers
+    card = LM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = _tree_to(card, "cpu")
+    batch = _multimodal_batch(cfg, 2, 32, 3, "cpu")
+    S = 32 + (cfg.num_frontend_tokens if cfg.frontend else 0)
+    outs = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        lm = LM(cfg)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        n0 = ops.launch_counts()
+        lg, cache = lm.prefill(params, b, max_len=S + 4)
+        seq, logits = [], [lg]
+        for _ in range(4):
+            tok = torch.argmax(lg, -1)
+            seq.append(tok.cpu())
+            lg, cache = lm.decode_step(params, cache, tok)
+            logits.append(lg)
+        n1 = ops.launch_counts()
+        outs[dev] = (seq, [x.cpu() for x in logits],
+                     {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]})
+    assert outs["cuda"][2] == {"flash_prefill": L, "flash_decode": 4 * L}
+    assert outs["cpu"][2] == {}
+    for a, b in zip(outs["cuda"][0], outs["cpu"][0]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs["cuda"][1], outs["cpu"][1]):
+        scale = float(b[..., :cfg.vocab_size].abs().max())
+        assert float((a - b)[..., :cfg.vocab_size].abs().max()) <= \
+            1e-3 * scale
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_whisper_encoder_runs_no_kernel(cuda):
+    """The encoder is plain tensor code (the reference reaches no Pallas
+    kernel there): encoding 1500 frames with the kernels on launches none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+    cfg = get_config("whisper-tiny").replace(use_kernels=True)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(0))
+    frames = torch.randn((2, 1500, 80), device=cuda)
+    n0 = ops.launch_counts()
+    enc = lm.encode(params, frames)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == n0
+    assert enc.shape == (2, 1500, 384) and bool(torch.isfinite(enc).all())
+
+
+@pytest.mark.parametrize("name", ["resnet18", "resnet50", "resnet152"])
+def test_apply_resnet_on_the_card_equals_the_cpu(cuda, name):
+    """fp32 with TF32 off, B 2 at 224 x 224: the card's cuDNN convolutions
+    against the CPU's within 1e-5 of the logits' largest magnitude."""
+    from repro_torch.models import resnet
+    params = resnet.init_resnet(torch.Generator().manual_seed(0), name)
+    x = torch.randn((2, 224, 224, 3), generator=torch.Generator()
+                    .manual_seed(1))
+    want = resnet.apply_resnet(params, name, x)
+    got = resnet.apply_resnet(_tree_to(params, cuda), name, x.to(cuda))
+    assert got.shape == (2, 1000)
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("kv", [{}, dict(kv_cache="paged", kv_page_size=16,
+                                         kv_prefix_sharing=True)],
+                         ids=["dense", "paged"])
+def test_internvl_engine_close_returns_memory(cuda, kv):
+    """internvl2-26b at full width cut to 1 and 2 layers (3.5 GB of bf16
+    weights, the untied 92553-row embedding and unembedding among them),
+    text-only requests: after ``apply_allocation(t, {})`` and a collection,
+    ``memory_allocated`` is back at the engine's start within 0.1 GB."""
+    import gc
+    import time
+    from repro_torch.configs import get_config
+    from repro_torch.serving.api import Request
+    from repro_torch.serving.engine import InProcessServingEngine
+    from repro_torch.serving.graphs import tensor_leaves
+    base = get_config("internvl2-26b")
+    variants = {f"L{n}": (base.replace(num_layers=n, name=f"L{n}"), 70.0)
+                for n in (1, 2)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    eng = InProcessServingEngine(variants, max_batch=4, prompt_len=64,
+                                 max_new=8, decode_chunk=2, use_kernels=True,
+                                 device=cuda, **kv)
+    eng.apply_allocation(0.0, {n: 1 for n in variants})
+    own = sum(t.numel() * t.element_size() for b in eng.backends.values()
+              for t in tensor_leaves(b.params) + tensor_leaves(b.cache))
+    rng = np.random.default_rng(4)
+    for i in range(8):
+        eng.submit(Request(rid=i, tokens=rng.integers(0, base.vocab_size, 64),
+                           max_new=8, arrival=time.time()),
+                   f"L{1 + i % 2}")
+    eng.drain(0.0)
+    eng.apply_allocation(0.0, {})
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - start
+    assert own > 3e9 and len(eng.done) == 8
+    assert all(len(r.output) == 8 for r in eng.done)
+    assert left <= 0.1e9, (left, own)

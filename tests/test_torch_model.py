@@ -183,10 +183,3 @@ def test_full_width_ladder_is_published_tinyllama():
     assert (c.d_model, c.num_heads, c.num_kv_heads, c.resolved_head_dim,
             c.d_ff, c.vocab_size, c.rope_theta, c.mlp_type, c.dtype) == \
         (2048, 32, 4, 64, 5632, 32000, 10_000.0, "swiglu", "bfloat16")
-
-
-@pytest.mark.parametrize("family", ["vlm", "audio"])
-def test_unported_families_raise(family):
-    cfg = port_config(tiny_variants(1)["small"][0]).replace(family=family)
-    with pytest.raises(NotImplementedError):
-        LM(cfg)

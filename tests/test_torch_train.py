@@ -39,7 +39,7 @@ from repro_torch.train.optimizer import (AdamConfig, adam_init, adam_update,
 PORTED = ("tinyllama-1.1b", "gemma-2b", "yi-6b", "deepseek-67b",
           "granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "mamba2-130m",
           "hymba-1.5b")
-REFUSED = ("whisper-tiny", "internvl2-26b")   # A9: encoder-decoder, VLM
+MULTIMODAL = ("whisper-tiny", "internvl2-26b")  # frames / patch_embeds
 ADAM_ATOL = 1e-6
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
@@ -334,19 +334,21 @@ def test_train_step_leaves_its_inputs():
 
 
 # ------------------------------------------------- tests/test_configs_smoke.py
-@pytest.mark.parametrize("arch", PORTED + REFUSED)
+@pytest.mark.parametrize("arch", PORTED + MULTIMODAL)
 def test_smoke_train_step(arch):
     """The reference's smoke train step on the port: finite loss, finite
-    gradients, not all zero; the families the port does not have yet
-    (A9) are refused when the model is built."""
+    gradients, not all zero; the VLM's batch carries ``patch_embeds`` and
+    the encoder-decoder's ``frames``, as the reference's smoke batch."""
     jcfg = jsmoke(jget(arch))
-    if arch in REFUSED:
-        with pytest.raises(NotImplementedError, match="A9"):
-            LM(port_config(jcfg))
-        return
     lm = LM(port_config(jcfg))
     params = lm.init(torch.Generator().manual_seed(0), dtype=torch.float32)
     _, batch = _batch(jcfg.vocab_size)
+    gen = torch.Generator().manual_seed(8)
+    if jcfg.frontend == "vision_patches":
+        batch["patch_embeds"] = torch.randn(
+            (2, jcfg.num_frontend_tokens, 1024), generator=gen)
+    if jcfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((2, jcfg.enc_seq, 80), generator=gen)
     (loss, _), grads = value_and_grad(lm.loss, params, batch)
     assert np.isfinite(float(loss))
     flat = tree_leaves(grads)
