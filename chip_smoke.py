@@ -286,10 +286,12 @@ phase raises, and the script exits nonzero:
  19. vlm      the VLM family: internvl2-26b (48 query heads on 8 KV heads
               of hd 128: G 6) at full width; every attention kernel at its
               heads against its plain version, timed beside SDPA and the
-              bound; L48 (39.7 GB of bf16 weights drawn on the card, the
-              time printed) kernels on vs off with a 256-token image
-              prefix before the 512-token prompt, the logits held as the
-              MoE phase holds them, 48 launches a prefill, a step and a
+              bound; flash_prefill's pipelined ``wgmma`` route and the
+              tensor-core decode step on their hd-128 edges (as at hd 256
+              in phase 14); L48 (39.7 GB of bf16 weights drawn on the
+              card, the time printed) kernels on vs off with a 256-token
+              image prefix before the 512-token prompt, the logits held as
+              the MoE phase holds them, 48 launches a prefill, a step and a
               fused tick asserted, peak memory printed; its steps replayed
               vs eager at GRAPH_DEPTH layers; its 8/16/48 ladder served
               text-only (as the reference's engine serves it) through the
@@ -332,10 +334,10 @@ beside it; on the tensor-core route also its device time by split
 count), both chunk forms at gemma-2b's, yi-6b's and granite's fused
 ticks with the route the checkout picks (at hd 128 and 256, where the
 checkout takes the split count by head dim, its sweep), flash_prefill and
-the decode step in bf16 at gemma-2b's and granite's serve shapes with the
-kernel each launches (at gemma's decode step the split sweep of the
-checkout's tensor-core step route, where it has one, and the chunk kernel
-called with ck 1 as a yardstick), paged_decode (the
+the decode step in bf16 at gemma-2b's, internvl2-26b's and granite's
+serve shapes with the kernel each launches (at each decode step the split
+sweep of the checkout's tensor-core step route, where it plans one, and
+the chunk kernel called with ck 1 as a yardstick), paged_decode (the
 decode step's call, and one layer of the fused tick's
 ``paged_chunk_prefill_attention`` with
 the paged kernels' device time inside it) and ssd_scan (mamba2-130m's and
@@ -459,6 +461,7 @@ FP32_CPU_REL_TOL = 1e-4
 # G 6), its image prefix (256 projected patches before the 512-token
 # prompt), its serve loops' length
 INTERNVL = "internvl2-26b"
+INTERNVL_H, INTERNVL_KV, INTERNVL_HD = 48, 8, 128
 INTERNVL_PREFIX = 256
 VLM_SERVE_SECONDS = 10
 # ResNet phase: the paper's five variants at 224 x 224 in fp32 (TF32 off),
@@ -784,16 +787,16 @@ def dense_chunk_timing(torch, F, fd, gen, args, kind="fused"):
 
 
 def chunk_splits(torch, mod, attr, fn, plain, sets, label,
-                 splits=(1, 2, 3, 4, 6, 9)):
+                 splits=(1, 2, 3, 4, 6, 9), key=None):
     """A tensor-core chunk form's device time (bf16, over ``sets``, the
     first held to the plain version at each count) for each count of CTAs
-    per row block: ``mod.<attr>``, which ``launch_plan`` reads at each
-    call. The sweep behind the kernel's split count. Returns {splits:
-    device ms}."""
+    per row block: ``mod.<attr>`` (its entry ``key`` where it maps head
+    dims to counts), which ``launch_plan`` reads at each call. The sweep
+    behind the kernel's split count. Returns {splits: device ms}."""
     keep, out = getattr(mod, attr), {}
     try:
         for n in splits:
-            setattr(mod, attr, n)
+            setattr(mod, attr, n if key is None else {**keep, key: n})
             check(f"{label}, {n} splits", fn(*sets[0]), plain(*sets[0]),
                   torch.bfloat16)
             out[n] = device_ms(torch, fn, sets)
@@ -1311,19 +1314,25 @@ def paged_chunk_starts(torch, pd, gen, heads,
     return out
 
 
+# --ab's decode-step split sweeps by head dim
+STEP_SWEEP = {128: (2, 3, 4, 5, 6, 7, 8), 256: (2, 4, 6, 8)}
+
+
 def head_step_ab(torch, fd, fp, gen):
     """flash_prefill and flash_decode's decode step of the imported
-    ``repro_torch`` in bf16 at gemma-2b's (hd 256) and granite's (G 3)
-    serve shapes (``--ab``): held to their plain versions and timed
-    (``prefill_row``, ``decode_row``: beside SDPA and the bound), with the
-    kernel each checkout launches as the profiler sees it. At gemma's decode
-    step also the device time by split count where the checkout has the
-    tensor-core step route (``STEP_SPLITS``), and the yardstick of the
-    tensor-core chunk kernel called with ck = 1 (8 live rows of its 64) at
-    4 and 9 splits."""
+    ``repro_torch`` in bf16 at gemma-2b's (hd 256), internvl2-26b's (G 6 /
+    hd 128) and granite's (G 3 / hd 64) serve shapes (``--ab``): held to
+    their plain versions and timed (``prefill_row``, ``decode_row``: beside
+    SDPA and the bound), with the kernel each checkout launches as the
+    profiler sees it. At each decode step also the device time by split
+    count where the checkout plans the tensor-core step route there
+    (``STEP_SPLITS``, an int in checkouts where only hd 256 has it), and
+    the yardstick of the tensor-core chunk kernel called with ck = 1 (G
+    live rows of its 64) at 4 and 9 splits."""
     bf = torch.bfloat16
     rows = []
     for tag, heads in (("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
+                       ("internvl", (INTERNVL_H, INTERNVL_KV, INTERNVL_HD)),
                        ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD))):
         mk = head_inputs(torch, gen, bf, heads)
         for name, timed, mod, fn, plain in (
@@ -1342,11 +1351,14 @@ def head_step_ab(torch, fd, fp, gen):
                 f"{ms4(row['device_ms'])} ms, SDPA device "
                 f"{ms4(row['library_device_ms'])}, bound "
                 f"{row['bound_ms']:.4f} ({row['bound_by']})")
-            if tag == "gemma" and name == "flash_decode":
-                if hasattr(fd, "STEP_SPLITS"):   # the step route's sweep
+            if name == "flash_decode":
+                hd, G = heads[2], heads[0] // heads[1]
+                if fd.launch_plan(1, G, hd, bf, False)[0]:  # the step route
                     row["splits_device_ms"] = chunk_splits(
                         torch, fd, "STEP_SPLITS", fn, plain, sets, label,
-                        splits=(8, 12, 16, 18, 24, 32, 36))
+                        splits=STEP_SWEEP[hd], key=(
+                            hd if isinstance(fd.STEP_SPLITS, dict)
+                            else None))
                 one = [(q[:, None].contiguous(), k, v, m[:, None].contiguous())
                        for q, k, v, m in sets]
                 row["chunk_ck1_device_ms"] = chunk_splits(
@@ -1362,7 +1374,8 @@ def ab_phase(torch):
     at the serve shapes, bf16 and fp32: held to their plain versions, then
     timed beside SDPA and the bound; both chunk forms at the wide-head and
     G-3 fused ticks (``wide_chunk_ab``); flash_prefill and the decode step
-    at gemma-2b's and granite's serve shapes (``head_step_ab``); then
+    at gemma-2b's, internvl2-26b's and granite's serve shapes
+    (``head_step_ab``); then
     paged_decode's two forms (``paged_ab``) and ssd_scan at both SSM serve
     shapes (``ssd_ab``) (``--ab``: one checkout per process, so a parent
     and a change compare in one call)."""
@@ -3947,44 +3960,58 @@ def kernels_seen(torch, fn, args):
         re.search(r"(flash|paged|ssd)_\w+(<[^()]*>)?", e.key)] if m})
 
 
-def wide_edge_checks(torch, fd, fp, gen):
-    """flash_prefill and flash_decode's decode step at hd 256 on the edges
-    of their bf16 routes, against the plain versions in bf16 and fp32 (as
-    in tests/test_torch_cuda.py): the prefill at S 1, 63, 65 and 129 on
-    gemma's heads, at B 1 with a softcap, G 3 on two KV heads with a window
-    and G 7 (an unpaired head); the decode step at C 1, C just below and
-    just above its split count, only the first key unbiased, G 3 and G 7,
-    and a split of several 64-position tiles."""
+def wide_edge_checks(torch, fd, fp, gen, hd=256):
+    """flash_prefill and flash_decode's decode step at hd 256 or 128 on the
+    edges of their bf16 routes (the pipelined ``wgmma`` prefill, the
+    tensor-core step kernel), against the plain versions in bf16 and fp32
+    (as in tests/test_torch_cuda.py). At hd 256 on gemma's heads: the
+    prefill at S 1, 63, 65 and 129, at B 1 with a softcap, G 3 on two KV
+    heads with a window and G 7 (an unpaired head); the decode step at C 1,
+    C just below and just above its split count, only the first key
+    unbiased, G 3 and G 7, and a split of several 64-position tiles. At hd
+    128 on internvl2-26b's G 6: the prefill at S 1, 37 and 130, G 3 and G 5
+    (an unpaired head), a window of 32 with a softcap; the decode step at
+    C 1, around its split count, only the first key unbiased, C 2000, G 8
+    and G 16."""
     dev = torch.device(DEVICE)
-    splits = getattr(fd, "STEP_SPLITS", fd.SPLITS)
-    pre = ((2, 1, 8, 1, 0, 0.0), (2, 63, 8, 1, 0, 0.0), (2, 65, 8, 1, 0, 0.0),
-           (1, 129, 8, 1, 0, 30.0), (2, 130, 6, 2, 48, 0.0),
-           (1, 200, 7, 1, 0, 0.0))
-    dec = ((8, 1, 8, 1, 0.0, False), (8, 1, 8, splits - 1, 0.0, False),
-           (8, 1, 8, splits + 1, 30.0, True), (8, 1, 8, CAP, 0.0, "first"),
-           (4, 2, 3, 203, 0.0, True), (4, 1, 7, CAP, 30.0, False),
-           (2, 1, 8, 2000, 0.0, True))
+    splits = fd.STEP_SPLITS[hd]
+    if hd == 256:
+        pre = ((2, 1, 8, 1, 0, 0.0), (2, 63, 8, 1, 0, 0.0),
+               (2, 65, 8, 1, 0, 0.0), (1, 129, 8, 1, 0, 30.0),
+               (2, 130, 6, 2, 48, 0.0), (1, 200, 7, 1, 0, 0.0))
+        dec = ((8, 1, 8, 1, 0.0, False), (8, 1, 8, splits - 1, 0.0, False),
+               (8, 1, 8, splits + 1, 30.0, True),
+               (8, 1, 8, CAP, 0.0, "first"), (4, 2, 3, 203, 0.0, True),
+               (4, 1, 7, CAP, 30.0, False), (2, 1, 8, 2000, 0.0, True))
+    else:
+        pre = ((2, 1, 12, 2, 0, 0.0), (2, 37, 48, 8, 0, 0.0),
+               (2, 130, 12, 2, 0, 0.0), (2, 130, 6, 2, 0, 0.0),
+               (1, 200, 5, 1, 0, 30.0), (2, 200, 12, 2, 32, 30.0))
+        dec = ((8, 8, 6, 1, 0.0, False), (8, 8, 6, splits - 1, 0.0, False),
+               (8, 8, 6, splits + 1, 30.0, True),
+               (8, 8, 6, CAP, 0.0, "first"), (2, 8, 6, 2000, 0.0, True),
+               (4, 4, 8, 203, 30.0, True), (2, 2, 16, CAP, 0.0, True))
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt)[6:]
 
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
         for b, s, h, kv, w, sc in pre:
-            q, k, v = randn(b, s, h, 256), randn(b, s, kv, 256), \
-                randn(b, s, kv, 256)
-            check(f"flash_prefill hd 256 B={b} S={s} H/KV={h}/{kv} "
+            q, k, v = randn(b, s, h, hd), randn(b, s, kv, hd), \
+                randn(b, s, kv, hd)
+            check(f"flash_prefill hd {hd} B={b} S={s} H/KV={h}/{kv} "
                   f"window={w} softcap={sc} {name}",
                   fp.flash_prefill_bshd(q, k, v, window=w, softcap=sc),
                   fp.flash_prefill_plain(q, k, v, window=w, softcap=sc), dt)
         for b, kv, g, c, sc, masked in dec:
-            q, k, v = randn(b, kv, g, 256), randn(b, kv, c, 256), \
-                randn(b, kv, c, 256)
+            q, k, v = randn(b, kv, g, hd), randn(b, kv, c, hd), \
+                randn(b, kv, c, hd)
             bias = torch.zeros((b, c), device=dev)
             if masked == "first":
                 bias[:, 1:] = -1e9
             elif masked:
                 bias[:, c // 2:] = -1e9
-            check(f"flash_decode hd 256 B={b} KV={kv} G={g} C={c} "
+            check(f"flash_decode hd {hd} B={b} KV={kv} G={g} C={c} "
                   f"softcap={sc} bias={masked} {name}",
                   fd.flash_decode_bkhd(q, k, v, bias, softcap=sc),
                   fd.flash_decode_plain(q, k, v, bias, softcap=sc), dt)
@@ -4861,7 +4888,9 @@ def vlm_phase(torch):
     """The VLM family on the card: internvl2-26b (48 query heads on 8 KV
     heads of hd 128: G 6) at full width. Every attention kernel at its
     heads against its plain version in bf16 and fp32, timed beside SDPA
-    and the bound (``head_kernel_rows``); L48 (~40 GB of bf16 weights,
+    and the bound (``head_kernel_rows``), flash_prefill and the decode
+    step on the edges of their bf16 routes (``wide_edge_checks``); L48
+    (~40 GB of bf16 weights,
     drawn on the card from a seed, the time printed) kernels on vs off
     with a 256-token image prefix before the 512-token prompt (S 768),
     the logits held as the MoE phase holds them, 48 launches a prefill, a
@@ -4895,7 +4924,13 @@ def vlm_phase(torch):
 
     memory("at the phase's start")
     gen = torch.Generator(device=DEVICE).manual_seed(28)
+    if heads != (INTERNVL_H, INTERNVL_KV, INTERNVL_HD):
+        raise AssertionError(f"{INTERNVL}'s heads are not the phase's shapes")
     rows = head_kernel_rows(torch, fd, fp, pd, gen, heads, "internvl")
+    wide_edge_checks(torch, fd, fp, gen, hd=INTERNVL_HD)
+    # the bf16 decode step at hd 128 has a kernel of its own
+    rows["flash_decode"]["internvl_source"] = (
+        "src/repro_torch/kernels/csrc/flash_decode_step.cu")
     t_k = time.time()
     model = dense_model_check(torch, INTERNVL, fused=True, sensitivity=True,
                               prefix=INTERNVL_PREFIX)

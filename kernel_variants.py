@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""Variants of the two hd-256 kernels, each built from this checkout's
-sources with one text patch, timed on the card at gemma-2b's serve shapes
-and held to the plain version: what the source notes of
-``csrc/flash_prefill.cu`` and ``csrc/flash_decode_step.cu`` report as tried
-and as diagnostics (a ``diag`` variant computes a wrong result on purpose,
-to time the kernel without one of its parts).
+"""Variants of the pipelined ``wgmma`` prefill and the tensor-core decode
+step (both templates on the head dim), each built from this checkout's
+sources with one text patch, timed on the card at gemma-2b's (hd 256) and
+internvl2-26b's (G 6 / hd 128) serve shapes and held to the plain version:
+what the source notes of ``csrc/flash_prefill.cu`` and
+``csrc/flash_decode_step.cu`` report as tried and as diagnostics (a
+``diag`` variant computes a wrong result on purpose, to time the kernel
+without one of its parts).
 
     python3 kernel_variants.py        # from the repository root, one card
 
 Device ms per call come from chip_smoke's ``device_ms`` (the profiler's
 kernel time over inputs rotated through more than 3x the L2 size); the
-prefill at B 8, S 512, 8 query heads on one KV head; the decode step at B
-8, C 576, by split count. Prints one line a variant and the card's name and
-power limit. Builds go to ``build/kernel_variants/`` (ignored by git).
+prefill at B 8, S 512; the decode step at B 8, C 576, by split count.
+Prints ptxas's registers and spills of each prefill variant's pipelined
+kernels, one line a variant and shape, and the card's name and power
+limit. Builds go to ``build/kernel_variants/`` (ignored by git).
 """
 import ctypes
 import subprocess
@@ -22,8 +25,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "kernel_variants"
-B, S, H, KV, HD, C = 8, 512, 8, 1, 256, 576
-SPLITS = (8, 12, 16, 18, 24, 36)
+B, S, C = 8, 512, 576
+# (name, query heads, KV heads, head dim, the decode step's split counts)
+SHAPES = (("gemma", 8, 1, 256, (4, 6, 8)),
+          ("internvl", 48, 8, 128, (4, 5, 6, 7, 8)))
 
 
 def sub(text, old, new):
@@ -34,7 +39,15 @@ def sub(text, old, new):
 
 def prefill_variants(src):
     """name -> flash_prefill.cu text."""
-    loop = "    qk(i, s);\n    pv(i - 1);\n    refill(i);\n"
+    lam = src.index("  auto rescale_split = [&]")
+    split_lines = src[src.index("      split_bf16_trunc(p0[0]", lam):
+                      src.index("  };", lam)]
+
+    def in_rescale_split(text, old, new):
+        """``text`` with ``old`` replaced inside the wide kernel's
+        rescale_split only (the hd-64 kernel has the same lines)."""
+        i = text.index("  auto rescale_split = [&]")
+        return text[:i] + sub(text[i:], old, new)
     fp32 = "// " + "=" * 60 + " fp32: CUDA cores"
     stores = src[src.index("  // O / l in bf16, staged"):src.index(fp32)]
     direct = """  if (wg == 1 && !two) return;
@@ -55,24 +68,47 @@ def prefill_variants(src):
 }
 
 """
-    copies = src[src.index("  const int r = threadIdx.x / 32, c = "
-                           "threadIdx.x % 32;\n  const uint32_t d = dst"):
-                 src.index("// One CTA: two query heads of one KV head")]
-    generic = """  for (int i = threadIdx.x; i < kBK * 32; i += kWideThreads) {
-    const int r = i / 32, c = i % 32;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + wg_tile_off(r, c),
-               base + (size_t)(ok ? r0 + r : 0) * stride + c * 8, ok);
-  }
-}
-
-"""
+    # Q's A fragments held in registers at hd 128 (one head a CTA): QK^T as
+    # `wgmma` with A from registers, so only K is read from shared memory
+    q_regs = sub(sub(sub(
+        src,
+        "  uint32_t ph[4][4], pl[4][4];          // the last tile's P, hi + "
+        "lo bf16\n",
+        "  uint32_t ph[4][4], pl[4][4];          // the last tile's P, hi + "
+        "lo bf16\n  constexpr bool kQr = HD == 128 && kHeads == 1;\n"
+        "  uint32_t qf[kQr ? HD / 16 : 1][4];\n"),
+        "    mbar_wait(bar_q, 0);\n",
+        "    mbar_wait(bar_q, 0);\n    if constexpr (kQr) {\n#pragma unroll\n"
+        "      for (int kk = 0; kk < HD / 16; ++kk)\n"
+        "        asm volatile(\"ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+        "{%0,%1,%2,%3}, [%4];\\n\"\n"
+        "                     : \"=r\"(qf[kk][0]), \"=r\"(qf[kk][1]), "
+        "\"=r\"(qf[kk][2]), \"=r\"(qf[kk][3])\n"
+        "                     : \"r\"(Qw + wg_tile_off(warp * 16 + "
+        "(lane & 15), 2 * kk + (lane >> 4))));\n    }\n"),
+        "      wg_ss(s, wg_desc(Qw + at), wg_desc(Kt + at), kk > 0);\n",
+        "      if constexpr (kQr)\n"
+        "        asm volatile(\"{\\n.reg .pred p;\\nsetp.ne.b32 p, %37, "
+        "0;\\n\"\n"
+        "          \"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "\" WG_D32\n"
+        "          \", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\\n}\\n\"\n"
+        "          : WG_D32_OPS(s)\n"
+        "          : \"r\"(qf[kk][0]), \"r\"(qf[kk][1]), "
+        "\"r\"(qf[kk][2]), \"r\"(qf[kk][3]),\n"
+        "            \"l\"(wg_desc(Kt + at)), \"r\"(kk > 0 ? 1 : 0));\n"
+        "      else\n"
+        "        wg_ss(s, wg_desc(Qw + at), wg_desc(Kt + at), kk > 0);\n")
     return {
         "as_committed": src,
-        "copies_before_products": sub(sub(
-            src, loop, "    refill(i);\n    qk(i, s);\n    pv(i - 1);\n"),
-            "    qk(0, s);\n    refill(0);\n",
-            "    refill(0);\n    qk(0, s);\n"),
+        "two_heads_a_cta_at_hd128": sub(
+            src, "constexpr int kWide128Heads = 1;",
+            "constexpr int kWide128Heads = 2;"),
+        "q_in_registers_at_hd128": q_regs,
+        # P's hi term rounded (split_bf16) rather than truncated
+        "rounded_hi_split": in_rescale_split(
+            src, split_lines,
+            split_lines.replace("split_bf16_trunc(", "split_bf16(")),
         "skip_rescale_at_alpha_1": sub(
             src, "  auto rescale_split = [&](const float (&s)[32], "
                  "const float (&alpha)[2]) {\n",
@@ -80,7 +116,6 @@ def prefill_variants(src):
             "const float (&alpha)[2]) {\n    if (__any_sync(0xffffffffu, "
             "alpha[0] != 1.f || alpha[1] != 1.f))\n"),
         "4_byte_stores": src.replace(stores, direct),
-        "generic_copy_loop": src.replace(copies, generic),
         "diag_no_pv": sub(src, "    qk(i, s);\n    pv(i - 1);",
                           "    qk(i, s);\n    wg_commit();"),
         "diag_no_lo_term": sub(
@@ -93,33 +128,47 @@ def prefill_variants(src):
             "  auto softmax = [&](int i, float (&s)[32], "
             "float (&alpha)[2]) {\n    alpha[0] = alpha[1] = 1.f;\n"
             "    if (i >= 0) return;\n"),
-        "diag_no_refill": sub(src, loop,
-                              "    qk(i, s);\n    pv(i - 1);\n"
-                              "    cp_async_commit();\n"),
-        "diag_no_barrier": sub(
-            src, "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" "
-                 "::: \"memory\");\n    __syncthreads();\n  };",
-            "    asm volatile(\"fence.proxy.async.shared::cta;\\n\" "
-            "::: \"memory\");\n  };"),
+        # K and V never copied after the first K tile (no wait for them):
+        # the products and softmax run on stale tiles
+        "diag_no_copies": sub(sub(
+            src, "    __syncthreads();\n    if (threadIdx.x != 0) return;\n",
+            "    __syncthreads();\n    if (i >= 0) return;\n"),
+            "    if (i < n) mbar_wait(bar_k + 8 * (i & 1), (i >> 1) & 1);\n"
+            "    if (i > 0) mbar_wait(",
+            "    if (i == 0) mbar_wait(bar_k, 0);\n    if (i < 0) mbar_wait("),
     }
 
 
-def decode_variants(src, hdr):
-    """name -> (flash_decode_step.cu text, wgmma.cuh text or None)."""
+def decode_variants(src):
+    """name -> flash_decode_step.cu text."""
     return {
-        "as_committed": (src, None),
-        "diag_no_combine": (src, sub(hdr, "  if (!last) return;",
-                                     "  return;")),
+        "as_committed": src,
+        "diag_no_combine": sub(
+            src, "  cluster_publish_and_combine<HD, kNt>(",
+            "  if (split >= 0) return;\n"
+            "  cluster_publish_and_combine<HD, kNt>("),
     }
 
 
-def build(name, src_name, text, hdr):
+def ptxas_lines(log, kernel):
+    """ptxas's lines (registers, spills) for each entry of ``log`` whose
+    mangled name holds ``kernel``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+            if keep:
+                out.append(line.split("'")[1])
+        elif keep and ("registers" in line or "spill" in line):
+            out.append("    " + line.split(":", 1)[-1].strip())
+    return out
+
+
+def build(name, src_name, text):
     from repro_torch.kernels import build as kb
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     (d / src_name).write_text(text)
-    if hdr is not None:
-        (d / "wgmma.cuh").write_text(hdr)
     cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-I", str(d), "-I", str(CSRC), "-o",
            str(d / "lib.so"), str(d / src_name)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -139,17 +188,19 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     pre = prefill_variants((CSRC / "flash_prefill.cu").read_text())
-    dec = decode_variants((CSRC / "flash_decode_step.cu").read_text(),
-                          (CSRC / "wgmma.cuh").read_text())
-    procs = {f"prefill/{n}": build(f"prefill_{n}", "flash_prefill.cu", t,
-                                   None) for n, t in pre.items()}
+    dec = decode_variants((CSRC / "flash_decode_step.cu").read_text())
+    procs = {f"prefill/{n}": build(f"prefill_{n}", "flash_prefill.cu", t)
+             for n, t in pre.items()}
     procs.update({f"decode/{n}": build(f"decode_{n}", "flash_decode_step.cu",
-                                       t, h) for n, (t, h) in dec.items()})
+                                       t) for n, t in dec.items()})
     libs = {}
     for n, p in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             sys.exit(f"kernel_variants: {n} did not build:\n{log}")
+        if n.startswith("prefill/"):
+            print(f"{n} ptxas:", *ptxas_lines(log, "flash_prefill_wide"),
+                  sep="\n  ", flush=True)
         libs[n] = ctypes.CDLL(str(OUT / n.replace("/", "_") / "lib.so"))
 
     dev, bf = torch.device("cuda"), torch.bfloat16
@@ -158,50 +209,54 @@ def main():
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    make = lambda: (randn(B, S, H, HD), randn(B, S, KV, HD),  # noqa: E731
-                    randn(B, S, KV, HD))
-    sets = cs.rotated(make(), make, ())
-    want = fp.flash_prefill_plain(*sets[0]).float()
-    for n in pre:
-        f = libs[f"prefill/{n}"].flash_prefill_launch
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for tag, H, KV, HD, _ in SHAPES:
+        make = lambda: (randn(B, S, H, HD), randn(B, S, KV, HD),  # noqa
+                        randn(B, S, KV, HD))
+        sets = cs.rotated(make(), make, ())
+        want = fp.flash_prefill_plain(*sets[0]).float()
+        for n in pre:
+            f = libs[f"prefill/{n}"].flash_prefill_launch
+            f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-        def run(q, k, v, f=f):
-            out = torch.empty_like(q)
-            err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, S, H, KV, HD, 0, 0.0, 1, stream())
-            if err:
-                raise RuntimeError(f"launch failed: cudaError {err}")
-            return out
-        e = (run(*sets[0]).float() - want).abs().max().item()
-        t = [cs.device_ms(torch, run, sets) for _ in range(3)]
-        print(f"prefill {n}: max_abs_err {e:.3e}, device ms {t}", flush=True)
-
-    mk = lambda: (randn(B, KV, 8, HD), randn(B, KV, C, HD),  # noqa: E731
-                  randn(B, KV, C, HD), torch.zeros((B, C), device=dev))
-    dsets = cs.rotated(mk(), mk, ())
-    want = fd.flash_decode_plain(*dsets[0]).float()
-    part = torch.empty(B * KV * max(SPLITS) * (16 * HD + 32), device=dev)
-    arrivals = torch.zeros(B * KV, dtype=torch.int32, device=dev)
-    for n in dec:
-        f = libs[f"decode/{n}"].flash_decode_step_launch
-        f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        for splits in SPLITS:
-            def run(q, k, v, bias, f=f, splits=splits):
+            def run(q, k, v, f=f, H=H, KV=KV, HD=HD):
                 out = torch.empty_like(q)
                 err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        bias.data_ptr(), out.data_ptr(), part.data_ptr(),
-                        arrivals.data_ptr(), B, KV, 8, C, HD, 1, splits, 0.0,
-                        1, stream())
+                        out.data_ptr(), B, S, H, KV, HD, 0, 0.0, 1, stream())
                 if err:
                     raise RuntimeError(f"launch failed: cudaError {err}")
                 return out
-            e = (run(*dsets[0]).float() - want).abs().max().item()
-            t = [cs.device_ms(torch, run, dsets) for _ in range(2)]
-            print(f"decode {n} splits {splits}: max_abs_err {e:.3e}, "
-                  f"device ms {t}", flush=True)
+            e = (run(*sets[0]).float() - want).abs().max().item()
+            t = [cs.device_ms(torch, run, sets) for _ in range(3)]
+            print(f"prefill {tag} hd {HD} {n}: max_abs_err {e:.3e}, device "
+                  f"ms {t}", flush=True)
+        del sets
+
+    for tag, H, KV, HD, splits_swept in SHAPES:
+        G = H // KV
+        mk = lambda: (randn(B, KV, G, HD), randn(B, KV, C, HD),  # noqa
+                      randn(B, KV, C, HD), torch.zeros((B, C), device=dev))
+        dsets = cs.rotated(mk(), mk, ())
+        want = fd.flash_decode_plain(*dsets[0]).float()
+        for n in dec:
+            f = libs[f"decode/{n}"].flash_decode_step_launch
+            f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            for splits in splits_swept:
+                def run(q, k, v, bias, f=f, splits=splits, KV=KV, G=G,
+                        HD=HD):
+                    out = torch.empty_like(q)
+                    err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            bias.data_ptr(), out.data_ptr(), None, None, B,
+                            KV, G, C, HD, 1, splits, 0.0, 1, stream())
+                    if err:
+                        raise RuntimeError(f"launch failed: cudaError {err}")
+                    return out
+                e = (run(*dsets[0]).float() - want).abs().max().item()
+                t = [cs.device_ms(torch, run, dsets) for _ in range(2)]
+                print(f"decode {tag} hd {HD} {n} splits {splits}: "
+                      f"max_abs_err {e:.3e}, device ms {t}", flush=True)
+        del dsets
 
 
 if __name__ == "__main__":

@@ -48,63 +48,79 @@
 // 50 MB L2, so the repeated tile loads hit L2) and a persistent grid that
 // prefetches the next tile's Q (slower: its extra state spills).
 //
-// bf16 at hd 32 and 128 (off tinyllama's serve path): the same design on
-// `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16 query rows and
-// keeping its Q fragments in registers (a 128-element row does not fit one
-// 128-byte swizzle row).
+// bf16 at hd 32 (no config; the reference kernel test's shape): the same
+// design on `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16
+// query rows and keeping its Q fragments in registers.
 //
-// bf16 at hd 256 (gemma-2b's prefill: B 8, S 512, 8 query heads on one KV
-// head): what bounds it is bytes, barely. q, k, v and out are 37.7 MB
-// (11.3 us at 3.35 TB/s) against 8.6 GFLOP of causal QK^T and PV, 8.7 us
-// on the bf16 tensor cores, or 13 us with PV doubled by P's hi + lo terms;
-// so the products must run on `wgmma` near its rate. The design
-// (`flash_prefill_wide_kernel`):
-// - A CTA is two warpgroups over one K/V stream: the two query heads 2p
-//   and 2p + 1 of one KV head at one 64-query tile (their key-tile ranges
-//   are the same; at odd G the group's last CTA has one head, and its
-//   second warpgroup computes on a copy of it and stores nothing, which
-//   keeps the products off any divergent path: ptxas serialises `wgmma`s
-//   on one). Pairing two q tiles of one head instead was not tried. Each
-//   warpgroup owns its head's 64 query rows and all 256 output columns
-//   (128 fp32 accumulators a thread) and computes its QK^T once: 16
-//   `wgmma` m64n64k16 k-steps from swizzled
-//   shared memory (a 64 x 256 tile is four 8 KB sub-tiles), PV as four
-//   m64n256k16 k-steps a term with P from registers and V's leading byte
-//   offset stepping over its sub-tiles (wgmma.cuh).
+// bf16 at hd 128 and 256, `flash_prefill_wide_kernel<HD, kHeads>`. At
+// gemma-2b's prefill (B 8, S 512, 8 query heads on one KV head of hd 256)
+// what bounds it is bytes, barely: q, k, v and out are 37.7 MB (11.3 us at
+// 3.35 TB/s) against 8.6 GFLOP of causal QK^T and PV, 8.7 us on the bf16
+// tensor cores, or 13 us with PV doubled by P's hi + lo terms. At
+// internvl2-26b's (48 query heads on 8 KV heads of hd 128: G 6) q, k, v
+// and out are 117 MB (35 us) against 25.8 GFLOP (26 us, 39 us with PV
+// doubled). Either way the products must run on `wgmma` near its rate.
+// The design:
+// - One warpgroup a query head: its 64 query rows and all HD output
+//   columns (HD / 2 fp32 accumulators a thread). QK^T is HD / 16 `wgmma`
+//   m64n64k16 k-steps from swizzled shared memory (a 64 x HD tile is HD /
+//   64 sub-tiles of 8 KB), PV four m64nHDk16 k-steps a term with P from
+//   registers and V's leading byte offset stepping over its sub-tiles
+//   (wgmma.cuh). At hd 256 a CTA is two warpgroups, the query heads 2p and
+//   2p + 1 of one KV head at one 64-query tile over one K/V stream (at odd
+//   G the group's last CTA has one head, and its second warpgroup computes
+//   on a copy of it and stores nothing, which keeps the products off any
+//   divergent path: ptxas serialises `wgmma`s on one); one CTA an SM. At
+//   hd 128 a CTA is one warpgroup and one head (82,944 bytes, 212
+//   registers), so two CTAs share an SM and run apart, where the two-head
+//   CTA (99,328 bytes, one an SM at 226 registers; two an SM cap them at
+//   128 and spill 312 bytes) has its warpgroups meet at a barrier every
+//   key tile.
 // - Softmax overlaps the products. Step i issues QK^T of key tile i and
 //   then PV of tile i - 1, waits for QK^T alone (`wgmma.wait_group 1`),
 //   and runs tile i's mask and exponentials while PV_{i-1} is in flight;
-//   only the rescale of the accumulator waits for it. Between the CTA's
-//   one barrier a step the two warpgroups run on their own, so one's
-//   products can also run under the other's softmax.
-// - K streams one tile ahead and V one step behind it through two-tile
-//   rings (`cp.async` by all 256 threads): Q of both heads 64 KB, K and V
-//   128 KB, 197,632 bytes with the alignment: one CTA an SM. Tiles above
-//   the causal frontier or before the window are never loaded; the mask
-//   is evaluated only on tiles that cross it; the ragged S is zero-filled;
-//   scale, then softcap, then mask; l is floored at 1e-30; a row with no
-//   visible key keeps alpha = p = 0. The heaviest q tiles start first.
-// - Each thread's copies of a tile share one swizzle (an add and a
-//   compare each), and the output tile is staged in the warpgroup's
-//   finished Q tile and stored as whole 512-byte rows.
-// ptxas: 246 registers, no spill. Measured (device ms at gemma's prefill,
-// NVIDIA H100 80GB HBM3 at 700 W): 0.0399 in chip_smoke --ab, SDPA
-// 0.0337, bound 0.0113 (bytes). What holds it back: the two warpgroups
-// meet at the CTA's barrier every key tile, so their QK^T run together
-// and contend for shared memory (an m64n64k16 with both operands there
-// reads 4 KB in its 32 cycles); one CTA an SM runs two waves of 11
-// serial steps and hides no prologue or epilogue. kernel_variants.py,
-// one call (this kernel 0.0398): the accumulator layout's own 4-byte
-// stores 0.0483, a generic copy loop 0.0429; the copies issued before
-// the products 0.0393, skipping the rescale of a warp whose rows keep
-// their max 0.0403 (neither kept: within 1.5%); with wrong results, to
-// see where the time goes, no PV 0.0338, no lo term 0.0347, no softmax
-// 0.0351, no refills 0.0351, no barrier 0.0384: no one part dominates.
-// Tried and left out: `mma.sync` with two warpgroups a CTA over the same
-// 64 queries, each keeping half the output columns (the first hd-256
-// route; 184 registers): both warpgroups computed the whole QK^T, every
-// warp `ldmatrix`-read the whole K tile and re-read Q at each k-step, and
-// nothing overlapped the softmax, 0.0924 (chip_smoke --ab).
+//   only the rescale of the accumulator waits for it. P splits into its
+//   hi + lo terms with hi truncated (split_bf16_trunc): one conversion a
+//   pair.
+// - The tensor memory accelerator copies every tile: one thread starts Q
+//   and the first K tile, then at each step K_{i+1} and V_i, each tile as
+//   HD / 64 boxes that land in the `wgmma` swizzle, with rows at or past S
+//   zero-filled by the hardware; each ring slot has an mbarrier whose
+//   phase the threads wait on. K streams one tile ahead and V one step
+//   behind it through two-tile rings. Tiles above the causal frontier or
+//   before the window are never loaded; the mask is evaluated only on
+//   tiles that cross it; scale, then softcap, then mask; l is floored at
+//   1e-30; a row with no visible key keeps alpha = p = 0. The heaviest q
+//   tiles start first.
+// - The output tile is staged in the warpgroup's finished Q tile in the
+//   same swizzle and stored as whole rows (2 HD bytes).
+// Measured (device ms, NVIDIA H100 80GB HBM3 at 700 W; chip_smoke --ab,
+// parent and change in one call): internvl's prefill 0.1054 (the
+// `mma.sync` route 0.1876, SDPA 0.0714, bound 0.0351 (bytes); ptxas 208
+// registers, no spill), gemma's 0.0324-0.0340 (0.0396-0.0400 before TMA,
+// SDPA 0.0334; 242 registers, no spill). What holds hd 128 at 1.5x SDPA:
+// P's lo term doubles PV (the products are 1.5x those SDPA runs, and with
+// one bf16 P the outputs miss the 1e-2 check), and each warpgroup's step
+// runs its softmax, the wait for PV and the rescale in sequence with no
+// second consumer to fill the tensor cores. kernel_variants.py, one call
+// (this kernel 0.1044 / gemma 0.0326): with wrong results, to see where
+// the time goes, no softmax 0.0862, no lo term 0.0929, no PV 0.0949, no
+// copies after the first K tile 0.0982; two heads a CTA 0.1155 (206
+// registers); Q's A fragments held in registers, so QK^T reads only K
+// from shared memory, 0.1034 (238 registers: within 1%, not kept); the
+// hi term rounded 0.1069; skipping the rescale of a warp whose rows keep
+// their max 0.1084; the accumulator layout's own 4-byte stores 0.1182
+// (0.0400 at gemma). Double-buffering P so that tile i's split runs under
+// PV_{i-1} gave 0.1066 against 0.1071 and spilled at hd 256: left out.
+// Before TMA the threads copied the tiles with `cp.async` (16-byte copies,
+// a swizzle an add and a compare): internvl one head a CTA 0.1306, two
+// heads 0.1352, gemma 0.0394; kernel_variants.py in that form: two heads
+// two CTAs an SM 0.1427, the copies issued after the products 0.1379
+// (0.0400 at gemma), Q's A fragments held in registers 0.1287, a generic
+// copy loop 0.1470, without the copies (wrong results) 0.1108. The first
+// routes: `mma.sync` at hd 128 (a warp per 16 query rows, each reading
+// the whole K and V tile), internvl 0.1892; at hd 256 two warpgroups
+// splitting the output columns, gemma 0.0924.
 //
 // fp32 keeps fp32 products (no TF32: the fp32 checks hold the kernel to
 // 1e-5 of the plain version, and the fp32 model rungs must give the same
@@ -112,6 +128,8 @@
 // 64-query tile) walks the same key tiles on the CUDA cores, Q, K, V and
 // the probabilities in shared memory as fp32, register-tiled 4x8 micro
 // tiles, the same heaviest-first grid.
+#include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
+
 #include "wgmma.cuh"
 
 namespace repro_torch {
@@ -134,7 +152,7 @@ __device__ __forceinline__ bool visible(int qi, int kj, int S, int window) {
 }
 
 // ============================================================ bf16: mma.sync
-// (hd 32 and 128)
+// (hd 32)
 
 // bf16 elements per shared-memory row: hd plus 16 bytes, so the 8 rows an
 // `ldmatrix` reads start in 8 different 4-bank groups.
@@ -506,76 +524,137 @@ flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ======================================================= bf16: wgmma, hd 256
+// ================================================= bf16: wgmma, hd 128, 256
 
-constexpr int kWideHD = 256;
-constexpr int kWideThreads = 2 * kThreads;           // two warpgroups
-constexpr int kWideTile = kWideHD / 64 * kWgTile;    // 64 x 256: 32 KB
-// Q of both heads | K ring (2) | V ring (2), plus room to align the base to
-// 1024 bytes: 197,632 bytes
-constexpr size_t kWideSmemBytes = 6 * (size_t)kWideTile + 1024;
-
-// Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab with 256
-// columns into a swizzled tile (four 64-column sub-tiles) at shared address
-// `dst`, by all the CTA's threads; rows at or past S are zero-filled.
-// Thread t copies 16-byte chunk t % 32 of rows t / 32 + 8j (j < 8): the
-// eight share one swizzle, so each copy is an add and a compare.
-__device__ __forceinline__ void issue_wide_tile(uint32_t dst,
-                                                const __nv_bfloat16* base,
-                                                size_t stride, int r0, int S) {
-  const int r = threadIdx.x / 32, c = threadIdx.x % 32;
-  const uint32_t d = dst + wg_tile_off(r, c);
-  const __nv_bfloat16* src = base + (size_t)(r0 + r) * stride + c * 8;
-#pragma unroll
-  for (int j = 0; j < kBK / 8; ++j) {
-    const bool ok = r0 + r + 8 * j < S;
-    cp_async16(d + j * 8 * 128, ok ? src + (size_t)8 * j * stride : base, ok);
-  }
+// Query heads of a CTA at hd 128, one warpgroup each (chosen by
+// measuring, see the note above; hd 256 takes two): 2 shares each K/V tile
+// between two heads, 1 lets two CTAs share an SM
+constexpr int kWide128Heads = 1;
+template <int HD>  // bytes of a 64 x HD tile
+__host__ __device__ constexpr int wide_tile() {
+  return HD / 64 * kWgTile;
+}
+// Q of each head | K ring (2) | V ring (2), plus room to align the base to
+// 1024 bytes: 197,632 bytes at hd 256 with two heads, 99,328 at hd 128
+// with two, 82,944 with one
+template <int HD, int kHeads>
+constexpr size_t wide_smem_bytes() {
+  return (kHeads + 4) * (size_t)wide_tile<HD>() + 1024;
+}
+// the launch bounds' CTAs an SM: what the shared memory and 255 registers
+// a thread allow (two one-head CTAs at hd 128; else one)
+template <int HD, int kHeads>
+__host__ __device__ constexpr int wide_min_ctas() {
+  return HD == 128 && kHeads == 1 ? 2 : 1;
 }
 
-// One CTA: two query heads of one KV head (heads 2p and 2p + 1 of its group
-// of G; at odd G the group's last CTA has one) at one 64-query tile. Warp-
-// group w owns head 2p + w: its 64 query rows and all 256 output columns.
-__global__ void __launch_bounds__(kWideThreads, 1)
-flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
+// Two fp32 values as bf16 pairs hi + lo, as split_bf16 (wgmma.cuh) but with
+// hi their top 16 bits (a byte permute, no rounding) and lo the exact
+// residual rounded: one conversion a pair instead of two; hi + lo carries
+// 15 or more mantissa bits.
+__device__ __forceinline__ void split_bf16_trunc(float x0, float x1,
+                                                 uint32_t& hi, uint32_t& lo) {
+  const uint32_t u0 = __float_as_uint(x0), u1 = __float_as_uint(x1);
+  hi = __byte_perm(u0, u1, 0x7632);
+  lo = pack_bf16(x0 - __uint_as_float(u0 & 0xFFFF0000u),
+                 x1 - __uint_as_float(u1 & 0xFFFF0000u));
+}
+
+// ---- the tensor memory accelerator (TMA) and its barriers
+// A tile of 64 rows x HD columns lands as HD / 64 boxes of 64 x 64 bf16,
+// each in the 128-byte swizzle of a `wgmma` sub-tile (wgmma.cuh): the map
+// (B, S, N, HD) -> (HD, N, S, B) with boxes (64, 1, 64, 1), rows at or past
+// S zero-filled by the hardware.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+}
+// this thread's arrival (the barrier's one), expecting `bytes` of copies
+// to complete on `bar`
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+// Start the copy of rows [r0, r0+64) of head `head` of batch row `b` (a
+// (B, S, N, HD) tensor through `map`) into the tile at `dst`, completing
+// HD / 64 x 8 KB on `bar`.
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int r0,
+                                         int b) {
+#pragma unroll
+  for (int j = 0; j < HD / 64; ++j)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        ::"r"(dst + j * kWgTile), "l"(reinterpret_cast<uint64_t>(map)),
+        "r"(64 * j), "r"(head), "r"(r0), "r"(b), "r"(bar)
+        : "memory");
+}
+
+// One CTA: kHeads (1 or 2) query heads of one KV head (heads 2p and 2p + 1
+// of its group of G; at odd G the group's last CTA has one) at one
+// 64-query tile. Warpgroup w owns head kHeads p + w: its 64 query rows and
+// all HD output columns.
+template <int HD, int kHeads>
+__global__ void __launch_bounds__(kHeads * kThreads,
+                                  wide_min_ctas<HD, kHeads>())
+flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
                           __nv_bfloat16* __restrict__ out, int S, int H, int KV,
                           int window, float scale, float softcap) {
-  constexpr int HD = kWideHD;
+  constexpr int kWideTile = wide_tile<HD>();
   extern __shared__ uint4 smem_raw[];
-  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // 2 tiles
-  const uint32_t Ks = Qs + 2 * kWideTile;                       // 2 tiles
+  // Q | K_0, K_1 | V_0, V_1 landed
+  __shared__ alignas(8) uint64_t bars[5];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // kHeads
+  const uint32_t Ks = Qs + kHeads * kWideTile;                  // 2 tiles
   const uint32_t Vs = Ks + 2 * kWideTile;                       // 2 tiles
 
-  const int G = H / KV, pairs = (G + 1) / 2;
-  const int kvh = blockIdx.x / pairs, g0 = blockIdx.x % pairs * 2;
-  const bool two = g0 + 1 < G;           // the pair has its second head
+  const int G = H / KV, pairs = (G + kHeads - 1) / kHeads;
+  const int kvh = blockIdx.x / pairs, g0 = blockIdx.x % pairs * kHeads;
+  // the CTA has a second head
+  const bool two = kHeads == 2 && g0 + 1 < G;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
   const int wg = threadIdx.x / kThreads;
   const int h = kvh * G + g0 + wg;       // past the group when !two
   const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
-  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
-  const __nv_bfloat16* qb =
-      q + (size_t)b * S * q_stride + (size_t)(kvh * G + g0) * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
+  const size_t q_stride = (size_t)H * HD;
   const uint32_t Qw = Qs + wg * kWideTile;
+  const uint32_t bar_q = smem_addr(&bars[0]), bar_k = bar_q + 8,
+                 bar_v = bar_q + 24;       // + 8 (i & 1): buffer i & 1
 
   const int n_tiles = (S + kBK - 1) / kBK;
   const int kt_end = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
   const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
   const int n = kt_end - kt_begin;       // key tiles of this q tile, >= 1
 
-  // Q of both heads (an unpaired second warpgroup computes on a copy of
+  // Q of each head (an unpaired second warpgroup computes on a copy of
   // the first head's and stores nothing: the products stay on one path,
-  // which `wgmma` needs to overlap), K of the first key tile
-  issue_wide_tile(Qs, qb, q_stride, q0, S);
-  issue_wide_tile(Qs + kWideTile, two ? qb + HD : qb, q_stride, q0, S);
-  issue_wide_tile(Ks, kb, kv_stride, kt_begin * kBK, S);
-  cp_async_commit();
+  // which `wgmma` needs to overlap), K of the first key tile; one thread
+  // issues every copy
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < 5; ++i) mbar_init(bar_q + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(bar_q, kHeads * kWideTile);
+    tma_tile<HD>(Qs, &tm_q, bar_q, kvh * G + g0, q0, b);
+    if (kHeads == 2)
+      tma_tile<HD>(Qs + kWideTile, &tm_q, bar_q, kvh * G + g0 + two, q0, b);
+    mbar_expect(bar_k, kWideTile);
+    tma_tile<HD>(Ks, &tm_k, bar_k, kvh, kt_begin * kBK, b);
+  }
 
   // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
   // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
@@ -591,30 +670,34 @@ flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
   // Step i scores key tile i and adds tile i - 1's P V: QK^T_i and
   // PV_{i-1} are issued together, and the softmax of tile i runs while
   // PV_{i-1} is in flight. K runs one tile ahead and V one step behind it
-  // through two-tile rings: at step i the buffers of K_{i-1} and V_{i-2}
-  // are free and take K_{i+1} and V_i. Steps 0 (QK^T alone) and n (PV
+  // through two-tile rings. Step i starts with a barrier (every warp is
+  // done with step i - 1's products, so the buffers of K_{i-1} and V_{i-2}
+  // are free), one thread starts K_{i+1} and V_i into them, and every
+  // thread waits for K_i and V_{i-1}. Steps 0 (QK^T alone) and n (PV
   // alone) are peeled off, so that every step between commits both groups
   // unconditionally: ptxas serialises the products when it cannot tell
   // which group a wait leaves in flight.
-  auto arrive = [&] {                   // K_i and V_{i-1} have landed
-    cp_async_wait<0>();
-    // cp.async wrote the tiles through the generic proxy; wgmma reads them
-    // through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-  };
-  // refill the buffers step i frees (the products in flight read K_i and
-  // V_{i-1}, in the other buffers), after the step's products are issued
   auto refill = [&](int i) {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
     const int kt = kt_begin + i;
-    if (i + 1 < n)
-      issue_wide_tile(Ks + ((i + 1) & 1) * kWideTile, kb, kv_stride,
-                      (kt + 1) * kBK, S);
-    if (i < n)
-      issue_wide_tile(Vs + (i & 1) * kWideTile, vb, kv_stride, kt * kBK, S);
-    cp_async_commit();
+    if (i + 1 < n) {
+      const uint32_t bar = bar_k + 8 * ((i + 1) & 1);
+      mbar_expect(bar, kWideTile);
+      tma_tile<HD>(Ks + ((i + 1) & 1) * kWideTile, &tm_k, bar, kvh,
+                   (kt + 1) * kBK, b);
+    }
+    if (i < n) {
+      const uint32_t bar = bar_v + 8 * (i & 1);
+      mbar_expect(bar, kWideTile);
+      tma_tile<HD>(Vs + (i & 1) * kWideTile, &tm_v, bar, kvh, kt * kBK, b);
+    }
   };
-  // S = Q K^T (64 x 64): sixteen k-steps of 16 along hd, four in each
+  auto arrive = [&](int i) {            // K_i and V_{i-1} have landed
+    if (i < n) mbar_wait(bar_k + 8 * (i & 1), (i >> 1) & 1);
+    if (i > 0) mbar_wait(bar_v + 8 * ((i - 1) & 1), ((i - 1) >> 1) & 1);
+  };
+  // S = Q K^T (64 x 64): HD / 16 k-steps of 16 along hd, four in each
   // 64-column sub-tile
   auto qk = [&](int i, float (&s)[32]) {
     const uint32_t Kt = Ks + (i & 1) * kWideTile;
@@ -625,7 +708,7 @@ flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wg_commit();
   };
-  // O += P_i V_i (one m64n256k16 a k-step of 16 keys), P as hi + lo bf16
+  // O += P_i V_i (one m64nHDk16 a k-step of 16 keys), P as hi + lo bf16
   // A fragments; V's leading byte offset steps over its sub-tiles
   auto pv = [&](int i) {
     const uint32_t Vt = Vs + (i & 1) * kWideTile;
@@ -686,35 +769,36 @@ flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < 4; ++kk) {
       const float* p0 = s + 8 * kk;      // 8-column block 2kk
       const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
-      split_bf16(p0[0], p0[1], ph[kk][0], pl[kk][0]);
-      split_bf16(p0[2], p0[3], ph[kk][1], pl[kk][1]);
-      split_bf16(p1[0], p1[1], ph[kk][2], pl[kk][2]);
-      split_bf16(p1[2], p1[3], ph[kk][3], pl[kk][3]);
+      split_bf16_trunc(p0[0], p0[1], ph[kk][0], pl[kk][0]);
+      split_bf16_trunc(p0[2], p0[3], ph[kk][1], pl[kk][1]);
+      split_bf16_trunc(p1[0], p1[1], ph[kk][2], pl[kk][2]);
+      split_bf16_trunc(p1[2], p1[3], ph[kk][3], pl[kk][3]);
     }
   };
 
   {                                     // step 0: QK^T_0 alone
-    arrive();
     float s[32], alpha[2];
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    refill(0);
+    mbar_wait(bar_q, 0);
+    arrive(0);
     wg_fence();
     qk(0, s);
-    refill(0);
     wg_wait<0>();
     wg_fence_regs(s);
     softmax(0, s, alpha);
     rescale_split(s, alpha);
   }
   for (int i = 1; i < n; ++i) {
-    arrive();
     float s[32], alpha[2];
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
+    refill(i);
+    arrive(i);
     wg_fence();
     qk(i, s);
     pv(i - 1);
-    refill(i);
     wg_wait<1>();                       // S_i is in; PV_{i-1} runs on
     wg_fence_regs(s);
     softmax(i, s, alpha);
@@ -724,14 +808,14 @@ flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
     wg_fence_regs(pl);
     rescale_split(s, alpha);
   }
-  arrive();                             // step n: PV_{n-1} alone
+  arrive(n);                            // step n: PV_{n-1} alone
   wg_fence();
   pv(n - 1);
   wg_wait<0>();
   wg_fence_regs(o);
   // O / l in bf16, staged in this warpgroup's Q tile (its products are
-  // done) in the same swizzle (conflict-free), then stored as whole
-  // 512-byte rows of 16-byte chunks
+  // done) in the same swizzle (conflict-free), then stored as whole rows
+  // of HD / 8 16-byte chunks
   const uint32_t Os = Qw;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -751,9 +835,11 @@ flash_prefill_wide_kernel(const __nv_bfloat16* __restrict__ q,
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kThreads));
   if (wg == 1 && !two) return;
   const int tw = threadIdx.x % kThreads;
+  constexpr int kChunks = HD / 8;
 #pragma unroll
-  for (int j = 0; j < kBQ * 32 / kThreads; ++j) {
-    const int row = tw / 32 + j * (kThreads / 32), ch = tw % 32;
+  for (int j = 0; j < kBQ * kChunks / kThreads; ++j) {
+    const int row = tw / kChunks + j * (kThreads / kChunks),
+              ch = tw % kChunks;
     if (q0 + row >= S) break;
     uint4 chunk;
     asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
@@ -942,8 +1028,8 @@ flash_prefill_simt_kernel(const float* __restrict__ q,
 
 // ============================================================ launch
 
-// `heads` CTAs along x: one a query head, or at hd 256 in bf16 one a pair
-// of heads of a KV head (KV * ceil(G / 2)).
+// `heads` CTAs along x: one a query head, or at hd 128 and 256 in bf16 one
+// a pair of heads of a KV head (KV * ceil(G / 2)) where the CTA takes two.
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int threads, int heads,
                    const void* q, const void* k, const void* v, void* out,
@@ -958,6 +1044,66 @@ cudaError_t launch(Kernel kernel, size_t smem, int threads, int heads,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), S, H, KV, window,
       1.0f / sqrtf((float)hd), softcap);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link
+// against libcuda), looked up once
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The map of a (B, S, N, HD) bf16 tensor for tma_tile.
+template <int HD>
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)N, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * N, 2ull * HD * N * S};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 hd-128 and hd-256 route: maps of q, k and v, then
+// KV * ceil(G / kHeads) CTAs along x.
+template <int HD, int kHeads>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, int B, int S, int H, int KV, int window,
+                        float softcap, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!tile_map<HD>(&tq, q, B, S, H) || !tile_map<HD>(&tk, k, B, S, KV) ||
+      !tile_map<HD>(&tv, v, B, S, KV))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_prefill_wide_kernel<HD, kHeads>;
+  constexpr size_t smem = wide_smem_bytes<HD, kHeads>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(KV * ((H / KV + kHeads - 1) / kHeads), B, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kHeads * kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, KV, window,
+      1.0f / sqrtf((float)HD), softcap);
   return cudaGetLastError();
 }
 
@@ -979,10 +1125,12 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return (int)launch<bf16>(flash_prefill_wgmma_kernel, kWgSmemBytes,
                              kThreads, H, q, k, v, out, B, S, H, KV, hd,
                              window, softcap, s);
-  if (dtype == kBFloat16 && hd == kWideHD)
-    return (int)launch<bf16>(flash_prefill_wide_kernel, kWideSmemBytes,
-                             kWideThreads, KV * ((H / KV + 1) / 2), q, k, v,
-                             out, B, S, H, KV, hd, window, softcap, s);
+  if (dtype == kBFloat16 && hd == 128)
+    return (int)launch_wide<128, kWide128Heads>(q, k, v, out, B, S, H, KV,
+                                                window, softcap, s);
+  if (dtype == kBFloat16 && hd == 256)
+    return (int)launch_wide<256, 2>(q, k, v, out, B, S, H, KV, window,
+                                    softcap, s);
 #define REPRO_PREFILL_SIMT(HD)                                               \
   if (dtype == kFloat32 && hd == HD)                                         \
     return (int)launch<float>(flash_prefill_simt_kernel<HD>,                 \
@@ -995,7 +1143,7 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                              out, B, S, H, KV, hd, window, softcap, s);      \
   REPRO_PREFILL_SIMT(HD)
   REPRO_PREFILL_HD(32)
-  REPRO_PREFILL_HD(128)
+  REPRO_PREFILL_SIMT(128)
   REPRO_PREFILL_SIMT(256)
   REPRO_PREFILL_SIMT(64)
 #undef REPRO_PREFILL_HD

@@ -1,8 +1,9 @@
 // Hopper tensor-core helpers shared by the kernels that run `wgmma` or
 // `mma.sync` (flash_prefill.cu, flash_decode_chunk.cu, flash_decode_step.cu,
 // paged_decode.cu, ssd_scan.cu): fast exp2, bf16 packing with the hi + lo
-// split, warp-level `mma.sync` fed by `ldmatrix`, and warpgroup matrix
-// multiply from 128-byte-swizzled shared memory.
+// split, warp-level `mma.sync` fed by `ldmatrix`, warpgroup matrix
+// multiply from 128-byte-swizzled shared memory, and the chunk forms' split
+// combine.
 #pragma once
 
 #include "common.cuh"
@@ -197,27 +198,25 @@ __device__ __forceinline__ void wg_rs(float (&d)[128],
 }
 
 // ---- the split combine of the tensor-core chunk forms
-// (flash_decode_chunk.cu, paged_decode.cu) and decode step
-// (flash_decode_step.cu). This CTA has written its partial for a block of
-// kR query rows (64 in the chunk forms, 16 in the decode step), acc (kR,
-// HD), then m (kR), then l (kR) in fp32, and every thread has fenced its
-// own stores. Arrive on the
-// block's counter; if last, combine the `splits` partials at `pb` into rows
-// R0 .. R0+nr-1 of `out` ((B, ck, KV, G, HD) bf16, row = j*G + g): split s
-// weighs 2^((m_s - M) * m_log2) / L, L the sum of its l_s so weighted,
-// floored at 1e-30; then set the counter back to zero. What it costs is
-// the latency of reading splits x 64 x HD floats from L2: m and l of every
-// split are staged in shared memory by all threads at once (each m then
-// overwritten by its split's weight), then each thread keeps 4 rows'
-// 16-byte loads of up to 4 splits in flight. `smem` holds 2 * splits * kR
-// floats (32 KB at the 64 splits the launchers allow and kR 64).
-template <int HD, int kR = 64>
+// (flash_decode_chunk.cu, paged_decode.cu). This CTA has written its
+// partial for a block of kR = 64 query rows, acc (kR, HD), then m (kR),
+// then l (kR) in fp32, and every thread has fenced its own stores. Arrive
+// on the block's counter; if last, combine the `splits` partials at `pb`
+// into rows R0 .. R0+nr-1 of `out` ((B, ck, KV, G, HD) bf16, row = j*G +
+// g): split s weighs 2^((m_s - M) * m_log2) / L, L the sum of its l_s so
+// weighted, floored at 1e-30; then set the counter back to zero. What it
+// costs is the latency of reading splits x 64 x HD floats from L2: m and l
+// of every split are staged in shared memory by all threads at once (each
+// m then overwritten by its split's weight), then each thread keeps 4
+// rows' 16-byte loads of up to 4 splits in flight. `smem` holds 2 * splits
+// * kR floats (32 KB at the 64 splits the launchers allow).
+template <int HD>
 __device__ void wg_arrive_and_combine(const float* pb, int* counter,
                                       int splits, int nr, float m_log2,
                                       float* smem,
                                       __nv_bfloat16* __restrict__ out, int b,
                                       int h, int R0, int ck, int KV, int G) {
-  constexpr int kQ = HD / 4, kU = 4;
+  constexpr int kR = 64, kQ = HD / 4, kU = 4;
   constexpr size_t kSplit = (size_t)kR * HD + 2 * kR;
   __shared__ bool last;
   __syncthreads();

@@ -14,10 +14,10 @@ Each is the wrapper of its form: CPU tensors take the plain version; CUDA
 tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
 any launch (``KERNELS`` names it): the chunk form in bf16 at hd 64, 128
 and 256 runs on the tensor cores (``flash_decode_chunk.cu``: ``wgmma`` over
-blocks of 64 query rows), and so does the decode step in bf16 at hd 256
-(``flash_decode_step.cu``: ``mma.sync`` with the G query rows as its M,
-``STEP_SPLITS`` CTAs per (b, kv-head)); every other launch (fp32, the
-decode step at other head dims) runs on the CUDA cores
+blocks of 64 query rows), and so does the decode step in bf16 at hd 128
+and 256 (``flash_decode_step.cu``: ``mma.sync`` with the G query rows as
+its M, ``STEP_SPLITS[hd]`` CTAs per (b, kv-head)); every other launch
+(fp32, the decode step at hd 64) runs on the CUDA cores
 (``flash_decode.cu``).
 A launch splits the cache axis over several CTAs per (b, kv-head, block of
 query rows); each writes its partial softmax sums to a scratch workspace
@@ -25,7 +25,9 @@ and the last to arrive combines them, counted on a per-block arrival
 counter that it leaves at zero. The workspace (partials and counters,
 ``build.workspace``) is allocated once per device and stream and shared
 with paged_decode: launches on one stream run in order, so they never
-share it while in flight. ``flash_decode_bkhd.launches`` and
+share it while in flight. The tensor-core decode step needs none: a (b,
+kv-head)'s splits are one thread block cluster and combine through its
+distributed shared memory. ``flash_decode_bkhd.launches`` and
 ``flash_decode_chunk.launches`` count each form's kernel launches (never
 plain-version calls).
 """
@@ -50,18 +52,19 @@ TC_SPLITS = 4                   # its CTAs per (b, kv-head, row block)
 # head dim -> the tensor-core route's shared memory: a Q tile, K and V
 # rings of two 64-position tiles, 1024 bytes of alignment (csrc Shape)
 TC_SMEM_BYTES = {hd: 5 * TC_ROWS * 2 * hd + 1024 for hd in (64, 128, 256)}
-# The decode step's tensor-core route (bf16, hd 256): query rows of the
-# mma M (G <= 16 live), CTAs per (b, kv-head) and shared memory: Q, a K
-# and a V tile of 64 positions in rows of hd + 8 bf16, then P (16 x 68)
-# and the four warps' row max and sum in fp32 (csrc kSmemBytes). 18
-# splits: 144 CTAs at gemma-2b's B 8 on one KV head, the fastest count
-# that fills the 132 SMs in chip_smoke --ab's sweep (fewer, longer splits
-# read faster still: the last CTA's combine grows with the count)
-STEP_HD = 256
+# The decode step's tensor-core route (bf16, hd 128 and 256): query rows of
+# the mma M (G <= 16 live), then by head dim the CTAs per (b, kv-head), one
+# cluster of at most 8 (csrc kMaxSplits), and the shared memory: Q, a K and
+# a V tile of 64 positions in rows of hd + 8 bf16, then P (16 x 68) and
+# the four warps' row max and sum in fp32 (csrc smem_bytes). The counts
+# are the fastest of chip_smoke --ab's sweeps: 6 at internvl2-26b's 64 (b,
+# kv-head) pairs (384 CTAs, 96 positions each), 8 at gemma-2b's 8 (64
+# CTAs, 72 positions each)
 STEP_ROWS = 16
-STEP_SPLITS = 18
-STEP_SMEM_BYTES = 2 * (STEP_ROWS + 2 * 64) * (STEP_HD + 8) \
-    + 4 * (STEP_ROWS * 68 + 2 * 4 * STEP_ROWS)
+STEP_SPLITS = {128: 6, 256: 8}
+STEP_SMEM_BYTES = {hd: 2 * (STEP_ROWS + 2 * 64) * (hd + 8)
+                   + 4 * (STEP_ROWS * 68 + 2 * 4 * STEP_ROWS)
+                   for hd in STEP_SPLITS}
 # (tensor cores, chunk form) of a plan -> its library and CUDA kernel
 KERNELS = {(True, True): ("flash_decode_chunk", "flash_decode_chunk_kernel"),
            (True, False): ("flash_decode_step", "flash_decode_step_kernel"),
@@ -103,18 +106,18 @@ def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
     """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
     form in bf16 at hd 64, 128 and 256 runs on ``wgmma`` in blocks of 64
     query rows (``flash_decode_chunk.cu``), whatever ck and G, with
-    ``TC_SPLITS`` CTAs per block; the decode step in bf16 at hd 256 with G
-    <= 16 on ``mma.sync`` with its G rows in a 16-row M
-    (``flash_decode_step.cu``), ``STEP_SPLITS`` CTAs per (b, kv-head);
-    every other launch (the decode step at other head dims, fp32) on the
-    CUDA cores (``flash_decode.cu``), with whole groups of G rows as the
-    accumulators hold (``chunk_rows``). ``KERNELS[tc, chunk]`` names the
-    kernel."""
+    ``TC_SPLITS`` CTAs per block; the decode step in bf16 at hd 128 and
+    256 with G <= 16 on ``mma.sync`` with its G rows in a 16-row M
+    (``flash_decode_step.cu``), ``STEP_SPLITS[hd]`` CTAs per (b,
+    kv-head); every other launch (the decode step at hd 64 or above 16
+    rows, fp32) on the CUDA cores (``flash_decode.cu``), with whole groups
+    of G rows as the accumulators hold (``chunk_rows``). ``KERNELS[tc,
+    chunk]`` names the kernel."""
     if dtype == torch.bfloat16:
         if chunk and hd in TC_SMEM_BYTES:
             return True, TC_ROWS, TC_SPLITS
-        if not chunk and hd == STEP_HD and G <= STEP_ROWS:
-            return True, STEP_ROWS, STEP_SPLITS
+        if not chunk and hd in STEP_SPLITS and G <= STEP_ROWS:
+            return True, STEP_ROWS, STEP_SPLITS[hd]
     return False, chunk_rows(ck, G, hd) if chunk else G, SPLITS
 
 
@@ -186,7 +189,7 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
     tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
-    smem = ((TC_SMEM_BYTES[hd] if chunk else STEP_SMEM_BYTES) if tc
+    smem = ((TC_SMEM_BYTES if chunk else STEP_SMEM_BYTES)[hd] if tc
             else smem_bytes(G, hd, q.element_size(), rows))
     if smem > MAX_SMEM_BYTES or not tc and (hd % 8
                                             or rows * hd > MAX_GROUP_WIDTH):
@@ -204,7 +207,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     B, KV, C = k.shape[0], k.shape[1], k.shape[2]
     G, hd = q.shape[-2], q.shape[-1]
-    n_blocks = B * KV * -(-ck * G // rows)
+    # the step kernel's splits combine in their cluster: no workspace
+    n_blocks = 0 if tc and not chunk else B * KV * -(-ck * G // rows)
     fn = _launch_fn(tc, chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream

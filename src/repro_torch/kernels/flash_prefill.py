@@ -8,10 +8,11 @@ TPU wrapper's relayout to (B,KV,G,S,hd) and padding of S exist only for
 the TPU's tiling and are gone. CPU tensors take the plain version; CUDA
 tensors launch the kernel or raise. The kernel dispatches on dtype and
 head size (``launch_plan`` mirrors it): bf16 runs its products on the
-tensor cores with fp32 accumulation (``wgmma`` at hd 64 and, two query
-heads a CTA, at hd 256; ``mma.sync`` at hd 32 and 128), fp32 keeps fp32
-products on the CUDA cores. ``flash_prefill_bshd.launches`` counts kernel
-launches (never plain-version calls).
+tensor cores with fp32 accumulation (``wgmma``: at hd 64, at hd 128 with
+the pipelined kernel one head a CTA, at hd 256 with it two heads a CTA;
+``mma.sync`` at hd 32), fp32 keeps fp32 products on the CUDA cores.
+``flash_prefill_bshd.launches`` counts kernel launches (never
+plain-version calls).
 """
 from __future__ import annotations
 
@@ -37,13 +38,16 @@ WG_TILE = 64 * 128              # bytes of one swizzled 64 x 64 bf16 tile
 def launch_plan(hd: int, dtype: torch.dtype) -> Tuple[str, int, int]:
     """(kernel, threads, query heads a CTA) of one launch, as
     ``flash_prefill_launch`` dispatches: bf16 at hd 64 on ``wgmma``, one
-    warpgroup a head; bf16 at hd 256 on ``wgmma``, two warpgroups a CTA,
-    one for each of two query heads of a KV head (the grid has KV *
-    ceil(G / 2) CTAs along the heads); bf16 at hd 32 and 128 on
-    ``mma.sync``; fp32 on the CUDA cores."""
+    warpgroup a head; bf16 at hd 128 and 256 on the pipelined ``wgmma``
+    kernel (softmax under the previous tile's PV), one warpgroup a query
+    head: one head a CTA at hd 128 (two CTAs an SM), two heads of a KV
+    head a CTA at hd 256 (the grid has KV * ceil(G / 2) CTAs along the
+    heads); bf16 at hd 32 on ``mma.sync``; fp32 on the CUDA cores."""
     if dtype == torch.bfloat16:
         if hd == 64:
             return "flash_prefill_wgmma_kernel", 128, 1
+        if hd == 128:
+            return "flash_prefill_wide_kernel", 128, 1
         if hd == 256:
             return "flash_prefill_wide_kernel", 256, 2
         return "flash_prefill_mma_kernel", 128, 1

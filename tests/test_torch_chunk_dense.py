@@ -320,9 +320,9 @@ def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
     ``TC_SPLITS`` CTAs per row block, a Q tile and two-tile K and V
     rings of HD / 64 swizzled 8 KB sub-tiles in one H100 block (one CTA an
     SM at hd 256, two at 128); ``check_args`` returns that plan. The same
-    shape in fp32 keeps the CUDA cores, and so does the bf16 decode step at
-    hd 128; at hd 256 the bf16 decode step has its own tensor-core route
-    (``STEP_ROWS`` rows, ``STEP_SPLITS`` CTAs per (b, kv-head))."""
+    shape in fp32 keeps the CUDA cores; the bf16 decode step has its own
+    tensor-core route at both head dims (``STEP_ROWS`` rows,
+    ``STEP_SPLITS[hd]`` CTAs per (b, kv-head))."""
     bf = torch.bfloat16
     assert fd.launch_plan(ck, G, hd, bf, True) == (
         True, fd.TC_ROWS, fd.TC_SPLITS)
@@ -334,8 +334,7 @@ def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
         ck, True, fd.TC_ROWS, fd.TC_SPLITS)
     assert not fd.launch_plan(ck, G, hd, torch.float32, True)[0]
     assert fd.launch_plan(1, G, hd, bf, False) == (
-        (True, fd.STEP_ROWS, fd.STEP_SPLITS) if hd == 256
-        else (False, G, fd.SPLITS))
+        True, fd.STEP_ROWS, fd.STEP_SPLITS[hd])
 
 
 def _tc_refusal_cases():

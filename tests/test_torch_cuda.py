@@ -65,13 +65,13 @@ DECODE_CASES = [
     (2, 8, 1, 256, 96, 0.0, True),    # the reference test's hd 256, G 1
     (3, 1, 8, 256, 203, 30.0, True),  # hd 256: 64-position tiles, softcap
     (3, 2, 8, 256, fd.SPLITS - 3, 0.0, True),  # hd 256, C below the splits
-    # the bf16 hd-256 decode step's tensor-core route (STEP_SPLITS CTAs per
-    # (b, kv-head)): C 1, C just below and just above its split count, only
-    # the first key unbiased, G 3 and G 7, a split of several 64-position
-    # tiles
+    # the bf16 hd-256 decode step's tensor-core route (STEP_SPLITS[256]
+    # CTAs per (b, kv-head)): C 1, C just below and just above its split
+    # count, only the first key unbiased, G 3 and G 7, a split of several
+    # 64-position tiles
     (8, 1, 8, 256, 1, 0.0, False),
-    (8, 1, 8, 256, fd.STEP_SPLITS - 1, 0.0, False),
-    (8, 1, 8, 256, fd.STEP_SPLITS + 1, 30.0, True),
+    (8, 1, 8, 256, fd.STEP_SPLITS[256] - 1, 0.0, False),
+    (8, 1, 8, 256, fd.STEP_SPLITS[256] + 1, 30.0, True),
     (8, 1, 8, 256, 576, 0.0, "first"),
     (4, 2, 3, 256, 203, 0.0, True),
     (4, 1, 7, 256, 576, 30.0, False),
@@ -80,10 +80,21 @@ DECODE_CASES = [
     (3, 8, 3, 64, 203, 30.0, True),   # G 3, ragged C, softcap, biased
     # whisper-tiny's decoder (6 heads on 6 KV heads of hd 64: G 1) at its
     # 64-token prompt + 64 steps, and internvl2-26b's decode step (48 heads
-    # on 8 of hd 128: G 6, on the CUDA cores: STEP_HD is 256)
+    # on 8 of hd 128: G 6)
     (8, 6, 1, 64, 128, 0.0, False),
     (8, 8, 6, 128, 576, 0.0, False),
     (3, 8, 6, 128, 203, 30.0, True),
+    # the bf16 hd-128 decode step's tensor-core route (STEP_SPLITS[128]
+    # CTAs per (b, kv-head)) at internvl's G 6: C 1, C just below and just
+    # above the split count, only the first key unbiased, C 2000 (several
+    # 64-position tiles a split); G 8 and G 16 (the whole 16-row M)
+    (8, 8, 6, 128, 1, 0.0, False),
+    (8, 8, 6, 128, fd.STEP_SPLITS[128] - 1, 0.0, False),
+    (8, 8, 6, 128, fd.STEP_SPLITS[128] + 1, 30.0, True),
+    (8, 8, 6, 128, 576, 0.0, "first"),
+    (2, 8, 6, 128, 2000, 0.0, True),
+    (4, 4, 8, 128, 203, 30.0, True),
+    (2, 2, 16, 128, 576, 0.0, True),
 ]
 
 
@@ -340,6 +351,16 @@ PREFILL_CASES = [
     (8, 64, 6, 6, 64, 0, 0.0),        # whisper-tiny's decoder prompt: G 1
     (2, 768, 48, 8, 128, 0, 0.0),     # internvl2-26b: 256 image + 512 text
     (2, 130, 48, 8, 128, 48, 30.0),   # G 6, ragged S, window, softcap
+    # the bf16 hd-128 route (one warpgroup a head, tiles by TMA): internvl's
+    # serve shape, ragged S, odd groups (G 3 and G 5), a window of 32 with
+    # a softcap, S 1
+    (8, 512, 48, 8, 128, 0, 0.0),
+    (2, 37, 48, 8, 128, 0, 0.0),
+    (2, 130, 12, 2, 128, 0, 0.0),
+    (2, 130, 6, 2, 128, 0, 0.0),
+    (1, 200, 5, 1, 128, 0, 30.0),
+    (2, 200, 12, 2, 128, 32, 30.0),
+    (2, 1, 12, 2, 128, 0, 0.0),
 ]
 
 
@@ -364,12 +385,14 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
     (torch.bfloat16, 256, "flash_prefill_wide_kernel"),
     (torch.float32, 256, "flash_prefill_simt_kernel"),
     (torch.bfloat16, 64, "flash_prefill_wgmma_kernel"),
-    (torch.bfloat16, 128, "flash_prefill_mma_kernel"),
+    (torch.bfloat16, 128, "flash_prefill_wide_kernel"),
+    (torch.float32, 128, "flash_prefill_simt_kernel"),
+    (torch.bfloat16, 32, "flash_prefill_mma_kernel"),
 ])
 def test_flash_prefill_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees flash_prefill launch the kernel ``launch_plan``
-    names: at gemma-2b's hd 256 the two-head ``wgmma`` kernel in bf16 and
-    the CUDA-core one in fp32."""
+    names: at hd 128 and 256 the pipelined ``wgmma`` kernel in bf16 and the
+    CUDA-core one in fp32; at hd 32 in bf16 the ``mma.sync`` one."""
     assert fp.launch_plan(hd, dtype)[0] == kernel
     rng = np.random.default_rng(7)
     q = _randn(rng, (2, 130, 8, hd), dtype, cuda)
@@ -383,12 +406,14 @@ def test_flash_prefill_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     (torch.bfloat16, 256, "flash_decode_step_kernel"),
     (torch.float32, 256, "flash_decode_kernel"),
     (torch.bfloat16, 64, "flash_decode_kernel"),
+    (torch.bfloat16, 128, "flash_decode_step_kernel"),
+    (torch.float32, 128, "flash_decode_kernel"),
 ])
 def test_flash_decode_step_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees the decode step launch the kernel its plan names:
-    at gemma-2b's hd 256 the tensor-core step kernel in bf16 (over
-    ``STEP_SPLITS`` CTAs a (b, kv-head)) and the CUDA-core one in fp32; at
-    hd 64 the CUDA-core one in both."""
+    at hd 128 and 256 the tensor-core step kernel in bf16 (over
+    ``STEP_SPLITS[hd]`` CTAs a (b, kv-head)) and the CUDA-core one in fp32;
+    at hd 64 the CUDA-core one in both."""
     tc, _, _ = fd.launch_plan(1, 8, hd, dtype, False)
     assert fd.KERNELS[tc, False][1] == kernel
     rng = np.random.default_rng(8)
@@ -458,15 +483,17 @@ def test_new_head_shapes_run_the_planned_kernel(cuda, H, KV, hd, route,
     assert len(ran) == 1 and want in ran[0], (names, want)
 
 
-def test_flash_decode_step_is_deterministic(cuda):
-    """The step kernel's last CTA combines the splits in split order: two
-    calls on the same inputs are bitwise equal, and the arrival counters
-    are back at zero."""
+@pytest.mark.parametrize("KV,G,hd", [(1, 8, 256), (8, 6, 128)])
+def test_flash_decode_step_is_deterministic(cuda, KV, G, hd):
+    """The step kernel's splits combine in split order inside their
+    cluster: two calls on the same inputs are bitwise equal, and the shared
+    workspace's arrival counters stay at zero (gemma-2b's heads at hd 256,
+    internvl2-26b's at hd 128)."""
     rng = np.random.default_rng(9)
     bf = torch.bfloat16
-    q = _randn(rng, (8, 1, 8, 256), bf, cuda)
-    k = _randn(rng, (8, 1, 576, 256), bf, cuda)
-    v = _randn(rng, (8, 1, 576, 256), bf, cuda)
+    q = _randn(rng, (8, KV, G, hd), bf, cuda)
+    k = _randn(rng, (8, KV, 576, hd), bf, cuda)
+    v = _randn(rng, (8, KV, 576, hd), bf, cuda)
     bias = torch.zeros((8, 576), device=cuda)
     bias[:, 400:] = -1e9
     first = fd.flash_decode_bkhd(q, k, v, bias)
@@ -2355,6 +2382,41 @@ def test_apply_resnet_on_the_card_equals_the_cpu(cuda, name):
     assert got.shape == (2, 1000)
     scale = float(want.abs().max())
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_internvl_decode_step_replay_equals_eager(cuda):
+    """internvl2-26b at full width cut to 8 layers, bf16: its decode step
+    runs the tensor-core step kernel and its prefill the pipelined ``wgmma``
+    kernel (G 6 / hd 128). The dense engine replaying captured steps equals
+    the same engine run op by op (``step_graphs=False``) bitwise, in tokens
+    and every cache leaf, with the same launches (8 a prefill and a decode
+    step), and the workspace's arrival counters are at zero."""
+    import gc
+    from repro_torch.configs import get_config
+    cfg = get_config("internvl2-26b").replace(num_layers=8)
+    assert cfg.dtype == "bfloat16"
+    G, hd = cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim
+    bf = torch.bfloat16
+    assert fd.launch_plan(1, G, hd, bf, False)[0]
+    assert fp.launch_plan(hd, bf)[0] == "flash_prefill_wide_kernel"
+    got, state, launches, eng = _serve_engine(cuda, cfg, True, {})
+    want, ref_state, ref_launches, ref_eng = _serve_engine(cuda, cfg, False,
+                                                           {})
+    assert len(want) == 6 and got == want
+    assert state.keys() == ref_state.keys()
+    for k in state:
+        assert torch.equal(state[k], ref_state[k]), k
+    assert launches == ref_launches and launches["flash_decode"] > 0
+    assert launches["flash_decode"] % 8 == launches["flash_prefill"] % 8 == 0
+    assert eng.backends["v"].graphs
+    stream = capture_stream(cuda)
+    ws = build.workspace_buffers(stream.device, stream.cuda_stream)
+    assert ws is not None and int(ws[1].abs().sum()) == 0
+    for e in (eng, ref_eng):
+        e.apply_allocation(0.0, {})
+    del eng, ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("kv", [{}, dict(kv_cache="paged", kv_page_size=16,

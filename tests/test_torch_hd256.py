@@ -177,8 +177,8 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     block: 64-position K/V tiles in bf16, 32 in fp32. The chunk forms run
     on the tensor cores in bf16 (64 query rows a CTA) and on the CUDA cores
     in fp32 (16 rows); so does the decode step, in bf16 on its own
-    tensor-core kernel (16 rows, ``STEP_SPLITS`` CTAs per (b, kv-head):
-    144 CTAs at B 8 on one KV head), in fp32 on the CUDA-core one (its G
+    tensor-core kernel (16 rows, ``STEP_SPLITS[256]`` CTAs per (b,
+    kv-head), one cluster), in fp32 on the CUDA-core one (its G
     rows, ``SPLITS``); flash_prefill in bf16 on its two-head ``wgmma``
     kernel."""
     es = torch.tensor([], dtype=dtype).element_size()
@@ -193,10 +193,11 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
         "flash_prefill_wide_kernel" if bf else "flash_prefill_simt_kernel")
     k = z(8, 1, 576, 256)
     assert fd.check_args(z(8, 1, 8, 256), k, k, torch.zeros(8, 576),
-                         False) == ((1, True, fd.STEP_ROWS, fd.STEP_SPLITS)
+                         False) == ((1, True, fd.STEP_ROWS,
+                                     fd.STEP_SPLITS[256])
                                     if bf else (1, False, 8, fd.SPLITS))
-    assert 8 * fd.STEP_SPLITS >= 132        # B 8 x KV 1 fills the 132 SMs
-    assert fd.STEP_SMEM_BYTES <= fd.MAX_SMEM_BYTES // 2   # two CTAs an SM
+    assert fd.STEP_SPLITS[256] <= 8     # a (b, kv-head)'s splits: a cluster
+    assert fd.STEP_SMEM_BYTES[256] <= fd.MAX_SMEM_BYTES // 2  # two an SM
     assert fd.check_args(z(8, 16, 1, 8, 256), k, k, torch.zeros(8, 16, 576),
                          True) == ((16, True, 64, fd.TC_SPLITS) if bf
                                    else (16, False, 16, fd.SPLITS))
@@ -250,29 +251,40 @@ def test_shapes_out_of_the_domain_still_raise(dtype):
     (256, 16, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
     (256, 8, torch.float32, (False, 8, "flash_decode_kernel")),
     (256, 3, torch.float32, (False, 3, "flash_decode_kernel")),
-    (128, 8, torch.bfloat16, (False, 8, "flash_decode_kernel")),
+    (128, 8, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
     (128, 8, torch.float32, (False, 8, "flash_decode_kernel")),
     (64, 8, torch.bfloat16, (False, 8, "flash_decode_kernel")),
     (64, 3, torch.bfloat16, (False, 3, "flash_decode_kernel")),
     (64, 8, torch.float32, (False, 8, "flash_decode_kernel")),
+    (128, 6, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (128, 16, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (128, 1, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (128, 6, torch.float32, (False, 6, "flash_decode_kernel")),
+    (128, 17, torch.bfloat16, (False, 17, "flash_decode_kernel")),
 ])
 def test_decode_step_plan_by_head_dim_and_dtype(hd, G, dtype, want):
-    """Only the bf16 decode step at hd 256 takes the tensor-core step
-    kernel (any G up to its 16-row M, ``STEP_SPLITS`` CTAs per (b,
-    kv-head)); fp32 and the decode step at hd 64 and 128 keep the CUDA-core
-    kernel with their G rows and ``SPLITS``. ``check_args`` returns the
-    plan, with the CTA's shared memory within one H100 block."""
+    """The bf16 decode step at hd 128 and 256 takes the tensor-core step
+    kernel (any G up to its 16-row M, ``STEP_SPLITS[hd]`` CTAs per (b,
+    kv-head)); fp32, the decode step at hd 64 and a group above 16 rows
+    keep the CUDA-core kernel with their G rows and ``SPLITS``.
+    ``check_args`` returns the plan, with the CTA's shared memory within one
+    H100 block (two step CTAs an SM at hd 256, five at hd 128)."""
     tc, rows, kernel = want
-    splits = fd.STEP_SPLITS if tc else fd.SPLITS
+    splits = fd.STEP_SPLITS[hd] if tc else fd.SPLITS
     assert fd.launch_plan(1, G, hd, dtype, False) == (tc, rows, splits)
     assert fd.KERNELS[tc, False][1] == kernel
     k = torch.zeros((2, 1, 40, hd), dtype=dtype)
     assert fd.check_args(torch.zeros((2, 1, G, hd), dtype=dtype), k, k,
                          torch.zeros((2, 40)), False) == (1, tc, rows, splits)
     if tc:
-        assert fd.STEP_SMEM_BYTES == 2 * (16 + 128) * 264 + 4 * (
-            16 * 68 + 128) == 80_896
-        assert fd.STEP_ROWS * hd + 2 * fd.STEP_ROWS == 4128   # a partial
+        assert fd.STEP_SMEM_BYTES[hd] == 2 * (16 + 128) * (hd + 8) + 4 * (
+            16 * 68 + 128) == {128: 44_032, 256: 80_896}[hd]
+        assert fd.MAX_SMEM_BYTES // fd.STEP_SMEM_BYTES[hd] == {
+            128: 5, 256: 2}[hd]
+        # the cluster combine's partial (16 rows of hd + 4 floats, m, l)
+        # goes where the 64-position K tile was
+        assert 4 * (fd.STEP_ROWS * (hd + 4) + 2 * fd.STEP_ROWS) <= \
+            2 * 64 * (hd + 8)
 
 
 def test_decode_step_above_the_step_route_still_raises():
@@ -291,7 +303,7 @@ PREFILL_PLANS = {
     # (hd, dtype) -> (kernel, threads, query heads a CTA, shared bytes)
     (32, "bfloat16"): ("flash_prefill_mma_kernel", 128, 1, 25_600),
     (64, "bfloat16"): ("flash_prefill_wgmma_kernel", 128, 1, 41_984),
-    (128, "bfloat16"): ("flash_prefill_mma_kernel", 128, 1, 87_040),
+    (128, "bfloat16"): ("flash_prefill_wide_kernel", 128, 1, 82_944),
     (256, "bfloat16"): ("flash_prefill_wide_kernel", 256, 2, 197_632),
     (32, "float32"): ("flash_prefill_simt_kernel", 128, 1, 40_960),
     (64, "float32"): ("flash_prefill_simt_kernel", 128, 1, 65_536),
@@ -304,9 +316,10 @@ PREFILL_PLANS = {
 def test_prefill_launch_plan_mirrors_the_dispatch(hd, dtype):
     """``launch_plan`` and ``smem_bytes`` of flash_prefill at every head dim
     it is built for, in both dtypes, as ``flash_prefill_launch``
-    dispatches: every CTA within one H100 block (gemma-2b's hd-256 bf16
-    route: Q of two heads and two-tile K and V rings of 32 KB tiles, 1 KB
-    of alignment), and ``check_args`` passes there."""
+    dispatches: every CTA within one H100 block (the bf16 pipelined route:
+    at hd 128 Q of one head and two-tile K and V rings of 16 KB tiles, at
+    hd 256 Q of two heads and rings of 32 KB tiles, 1 KB of alignment), and
+    ``check_args`` passes there."""
     dt = getattr(torch, dtype)
     kernel, threads, heads, smem = PREFILL_PLANS[hd, dtype]
     assert fp.launch_plan(hd, dt) == (kernel, threads, heads)
