@@ -19,7 +19,11 @@ phase raises, and the script exits nonzero:
               and NaN pages past every row's length; for the SSD scan:
               mamba2-130m's and hymba-1.5b's heads with a nonzero initial
               state, through the strided views the model passes, and a
-              ragged last chunk; for flash_decode's chunk form, the dense
+              ragged last chunk, and its narrowest widths p 16 / n 8 at the
+              reference's kernel-test shape (2, 64, 2, 16, 8; q 32) and
+              ragged (2, 45, 3, 16, 8; q 16), each with its device ms
+              beside its bound on an edge line; for flash_decode's chunk
+              form, the dense
               fused tick's shape B 8, ck 16, C 576 and softcap, C below the
               split count, hymba-1.5b's group of 5, hd 128, ragged starts
               with an inert row, queries that see only the first key, and
@@ -258,7 +262,10 @@ phase raises, and the script exits nonzero:
               (22 layers, bf16 compute, fp32 params and Adam moments,
               remat) on B 8 x S 512 synthetic-token batches: 3 warm-up and
               10 timed steps at TRAIN_ADAM (ms a step, tokens/s, peak
-              memory, the FLOPs share of the bf16 dense peak), the peaks
+              memory, the FLOPs share of the bf16 dense peak by the hand
+              count, and beside it the dry run's ``FlopCounterMode`` count
+              of the same step on meta and ``roofline.model_flops``), the
+              peaks
               with remat off, one step's device split (matrix products,
               elementwise, cross-entropy, Adam; the top kernels), 60
               steps at the tiny-LM example's optimizer (its 512-token
@@ -302,6 +309,12 @@ phase raises, and the script exits nonzero:
               each variant's logits card vs CPU at B 2, then ms, images/s
               and the share of the fp32 peak that ``resnet_flops`` counts
               at B 1, 8 and 32. Phases 18-20 run between 15 and 16.
+ 21. dryrun   the production-mesh dry run as a user runs it: ``python -m
+              repro_torch.launch.dryrun --arch tinyllama-1.1b --shape all
+              --both-meshes`` in a subprocess (meta tensors over a fake
+              process group of world 256 / 512; it must exit 0), each
+              pair's per-device bytes, counted FLOPs and usefulness printed
+              on its own line; after 16.
  17. output   ``memory_allocated`` at the end and the part of it that is
               cuBLAS's per-stream workspaces (dropped once nothing replays
               again); the ``{"kernels": [...]}`` line (launches summed over the
@@ -325,7 +338,8 @@ attention kernels take the absolute ``TOL``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card);
 ``python3 chip_smoke.py --phases whisper,vlm,resnet`` builds the kernels
-and runs only the named ones of phases 18-20 (no result line).
+and runs only the named ones of phases 3 (``kernels``), 18-20 and 21
+(``dryrun``), with no result line.
 ``python3 chip_smoke.py --ab <checkout>/src`` instead holds and times only
 flash_prefill and flash_decode of that checkout (event and device times,
 SDPA beside them, bf16 and fp32), flash_decode's chunk form where the
@@ -383,6 +397,10 @@ EMBED_NOISE = 1e-3          # a perturbation under one bf16 rounding (2^-8)
 SSD_CHUNK = 128
 # (h, p, n) of the SSD scan at the serve shape: mamba2-130m, hymba-1.5b
 SSD_HEADS = {"mamba2-130m": (24, 64, 128), "hymba-1.5b": (50, 64, 16)}
+# the SSD scan's narrowest widths, p 16 / n 8 (no config runs them): the
+# reference's own kernel test's shape and a ragged last chunk,
+# (b, s, h, p, n, chunk)
+SSD_NARROW = ((2, 64, 2, 16, 8, 32), (2, 45, 3, 16, 8, 16))
 HYMBA_H, HYMBA_KV = 25, 5   # hymba-1.5b attention heads: GQA group 5
 # each of the dense and the paged tinyllama serve loops and the mamba2
 # loop (20 s until the script neared its time limit)
@@ -984,6 +1002,8 @@ def ssd_kernel_checks(torch, ss, plain, gen):
                  for strided in (True, False)]
         cases.append(("ragged s=300", (2, 300, *SSD_HEADS["mamba2-130m"]),
                       SSD_CHUNK, True))
+        cases += [(f"p16/n8 {shape}", shape[:5], shape[5], True)
+                  for shape in SSD_NARROW]
         for label, shape, chunk, strided in cases:
             x, dt, A, Bm, Cm, init = ssd_inputs(torch, gen, *shape, dtype,
                                                 strided)
@@ -999,6 +1019,50 @@ def ssd_kernel_checks(torch, ss, plain, gen):
     return err
 
 
+def ssd_work(b, s, h, p, n, chunk, esz):
+    """(bytes, operations) the SSD scan must move and do: x, B, C, dt, A
+    and the initial state read once, y and the final state written once;
+    per (row, chunk) C.B over the causal (l, s) pairs once (shared by the
+    heads), then per head the diagonal product over those pairs and the
+    carried-state and state-update products (q x p x n each), 2 flops per
+    multiply-add; a ragged last chunk counts its own steps."""
+    nbytes = (esz * (2 * b * s * h * p + 2 * b * s * n)
+              + 4 * (b * s * h + h + 2 * b * h * p * n))
+    flops = 0
+    for q in [chunk] * (s // chunk) + ([s % chunk] if s % chunk else []):
+        pairs = q * (q + 1) // 2
+        flops += 2 * b * (pairs * n + h * (pairs * p + 2 * q * p * n))
+    return nbytes, flops
+
+
+def ssd_narrow_rows(torch, ss, plain, gen):
+    """The p 16 / n 8 edge line: each SSD_NARROW shape in bf16 and fp32
+    (strided views, nonzero initial state) held to the plain version, then
+    its device ms beside its bound (``ssd_work``)."""
+    out = {}
+    for b, s, h, p, n, chunk in SSD_NARROW:
+        for dt in (torch.bfloat16, torch.float32):
+            args = ssd_inputs(torch, gen, b, s, h, p, n, dt)
+            y, fin = ss.ssd_scan_chunked(*args, chunk=chunk)
+            wy, wfin = plain(*args[:5], chunk, args[5])
+            lab = f"ssd_scan p16/n8 {(b, s, h, p, n, chunk)} {str(dt)[6:]}"
+            err = rel_check(f"{lab} y", y, wy, SSD_REL_TOL[str(dt)])
+            rel_check(f"{lab} state", fin, wfin,
+                      SSD_REL_TOL["torch.float32"])
+            b_ms, b_by = bound(*ssd_work(b, s, h, p, n, chunk,
+                                         2 if dt == torch.bfloat16 else 4),
+                               dt)
+            dev_ms = device_ms(torch, lambda *a: ss.ssd_scan_chunked(
+                *a, chunk=chunk), [args])
+            log(f"  {'ssd_scan':<14s} {str(dt)[6:]:<9s} edge "
+                f"(b,s,h,p,n,q)={(b, s, h, p, n, chunk)}: device "
+                f"{ms4(dev_ms)} ms, bound {b_ms:.6f} ({b_by})")
+            out[f"{(b, s, h, p, n, chunk)} {str(dt)[6:]}"] = dict(
+                max_abs_err=err, device_ms=dev_ms, bound_ms=b_ms,
+                bound_by=b_by)
+    return out
+
+
 def ssd_timing(torch, ss, plain, gen, arch, iters=20):
     """ssd_scan at ``arch``'s serve shape (B x PROMPT, bf16, the strided
     views the model passes, nonzero initial state), inputs rotated through
@@ -1008,16 +1072,12 @@ def ssd_timing(torch, ss, plain, gen, arch, iters=20):
     chunk), C.B over the causal (l, s) pairs once (shared by the heads),
     then per head the diagonal product over those pairs and the
     carried-state and state-update products (q x p x n each), 2 flops per
-    multiply-add."""
+    multiply-add (``ssd_work``)."""
     dt, esz = torch.bfloat16, 2
     h, p, n = SSD_HEADS[arch]
-    nbytes = (esz * (2 * B * PROMPT * h * p + 2 * B * PROMPT * n)
-              + 4 * (B * PROMPT * h + h + 2 * B * h * p * n))
+    nbytes, flops = ssd_work(B, PROMPT, h, p, n, SSD_CHUNK, esz)
     sets = [ssd_inputs(torch, gen, B, PROMPT, h, p, n, dt)
             for _ in range(int(3 * L2_BYTES // nbytes) + 1)]
-    pairs = SSD_CHUNK * (SSD_CHUNK + 1) // 2
-    flops = 2 * B * (PROMPT // SSD_CHUNK) * (
-        pairs * n + h * (pairs * p + 2 * SSD_CHUNK * p * n))
     b_ms, b_by = bound(nbytes, flops, dt)
 
     def kern(*a):
@@ -1485,6 +1545,7 @@ def kernel_phase(torch):
     errs["paged"], paged_serve, errs["chunk"], chunk_args = \
         paged_kernel_checks(torch, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
+    narrow = ssd_narrow_rows(torch, ss, ssd_scan_plain, gen)
     verify = verify_shape_checks(torch, fd, pd, gen)
     torch.cuda.synchronize()
 
@@ -1528,7 +1589,8 @@ def kernel_phase(torch):
                      library_device_ms=None, **ssd["mamba2-130m"],
                      hymba_ms=hy["ms"], hymba_device_ms=hy["device_ms"],
                      hymba_plain_ms=hy["plain_ms"],
-                     hymba_bound_ms=hy["bound_ms"]))
+                     hymba_bound_ms=hy["bound_ms"],
+                     p16n8=narrow))
     for r in rows:
         lib = ("no single library call" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} (device "
@@ -5028,7 +5090,12 @@ def train_flops(cfg, batch, seq):
     the unembedding; the embedding is a gather) plus the attention's
     score and value products over the full S x S the plain path computes,
     3x (forward, two in the backward pass); the hardware count adds the
-    remat's second forward pass of the layers."""
+    remat's second forward pass of the layers, less each layer's last
+    product (the MLP's down projection): ``checkpoint`` stops its replay
+    once the last tensor the backward needs is recomputed, and that
+    product's output is not one (the dry run's count, ``FlopCounterMode``
+    on meta, agrees to the FLOP; tests/test_torch_dryrun.py holds it to a
+    hand count)."""
     D, F_, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     H_, KV_, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     per_layer = D * (H_ + 2 * KV_) * hd + H_ * hd * D + 3 * D * F_
@@ -5036,7 +5103,8 @@ def train_flops(cfg, batch, seq):
     T = batch * seq
     attn_fwd = L * 4 * batch * H_ * seq * seq * hd
     model = 6 * n_mm * T + 3 * attn_fwd
-    recompute = 2 * L * per_layer * T + attn_fwd if cfg.remat else 0
+    recompute = (2 * L * (per_layer - F_ * D) * T + attn_fwd if cfg.remat
+                 else 0)
     return model, model + recompute, n_mm
 
 
@@ -5083,6 +5151,36 @@ def train_split(torch, lm, adam_cfg, params, opt, batch):
                      e.key[:80]) for e in sorted(
         fb, key=lambda e: -e.self_device_time_total)[:8]]
     return split
+
+
+def dryrun_train_counts(torch, cfg, step_ms, hw_f):
+    """Beside ``train_flops``' hand count: the dry run's count of the same
+    step (``FlopCounterMode`` over it on meta tensors at TRAIN_B x TRAIN_S,
+    remat on; products only) and ``roofline.model_flops`` (6·N·T over
+    every param, the embedding's too), each as a share of the bf16 dense
+    peak at the measured ms a step, and the hand count's distance from
+    the counted one."""
+    from repro_torch.analysis.roofline import model_flops
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun, steps as steps_mod
+    shape = InputShape("train_chip", TRAIN_S, TRAIN_B, "train")
+    fn, args = steps_mod.input_specs(
+        cfg.replace(param_dtype="float32"), shape)
+    counted = dryrun.count_step(fn, args)
+    rl_f = model_flops(cfg, shape)
+    peak = PEAK_FLOPS["torch.bfloat16"] * (step_ms / 1e3)
+    out = {"counted_flops": counted, "counted_flops_share": counted / peak,
+           "roofline_model_flops": rl_f,
+           "roofline_model_flops_share": rl_f / peak,
+           "hand_vs_counted": hw_f / counted - 1.0}
+    log(f"  (a) the dry run's count of this step (FlopCounterMode on meta, "
+        f"remat on) {counted / 1e12:.3f} T = "
+        f"{100 * out['counted_flops_share']:.2f}% of the bf16 dense peak; "
+        f"roofline.model_flops {rl_f / 1e12:.3f} T = "
+        f"{100 * out['roofline_model_flops_share']:.2f}%; the hand count "
+        f"with recompute is {100 * out['hand_vs_counted']:+.2f}% of the "
+        f"counted")
+    return out
 
 
 def train_full(torch, tmp):
@@ -5164,6 +5262,7 @@ def train_full(torch, tmp):
         f"step = {100 * out['model_flops_share']:.1f}% of the bf16 dense "
         f"peak, with the remat's recompute {hw_f / 1e12:.2f} T = "
         f"{100 * out['hardware_flops_share']:.1f}%")
+    out.update(dryrun_train_counts(torch, cfg, step_ms, hw_f))
     # the peaks of the loss and its gradients alone, remat on and off, and
     # one remat-off step's time
     for remat in (True, False):
@@ -5466,6 +5565,44 @@ def train_phase(torch, profiles):
     return launches
 
 
+DRYRUN_ARCH = "tinyllama-1.1b"
+
+
+def dryrun_phase(torch):
+    """The port's production-mesh dry run for DRYRUN_ARCH over every shape
+    and both meshes, as a user runs it (``python -m
+    repro_torch.launch.dryrun``, a subprocess: its fake process group of
+    world 256 / 512 stays out of this one); it must exit 0, and each
+    pair's per-device bytes, counted FLOPs and usefulness are printed."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", DRYRUN_ARCH, "--shape", "all",
+                            "--both-meshes", "--out", tmp], env=env,
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+        wall = time.time() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"dryrun exited {r.returncode}: "
+                                 f"{(r.stdout + r.stderr)[-3000:]}")
+        log(f"[21] dry run ({DRYRUN_ARCH}, every shape, both meshes; "
+            f"subprocess wall {wall:.1f} s)")
+        for f in sorted(Path(tmp).glob("*.json")):
+            d = json.loads(f.read_text())
+            if d.get("skipped"):
+                log(f"  {f.stem}: skipped ({d['reason'][:60]})")
+                continue
+            per = d["per_device_bytes"]
+            log(f"  {f.stem}: per-device bytes params {per['params']} opt "
+                f"{per['opt']} cache {per['cache']} batch {per['batch']}; "
+                f"counted FLOPs {d['flops_counted_global']:.4e} global "
+                f"({d['hlo_flops_per_device']:.4e} a device); usefulness "
+                f"{d['usefulness']:.4f}")
+    return wall
+
+
 def main():
     t_start = time.time()
     ap = argparse.ArgumentParser()
@@ -5477,9 +5614,9 @@ def main():
                          "under SRC (a checkout's src/), print one JSON line "
                          "and stop")
     ap.add_argument("--phases", default=None, metavar="NAMES",
-                    help="after the build, run only these of the later "
-                         "phases (comma-separated: whisper, vlm, resnet) "
-                         "and print no result line")
+                    help="after the build, run only these phases "
+                         "(comma-separated: kernels, whisper, vlm, resnet, "
+                         "dryrun) and print no result line")
     args = ap.parse_args()
     src = Path(args.ab).resolve() if args.ab else ROOT / "src"
     import torch
@@ -5519,7 +5656,8 @@ def main():
     if args.phases:
         for name in args.phases.split(","):
             {"whisper": whisper_phase, "vlm": vlm_phase,
-             "resnet": resnet_phase}[name](torch)
+             "resnet": resnet_phase, "kernels": kernel_phase,
+             "dryrun": dryrun_phase}[name](torch)
         log(f"phases {args.phases}: total wall time "
             f"{time.time() - t_start:.1f}s")
         return
@@ -5561,6 +5699,7 @@ def main():
     internvl_rows, vlm = timed("vlm", vlm_phase, torch)
     timed("resnet", resnet_phase, torch)
     trained = timed("train", train_phase, torch, profiles)
+    timed("dryrun", dryrun_phase, torch)
     for r in rows:
         for extra in (gemma_rows, granite_rows, whisper_rows,
                       internvl_rows):
@@ -5595,7 +5734,7 @@ def main():
         {**{k: r[k] for k in keys if k in r},
          **{k: v for k, v in r.items()
             if k.startswith(("gemma_", "yi_", "hd32_", "granite_",
-                             "whisper_", "internvl_"))}}
+                             "whisper_", "internvl_", "p16n8"))}}
         for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

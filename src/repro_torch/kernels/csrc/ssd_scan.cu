@@ -59,9 +59,20 @@
 // out of L2, x transposed by `ldmatrix`). `mma.sync` rather than `wgmma`:
 // three of the four products take an operand that is formed per element in
 // registers from fp32 values (x', the decayed C.B, the split state), a
-// chunk can be any q from 1 to 128 and p = 32 or n = 16 narrower than a
-// 64-row warpgroup tile, and the tensor cores are not what bounds the
-// kernel (~8 GFLOP with the splits below, ~13 us at the `mma.sync` rate).
+// chunk can be any q from 1 to 128 and p = 16 or 32 or n = 8 or 16
+// narrower than a 64-row warpgroup tile, and the tensor cores are not what
+// bounds the kernel (~8 GFLOP with the splits below, ~13 us at the
+// `mma.sync` rate).
+//
+// Widths: p in {16, 32, 64} and n in {8, 16, 32, 64, 128}, every pair, in
+// both dtypes. p = 16 is one 16-row block of the m16n8k16 fragments. n = 8
+// is one 8-wide n tile, but a product over n takes depth 16: the bf16 rows
+// of B, C and the split state are held NK = n rounded up to 16 wide in
+// shared memory with the columns past n zero, so the depth-n products run
+// one k-step over zeros, and launch 1's x'^T B computes an 8-wide tile of
+// zeros beside the real one and does not store it. In fp32 a thread maps
+// one p row (lanes along n) or one p column (launch 3): below p = 32 the
+// rows or lanes past p idle.
 //
 // Precision. x, B and C are bf16 already, so they enter the products
 // exactly; every fp32 operand (x' = x dt exp(cs_last - cs), the decayed C.B
@@ -98,13 +109,14 @@ __host__ __device__ constexpr int pad16(int q) { return (q + 15) / 16 * 16; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // Dynamic shared memory in bytes (the wrapper's `launch_plan` mirrors them).
+// bf16 rows of n values are pad16(N) + 8 wide (zero past N, then the skew).
 __host__ __device__ constexpr size_t chunk_smem_bf16(int P, int N, int q) {
-  return 2 * (size_t)pad16(q) * (N + 8 + imax(N + 8, P + 8)) +
+  return 2 * (size_t)pad16(q) * (pad16(N) + 8 + imax(pad16(N) + 8, P + 8)) +
          4 * 3 * (size_t)pad16(q);
 }
 __host__ __device__ constexpr size_t out_smem_bf16(int P, int N, int q) {
-  return 2 * ((size_t)pad16(q) * (N + 8) + 2 * (size_t)P * (N + 8) +
-              (size_t)pad16(q) * (P + 8)) +
+  return 2 * ((size_t)pad16(q) * (pad16(N) + 8) +
+              2 * (size_t)P * (pad16(N) + 8) + (size_t)pad16(q) * (P + 8)) +
          4 * 2 * (size_t)pad16(q);
 }
 __host__ __device__ constexpr size_t chunk_smem_f32(int P, int N, int q) {
@@ -151,17 +163,18 @@ __device__ __forceinline__ void load_dt(float* dts, const float* dt,
 
 // Start the copy of rows [0, rows) of a bf16 slab with COLS columns (row
 // stride `stride` elements, rows 16-byte aligned) into shared `dst` (row
-// stride `ld`); rows at or past `valid` are zero-filled.
-template <int COLS>
+// stride `ld`), each row COLSP >= COLS wide; rows at or past `valid` and
+// columns at or past COLS are zero-filled.
+template <int COLS, int COLSP = COLS>
 __device__ __forceinline__ void load_rows(bf16* dst, int ld,
                                           const bf16* __restrict__ src,
                                           long long stride, int valid,
                                           int rows) {
-  constexpr int CH = COLS / 8;     // 16-byte chunks per row
+  constexpr int CH = COLSP / 8;    // 16-byte chunks per row
   for (int i = threadIdx.x; i < rows * CH; i += blockDim.x) {
     const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * ld + c, src + (ok ? r : 0) * stride + c, ok);
+    const bool ok = r < valid && c < COLS;
+    cp_async16(dst + r * ld + c, src + (ok ? r * stride + c : 0), ok);
   }
 }
 
@@ -180,7 +193,8 @@ ssd_scan_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                       float* __restrict__ cb_ws, float* __restrict__ dec_ws,
                       int S, int H, int q, long long x_bs, long long x_row,
                       long long bc_bs, long long bc_row) {
-  constexpr int LDN = N + 8, LDP = P + 8;   // bf16 per shared row
+  constexpr int NK = pad16(N);              // n as a product's depth
+  constexpr int LDN = NK + 8, LDP = P + 8;  // bf16 per shared row
   const int QP = pad16(q);
   const int hh = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
   const int nc = gridDim.y;
@@ -196,13 +210,13 @@ ssd_scan_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   float* w = cs + QP;
 
   const long long bc0 = bi * bc_bs + t0 * bc_row;
-  load_rows<N>(Bs, LDN, Bm + bc0, bc_row, qv, QP);
+  load_rows<N, NK>(Bs, LDN, Bm + bc0, bc_row, qv, QP);
 
   if (hh == H) {
     // ---- C.B (QP x QP, depth N) of this (row, chunk), for every head.
     // Warp w takes 16-row block w, and of it only the columns up to its
     // diagonal block (all that launch 3 reads).
-    load_rows<N>(Ts, LDN, Cm + bc0, bc_row, qv, QP);
+    load_rows<N, NK>(Ts, LDN, Cm + bc0, bc_row, qv, QP);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
@@ -217,7 +231,7 @@ ssd_scan_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < N / 16; ++kk) {
+        for (int kk = 0; kk < NK / 16; ++kk) {
           uint32_t a[4];
           ldmatrix_x4(a, Ts + (mb * 16 + (lane & 15)) * LDN + kk * 16 +
                              (lane >> 4) * 8);
@@ -264,8 +278,8 @@ ssd_scan_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   __syncthreads();
 
   constexpr int MB = P / 16;                          // 16-row blocks of p
-  constexpr int NSPLIT = (kWarps / MB < N / 16) ? kWarps / MB : N / 16;
-  constexpr int NT = N / 8 / NSPLIT;                  // 8-wide n tiles/warp
+  constexpr int NSPLIT = (kWarps / MB < NK / 16) ? kWarps / MB : NK / 16;
+  constexpr int NT = NK / 8 / NSPLIT;                 // 8-wide n tiles/warp
   static_assert(NT % 2 == 0 && MB * NSPLIT <= kWarps, "unsupported (p, n)");
   if (warp >= MB * NSPLIT) return;
   const int mb = warp % MB, nt0 = (warp / MB) * NT;
@@ -308,6 +322,7 @@ ssd_scan_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
               (size_t)(mb * 16 + g) * N + 2 * t;
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
+    if ((nt0 + j) * 8 >= N) continue;     // a tile of the zero columns
     float* r0 = sp + (nt0 + j) * 8;
     *reinterpret_cast<float2*>(r0) = make_float2(acc[j][0], acc[j][1]);
     *reinterpret_cast<float2*>(r0 + 8 * N) = make_float2(acc[j][2], acc[j][3]);
@@ -353,7 +368,8 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
                     const float* __restrict__ cb_ws, bf16* __restrict__ y,
                     int S, int H, int q, long long x_bs, long long x_row,
                     long long bc_bs, long long bc_row) {
-  constexpr int LDN = N + 8, LDP = P + 8;
+  constexpr int NK = pad16(N);
+  constexpr int LDN = NK + 8, LDP = P + 8;
   const int QP = pad16(q);
   const int hh = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
   const int nc = gridDim.y;
@@ -370,7 +386,7 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
   float* dts = reinterpret_cast<float*>(Xs + QP * LDP);
   float* cs = dts + QP;
 
-  load_rows<N>(Cs, LDN, Cm + bi * bc_bs + t0 * bc_row, bc_row, qv, QP);
+  load_rows<N, NK>(Cs, LDN, Cm + bi * bc_bs + t0 * bc_row, bc_row, qv, QP);
   load_rows<P>(Xs, LDP, x + bi * x_bs + t0 * x_row + (long long)hh * P,
                x_row, qv, QP);
   cp_async_commit();
@@ -394,6 +410,12 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
       split_bf16(v[u].z, v[u].w, h1, l1);
       *reinterpret_cast<uint2*>(Sh + r * LDN + col) = make_uint2(h0, h1);
       *reinterpret_cast<uint2*>(Sl + r * LDN + col) = make_uint2(l0, l1);
+    }
+    if constexpr (NK > N) {   // the zero columns of the depth-NK product
+      for (int e = threadIdx.x; e < P * (NK - N); e += kThreads) {
+        const int r = e / (NK - N), col = N + e % (NK - N);
+        Sh[r * LDN + col] = Sl[r * LDN + col] = __float2bfloat16(0.f);
+      }
     }
   }
   load_dt(dts, dt, row0, H, hh, qv, QP);
@@ -428,7 +450,7 @@ ssd_scan_out_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   // carried: C_l . state^T (depth N), the state as hi + lo
 #pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
+  for (int kk = 0; kk < NK / 16; ++kk) {
     uint32_t a[4];
     ldmatrix_x4(a, Cs + (l0 + (lane & 15)) * LDN + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
@@ -525,9 +547,9 @@ ssd_scan_chunk_f32_kernel(const float* __restrict__ x,
   constexpr int KL = N < 32 ? N : 32;
   constexpr int RPW = 32 / KL;
   constexpr int KJ = N / KL;
-  constexpr int PI = P / (kWarps * RPW);
-  static_assert(P % 32 == 0 && N % KL == 0 && P % (kWarps * RPW) == 0,
-                "unsupported (p, n)");
+  constexpr int PI = (P + kWarps * RPW - 1) / (kWarps * RPW);
+  static_assert(P % 16 == 0 && N % KL == 0 &&
+                (P % (kWarps * RPW) == 0 || PI == 1), "unsupported (p, n)");
   const int QP = pad16(q);
   const int hh = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
   const int nc = gridDim.y;
@@ -609,6 +631,10 @@ ssd_scan_chunk_f32_kernel(const float* __restrict__ x,
   if (tid == 0) dec_ws[((size_t)bi * nc + c) * H + hh] = expf(tot);
   __syncthreads();
   const int kl = lane % KL, pr = lane / KL;
+  // this thread's p rows; past P (only where P < kWarps * RPW) they idle
+  int prow[PI];
+#pragma unroll
+  for (int ii = 0; ii < PI; ++ii) prow[ii] = pr + RPW * (warp + kWarps * ii);
   float acc[PI][KJ];
 #pragma unroll
   for (int ii = 0; ii < PI; ++ii)
@@ -619,7 +645,7 @@ ssd_scan_chunk_f32_kernel(const float* __restrict__ x,
     float xv[PI], bv[KJ];
 #pragma unroll
     for (int ii = 0; ii < PI; ++ii)
-      xv[ii] = Ts[s * P + pr + RPW * (warp + kWarps * ii)] * w;
+      xv[ii] = prow[ii] < P ? Ts[s * P + prow[ii]] * w : 0.f;
 #pragma unroll
     for (int jj = 0; jj < KJ; ++jj) bv[jj] = Bs[s * LDN + kl + KL * jj];
 #pragma unroll
@@ -633,7 +659,7 @@ ssd_scan_chunk_f32_kernel(const float* __restrict__ x,
   for (int ii = 0; ii < PI; ++ii)
 #pragma unroll
     for (int jj = 0; jj < KJ; ++jj)
-      sp[(pr + RPW * (warp + kWarps * ii)) * N + kl + KL * jj] = acc[ii][jj];
+      if (prow[ii] < P) sp[prow[ii] * N + kl + KL * jj] = acc[ii][jj];
 }
 
 // ============================================================ fp32: launch 3
@@ -649,7 +675,12 @@ ssd_scan_out_f32_kernel(const float* __restrict__ x,
                         int S, int H, int q, long long x_bs, long long x_row,
                         long long bc_bs, long long bc_row) {
   constexpr int LDN = N + 1;
-  constexpr int PJ = P / 32;            // output columns per thread
+  constexpr int PJ = (P + 31) / 32;     // output columns per thread
+  // a lane's columns lane + 32 j, clamped to P - 1 for loads; stored only
+  // below P (at P = 16 the upper half-warp computes a copy and drops it)
+  int pc[PJ];
+#pragma unroll
+  for (int j = 0; j < PJ; ++j) pc[j] = min(threadIdx.x % 32 + 32 * j, P - 1);
   const int QP = pad16(q);
   const int hh = blockIdx.x, c = blockIdx.y, bi = blockIdx.z;
   const int nc = gridDim.y;
@@ -711,7 +742,7 @@ ssd_scan_out_f32_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i) m[i] = Mt[(r0 + i) * q + s];
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) xv[j] = xs[s * P + lane + 32 * j];
+      for (int j = 0; j < PJ; ++j) xv[j] = xs[s * P + pc[j]];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -725,7 +756,7 @@ ssd_scan_out_f32_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int i = 0; i < 4; ++i) cv[i] = Cs[lr[i] * LDN + k];
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) sv[j] = st[(lane + 32 * j) * LDN + k];
+      for (int j = 0; j < PJ; ++j) sv[j] = st[pc[j] * LDN + k];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -738,7 +769,8 @@ ssd_scan_out_f32_kernel(const float* __restrict__ x,
       const float e = expf(cs[l]);
       float* yr = y + ((row0 + l) * H + hh) * P;
 #pragma unroll
-      for (int j = 0; j < PJ; ++j) yr[lane + 32 * j] = acc[i][j] + e * off[i][j];
+      for (int j = 0; j < PJ; ++j)
+        if (lane + 32 * j < P) yr[lane + 32 * j] = acc[i][j] + e * off[i][j];
     }
     __syncthreads();                    // Mt is rewritten by the next tile
   }
@@ -816,6 +848,7 @@ cudaError_t dispatch_n(const void* x, const float* dt, const float* A,
   if (n == NN)                                                              \
     return launch<T, P, NN>(x, dt, A, Bm, Cm, init, y, fin, ws, b, S, H, q, \
                             x_bs, x_row, bc_bs, bc_row, s);
+  SSD_CASE(8)
   SSD_CASE(16)
   SSD_CASE(32)
   SSD_CASE(64)
@@ -830,6 +863,9 @@ cudaError_t dispatch_p(const void* x, const float* dt, const float* A,
                        void* y, float* fin, float* ws, int b, int S, int H,
                        int p, int n, int q, long long x_bs, long long x_row,
                        long long bc_bs, long long bc_row, cudaStream_t s) {
+  if (p == 16)
+    return dispatch_n<T, 16>(x, dt, A, Bm, Cm, init, y, fin, ws, b, S, H, n,
+                             q, x_bs, x_row, bc_bs, bc_row, s);
   if (p == 32)
     return dispatch_n<T, 32>(x, dt, A, Bm, Cm, init, y, fin, ws, b, S, H, n,
                              q, x_bs, x_row, bc_bs, bc_row, s);

@@ -24,8 +24,8 @@ from repro_torch.models.ssd import ssd_scan_plain
 _C, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_C] * 9 + [_I] * 6 + [_L] * 4 + [_I, _C]
 DEFAULT_CHUNK = 128
-HEAD_DIMS = (32, 64)            # p, instantiated in csrc/ssd_scan.cu
-STATE_DIMS = (16, 32, 64, 128)  # n, likewise
+HEAD_DIMS = (16, 32, 64)           # p, instantiated in csrc/ssd_scan.cu
+STATE_DIMS = (8, 16, 32, 64, 128)  # n, likewise
 MAX_CHUNK = 128                 # csrc kQMax
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
 THREADS = 256                   # csrc kThreads
@@ -44,8 +44,9 @@ def launch_plan(b: int, s: int, h: int, p: int, n: int, chunk: int,
     with QP the chunk rounded up to 16, chunk decays (b, nc, h))."""
     q, qp, nc = chunk, _pad16(chunk), -(-s // chunk)
     if dtype == "torch.bfloat16":
-        smem1 = 2 * qp * (n + 8 + max(n + 8, p + 8)) + 4 * 3 * qp
-        smem3 = 2 * (qp * (n + 8) + 2 * p * (n + 8) + qp * (p + 8)) + 8 * qp
+        ld = _pad16(n) + 8       # bf16 rows of n: zero to 16, then the skew
+        smem1 = 2 * qp * (ld + max(ld, p + 8)) + 4 * 3 * qp
+        smem3 = 2 * (qp * ld + 2 * p * ld + qp * (p + 8)) + 8 * qp
     elif dtype == "torch.float32":
         smem1 = 4 * (q * (n + 1) + q * max(p, n + 1) + 3 * q)
         smem3 = 4 * (q * p + q * (n + 1) + p * (n + 1) + _TILE_ROWS * q

@@ -13,21 +13,34 @@ and handed to the model, as in the reference.
 
 The steps are functions of their inputs as in the reference: a train step
 returns new params and a new optimizer state and leaves its inputs as they
-were. The reference's ``ShapeDtypeStruct`` half (``sds``,
-``batch_specs_for``, ``params_shapes``, ``opt_shapes``, ``cache_shapes``,
-``input_specs``) serves its multi-pod dry run and is ported with it
-(ROADMAP A13).
+were.
+
+The shape half serves the dry run (``launch.dryrun``), as the reference's
+``ShapeDtypeStruct`` half does: ``input_specs(cfg, shape)`` returns the
+step the shape's kind runs and its arguments as ``device="meta"`` tensors
+(shapes and dtypes, nothing allocated):
+  train_4k     -> train_step(params, opt, batch)  (loss + Adam update, remat)
+  prefill_32k  -> prefill_step(params, batch)     (prompt -> cache + logits)
+  decode_*     -> serve_step(params, cache, toks) (ONE token, KV/state cache)
+Params hold every leaf in the config's param dtype, as the reference's
+init does. Audio/VLM frontends are stubs: the batch carries precomputed
+frame/patch embeddings of the right shape. One difference: the cache's
+``pos`` is int64 (the port's engine advances it on the device), int32 in
+the reference.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import build_model
-from repro_torch.train.optimizer import (AdamConfig, adam_update, tree_map,
-                                         value_and_grad)
+from repro_torch.configs.shapes import InputShape
+from repro_torch.device import torch_dtype
+from repro_torch.models.model import (AUDIO_FRAME_DIM, VISION_EMBED_DIM,
+                                      build_model)
+from repro_torch.train.optimizer import (AdamConfig, adam_init, adam_update,
+                                         tree_map, value_and_grad)
 
 TRAIN_ADAM = AdamConfig(lr=3e-4, warmup_steps=100, total_steps=10_000)
 
@@ -92,3 +105,68 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return m.decode_step(params, cache, tokens)
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# shapes: meta tensors for the dry run
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def sds(shape, dtype) -> torch.Tensor:
+    """A meta tensor of ``shape`` and ``dtype`` (a torch dtype or a config
+    dtype name): the port of ``jax.ShapeDtypeStruct``."""
+    if isinstance(dtype, str):
+        dtype = torch_dtype(dtype)
+    return torch.empty(tuple(shape), dtype=dtype, device=META)
+
+
+def batch_specs_for(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    B = shape.global_batch
+    S = shape.seq_len
+    batch: Dict[str, Any] = {}
+    if shape.kind == "train":
+        batch["tokens"] = sds((B, S), torch.int32)
+        batch["labels"] = sds((B, S), torch.int32)
+    elif shape.kind == "prefill":
+        batch["tokens"] = sds((B, S), torch.int32)
+    if cfg.is_encoder_decoder and shape.kind in ("train", "prefill"):
+        batch["frames"] = sds((B, cfg.enc_seq, AUDIO_FRAME_DIM), cfg.dtype)
+    if cfg.frontend == "vision_patches" and shape.kind in ("train", "prefill"):
+        batch["patch_embeds"] = sds((B, cfg.num_frontend_tokens,
+                                     VISION_EMBED_DIM), cfg.dtype)
+    return batch
+
+
+def params_shapes(cfg: ModelConfig):
+    """The params tree on meta, every leaf in the param dtype."""
+    return build_model(cfg).init(torch.Generator(),
+                                 dtype=torch_dtype(cfg.param_dtype),
+                                 device=META)
+
+
+def opt_shapes(params):
+    return adam_init(params)
+
+
+def cache_shapes(cfg: ModelConfig, shape: InputShape):
+    return build_model(cfg).init_cache(shape.global_batch, shape.seq_len,
+                                       META)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape,
+                microbatches: int = 1) -> Tuple[Callable, Tuple]:
+    """Returns (step_fn, its arguments as meta tensors)."""
+    params = params_shapes(cfg)
+    if shape.kind == "train":
+        fn = make_train_step(cfg, microbatches=microbatches)
+        return fn, (params, opt_shapes(params), batch_specs_for(cfg, shape))
+    if shape.kind == "prefill":
+        fn = make_prefill_step(cfg, max_len=shape.seq_len)
+        return fn, (params, batch_specs_for(cfg, shape))
+    # decode
+    fn = make_serve_step(cfg)
+    cache = cache_shapes(cfg, shape)
+    toks = sds((shape.global_batch,), torch.int32)
+    return fn, (params, cache, toks)

@@ -27,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, truncated_normal_init
 from repro_torch.obs.registry import NULL_REGISTRY
+from repro_torch.sharding.context import constrain_batch
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -119,7 +120,7 @@ def flash_attend_qblocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 for i in range(0, S, bq)]
     else:
         outs = [block(i) for i in range(0, S, bq)]
-    return torch.cat(outs, dim=1)
+    return constrain_batch(torch.cat(outs, dim=1))
 
 
 def qkv_project(cfg: ModelConfig, p: Dict, x: torch.Tensor,

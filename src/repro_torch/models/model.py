@@ -80,6 +80,7 @@ from repro_torch.models.layers import (apply_mlp, embed, init_embed, init_mlp,
                                        rms_norm, sinusoidal_positions,
                                        truncated_normal_init, unembed,
                                        vocab_mask)
+from repro_torch.sharding.context import constrain_batch
 
 AUDIO_FRAME_DIM = 80     # stub frontend: mel-frame embedding width
 VISION_EMBED_DIM = 1024  # stub frontend: ViT patch embedding width
@@ -183,9 +184,14 @@ class LM:
                 "ffn": init_mlp(gen, cfg, wdt, device)}
 
     def init(self, gen: torch.Generator,
-             dtype: Optional[torch.dtype] = None) -> Dict:
-        """Params on ``gen.device`` drawn from ``gen``: the reference's
-        distributions (truncated normal, σ = 1/√fan_in; zero norms). Matrices
+             dtype: Optional[torch.dtype] = None,
+             device: Optional[torch.device] = None) -> Dict:
+        """Params on ``device`` (default ``gen.device``) drawn from ``gen``:
+        the reference's distributions (truncated normal, σ = 1/√fan_in;
+        zero norms). With ``device="meta"`` and a CPU generator every leaf
+        is a meta tensor of its shape and dtype and nothing is allocated
+        (the dry run's shapes, as the reference's ``jax.eval_shape`` of its
+        init). Matrices
         are stored in ``dtype``, by default the compute dtype — the
         reference casts its fp32 params to it before every product, so the
         products are the same — and the leaves it uses in fp32 (norms, the
@@ -194,7 +200,7 @@ class LM:
         reference keeps every leaf in it, and Adam updates them there. The
         draws do not depend on ``dtype``."""
         cfg = self.cfg
-        dev = gen.device
+        dev = gen.device if device is None else torch.device(device)
         wdt = dtype or self.compute_dtype
         params: Dict = {
             "embed": init_embed(gen, cfg, wdt, dev),
@@ -322,6 +328,7 @@ class LM:
         """One layer over the full sequence -> (x, the MoE layer's
         ``aux_loss`` or None)."""
         cfg = self.cfg
+        x = constrain_batch(x)   # keep batch sharded across layer boundaries
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
         a = (attn.attention_forward(cfg, lp["attn"], h, positions, w)
              if "attn" in lp else None)
@@ -375,7 +382,7 @@ class LM:
         cfg = self.cfg
         enc = (self.encode(params, batch["frames"])
                if cfg.is_encoder_decoder else None)
-        x = self._embed_inputs(params, batch)
+        x = constrain_batch(self._embed_inputs(params, batch))
         B, S = x.shape[0], x.shape[1]
         positions = torch.arange(S, device=x.device).expand(B, S)
         auxes: List[torch.Tensor] = []
@@ -392,7 +399,7 @@ class LM:
         # the reference's _run_layers
         aux = (torch.stack(auxes).sum() / cfg.num_layers if auxes
                else torch.zeros((), device=x.device))
-        return self._logits(params, x), aux
+        return self._logits(params, constrain_batch(x)), aux
 
     def loss(self, params: Dict, batch: Dict
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -406,8 +413,9 @@ class LM:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
         mask = (labels >= 0).float()
         labels = torch.clamp(labels, min=0).long()
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        logp = torch.log_softmax(constrain_batch(logits).float(), dim=-1)
+        nll = constrain_batch(
+            -torch.gather(logp, -1, labels[..., None])[..., 0])
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
         total = loss + cfg.aux_loss_coef * aux
         return total, {"ce_loss": loss, "aux_loss": aux}

@@ -7,10 +7,16 @@ per-expert SwiGLU products (batched over E) and combined back
 gate-weighted. Overflowing assignments are dropped (capacity-factor
 semantics).
 
-The port has no mesh, so the reference's dispatch groups collapse to one
-(``batch_shard_size()`` is 1 and ``constrain`` the identity; sharding is
-ROADMAP A13). Every step is a fixed-shape tensor op with no host sync, so
-an engine step that holds an MoE layer can be captured as a CUDA graph:
+Tokens are dispatched in G = ``sharding.context.batch_shard_size()`` groups
+of Tg = T / G consecutive tokens, each sorted and capacity-bucketed on its
+own with ``moe_capacity(Tg)`` slots an expert (how expert-parallel systems
+dispatch per data shard), as the reference does; G is 1 outside an
+activation-sharding context, and when G does not divide T. ``constrain``
+pins the group dim to the batch axes where the tensors are DTensors and
+returns a plain tensor as it is.
+
+Every step is a fixed-shape tensor op with no host sync, so an engine step
+that holds an MoE layer can be captured as a CUDA graph:
 per-expert counts come from ``scatter_add_`` (not ``bincount``), and
 nothing reads a value back to size a tensor.
 
@@ -37,6 +43,7 @@ from torch._C._profiler import _RecordFunctionFast as _scope
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import truncated_normal_init
+from repro_torch.sharding.context import batch_shard_size, constrain
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
@@ -86,24 +93,43 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     ``router_entropy``, ``drop_fraction`` as 0-d fp32 tensors; with
     ``metrics=False`` an empty dict and none of their kernels, as the
     reference's jitted serve steps leave them unused). The capacity is
-    ``moe_capacity`` of this call's B·S tokens, padded rows included, as
-    in the reference."""
+    ``moe_capacity`` of a dispatch group's tokens (all of this call's B·S
+    outside a sharding context), padded rows included, as in the
+    reference."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     dt, dev = x.dtype, x.device
     T = B * S
-    C = moe_capacity(T, cfg, capacity_factor)
+    G = batch_shard_size()
+    if T % G or G <= 0:
+        G = 1
+    Tg = T // G
+    C = moe_capacity(Tg, cfg, capacity_factor)      # per group
     with _scope("moe.dispatch"):
         flat = x.reshape(T, D)
+        if G > 1:
+            flat = constrain(flat.view(G, Tg, D), "batch", None,
+                             None).reshape(T, D)
         probs, gate_vals, topk_idx = route(cfg, p, flat)
         a = topk_idx.reshape(T * k)                   # expert of each pick
-        buf, a_s, pos, keep, order, counts = _dispatch(flat, a, E, C, k)
+        # group g's picks name (g, e) as g·E + e: one sort buckets them
+        ag = (a if G == 1 else
+              a + torch.arange(T * k, device=dev) // (Tg * k) * E)
+        buf, a_s, pos, keep, order, counts = _dispatch(flat, ag, G * E, C, k)
+        if G > 1:
+            buf = constrain(buf.view(G, E, C, D), "batch", None, None, None)
     with _scope("moe.experts"):
-        h = torch.bmm(buf, p["wi"].to(dt))
-        g = torch.bmm(buf, p["wg"].to(dt))
-        out_buf = torch.bmm(F.silu(g) * h, p["wo"].to(dt)).view(E * C, D)
+        # (G, E, C, D) as E batches of G·C rows (a view when G is 1)
+        bufe = buf.reshape(G, E, C, D).transpose(0, 1).reshape(E, G * C, D)
+        h = torch.bmm(bufe, p["wi"].to(dt))
+        g = torch.bmm(bufe, p["wg"].to(dt))
+        out_buf = torch.bmm(F.silu(g) * h, p["wo"].to(dt))
+        out_buf = out_buf.view(E, G, C, D).transpose(0, 1)
+        if G > 1:
+            out_buf = constrain(out_buf, "batch", None, None, None)
+        out_buf = out_buf.reshape(G * E * C, D)
     with _scope("moe.combine"):
         # Without atomics: each pick's gate-weighted row, back in
         # token-major order through the inverse permutation, summed over k.
@@ -112,7 +138,10 @@ def apply_moe(cfg: ModelConfig, p: Dict, x: torch.Tensor,
         rows = torch.where(keep[:, None], rows, 0) * gate_s[:, None].to(dt)
         inv = torch.empty_like(order)
         inv[order] = torch.arange(T * k, device=dev)
-        y = rows[inv].view(T, k, D).sum(dim=1).view(B, S, D)
+        y = rows[inv].view(T, k, D).sum(dim=1)
+        if G > 1:
+            y = constrain(y.view(G, Tg, D), "batch", None, None)
+        y = y.view(B, S, D)
     if not metrics:
         return y, {}
     # Switch-style load-balance loss over this call's tokens
@@ -130,7 +159,7 @@ def _dispatch(flat: torch.Tensor, a: torch.Tensor, E: int, C: int, k: int):
     """Group the T·k picks ``a`` (expert ids, token-major) by expert into an
     (E, C, D) buffer of their tokens' rows. Returns (buffer, sorted expert
     ids, slot of each sorted pick, kept mask, the sort's order, picks per
-    expert)."""
+    expert). With G dispatch groups, E counts (group, expert) pairs."""
     dev, dt, D = flat.device, flat.dtype, flat.shape[1]
     # stable sort by expert; slot = rank within the expert's picks
     order = torch.argsort(a, stable=True)

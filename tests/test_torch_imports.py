@@ -79,6 +79,23 @@ def test_the_scan_covers_the_training_modules():
         "__init__.py", "optimizer.py", "checkpoint.py"}
 
 
+def test_the_scan_covers_the_dryrun_modules():
+    """Every module of the reference has its counterpart: the roofline,
+    the sharding policy and context, the production mesh and the dry
+    run."""
+    assert {"repro_torch.analysis.roofline", "repro_torch.sharding.policy",
+            "repro_torch.sharding.context", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun"} <= set(MODULES)
+    ref = ROOT / "src" / "repro"
+    skip = {"kernels/ref.py", "kernels/paged/__init__.py",
+            "kernels/paged/decode.py"}   # the tests' oracle; paged_decode.py
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if str(p.relative_to(ref)) not in skip
+                     and p.name != "__init__.py"
+                     and not (PKG / p.relative_to(ref)).exists())
+    assert missing == [], missing
+
+
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PKG)))
 def test_source_has_no_jax_or_reference_import(path):
