@@ -311,8 +311,8 @@ phase raises, and the script exits nonzero:
               at B 1, 8 and 32. Phases 18-20 run between 15 and 16.
  21. dryrun   the production-mesh dry run as a user runs it: ``python -m
               repro_torch.launch.dryrun --arch tinyllama-1.1b --shape all
-              --both-meshes`` in a subprocess (meta tensors over a fake
-              process group of world 256 / 512; it must exit 0), each
+              --both-meshes`` in a subprocess (meta tensors on the
+              16x16 and 2x16x16 geometries; it must exit 0), each
               pair's per-device bytes, counted FLOPs and usefulness printed
               on its own line; after 16.
  17. output   ``memory_allocated`` at the end and the part of it that is
@@ -5571,8 +5571,7 @@ DRYRUN_ARCH = "tinyllama-1.1b"
 def dryrun_phase(torch):
     """The port's production-mesh dry run for DRYRUN_ARCH over every shape
     and both meshes, as a user runs it (``python -m
-    repro_torch.launch.dryrun``, a subprocess: its fake process group of
-    world 256 / 512 stays out of this one); it must exit 0, and each
+    repro_torch.launch.dryrun``, a subprocess); it must exit 0, and each
     pair's per-device bytes, counted FLOPs and usefulness are printed."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:

@@ -32,12 +32,12 @@ under 16-way TP), and reports:
     ``core.profiles``, ``roofline.NVLINK_BW``): the compute term; the
     memory and collective terms and ``dominant`` are None.
 
-The production mesh is a ``DeviceMesh`` over a fake process group of world
-256 or 512 (``launch.mesh``), made in ``main`` for each mesh and destroyed
-after it; ``run_one`` without a mesh takes the geometry alone. ``main``
-first counts each distinct step once (``count_all``), in up to
-``COUNT_JOBS`` spawned worker processes, before any process group exists:
-a count depends on the mesh only through the MoE dispatch groups.
+The policy and the counts need only the production geometry
+(``launch.mesh.production_geometry``, the reference's ``AbstractMesh``):
+the step runs on plain meta tensors, so no process group is made. The CLI
+counts each distinct step once, in its own process (``run_one``'s
+``counts``): a count depends on the mesh only through the MoE dispatch
+groups.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -48,12 +48,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import multiprocessing
 import os
 import sys
 import time
 import traceback
-from concurrent.futures import ProcessPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -65,9 +63,7 @@ from repro_torch.configs import (ALL_ARCHS, SHAPES, adapt_config_for_shape,
                                  get_config, get_shape)
 from repro_torch.core.profiles import HBM_BW, PEAK_FLOPS_BF16
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.mesh import (abstract_mesh, batch_axes,
-                                     make_production_mesh,
-                                     production_geometry)
+from repro_torch.launch.mesh import batch_axes, production_geometry
 from repro_torch.sharding.context import activation_sharding
 from repro_torch.sharding.policy import (batch_specs, cache_specs,
                                          local_shape, param_specs,
@@ -78,7 +74,6 @@ from repro_torch.sharding.policy import (batch_specs, cache_specs,
 # reference's threshold, kept so that both dry runs shard alike.
 SERVE_FSDP_BYTES = 12e9
 H100_HBM_BYTES = 80e9
-COUNT_JOBS = min(4, os.cpu_count() or 1)
 
 
 def _nbytes(tree) -> int:
@@ -112,7 +107,7 @@ def count_step(fn, args, mesh=None, batch_axes_=None) -> float:
     return float(flops.get_total_flops())
 
 
-def _pair(arch: str, shape_name: str, overrides: Optional[Dict] = None):
+def _pair(arch: str, shape_name: str):
     """(cfg at the dry run's dtypes, shape, note); cfg None for a pair
     ``adapt_config_for_shape`` skips (the note is its reason)."""
     shape = get_shape(shape_name)
@@ -122,118 +117,64 @@ def _pair(arch: str, shape_name: str, overrides: Optional[Dict] = None):
     cfg = cfg.replace(dtype="bfloat16",
                       param_dtype="float32" if shape.kind == "train"
                       else "bfloat16")
-    if overrides:
-        cfg = cfg.replace(**overrides)
     return cfg, shape, note
 
 
-def _batch_sharding(cfg, shape, geo, microbatches: int
+def _batch_sharding(cfg, shape, geo
                     ) -> Tuple[Optional[Tuple[str, ...]], int, Tuple]:
     """(batch axes, or None where the batch is replicated (long_500k);
-    the batch shard count; the key of the step's count in ``count_all``'s
-    dict: the count depends on the mesh only through the MoE groups)."""
+    the batch shard count; the key of the step's count in ``run_one``'s
+    ``counts``: the count depends on the mesh only through the MoE
+    groups)."""
     gb = shape.global_batch
     bsz = 1
     for a in batch_axes(geo):
         bsz *= geo.shape[a]
     baxes = batch_axes(geo) if (gb % bsz == 0 and gb >= bsz) else None
     bshard = bsz if baxes else 1
-    key = (cfg, shape.name, microbatches, bshard if cfg.is_moe else None)
+    key = (cfg, shape.name, bshard if cfg.is_moe else None)
     return baxes, bshard, key
 
 
-def _count_worker(task) -> Tuple[Tuple, float]:
-    """One (arch, shape, multi_pod, microbatches) task's count, in a
-    worker process."""
-    arch, shape_name, multi_pod, microbatches = task
-    cfg, shape, _ = _pair(arch, shape_name)
-    geo = production_geometry(multi_pod=multi_pod)
-    baxes, _, key = _batch_sharding(cfg, shape, geo, microbatches)
-    fn, args = steps_mod.input_specs(cfg, shape, microbatches=microbatches)
-    return key, count_step(fn, args, geo, baxes)
-
-
-def count_all(tasks, jobs: int = COUNT_JOBS) -> Dict:
-    """{key: FLOPs} of every (arch, shape, multi_pod, microbatches) task's
-    step (``_batch_sharding``'s key), each distinct step counted once: the
-    first here, while up to ``jobs`` - 1 spawned worker processes import
-    torch and count the rest (all here when ``jobs`` is 1)."""
-    need = {}
-    for task in tasks:
-        try:
-            cfg, shape, _ = _pair(*task[:2])
-        except KeyError:
-            continue                  # an unknown arch fails in run_one
-        if cfg is None:
-            continue
-        key = _batch_sharding(cfg, shape,
-                              production_geometry(multi_pod=task[2]),
-                              task[3])[2]
-        need.setdefault(key, task)
-    todo = list(need.values())
-    if jobs <= 1 or len(todo) <= 1:
-        return dict(map(_count_worker, todo))
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(min(jobs - 1, len(todo) - 1),
-                             mp_context=ctx) as ex:
-        rest = ex.map(_count_worker, todo[1:])
-        return dict([_count_worker(todo[0]), *rest])
-
-
-def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
-            mesh=None, overrides: Optional[Dict] = None,
-            verbose: bool = True, microbatches: int = 1,
-            count: bool = True, counts: Optional[Dict] = None) -> Dict:
-    """One pair's record. The step's FLOPs come from ``counts``
-    (``count_all``'s dict) where it holds them, else the step is counted
-    here; with ``count=False`` it is not run, and the counted FLOPs and the
-    roofline terms are None."""
-    cfg, shape, note = _pair(arch, shape_name, overrides)
+def layout(arch: str, shape_name: str, *, multi_pod: bool = False
+           ) -> Tuple[Dict, Optional[Tuple]]:
+    """(the pair's record of what needs no step run: per-device bytes,
+    ``model_flops``, ``analytic_hbm_bytes``, the FSDP decision and the
+    policy's report; its step as (fn, args, count key, batch axes)). The
+    record alone, with step None, for a pair the config skips."""
+    cfg, shape, note = _pair(arch, shape_name)
     if cfg is None:
         return {"arch": arch, "shape": shape_name, "skipped": True,
-                "reason": note}
-    if mesh is None:
-        mesh = production_geometry(multi_pod=multi_pod)
-    geo = abstract_mesh(mesh)
-    chips = geo.size
-    mesh_name = "x".join(str(s) for s in geo.sizes)
+                "reason": note}, None
+    geo = production_geometry(multi_pod=multi_pod)
     msize = geo.shape["model"]
-
-    t0 = time.time()
-    fn, args = steps_mod.input_specs(cfg, shape, microbatches=microbatches)
+    fn, args = steps_mod.input_specs(cfg, shape)
     params = args[0]
     assert all(t.device.type == "meta" for t in tree_leaves(args)
                if isinstance(t, torch.Tensor)), "a dry-run tensor left meta"
     param_bytes = _nbytes(params)
     fsdp = (shape.kind == "train" or param_bytes / msize > SERVE_FSDP_BYTES)
-    pspecs, report = param_specs(cfg, params, mesh, fsdp=fsdp)
-    per_dev = {"params": _local_bytes(params, pspecs, mesh),
+    pspecs, report = param_specs(cfg, params, geo, fsdp=fsdp)
+    per_dev = {"params": _local_bytes(params, pspecs, geo),
                "opt": 0, "cache": 0, "batch": 0}
     if shape.kind == "train":
         opt = args[1]
         ospecs = type(opt)(step=(), mu=pspecs, nu=pspecs)
-        per_dev["opt"] = _local_bytes(opt, ospecs, mesh)
-        bspecs = batch_specs(cfg, args[2], mesh, shape.global_batch)
-        per_dev["batch"] = _local_bytes(args[2], bspecs, mesh)
+        per_dev["opt"] = _local_bytes(opt, ospecs, geo)
+        bspecs = batch_specs(cfg, args[2], geo, shape.global_batch)
+        per_dev["batch"] = _local_bytes(args[2], bspecs, geo)
     elif shape.kind == "prefill":
-        bspecs = batch_specs(cfg, args[1], mesh, shape.global_batch)
-        per_dev["batch"] = _local_bytes(args[1], bspecs, mesh)
+        bspecs = batch_specs(cfg, args[1], geo, shape.global_batch)
+        per_dev["batch"] = _local_bytes(args[1], bspecs, geo)
     else:
-        cspecs = cache_specs(cfg, args[1], mesh, shape.global_batch)
-        per_dev["cache"] = _local_bytes(args[1], cspecs, mesh)
-        tspecs = batch_specs(cfg, {"tokens": args[2]}, mesh,
+        cspecs = cache_specs(cfg, args[1], geo, shape.global_batch)
+        per_dev["cache"] = _local_bytes(args[1], cspecs, geo)
+        tspecs = batch_specs(cfg, {"tokens": args[2]}, geo,
                              shape.global_batch)
-        per_dev["batch"] = _local_bytes({"tokens": args[2]}, tspecs, mesh)
+        per_dev["batch"] = _local_bytes({"tokens": args[2]}, tspecs, geo)
     per_dev["total"] = sum(per_dev.values())
 
-    baxes, bshard, key = _batch_sharding(cfg, shape, geo, microbatches)
-    flops_global = None
-    if count:
-        flops_global = (counts[key] if counts and key in counts
-                        else count_step(fn, args, mesh, baxes))
-    count_s = time.time() - t0
-
-    mflops = rl.model_flops(cfg, shape)
+    baxes, bshard, key = _batch_sharding(cfg, shape, geo)
     notes = "; ".join(x for x in (
         note, "FLOPs counted by FlopCounterMode over every layer and "
         "q-block (no scan correction), products only; per device = global "
@@ -242,54 +183,66 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
         cfg, shape, param_bytes_global=param_bytes, model_shard=msize,
         batch_shard=bshard,
         fsdp_shard=geo.shape.get("data", 1) if fsdp else 1,
-        train=shape.kind == "train", microbatches=microbatches)
-    out = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-           "chips": chips, "model_flops_global": mflops, "notes": notes}
-    if count:
-        out = rl.analyze(arch, shape_name, mesh_name, chips,
-                         {"flops": flops_global / chips,
-                          "bytes accessed": None},
-                         None, mflops, memory_bytes=float(per_dev["total"]),
-                         notes=notes, peak_flops=PEAK_FLOPS_BF16,
-                         hbm_bw=HBM_BW, link_bw=rl.NVLINK_BW).to_dict()
-    out.update({
-        "skipped": False,
-        "count_s": count_s,
-        "per_device_bytes": per_dev,
-        "flops_counted_global": flops_global,
-        "flops_split": "even_split",
-        "bytes_accessed": None,
-        "collective_bytes": None,
-        "not_measured": ["bytes_accessed", "collective_bytes"],
-        "model_flops": mflops,
-        "analytic_hbm_bytes": hbm_est,
-        "fits_h100_80gb": hbm_est < H100_HBM_BYTES,
-        "fsdp": fsdp,
-        "param_bytes_global": param_bytes,
-        "sharding_fallbacks": report.fallbacks[:8],
-        "n_sharded": len(report.sharded),
-        "n_replicated": len(report.replicated),
-    })
-    if verbose and count:
-        print(f"[dryrun] {arch} x {shape_name} x {mesh_name}: per-device "
-              f"bytes params {per_dev['params']} opt {per_dev['opt']} cache "
-              f"{per_dev['cache']} batch {per_dev['batch']} total "
-              f"{per_dev['total']}; hbm-est {hbm_est / 1e9:.2f} GB "
-              f"({'fits' if hbm_est < H100_HBM_BYTES else 'OVER'} 80 GB "
+        train=shape.kind == "train")
+    rec = {"arch": arch, "shape": shape_name,
+           "mesh": "x".join(str(s) for s in geo.sizes), "chips": geo.size,
+           "notes": notes, "skipped": False,
+           "per_device_bytes": per_dev,
+           "flops_split": "even_split",
+           "bytes_accessed": None,
+           "collective_bytes": None,
+           "not_measured": ["bytes_accessed", "collective_bytes"],
+           "model_flops": rl.model_flops(cfg, shape),
+           "analytic_hbm_bytes": hbm_est,
+           "fits_h100_80gb": hbm_est < H100_HBM_BYTES,
+           "fsdp": fsdp,
+           "param_bytes_global": param_bytes,
+           "sharding_fallbacks": report.fallbacks[:8],
+           "n_sharded": len(report.sharded),
+           "n_replicated": len(report.replicated)}
+    return rec, (fn, args, key, baxes)
+
+
+def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+            counts: Optional[Dict] = None, verbose: bool = True) -> Dict:
+    """One pair's record: ``layout``'s, the step's counted FLOPs and the
+    roofline terms. The count is read from ``counts`` where it holds the
+    step's key, else the step is counted and the count stored there."""
+    t0 = time.time()
+    rec, step = layout(arch, shape_name, multi_pod=multi_pod)
+    if step is None:
+        return rec
+    fn, args, key, baxes = step
+    if counts is None:
+        counts = {}
+    if key not in counts:
+        counts[key] = count_step(fn, args,
+                                 production_geometry(multi_pod=multi_pod),
+                                 baxes)
+    flops_global = counts[key]
+    chips, mflops = rec["chips"], rec["model_flops"]
+    out = rl.analyze(arch, shape_name, rec["mesh"], chips,
+                     {"flops": flops_global / chips, "bytes accessed": None},
+                     None, mflops,
+                     memory_bytes=float(rec["per_device_bytes"]["total"]),
+                     notes=rec["notes"], peak_flops=PEAK_FLOPS_BF16,
+                     hbm_bw=HBM_BW, link_bw=rl.NVLINK_BW).to_dict()
+    out.update(rec)
+    out.update({"count_s": time.time() - t0,
+                "flops_counted_global": flops_global})
+    if verbose:
+        per, hbm_est = rec["per_device_bytes"], rec["analytic_hbm_bytes"]
+        print(f"[dryrun] {arch} x {shape_name} x {rec['mesh']}: per-device "
+              f"bytes params {per['params']} opt {per['opt']} cache "
+              f"{per['cache']} batch {per['batch']} total "
+              f"{per['total']}; hbm-est {hbm_est / 1e9:.2f} GB "
+              f"({'fits' if rec['fits_h100_80gb'] else 'OVER'} 80 GB "
               f"H100); counted FLOPs {flops_global:.4e} global, "
               f"{flops_global / chips:.4e}/device (even split); "
               f"usefulness {out['usefulness']:.3f}; compute "
               f"{out['compute_s'] * 1e3:.3f} ms, memory and collective "
-              f"not measured; {count_s:.1f} s", flush=True)
+              f"not measured; {out['count_s']:.1f} s", flush=True)
     return out
-
-
-def _fake_group(world: int):
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=world)
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -304,9 +257,9 @@ def main(argv=None) -> int:
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
 
-    import torch.distributed as dist
     os.makedirs(args.out, exist_ok=True)
-    todo = {mp: [] for mp in meshes}
+    counts: Dict = {}
+    failures = []
     for mp in meshes:
         for arch in archs:
             for shape in shapes:
@@ -314,20 +267,9 @@ def main(argv=None) -> int:
                 path = os.path.join(args.out, tag + ".json")
                 if os.path.exists(path):
                     print(f"[dryrun] {tag}: cached")
-                else:
-                    todo[mp].append((arch, shape, tag, path))
-    counts = count_all([(a, s, mp, 1) for mp in meshes
-                        for a, s, _, _ in todo[mp]])
-    failures = []
-    for mp in meshes:
-        if not todo[mp]:
-            continue
-        _fake_group(production_geometry(multi_pod=mp).size)
-        try:
-            mesh = make_production_mesh(multi_pod=mp)
-            for arch, shape, tag, path in todo[mp]:
+                    continue
                 try:
-                    res = run_one(arch, shape, mesh=mesh, counts=counts)
+                    res = run_one(arch, shape, multi_pod=mp, counts=counts)
                 except Exception as e:  # noqa: BLE001
                     traceback.print_exc()
                     failures.append(tag)
@@ -335,8 +277,6 @@ def main(argv=None) -> int:
                            "error": str(e)[:2000]}
                 with open(path, "w") as f:
                     json.dump(res, f, indent=2, default=str)
-        finally:
-            dist.destroy_process_group()
     if failures:
         print("FAILURES:", failures)
         return 1

@@ -8,11 +8,11 @@ solver allocates variants into).
 
 ``make_production_mesh`` builds a ``torch.distributed`` ``DeviceMesh`` of
 that geometry. It needs a default process group of world 256 (512 with
-``multi_pod``); the dry run makes one with the fake backend
+``multi_pod``); on one host the fake backend
 (``torch.testing._internal.distributed.fake_pg``), which runs no
-collective. ``AbstractMesh`` carries the geometry alone, as JAX's
-``AbstractMesh`` does in the reference's tests: the sharding policy and the
-activation context run on it with no process group.
+collective, gives one. ``AbstractMesh`` carries the geometry alone, as
+JAX's ``AbstractMesh`` does in the reference's tests: the sharding policy,
+the activation context and the dry run run on it with no process group.
 
 Functions, not module constants: importing this module touches no
 process-group state.

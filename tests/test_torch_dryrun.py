@@ -7,13 +7,14 @@
     dry run's dtypes; nothing leaves meta, qwen3-moe-235b-a22b and
     deepseek-67b at full size included. The cache's ``pos`` is int64 in the
     port (int32 in the reference): the one dtype that differs.
-  * Per pair and mesh, ``run_one``'s ``model_flops``, ``analytic_hbm_bytes``,
+  * Per pair and mesh, the record's ``model_flops``, ``analytic_hbm_bytes``,
     FSDP decision, fallbacks, ``n_sharded`` and ``n_replicated`` equal what
     the reference's own functions give on its eval-shape trees. The
     reference's dry-run module is not imported: it sets ``XLA_FLAGS`` when
     imported, so its pre-compile steps are repeated here from its source.
   * On a two-layer fp32 smoke config the counted FLOPs of a prefill step
-    and of a train step equal a hand count of their products.
+    and of a train step equal a hand count of their products; ``run_one``
+    counts a step once and reads it back for the other mesh.
   * The CLI in subprocesses: one pair, then ``--both-meshes``, which finds
     the first in its cache, then a failing pair.
 """
@@ -162,8 +163,7 @@ def _reference_record(arch, shape_name, multi_pod):
 @pytest.mark.parametrize("arch,shape_name", PAIRS)
 def test_run_one_equals_the_reference_records(arch, shape_name):
     for multi_pod in (False, True):
-        got = dryrun.run_one(arch, shape_name, multi_pod=multi_pod,
-                             count=False, verbose=False)
+        got, _ = dryrun.layout(arch, shape_name, multi_pod=multi_pod)
         want = _reference_record(arch, shape_name, multi_pod)
         assert {k: got[k] for k in want} == want, (arch, shape_name)
         assert got["fits_h100_80gb"] == (want["analytic_hbm_bytes"] < 80e9)
@@ -174,7 +174,7 @@ def test_run_one_equals_the_reference_records(arch, shape_name):
 
 
 def test_skipped_pair_is_reported_as_the_reference_does():
-    rec = dryrun.run_one("whisper-tiny", "long_500k", count=False)
+    rec = dryrun.run_one("whisper-tiny", "long_500k")
     assert rec["skipped"] and rec["reason"].startswith("SKIP")
 
 
@@ -219,22 +219,26 @@ def test_counted_flops_equal_a_hand_count(remat):
     assert flops == 3 * L * layer + L * replay + 3 * unembed
 
 
-def test_worker_processes_count_what_one_process_counts():
-    """``count_all`` over two distinct steps in two spawned workers gives
-    what ``count_step`` gives in this process, and the records take
-    them."""
-    tasks = [("tinyllama-1.1b", "decode_32k", False, 1),
-             ("tinyllama-1.1b", "long_500k", True, 1)]
-    counts = dryrun.count_all(tasks, jobs=2)
-    assert len(counts) == 2
-    for arch, shape_name, mp, mb in tasks:
-        key, flops = dryrun._count_worker((arch, shape_name, mp, mb))
-        assert counts[key] == flops > 0
-        rec = dryrun.run_one(arch, shape_name, multi_pod=mp, verbose=False,
-                             counts={key: -1.0})
-        assert rec["flops_counted_global"] == -1.0     # read, not recounted
-        rec = dryrun.run_one(arch, shape_name, multi_pod=mp, verbose=False)
-        assert rec["flops_counted_global"] == flops
+def test_a_step_is_counted_once_and_read_back():
+    """``run_one`` counts a step into ``counts`` and, for the other mesh of
+    a dense model (the same step), reads it back; a count already there
+    is read, not recounted."""
+    counts = {}
+    rec = dryrun.run_one("tinyllama-1.1b", "decode_32k", verbose=False,
+                         counts=counts)
+    _, step = dryrun.layout("tinyllama-1.1b", "decode_32k")
+    fn, args, key, _ = step
+    assert list(counts) == [key]
+    assert rec["flops_counted_global"] == counts[key] == \
+        dryrun.count_step(fn, args) > 0
+    rec = dryrun.run_one("tinyllama-1.1b", "decode_32k", multi_pod=True,
+                         verbose=False, counts=counts)
+    assert list(counts) == [key]
+    assert rec["flops_counted_global"] == counts[key]
+    counts[key] = -1.0
+    rec = dryrun.run_one("tinyllama-1.1b", "decode_32k", verbose=False,
+                         counts=counts)
+    assert rec["flops_counted_global"] == -1.0
 
 
 def _cli(*argv, out):
