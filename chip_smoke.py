@@ -473,6 +473,7 @@ GRAPH_DEPTH = 8
 # card-vs-CPU twin at WHISPER_TWIN_B rows and 8 steps, logits within
 # FP32_CPU_REL_TOL (||card - CPU|| / ||CPU||: fp32 sums in other orders)
 WHISPER = "whisper-tiny"
+WHISPER_H, WHISPER_KV, WHISPER_HD = 6, 6, 64
 WHISPER_PROMPT, WHISPER_STEPS, WHISPER_TWIN_B = 64, 64, 2
 FP32_CPU_REL_TOL = 1e-4
 # VLM phase: internvl2-26b's heads (48 query heads on 8 KV heads of hd 128:
@@ -919,6 +920,73 @@ def paged_kernel_checks(torch, pd, gen):
     return err, serve_args, chunk_err, chunk_args
 
 
+def step_route_checks(torch, fd, pd, gen):
+    """The decode step's tensor-core routes on their edges in bf16 (as in
+    tests/test_torch_cuda.py), each held to its plain version: the dense
+    step at hd 64 at tinyllama's G 8 (C 1, C just below and just above
+    ``STEP_SPLITS[64]``, only the first key unbiased, C 2000), granite's G
+    3, G 16 and whisper-tiny's G 1 (which the plan keeps on the CUDA-core
+    kernel at hd 64); the paged step at the heads of
+    tinyllama, granite, gemma-2b and internvl2-26b over 4 pages of 16 at
+    lengths 0, 1, ps - 1, ps, ps + 1, n_pages * ps and above it, and over
+    the serve path's 36 pages with a softcap, NaN pages past every length
+    and, for the kernel, table entries there out of range (the plain
+    version gathers the whole table, so it reads the NaN page there); a
+    length-0 row must give zeros."""
+    dev, bf = torch.device(DEVICE), torch.bfloat16
+    splits, G = fd.STEP_SPLITS[HD], H // KV
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+    for b, kv, g, c, sc, masked in (
+            (B, KV, G, 1, 0.0, False), (B, KV, G, splits - 1, 0.0, False),
+            (B, KV, G, splits + 1, 30.0, True), (B, KV, G, CAP, 0.0, "first"),
+            (2, KV, G, 2000, 0.0, True),
+            (4, GRANITE_KV, GRANITE_H // GRANITE_KV, 2000, 30.0, False),
+            (2, 2, 16, CAP, 0.0, True),
+            (B, WHISPER_KV, WHISPER_H // WHISPER_KV, CAP, 0.0, False),
+            (4, WHISPER_KV, WHISPER_H // WHISPER_KV, 1000, 30.0, True)):
+        q, k, v = randn(b, kv, g, HD), randn(b, kv, c, HD), randn(b, kv, c, HD)
+        bias = torch.zeros((b, c), device=dev)
+        if masked == "first":
+            bias[:, 1:] = -1e9
+        elif masked:
+            bias[:, c // 2:] = -1e9
+        check(f"flash_decode step hd {HD} B={b} KV={kv} G={g} C={c} "
+              f"softcap={sc} bias={masked} bfloat16",
+              fd.flash_decode_bkhd(q, k, v, bias, softcap=sc),
+              fd.flash_decode_plain(q, k, v, bias, softcap=sc), bf)
+    for tag, (H_, KV_, HD_) in (
+            ("tinyllama", (H, KV, HD)),
+            ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD)),
+            ("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
+            ("internvl", (INTERNVL_H, INTERNVL_KV, INTERNVL_HD))):
+        for width, lens, sc in (
+                (4, (0, 1, PAGE - 1, PAGE, PAGE + 1, 4 * PAGE, 4 * PAGE + 6),
+                 0.0),
+                (WIDTH, (0, 3, 203, CAP, CAP + 100, 97, 575, 1), 30.0)):
+            q, kp, vp, tables, _ = paged_inputs(torch, gen, len(lens), KV_,
+                                                H_ // KV_, HD_, PAGE, width,
+                                                bf)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kp[:, 0] = float("nan")
+            vp[:, 0] = float("nan")
+            past = (torch.arange(width, device=dev)[None, :]
+                    >= ((ln + PAGE - 1) // PAGE)[:, None])
+            wild = torch.where(past, 2**31 - 1, tables).to(torch.int32)
+            tables = torch.where(past, 0, tables).to(torch.int32)
+            got = pd.paged_flash_decode_bkhd(q, kp, vp, wild, ln, softcap=sc)
+            if not (bool(torch.isfinite(got.float()).all())
+                    and bool((got[ln == 0] == 0).all())):
+                raise AssertionError(f"paged_decode step {tag}: non-finite "
+                                     f"output or nonzero length-0 row")
+            check(f"paged_decode step {tag} hd {HD_} {width} pages, lengths "
+                  f"{lens}, softcap {sc}, NaN pages and wild entries past "
+                  f"each bfloat16", got,
+                  pd.paged_flash_decode_plain(q, kp, vp, tables, ln,
+                                              softcap=sc), bf)
+
+
 def verify_paged_inputs(torch, gen, ck, width, dtype):
     """The paged chunk form's operands at a speculative round's shape: B
     rows of ck queries at positions past the 512-token prompt, over full
@@ -1197,8 +1265,10 @@ def attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs, errs, dt):
     t_l = time_ms(torch, sdpa, sdpa_dec)
     nbytes = esz * (2 * B * H * HD + 2 * B * KV * CAP * HD) + 4 * B * CAP
     b_ms, b_by = bound(nbytes, 4 * B * H * CAP * HD, dt)
+    tc = fd.launch_plan(1, H // KV, HD, dt, False)[0]
     rows.append(dict(name="flash_decode", route="cuda", dtype=name,
-                     source="src/repro_torch/kernels/csrc/flash_decode.cu",
+                     source="src/repro_torch/kernels/csrc/"
+                            f"{fd.KERNELS[tc, False][0]}.cu",
                      replaces="src/repro/kernels/flash_decode.py:81",
                      max_abs_err=errs[("decode", dt)], ms=t_k, plain_ms=t_p,
                      bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
@@ -1258,8 +1328,11 @@ def paged_ab(torch, gen):
     layer of ``paged_chunk_prefill_attention`` with the kernels on (the same
     signature in every checkout since the paged engine was ported), held to
     the layer with the kernels off, timed with CUDA events (the whole layer)
-    and by the profiler (the paged kernels inside it alone)."""
+    and by the profiler (the paged kernels inside it alone); then the
+    decode step at the heads of tinyllama, granite, gemma-2b and
+    internvl2-26b (``paged_step_rows``)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.models.attention import (init_attention,
                                               paged_chunk_prefill_attention)
@@ -1306,6 +1379,49 @@ def paged_ab(torch, gen):
                      paged_device_ms=device_ms(torch, layer, sets,
                                                only="paged_"),
                      layer_device_ms=device_ms(torch, layer, sets)))
+    return rows + paged_step_rows(torch, fd, pd, gen)
+
+
+def paged_step_rows(torch, fd, pd, gen):
+    """paged_decode's decode step of the imported checkout in bf16 through
+    ``paged_flash_decode_bkhd`` at the serve shapes (B 8, 36 pages of 16,
+    ragged lengths, one row 0) of tinyllama (G 8 / hd 64), granite (G 3 /
+    hd 64), gemma-2b (hd 256), internvl2-26b (G 6 / hd 128) and
+    whisper-tiny's heads (G 1 / hd 64, which no paged engine serves: the
+    plan's one-row edge): held to
+    its plain version, timed beside the bound (K/V below each row's
+    length, q, out, the live table entries and the lengths), the kernel
+    the profiler sees, and where the checkout plans the tensor-core step
+    route the sweep of its splits and tiles (``step_sweep``)."""
+    dt, rows = torch.bfloat16, []
+    for tag, heads in (("tinyllama", (H, KV, HD)),
+                       ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD)),
+                       ("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
+                       ("internvl", (INTERNVL_H, INTERNVL_KV, INTERNVL_HD)),
+                       ("whisper", (WHISPER_H, WHISPER_KV, WHISPER_HD))):
+        H_, KV_, HD_ = heads
+        mk = head_inputs(torch, gen, dt, heads)["paged"]
+        first = mk()
+        sets = rotated(first, mk, (3, 4))
+        label = f"paged_decode {tag} serve shape hd {HD_}"
+        fn, plain = pd.paged_flash_decode_bkhd, pd.paged_flash_decode_plain
+        err = check(f"{label} bfloat16", fn(*first), plain(*first), dt)
+        lengths = first[4].long()
+        live = int(lengths.sum())
+        row = timed_row(
+            torch, fn, plain, sets,
+            2 * (2 * live * KV_ * HD_ + 2 * B * H_ * HD_)
+            + 4 * int(((lengths + PAGE - 1) // PAGE).sum()) + 4 * B,
+            4 * H_ * live * HD_, dt)
+        row = dict(name="paged_decode", shape=f"{tag} step", hd=HD_,
+                   kernel=kernels_seen(torch, fn, first), max_abs_err=err,
+                   **row)
+        log(f"  {label}: {row['kernel']}, device {ms4(row['device_ms'])} "
+            f"ms, bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        if pd.launch_plan(1, H_ // KV_, HD_, dt, False)[0]:
+            row["splits_device_ms"] = step_sweep(torch, fd, pd, fn, plain,
+                                                 sets, label, HD_)
+        rows.append(row)
     return rows
 
 
@@ -1375,25 +1491,52 @@ def paged_chunk_starts(torch, pd, gen, heads,
 
 
 # --ab's decode-step split sweeps by head dim
-STEP_SWEEP = {128: (2, 3, 4, 5, 6, 7, 8), 256: (2, 4, 6, 8)}
+STEP_SWEEP = {64: (2, 3, 4, 5, 6, 7, 8), 128: (2, 3, 4, 5, 6, 7, 8),
+              256: (2, 4, 6, 8)}
+
+
+def step_sweep(torch, fd, mod, fn, plain, sets, label, hd):
+    """A tensor-core decode step's device time (``mod``: flash_decode or
+    paged_decode of the imported checkout, whose ``launch_plan`` and
+    launch read ``STEP_SPLITS`` and, where it has one, ``STEP_TILE`` at
+    each call) by split count (``STEP_SWEEP[hd]``, ``chunk_splits``), for
+    each tile of positions the checkout builds at ``hd``
+    (``fd.STEP_TILES``): {tile: {splits: device ms}}, or {splits: device
+    ms} in checkouts without tiles."""
+    key = hd if isinstance(mod.STEP_SPLITS, dict) else None
+    if not hasattr(mod, "STEP_TILE"):
+        return chunk_splits(torch, mod, "STEP_SPLITS", fn, plain, sets, label,
+                            splits=STEP_SWEEP[hd], key=key)
+    keep, out = mod.STEP_TILE, {}
+    try:
+        for tile in fd.STEP_TILES[hd]:
+            mod.STEP_TILE = {**keep, hd: tile}
+            out[tile] = chunk_splits(torch, mod, "STEP_SPLITS", fn, plain,
+                                     sets, f"{label}, tile {tile}",
+                                     splits=STEP_SWEEP[hd], key=key)
+    finally:
+        mod.STEP_TILE = keep
+    return out
 
 
 def head_step_ab(torch, fd, fp, gen):
     """flash_prefill and flash_decode's decode step of the imported
     ``repro_torch`` in bf16 at gemma-2b's (hd 256), internvl2-26b's (G 6 /
-    hd 128) and granite's (G 3 / hd 64) serve shapes (``--ab``): held to
-    their plain versions and timed (``prefill_row``, ``decode_row``: beside
-    SDPA and the bound), with the kernel each checkout launches as the
-    profiler sees it. At each decode step also the device time by split
-    count where the checkout plans the tensor-core step route there
-    (``STEP_SPLITS``, an int in checkouts where only hd 256 has it), and
-    the yardstick of the tensor-core chunk kernel called with ck = 1 (G
-    live rows of its 64) at 4 and 9 splits."""
+    hd 128), granite's (G 3 / hd 64), tinyllama's (G 8 / hd 64) and
+    whisper-tiny's (G 1 / hd 64) serve shapes (``--ab``): held to their
+    plain versions and timed (``prefill_row``, ``decode_row``: beside SDPA
+    and the bound), with the kernel each checkout launches as the profiler
+    sees it. At each decode step also the device time by split count (and
+    tile, ``step_sweep``) where the checkout plans the tensor-core step
+    route there, and the yardstick of the tensor-core chunk kernel called
+    with ck = 1 (G live rows of its 64) at 4 and 9 splits."""
     bf = torch.bfloat16
     rows = []
     for tag, heads in (("gemma", (GEMMA_H, GEMMA_KV, GEMMA_HD)),
                        ("internvl", (INTERNVL_H, INTERNVL_KV, INTERNVL_HD)),
-                       ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD))):
+                       ("granite", (GRANITE_H, GRANITE_KV, GRANITE_HD)),
+                       ("tinyllama", (H, KV, HD)),
+                       ("whisper", (WHISPER_H, WHISPER_KV, WHISPER_HD))):
         mk = head_inputs(torch, gen, bf, heads)
         for name, timed, mod, fn, plain in (
                 ("flash_prefill", prefill_row, fp, fp.flash_prefill_bshd,
@@ -1414,11 +1557,8 @@ def head_step_ab(torch, fd, fp, gen):
             if name == "flash_decode":
                 hd, G = heads[2], heads[0] // heads[1]
                 if fd.launch_plan(1, G, hd, bf, False)[0]:  # the step route
-                    row["splits_device_ms"] = chunk_splits(
-                        torch, fd, "STEP_SPLITS", fn, plain, sets, label,
-                        splits=STEP_SWEEP[hd], key=(
-                            hd if isinstance(fd.STEP_SPLITS, dict)
-                            else None))
+                    row["splits_device_ms"] = step_sweep(
+                        torch, fd, fd, fn, plain, sets, label, hd)
                 one = [(q[:, None].contiguous(), k, v, m[:, None].contiguous())
                        for q, k, v, m in sets]
                 row["chunk_ck1_device_ms"] = chunk_splits(
@@ -1544,6 +1684,7 @@ def kernel_phase(torch):
                                                               gen)
     errs["paged"], paged_serve, errs["chunk"], chunk_args = \
         paged_kernel_checks(torch, pd, gen)
+    step_route_checks(torch, fd, pd, gen)
     errs["ssd"] = ssd_kernel_checks(torch, ss, ssd_scan_plain, gen)
     narrow = ssd_narrow_rows(torch, ss, ssd_scan_plain, gen)
     verify = verify_shape_checks(torch, fd, pd, gen)
@@ -1567,8 +1708,12 @@ def kernel_phase(torch):
     rows[-1].update(verify_max_abs_err=e, **{
         f"verify_{k}": v for k, v in dense_chunk_timing(
             torch, F, fd, gen, a, kind="verify").items()})
+    step = pd.launch_plan(1, H // KV, HD, torch.bfloat16, False)[0]
     rows.append(dict(name="paged_decode", route="cuda",
-                     source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                     source="src/repro_torch/kernels/csrc/"
+                            f"{pd.KERNELS[step, False][0]}.cu",
+                     chunk_source="src/repro_torch/kernels/csrc/"
+                                  "paged_decode.cu",
                      replaces="src/repro/kernels/paged/decode.py:97",
                      max_abs_err=errs["paged"], library_ms=None,
                      library_device_ms=None,
@@ -4510,6 +4655,8 @@ def dense_config_phase(torch):
         # the bf16 decode step at hd 256 has a kernel of its own
         rows["flash_decode"]["gemma_source"] = (
             "src/repro_torch/kernels/csrc/flash_decode_step.cu")
+        rows["paged_decode"]["gemma_source"] = (
+            "src/repro_torch/kernels/csrc/paged_decode_step.cu")
         yi_cfg = get_config(YI)
         if (yi_cfg.num_heads, yi_cfg.num_kv_heads,
                 yi_cfg.resolved_head_dim) != (YI_H, YI_KV, YI_HD):
@@ -4993,6 +5140,8 @@ def vlm_phase(torch):
     # the bf16 decode step at hd 128 has a kernel of its own
     rows["flash_decode"]["internvl_source"] = (
         "src/repro_torch/kernels/csrc/flash_decode_step.cu")
+    rows["paged_decode"]["internvl_source"] = (
+        "src/repro_torch/kernels/csrc/paged_decode_step.cu")
     t_k = time.time()
     model = dense_model_check(torch, INTERNVL, fused=True, sensitivity=True,
                               prefix=INTERNVL_PREFIX)
@@ -5711,7 +5860,8 @@ def main():
         r["gemma_launches"] = dense_cfgs.get(r["name"], 0)
     # paged_decode's row also carries its chunk form at the fused tick's
     # shape (chunk_*; its launches count in the row's one total)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "chunk_source", "replaces", "launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "library_device_ms", "chunk_max_abs_err",
             "chunk_ms", "chunk_plain_ms", "chunk_bound_ms", "chunk_bound_by",

@@ -6,7 +6,9 @@ internvl2-26b's (G 6 / hd 128) serve shapes and held to the plain version:
 what the source notes of ``csrc/flash_prefill.cu`` and
 ``csrc/flash_decode_step.cu`` report as tried and as diagnostics (a
 ``diag`` variant computes a wrong result on purpose, to time the kernel
-without one of its parts).
+without one of its parts). The decode step's body lives in
+``csrc/decode_step.cuh``: its variants patch that header, and each builds
+``flash_decode_step.cu`` beside its own copy.
 
     python3 kernel_variants.py        # from the repository root, one card
 
@@ -140,7 +142,7 @@ def prefill_variants(src):
 
 
 def decode_variants(src):
-    """name -> flash_decode_step.cu text."""
+    """name -> decode_step.cuh text."""
     return {
         "as_committed": src,
         "diag_no_combine": sub(
@@ -164,11 +166,16 @@ def ptxas_lines(log, kernel):
     return out
 
 
-def build(name, src_name, text):
+def build(name, src_name, text, header=None):
+    """Start nvcc on ``text`` written as ``src_name`` into its own
+    directory (with ``header``, a (name, text) pair, beside it: a quoted
+    include finds it there before ``csrc/``)."""
     from repro_torch.kernels import build as kb
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     (d / src_name).write_text(text)
+    if header is not None:
+        (d / header[0]).write_text(header[1])
     cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-I", str(d), "-I", str(CSRC), "-o",
            str(d / "lib.so"), str(d / src_name)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -188,11 +195,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     pre = prefill_variants((CSRC / "flash_prefill.cu").read_text())
-    dec = decode_variants((CSRC / "flash_decode_step.cu").read_text())
+    dec = decode_variants((CSRC / "decode_step.cuh").read_text())
+    step_cu = (CSRC / "flash_decode_step.cu").read_text()
     procs = {f"prefill/{n}": build(f"prefill_{n}", "flash_prefill.cu", t)
              for n, t in pre.items()}
     procs.update({f"decode/{n}": build(f"decode_{n}", "flash_decode_step.cu",
-                                       t) for n, t in dec.items()})
+                                       step_cu, ("decode_step.cuh", t))
+                  for n, t in dec.items()})
     libs = {}
     for n, p in procs.items():
         log, _ = p.communicate()
@@ -240,15 +249,15 @@ def main():
         want = fd.flash_decode_plain(*dsets[0]).float()
         for n in dec:
             f = libs[f"decode/{n}"].flash_decode_step_launch
-            f.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             for splits in splits_swept:
                 def run(q, k, v, bias, f=f, splits=splits, KV=KV, G=G,
                         HD=HD):
                     out = torch.empty_like(q)
                     err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            bias.data_ptr(), out.data_ptr(), None, None, B,
-                            KV, G, C, HD, 1, splits, 0.0, 1, stream())
+                            bias.data_ptr(), out.data_ptr(), B, KV, G, C, HD,
+                            splits, fd.STEP_TILE[HD], 0.0, 1, stream())
                     if err:
                         raise RuntimeError(f"launch failed: cudaError {err}")
                     return out

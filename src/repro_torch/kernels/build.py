@@ -22,7 +22,8 @@ from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_prefill", "flash_decode", "flash_decode_chunk",
-           "flash_decode_step", "paged_decode", "ssd_scan")
+           "flash_decode_step", "paged_decode", "paged_decode_step",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

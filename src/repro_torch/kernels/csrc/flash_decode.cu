@@ -59,15 +59,18 @@
 // through distributed shared memory after `cluster.sync()` took about 1.5x
 // as long on the H100 at the serve shape, and a launch with the cluster
 // attribute alone, no cluster barrier, cost the same, so the cluster
-// scheduling itself is the cost at these 79 KB blocks.
+// scheduling itself is the cost at these 79 KB blocks. (The tensor-core
+// step kernel, at 26-81 KB a CTA, gains from its cluster combine:
+// flash_decode_step.cu.)
 //
 // fp32 and bf16 run the same kernel; the products are fp32 FMAs on the
 // CUDA cores in both, so fp32 keeps full fp32 products.
 //
 // Routes elsewhere (the wrapper's launch_plan): the chunk form in bf16 at
 // hd 64, 128 and 256 runs flash_decode_chunk.cu, and the decode step in
-// bf16 at hd 256 (gemma-2b's) flash_decode_step.cu, both on the tensor
-// cores. This kernel at gemma's decode step (B 8, G 8 on one KV head, C
+// bf16 at hd 64, 128 and 256 with G <= 16 flash_decode_step.cu, both on
+// the tensor cores; this kernel keeps fp32 and groups above 16 rows. This
+// kernel at gemma's decode step (B 8, G 8 on one KV head, C
 // 576, hd 256) left the card two-thirds idle: 8 splits gave 64 CTAs on 132
 // SMs, its 64-position tiles took each split's 72 positions in two rounds,
 // and its fp32 FMAs ran the products: 0.0303 ms device on an NVIDIA H100

@@ -10,9 +10,10 @@
 // batch row b and KV head h takes the bias row (b, j). Every score is
 // scaled by 1/sqrt(hd), then soft-capped (tanh, when softcap > 0), then
 // biased, in that order; online softmax with fp32 (m, l, acc); l is
-// floored at 1e-30. fp32, other head dims and the decode step
-// (flash_decode.cu) keep the CUDA-core kernel; this file is its own
-// library so that their binary stays as it was.
+// floored at 1e-30. fp32 and other head dims keep the CUDA-core kernel
+// (flash_decode.cu), and the bf16 decode step has its own
+// (flash_decode_step.cu); this file is its own library so that their
+// binaries stay as they were.
 //
 // What bounds it on this card: bytes, on the tensor cores' roofline. At
 // tinyllama's fused tick (B=8, ck=16, KV=4, G=8, C=576, hd 64) and at

@@ -31,8 +31,10 @@
 // query rows) over several CTAs along the positions (one launch); each CTA
 // writes its partial (acc, m, l) to a scratch workspace and arrives on a
 // counter; the last to arrive combines the partials (weights 2^(m_s - M) /
-// L) and sets the counter back to zero for the next launch (flash_decode's
-// design: a thread-block cluster was slower there). A split with no live
+// L) and sets the counter back to zero for the next launch. (The bf16
+// decode step at hd 64, 128 and 256 with G <= 16 runs instead in
+// paged_decode_step.cu, whose splits form a thread block cluster and
+// combine in its distributed shared memory.) A split with no live
 // position has m = -1e30, l = 0 and zeros, so it adds nothing.
 //
 // - Chunk form, bf16 at hd 64, 128 and 256 (the fused tick): the ck*G
@@ -68,8 +70,8 @@
 //   0.023 at 2, 0.024 at 3 and 4, 0.038 at 6, 0.041 at 8, 0.044 at 9 (2
 //   is ~1 us faster there); S = 4 at every head dim, one count for the
 //   route (CHUNK_SPLITS in paged_decode.py).
-// - Everything else (the single-query decode step, fp32, other head
-//   dims):
+// - Everything else (the single-query decode step in fp32, above 16 query
+//   rows or at other head dims):
 //   fp32 FMAs on the CUDA cores (decode does ~2 flops per byte). A CTA keeps
 //   its block of query rows resident in shared memory as fp32 and streams
 //   its contiguous slice of positions through a double-buffered `cp.async`

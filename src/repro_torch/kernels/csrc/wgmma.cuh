@@ -1,5 +1,5 @@
 // Hopper tensor-core helpers shared by the kernels that run `wgmma` or
-// `mma.sync` (flash_prefill.cu, flash_decode_chunk.cu, flash_decode_step.cu,
+// `mma.sync` (flash_prefill.cu, flash_decode_chunk.cu, decode_step.cuh,
 // paged_decode.cu, ssd_scan.cu): fast exp2, bf16 packing with the hi + lo
 // split, warp-level `mma.sync` fed by `ldmatrix`, warpgroup matrix
 // multiply from 128-byte-swizzled shared memory, and the chunk forms' split

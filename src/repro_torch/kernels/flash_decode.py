@@ -14,11 +14,11 @@ Each is the wrapper of its form: CPU tensors take the plain version; CUDA
 tensors launch a kernel or raise. ``launch_plan`` picks the kernel before
 any launch (``KERNELS`` names it): the chunk form in bf16 at hd 64, 128
 and 256 runs on the tensor cores (``flash_decode_chunk.cu``: ``wgmma`` over
-blocks of 64 query rows), and so does the decode step in bf16 at hd 128
-and 256 (``flash_decode_step.cu``: ``mma.sync`` with the G query rows as
-its M, ``STEP_SPLITS[hd]`` CTAs per (b, kv-head)); every other launch
-(fp32, the decode step at hd 64) runs on the CUDA cores
-(``flash_decode.cu``).
+blocks of 64 query rows), and so does the decode step in bf16 at hd 64,
+128 and 256 with G <= 16 (``flash_decode_step.cu``: ``mma.sync`` with the
+G query rows as its M, ``STEP_SPLITS[hd]`` CTAs per (b, kv-head) walking
+tiles of ``STEP_TILE[hd]`` positions); every other launch (fp32, a group
+above 16 rows) runs on the CUDA cores (``flash_decode.cu``).
 A launch splits the cache axis over several CTAs per (b, kv-head, block of
 query rows); each writes its partial softmax sums to a scratch workspace
 and the last to arrive combines them, counted on a per-block arrival
@@ -44,6 +44,9 @@ from repro_torch.kernels import build
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_C] * 7 + [_I] * 7 + [ctypes.c_float, _I, _C]
+# flash_decode_step_launch: q, k, v, bias, out; B, KV, G, C, hd, splits,
+# tile; softcap; dtype; stream
+_STEP_ARGTYPES = [_C] * 5 + [_I] * 7 + [ctypes.c_float, _I, _C]
 MAX_GROUP_WIDTH = 4096          # rows * hd accumulators per CTA (csrc kMaxAcc)
 SPLITS = 8                      # CTAs per (b, kv-head, row block) (kSplits)
 MAX_SMEM_BYTES = 232_448        # dynamic shared memory of one H100 block
@@ -52,18 +55,33 @@ TC_SPLITS = 4                   # its CTAs per (b, kv-head, row block)
 # head dim -> the tensor-core route's shared memory: a Q tile, K and V
 # rings of two 64-position tiles, 1024 bytes of alignment (csrc Shape)
 TC_SMEM_BYTES = {hd: 5 * TC_ROWS * 2 * hd + 1024 for hd in (64, 128, 256)}
-# The decode step's tensor-core route (bf16, hd 128 and 256): query rows of
-# the mma M (G <= 16 live), then by head dim the CTAs per (b, kv-head), one
-# cluster of at most 8 (csrc kMaxSplits), and the shared memory: Q, a K and
-# a V tile of 64 positions in rows of hd + 8 bf16, then P (16 x 68) and
-# the four warps' row max and sum in fp32 (csrc smem_bytes). The counts
-# are the fastest of chip_smoke --ab's sweeps: 6 at internvl2-26b's 64 (b,
+# The decode step's tensor-core route (bf16, hd 64, 128 and 256): query
+# rows of the mma M (G <= 16 live), then by head dim the CTAs per (b,
+# kv-head), one cluster of at most 8 (csrc kMaxSplits), and the positions
+# of a K/V tile, from the instances the library has (``STEP_TILES``: 64,
+# and 128 at hd 64). The counts and tiles are the fastest of chip_smoke
+# --ab's sweeps (device ms on an H100): 6 at internvl2-26b's 64 (b,
 # kv-head) pairs (384 CTAs, 96 positions each), 8 at gemma-2b's 8 (64
-# CTAs, 72 positions each)
+# CTAs, 72 positions each); at hd 64 6 splits of one 128-position tile
+# (tinyllama's 96 positions a split in one round of copies: 0.0083, 0.0089
+# in 64-position tiles; granite's G 3 0.0104-0.0108, level with 5 and 7)
 STEP_ROWS = 16
-STEP_SPLITS = {128: 6, 256: 8}
-STEP_SMEM_BYTES = {hd: 2 * (STEP_ROWS + 2 * 64) * (hd + 8)
-                   + 4 * (STEP_ROWS * 68 + 2 * 4 * STEP_ROWS)
+STEP_SPLITS = {64: 6, 128: 6, 256: 8}
+STEP_TILES = {64: (64, 128), 128: (64,), 256: (64,)}
+STEP_TILE = {64: 128, 128: 64, 256: 64}
+
+
+def step_smem_bytes(hd: int, tile: int) -> int:
+    """Dynamic shared memory of one step CTA (csrc ``step::smem_bytes``):
+    Q and a K and a V tile of ``tile`` positions in rows of hd + 8 bf16,
+    then P (16 rows of tile + 4) and the four warps' row max and sum in
+    fp32. The split's partial (16 rows of hd + 4 floats, m, l) goes where
+    the K tile was."""
+    return (2 * (STEP_ROWS + 2 * tile) * (hd + 8)
+            + 4 * (STEP_ROWS * (tile + 4) + 2 * 4 * STEP_ROWS))
+
+
+STEP_SMEM_BYTES = {hd: step_smem_bytes(hd, STEP_TILE[hd])
                    for hd in STEP_SPLITS}
 # (tensor cores, chunk form) of a plan -> its library and CUDA kernel
 KERNELS = {(True, True): ("flash_decode_chunk", "flash_decode_chunk_kernel"),
@@ -106,17 +124,22 @@ def launch_plan(ck: int, G: int, hd: int, dtype: torch.dtype, chunk: bool
     """(tensor_cores, query rows per CTA, splits) of one launch: the chunk
     form in bf16 at hd 64, 128 and 256 runs on ``wgmma`` in blocks of 64
     query rows (``flash_decode_chunk.cu``), whatever ck and G, with
-    ``TC_SPLITS`` CTAs per block; the decode step in bf16 at hd 128 and
-    256 with G <= 16 on ``mma.sync`` with its G rows in a 16-row M
+    ``TC_SPLITS`` CTAs per block; the decode step in bf16 at hd 64, 128
+    and 256 with G <= 16 on ``mma.sync`` with its G rows in a 16-row M
     (``flash_decode_step.cu``), ``STEP_SPLITS[hd]`` CTAs per (b,
-    kv-head); every other launch (the decode step at hd 64 or above 16
-    rows, fp32) on the CUDA cores (``flash_decode.cu``), with whole groups
-    of G rows as the accumulators hold (``chunk_rows``). ``KERNELS[tc,
-    chunk]`` names the kernel."""
+    kv-head); every other launch (a decode step above 16 rows or of one
+    row at hd 64, fp32) on the CUDA cores (``flash_decode.cu``), with
+    whole groups of G rows as the accumulators hold (``chunk_rows``).
+    ``KERNELS[tc, chunk]`` names the kernel."""
     if dtype == torch.bfloat16:
         if chunk and hd in TC_SMEM_BYTES:
             return True, TC_ROWS, TC_SPLITS
-        if not chunk and hd in STEP_SPLITS and G <= STEP_ROWS:
+        # At hd 64 one query row (whisper-tiny's G 1) keeps the CUDA-core
+        # kernel: one live row of the step kernel's 16 took 0.0093 ms at
+        # best (tile 128, 5 splits) against that kernel's 0.0092-0.0093 at
+        # whisper-tiny's serve shape (chip_smoke --ab), no faster.
+        if (not chunk and hd in STEP_SPLITS and G <= STEP_ROWS
+                and (G > 1 or hd > 64)):
             return True, STEP_ROWS, STEP_SPLITS[hd]
     return False, chunk_rows(ck, G, hd) if chunk else G, SPLITS
 
@@ -126,12 +149,14 @@ _FNS = {}                       # (tc, chunk) -> its C entry point
 
 def _launch_fn(tc: bool, chunk: bool):
     """The C entry point of the planned kernel (``KERNELS``), its argument
-    types set once (the three take the same arguments)."""
+    types set once (the chunk kernels take the same arguments; the step
+    kernel its own)."""
     fn = _FNS.get((tc, chunk))
     if fn is None:
         name = KERNELS[tc, chunk][0]
         fn = _FNS[tc, chunk] = getattr(build.load(name), f"{name}_launch")
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        fn.argtypes = (_STEP_ARGTYPES if tc and not chunk else _ARGTYPES)
+        fn.restype = ctypes.c_int
     return fn
 
 
@@ -167,8 +192,9 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,ck,KV,G,hd) and bias (B,ck,C) with ``chunk``, else q (B,KV,G,hd)
     and bias (B,C); k, v (B,KV,C,hd) of q's dtype; every operand
     contiguous, 16-byte aligned and on q's device, the bias fp32; the
-    block's shared memory within one H100 block (``TC_SMEM_BYTES`` on the
-    tensor cores, ``smem_bytes`` on the CUDA cores); on the CUDA cores also
+    block's shared memory within one H100 block (``TC_SMEM_BYTES`` for the
+    chunk form and ``step_smem_bytes`` for the decode step on the tensor
+    cores, ``smem_bytes`` on the CUDA cores); on the CUDA cores also
     hd a multiple of 8 and a group of G rows within the accumulators (the
     tensor-core route takes bf16 at hd 64, 128 and 256 at any G). Returns
     (ck, ``launch_plan``)."""
@@ -189,7 +215,8 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
     tc, rows, splits = launch_plan(ck, G, hd, dt, chunk)
-    smem = ((TC_SMEM_BYTES if chunk else STEP_SMEM_BYTES)[hd] if tc
+    smem = ((TC_SMEM_BYTES[hd] if chunk
+             else step_smem_bytes(hd, STEP_TILE[hd])) if tc
             else smem_bytes(G, hd, q.element_size(), rows))
     if smem > MAX_SMEM_BYTES or not tc and (hd % 8
                                             or rows * hd > MAX_GROUP_WIDTH):
@@ -207,19 +234,26 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     B, KV, C = k.shape[0], k.shape[1], k.shape[2]
     G, hd = q.shape[-2], q.shape[-1]
-    # the step kernel's splits combine in their cluster: no workspace
+    # the step kernel's splits combine in their cluster: no workspace (it
+    # is still set up for the stream, empty, as every launch leaves it)
     n_blocks = 0 if tc and not chunk else B * KV * -(-ck * G // rows)
     fn = _launch_fn(tc, chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
     partials, arrivals = build.workspace(
         dev, stream, n_blocks * splits * (rows * hd + 2 * rows), n_blocks)
-    # the tensor-core kernels take their split count where the CUDA-core
-    # one takes its rows per CTA (their rows and its 8 splits are constants)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B, KV,
-            G, C, hd, ck, splits if tc else rows, float(softcap),
-            build.dtype_code(q), stream)
+    if tc and not chunk:
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), B, KV, G, C, hd, splits, STEP_TILE[hd],
+                float(softcap), build.dtype_code(q), stream)
+    else:
+        # the tensor-core chunk kernel takes its split count where the
+        # CUDA-core one takes its rows per CTA (their rows and its 8 splits
+        # are constants)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), partials.data_ptr(), arrivals.data_ptr(), B,
+                KV, G, C, hd, ck, splits if tc else rows, float(softcap),
+                build.dtype_code(q), stream)
     # The decode step calls this once per layer and is bound by host time:
     # switch devices only when the call needs it.
     if dev.index == torch.cuda.current_device():

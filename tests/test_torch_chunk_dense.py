@@ -283,7 +283,7 @@ def test_check_args_refuses(case):
     (16, 8, 64, torch.float32, True, (False, 64, fd.SPLITS)),
     (16, 8, 128, torch.bfloat16, True, (True, 64, fd.TC_SPLITS)),
     (16, 5, 128, torch.float32, True, (False, 30, fd.SPLITS)),
-    (1, 8, 64, torch.bfloat16, False, (False, 8, fd.SPLITS)),     # decode
+    (1, 8, 64, torch.bfloat16, False, (True, 16, fd.STEP_SPLITS[64])),
     (1, 5, 128, torch.float32, False, (False, 5, fd.SPLITS)),
 ])
 def test_tensor_core_launch_plan(ck, G, hd, dtype, chunk, want):
@@ -291,9 +291,9 @@ def test_tensor_core_launch_plan(ck, G, hd, dtype, chunk, want):
     hd 64 and 128 on the tensor cores, 64 query rows a CTA at any G (a
     block spans 64 // G + 1 tokens or fewer) and ``TC_SPLITS`` CTAs per
     row block, with four CTAs' shared memory on one SM at hd 64 and two at
-    128; the decode step (ck 1) and fp32 on the CUDA cores as before, in
-    the shared memory of one H100 block. ``check_args`` returns the same
-    plan."""
+    128; the bf16 decode step (ck 1) on the step kernel's 16-row M; fp32 on
+    the CUDA cores as before, in the shared memory of one H100 block.
+    ``check_args`` returns the same plan."""
     plan = fd.launch_plan(ck, G, hd, dtype, chunk)
     assert plan == want
     tc, rows, _ = plan
@@ -371,7 +371,10 @@ def test_check_args_refuses_tensor_core_route(case):
     (torch.bfloat16, 128, True, "flash_decode_chunk"),
     (torch.bfloat16, 256, True, "flash_decode_chunk"),
     (torch.float32, 256, True, "flash_decode"),
-    (torch.bfloat16, 64, False, "flash_decode"),
+    # the bf16 decode step's library since it joined the step kernel (the
+    # case keeps its id)
+    pytest.param(torch.bfloat16, 64, False, "flash_decode_step",
+                 id="dtype5-64-False-flash_decode"),
 ])
 def test_wrapper_loads_the_planned_kernel_after_the_checks(monkeypatch,
                                                            dtype, hd, chunk,
@@ -379,9 +382,9 @@ def test_wrapper_loads_the_planned_kernel_after_the_checks(monkeypatch,
     """On a non-CPU tensor (here meta) the wrapper checks, then loads the
     planned kernel's library: a refused operand raises before any library
     is loaded, and a valid one asks for the tensor-core library for the
-    chunk form in bf16 (hd 64, 128, 256) and for the CUDA-core one
-    otherwise; nothing falls back to the plain version, and no launch is
-    counted."""
+    chunk form in bf16 (hd 64, 128, 256), the step kernel's for the bf16
+    decode step and the CUDA-core one otherwise; nothing falls back to the
+    plain version, and no launch is counted."""
     asked = []
 
     def load(name):

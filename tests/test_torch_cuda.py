@@ -98,6 +98,19 @@ DECODE_CASES = [
     (2, 8, 6, 128, 2000, 0.0, True),
     (4, 4, 8, 128, 203, 30.0, True),
     (2, 2, 16, 128, 576, 0.0, True),
+    # the bf16 hd-64 decode step's tensor-core route (STEP_SPLITS[64] CTAs
+    # per (b, kv-head)) at tinyllama's G 8: C 1, C just below and just
+    # above the split count, only the first key unbiased, C 2000 (several
+    # tiles a split); granite's G 3, G 16 (the whole 16-row M) and
+    # whisper's G 1 over several tiles
+    (8, 4, 8, 64, 1, 0.0, False),
+    (8, 4, 8, 64, fd.STEP_SPLITS[64] - 1, 0.0, False),
+    (8, 4, 8, 64, fd.STEP_SPLITS[64] + 1, 30.0, True),
+    (8, 4, 8, 64, 576, 0.0, "first"),
+    (2, 4, 8, 64, 2000, 0.0, True),
+    (4, 8, 3, 64, 2000, 30.0, False),
+    (2, 2, 16, 64, 576, 0.0, True),
+    (4, 6, 1, 64, 1000, 0.0, True),
 ]
 
 
@@ -412,15 +425,18 @@ def test_flash_prefill_runs_the_planned_kernel(cuda, dtype, hd, kernel):
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 256, "flash_decode_step_kernel"),
     (torch.float32, 256, "flash_decode_kernel"),
-    (torch.bfloat16, 64, "flash_decode_kernel"),
+    # the step kernel since the hd-64 step joined it (the case keeps its id)
+    pytest.param(torch.bfloat16, 64, "flash_decode_step_kernel",
+                 id="dtype2-64-flash_decode_kernel"),
     (torch.bfloat16, 128, "flash_decode_step_kernel"),
     (torch.float32, 128, "flash_decode_kernel"),
+    (torch.float32, 64, "flash_decode_kernel"),
 ])
 def test_flash_decode_step_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees the decode step launch the kernel its plan names:
-    at hd 128 and 256 the tensor-core step kernel in bf16 (over
-    ``STEP_SPLITS[hd]`` CTAs a (b, kv-head)) and the CUDA-core one in fp32;
-    at hd 64 the CUDA-core one in both."""
+    at hd 64, 128 and 256 the tensor-core step kernel in bf16 (over
+    ``STEP_SPLITS[hd]`` CTAs a (b, kv-head)) and the CUDA-core one in
+    fp32."""
     tc, _, _ = fd.launch_plan(1, 8, hd, dtype, False)
     assert fd.KERNELS[tc, False][1] == kernel
     rng = np.random.default_rng(8)
@@ -467,8 +483,9 @@ def _planned(route, G, hd, dtype):
         chunk = route == "chunk"
         return fd.KERNELS[fd.launch_plan(16 if chunk else 1, G, hd, dtype,
                                          chunk)[0], chunk][1]
-    tc = pd.launch_plan(16, G, hd, dtype, route == "paged_chunk")[0]
-    return "paged_chunk_wgmma_kernel" if tc else "paged_decode_simt_kernel"
+    chunk = route == "paged_chunk"
+    return pd.KERNELS[pd.launch_plan(16 if chunk else 1, G, hd, dtype,
+                                     chunk)[0], chunk][1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -520,12 +537,13 @@ def test_ssd_scan_runs_the_planned_kernels(cuda, b, s, h, p, n, chunk, dtype,
                    for nm in ran) == 1, (w, ran)
 
 
-@pytest.mark.parametrize("KV,G,hd", [(1, 8, 256), (8, 6, 128)])
+@pytest.mark.parametrize("KV,G,hd", [(1, 8, 256), (8, 6, 128), (4, 8, 64),
+                                     (8, 3, 64)])
 def test_flash_decode_step_is_deterministic(cuda, KV, G, hd):
     """The step kernel's splits combine in split order inside their
     cluster: two calls on the same inputs are bitwise equal, and the shared
     workspace's arrival counters stay at zero (gemma-2b's heads at hd 256,
-    internvl2-26b's at hd 128)."""
+    internvl2-26b's at hd 128, tinyllama's and granite's at hd 64)."""
     rng = np.random.default_rng(9)
     bf = torch.bfloat16
     q = _randn(rng, (8, KV, G, hd), bf, cuda)
@@ -538,6 +556,81 @@ def test_flash_decode_step_is_deterministic(cuda, KV, G, hd):
         assert torch.equal(fd.flash_decode_bkhd(q, k, v, bias), first)
     torch.cuda.synchronize()
     assert int(_arrivals(cuda).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("KV,G,hd", [(1, 8, 256), (8, 6, 128), (4, 8, 64),
+                                     (8, 3, 64)])
+def test_paged_decode_step_is_deterministic(cuda, KV, G, hd):
+    """The paged step kernel's splits combine in split order inside their
+    cluster too: two calls on the same inputs are bitwise equal (ragged
+    lengths, one row 0), and the shared workspace's counters stay at zero
+    (the heads of gemma-2b, internvl2-26b, tinyllama and granite)."""
+    args = _paged_inputs(np.random.default_rng(10), 8, KV, G, hd, 16, 36,
+                         torch.bfloat16, cuda)
+    assert pd.launch_plan(1, G, hd, torch.bfloat16, False)[0]
+    first = pd.paged_flash_decode_bkhd(*args)
+    for _ in range(3):
+        assert torch.equal(pd.paged_flash_decode_bkhd(*args), first)
+    torch.cuda.synchronize()
+    assert int(_arrivals(cuda).abs().sum()) == 0
+
+
+@pytest.mark.parametrize("dtype,G,hd,kernel", [
+    (torch.bfloat16, 8, 64, "paged_decode_step_kernel"),
+    (torch.bfloat16, 3, 64, "paged_decode_step_kernel"),
+    (torch.bfloat16, 6, 128, "paged_decode_step_kernel"),
+    (torch.bfloat16, 8, 256, "paged_decode_step_kernel"),
+    (torch.float32, 8, 64, "paged_decode_simt_kernel"),
+    (torch.bfloat16, 17, 64, "paged_decode_simt_kernel"),
+])
+def test_paged_decode_step_runs_the_planned_kernel(cuda, dtype, G, hd,
+                                                   kernel):
+    """The profiler sees the paged decode step launch the kernel its plan
+    names: the tensor-core step kernel in bf16 at hd 64, 128 and 256 with
+    G <= 16, the CUDA-core kernel in fp32 and above 16 rows."""
+    assert pd.KERNELS[pd.launch_plan(1, G, hd, dtype, False)[0],
+                      False][1] == kernel
+    args = _paged_inputs(np.random.default_rng(14), 8, 2, G, hd, 16, 36,
+                         dtype, cuda)
+    names = _device_kernels(pd.paged_flash_decode_bkhd, *args)
+    ran = [n for n in names if "paged_" in n]
+    assert len(ran) == 1 and kernel in ran[0], names
+
+
+@pytest.mark.parametrize("splits", [5, 7, 8])
+@pytest.mark.parametrize("form", ["dense", "paged"])
+def test_decode_step_every_tile_matches_plain(cuda, monkeypatch, form,
+                                              splits):
+    """Every tile the step libraries build at hd 64 (``STEP_TILES[64]``:
+    64 and 128 positions), at split counts whose splits end in ragged
+    tiles (C 576, 203 and 1000; paged: ragged lengths with NaN pages past
+    each), held to the plain version in bf16: the rows a warp scores past
+    a ragged tile's end hold zeros, never a stale row of shared memory."""
+    mod = fd if form == "dense" else pd
+    rng = np.random.default_rng(15)
+    bf = torch.bfloat16
+    for tile in fd.STEP_TILES[64]:
+        monkeypatch.setitem(mod.STEP_TILE, 64, tile)
+        monkeypatch.setitem(mod.STEP_SPLITS, 64, splits)
+        if form == "dense":
+            for C in (576, 203, 1000):
+                q = _randn(rng, (8, 4, 8, 64), bf, cuda)
+                k = _randn(rng, (8, 4, C, 64), bf, cuda)
+                v = _randn(rng, (8, 4, C, 64), bf, cuda)
+                bias = torch.zeros((8, C), device=cuda)
+                bias[:, C // 2:] = -1e9
+                got = fd.flash_decode_bkhd(q, k, v, bias)
+                want = fd.flash_decode_plain(q, k, v, bias)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           atol=TOL[bf], rtol=TOL[bf])
+        else:
+            args = _paged_inputs(rng, 8, 4, 8, 64, 16, 36, bf, cuda,
+                                 poison=True)
+            got = pd.paged_flash_decode_bkhd(*args)
+            assert torch.isfinite(got.float()).all()
+            torch.testing.assert_close(
+                got.float(), pd.paged_flash_decode_plain(*args).float(),
+                atol=TOL[bf], rtol=TOL[bf])
 
 
 def _paged_inputs(rng, B, KV, G, hd, ps, width, dtype, device,
@@ -610,6 +703,17 @@ PAGED_EDGES = [
     (2, 1, 8, 128, 8, 1, (8, 5)),             # one page of 8, hd 128
     (3, 4, 8, 64, 16, 36, (9, 1, 65)),        # lengths shorter than a split
     (4, 1, 8, 256, 16, 36, (0, 3, 203, 576)),  # the same at gemma's hd 256
+    # the bf16 step route's edges at the heads of tinyllama, granite,
+    # gemma-2b and internvl2-26b: lengths 0, 1, ps - 1, ps, ps + 1,
+    # n_pages * ps and above it over 4 pages of 16; then several tiles a
+    # split over 36 pages, and the whole 16-row M over pages of 8
+    (7, 4, 8, 64, 16, 4, (0, 1, 15, 16, 17, 64, 70)),
+    (7, 8, 3, 64, 16, 4, (0, 1, 15, 16, 17, 64, 70)),
+    (7, 1, 8, 256, 16, 4, (0, 1, 15, 16, 17, 64, 70)),
+    (7, 8, 6, 128, 16, 4, (0, 1, 15, 16, 17, 64, 70)),
+    (4, 4, 8, 64, 16, 36, (575, 576, 1000, 300)),
+    (4, 8, 6, 128, 16, 36, (0, 576, 1000, 97)),
+    (3, 2, 16, 128, 8, 20, (0, 160, 33)),
 ]
 
 
@@ -619,16 +723,21 @@ def test_paged_decode_split_edges(cuda, B, KV, G, hd, ps, width, lens,
                                   dtype):
     """The decode form's split over positions: empty splits (a length of 0,
     or below the split count), a length not a multiple of the splits, a
-    one-page table; poisoned pages past every length."""
+    one-page table, lengths at and past page borders and above n_pages *
+    ps; poisoned pages past every length, and for the kernel table entries
+    past every length out of range (the plain version, which gathers the
+    whole table, reads the NaN page there)."""
     rng = np.random.default_rng(7)
     q, kp, vp, tables, _ = _paged_inputs(rng, B, KV, G, hd, ps, width, dtype,
                                          cuda)
     lengths = torch.as_tensor(lens, dtype=torch.int32, device=cuda)
     kp[:, 0] = float("nan")
     vp[:, 0] = float("nan")
+    wild = tables.clone()
     for b, n in enumerate(lens):
         tables[b, -(-n // ps):] = 0
-    out = pd.paged_flash_decode_bkhd(q, kp, vp, tables, lengths)
+        wild[b, -(-n // ps):] = 2**31 - 1
+    out = pd.paged_flash_decode_bkhd(q, kp, vp, wild, lengths)
     want = pd.paged_flash_decode_plain(q, kp, vp, tables, lengths)
     assert torch.isfinite(out.float()).all()
     for b, n in enumerate(lens):
@@ -2448,6 +2557,48 @@ def test_internvl_decode_step_replay_equals_eager(cuda):
     assert launches == ref_launches and launches["flash_decode"] > 0
     assert launches["flash_decode"] % 8 == launches["flash_prefill"] % 8 == 0
     assert eng.backends["v"].graphs
+    stream = capture_stream(cuda)
+    ws = build.workspace_buffers(stream.device, stream.cuda_stream)
+    assert ws is not None and int(ws[1].abs().sum()) == 0
+    for e in (eng, ref_eng):
+        e.apply_allocation(0.0, {})
+    del eng, ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch,layers", [("tinyllama-1.1b", 22),
+                                         ("internvl2-26b", 8)])
+def test_paged_decode_step_replay_equals_eager(cuda, arch, layers):
+    """tinyllama-1.1b at full width and depth (L22) and internvl2-26b at
+    full width cut to 8 layers, bf16, on the paged engine with prefix
+    sharing: its paged decode steps run the tensor-core paged step kernel
+    (hd 64 at G 8, hd 128 at G 6) and its fused ticks the ``wgmma`` chunk
+    form. Replaying captured steps equals the engine run op by op
+    (``step_graphs=False``) bitwise, in tokens and every cache leaf (the
+    pool's trash page 0 aside, as in
+    ``test_step_graph_replays_equal_eager_steps``), with the same
+    launches, and the workspace's arrival counters are at zero."""
+    import gc
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(num_layers=layers)
+    assert cfg.dtype == "bfloat16"
+    G, hd = cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim
+    assert pd.launch_plan(1, G, hd, torch.bfloat16, False)[0]
+    kv = dict(kv_cache="paged", kv_page_size=16, kv_prefix_sharing=True)
+    got, state, launches, eng = _serve_engine(cuda, cfg, True, kv)
+    want, ref_state, ref_launches, ref_eng = _serve_engine(cuda, cfg, False,
+                                                           kv)
+    assert len(want) == 6 and got == want
+    assert state.keys() == ref_state.keys()
+    for k in state:
+        if k in ("kp", "vp"):       # pool (L, KV, P, page, hd): by page
+            diff = (state[k] != ref_state[k]).flatten(3).any(-1).any(1)
+            assert set(diff.any(0).nonzero().flatten().tolist()) <= {0}, k
+        else:
+            assert torch.equal(state[k], ref_state[k]), k
+    assert launches == ref_launches and launches["paged_decode"] > 0
+    assert eng.kv_pool_stats()["prefix_hits"] > 0
     stream = capture_stream(cuda)
     ws = build.workspace_buffers(stream.device, stream.cuda_stream)
     assert ws is not None and int(ws[1].abs().sum()) == 0

@@ -176,9 +176,9 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     ck 16; pages of 16) with every block's shared memory within one H100
     block: 64-position K/V tiles in bf16, 32 in fp32. The chunk forms run
     on the tensor cores in bf16 (64 query rows a CTA) and on the CUDA cores
-    in fp32 (16 rows); so does the decode step, in bf16 on its own
-    tensor-core kernel (16 rows, ``STEP_SPLITS[256]`` CTAs per (b,
-    kv-head), one cluster), in fp32 on the CUDA-core one (its G
+    in fp32 (16 rows); so do both decode steps, in bf16 on their own
+    tensor-core kernels (16 rows, ``STEP_SPLITS[256]`` CTAs per (b,
+    kv-head), one cluster), in fp32 on the CUDA-core ones (their G
     rows, ``SPLITS``); flash_prefill in bf16 on its two-head ``wgmma``
     kernel."""
     es = torch.tensor([], dtype=dtype).element_size()
@@ -210,7 +210,8 @@ def test_launch_plans_at_gemmas_serve_shapes(dtype):
     tables = torch.zeros((8, 36), dtype=torch.int32)
     assert pd.check_args(z(8, 1, 8, 256), pool, pool, tables,
                          torch.ones(8, dtype=torch.int32), False) == \
-        (1, False, 8, pd.SPLITS)
+        ((1, True, pd.STEP_ROWS, pd.STEP_SPLITS[256]) if bf
+         else (1, False, 8, pd.SPLITS))
     assert pd.check_args(z(8, 16, 1, 8, 256), pool, pool, tables,
                          torch.ones((8, 16), dtype=torch.int32), True) == \
         ((16, True, 64, pd.CHUNK_SPLITS) if bf
@@ -253,8 +254,8 @@ def test_shapes_out_of_the_domain_still_raise(dtype):
     (256, 3, torch.float32, (False, 3, "flash_decode_kernel")),
     (128, 8, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
     (128, 8, torch.float32, (False, 8, "flash_decode_kernel")),
-    (64, 8, torch.bfloat16, (False, 8, "flash_decode_kernel")),
-    (64, 3, torch.bfloat16, (False, 3, "flash_decode_kernel")),
+    (64, 8, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
+    (64, 3, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
     (64, 8, torch.float32, (False, 8, "flash_decode_kernel")),
     (128, 6, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
     (128, 16, torch.bfloat16, (True, 16, "flash_decode_step_kernel")),
@@ -263,12 +264,13 @@ def test_shapes_out_of_the_domain_still_raise(dtype):
     (128, 17, torch.bfloat16, (False, 17, "flash_decode_kernel")),
 ])
 def test_decode_step_plan_by_head_dim_and_dtype(hd, G, dtype, want):
-    """The bf16 decode step at hd 128 and 256 takes the tensor-core step
-    kernel (any G up to its 16-row M, ``STEP_SPLITS[hd]`` CTAs per (b,
-    kv-head)); fp32, the decode step at hd 64 and a group above 16 rows
-    keep the CUDA-core kernel with their G rows and ``SPLITS``.
-    ``check_args`` returns the plan, with the CTA's shared memory within one
-    H100 block (two step CTAs an SM at hd 256, five at hd 128)."""
+    """The bf16 decode step at hd 64, 128 and 256 takes the tensor-core
+    step kernel (any G up to its 16-row M, ``STEP_SPLITS[hd]`` CTAs per
+    (b, kv-head)); fp32 and a group above 16 rows keep the CUDA-core
+    kernel with their G rows and ``SPLITS``. ``check_args`` returns the
+    plan, with the CTA's shared memory within one H100 block (two step
+    CTAs an SM at hd 256, five at hd 128, four at hd 64 with its
+    128-position tiles)."""
     tc, rows, kernel = want
     splits = fd.STEP_SPLITS[hd] if tc else fd.SPLITS
     assert fd.launch_plan(1, G, hd, dtype, False) == (tc, rows, splits)
@@ -277,10 +279,12 @@ def test_decode_step_plan_by_head_dim_and_dtype(hd, G, dtype, want):
     assert fd.check_args(torch.zeros((2, 1, G, hd), dtype=dtype), k, k,
                          torch.zeros((2, 40)), False) == (1, tc, rows, splits)
     if tc:
-        assert fd.STEP_SMEM_BYTES[hd] == 2 * (16 + 128) * (hd + 8) + 4 * (
-            16 * 68 + 128) == {128: 44_032, 256: 80_896}[hd]
+        tile = fd.STEP_TILE[hd]             # 128 positions at hd 64
+        assert fd.STEP_SMEM_BYTES[hd] == 2 * (16 + 2 * tile) * (hd + 8) + 4 * (
+            16 * (tile + 4) + 128) == {64: 48_128, 128: 44_032,
+                                       256: 80_896}[hd]
         assert fd.MAX_SMEM_BYTES // fd.STEP_SMEM_BYTES[hd] == {
-            128: 5, 256: 2}[hd]
+            64: 4, 128: 5, 256: 2}[hd]
         # the cluster combine's partial (16 rows of hd + 4 floats, m, l)
         # goes where the 64-position K tile was
         assert 4 * (fd.STEP_ROWS * (hd + 4) + 2 * fd.STEP_ROWS) <= \

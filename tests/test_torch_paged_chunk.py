@@ -137,21 +137,23 @@ def test_paged_chunk_prefill_attention_one_launch_path(kv, softcap):
     (16, 8, 64, torch.float32, True, (False, 64, pd.CHUNK_SPLITS)),
     (5, 4, 128, torch.bfloat16, True, (True, 64, pd.CHUNK_SPLITS)),
     (16, 5, 128, torch.float32, True, (False, 32, pd.CHUNK_SPLITS)),
-    (1, 8, 64, torch.bfloat16, False, (False, 8, pd.SPLITS)),
+    (1, 8, 64, torch.bfloat16, False, (True, 16, pd.STEP_SPLITS[64])),
     (1, 8, 128, torch.float32, False, (False, 8, pd.SPLITS)),
 ])
 def test_launch_plan(ck, G, hd, dtype, chunk, want):
     """The plan the wrapper passes the kernel: the chunk form in bf16 at
-    hd 64, 128 and 256 on the tensor cores in blocks of 64 query rows;
-    every other launch on the CUDA cores with at most 4096 accumulators a
-    CTA; each in the shared memory of one H100 block; more CTAs per row
-    block for the decode step than for the chunk."""
+    hd 64, 128 and 256 on the tensor cores in blocks of 64 query rows; the
+    decode step in bf16 there on the step kernel's 16-row M; every other
+    launch on the CUDA cores with at most 4096 accumulators a CTA; each in
+    the shared memory of one H100 block; more CTAs per row block for the
+    decode step than for the chunk."""
     tc, rows, splits = pd.launch_plan(ck, G, hd, dtype, chunk)
     assert (tc, rows, splits) == want
     assert rows * hd <= pd.MAX_ROW_WIDTH or tc
     esize = torch.tensor([], dtype=dtype).element_size()
-    assert (pd.TC_SMEM_BYTES[hd] if tc else pd.simt_smem_bytes(
-        rows, hd, esize)) <= pd.MAX_SMEM_BYTES
+    assert ((pd.TC_SMEM_BYTES[hd] if chunk else pd.STEP_SMEM_BYTES[hd])
+            if tc else pd.simt_smem_bytes(rows, hd, esize)) \
+        <= pd.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("ck", [1, 5, 16])
@@ -163,7 +165,9 @@ def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
     ``CHUNK_SPLITS`` CTAs per row block, a Q tile and two-tile K and V
     rings of HD / 64 swizzled 8 KB sub-tiles in one H100 block (one CTA an
     SM at hd 256, two at 128); ``check_args`` returns that plan. The same
-    shape in fp32 and the bf16 decode step keep the CUDA cores."""
+    shape in fp32 keeps the CUDA cores; the bf16 decode step has its own
+    tensor-core route (``STEP_ROWS`` rows, ``STEP_SPLITS[hd]`` CTAs per
+    (b, kv-head))."""
     bf = torch.bfloat16
     assert pd.launch_plan(ck, G, hd, bf, True) == (
         True, pd.TC_ROWS, pd.CHUNK_SPLITS)
@@ -175,4 +179,5 @@ def test_tensor_core_plan_at_wide_head_dims(hd, G, ck):
                          pool, tables, torch.ones((3, ck), dtype=torch.int32),
                          True) == (ck, True, pd.TC_ROWS, pd.CHUNK_SPLITS)
     assert not pd.launch_plan(ck, G, hd, torch.float32, True)[0]
-    assert pd.launch_plan(1, G, hd, bf, False) == (False, G, pd.SPLITS)
+    assert pd.launch_plan(1, G, hd, bf, False) == (
+        True, pd.STEP_ROWS, pd.STEP_SPLITS[hd])
