@@ -1550,6 +1550,13 @@ def head_step_ab(torch, fd, fp, gen):
             row = dict(name=name, shape=f"{tag} serve", hd=heads[2],
                        kernel=kernels_seen(torch, fn, sets[0]),
                        max_abs_err=err, **row)
+            # the prefill kernel the checkout's plan picks, as the profiler
+            # sees it (None: no whole trace, logged)
+            want = fp.launch_plan(heads[2], bf)[0]
+            if name == "flash_prefill" and row["kernel"] is not None and (
+                    len(row["kernel"]) != 1 or want not in row["kernel"][0]):
+                raise AssertionError(f"{label}: kernels {row['kernel']}, "
+                                     f"planned {want}")
             log(f"  {label}: {row['kernel']}, device "
                 f"{ms4(row['device_ms'])} ms, SDPA device "
                 f"{ms4(row['library_device_ms'])}, bound "

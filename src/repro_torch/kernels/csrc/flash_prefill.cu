@@ -128,6 +128,7 @@
 // 64-query tile) walks the same key tiles on the CUDA cores, Q, K, V and
 // the probabilities in shared memory as fp32, register-tiled 4x8 micro
 // tiles, the same heaviest-first grid.
+#include <climits>
 #include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
 
 #include "wgmma.cuh"
@@ -565,8 +566,14 @@ __device__ __forceinline__ void split_bf16_trunc(float x0, float x1,
 // each in the 128-byte swizzle of a `wgmma` sub-tile (wgmma.cuh): the map
 // (B, S, N, HD) -> (HD, N, S, B) with boxes (64, 1, 64, 1), rows at or past
 // S zero-filled by the hardware.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// one arrival (a consumer's release of a ring slot)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 // this thread's arrival (the barrier's one), expecting `bytes` of copies
 // to complete on `bar`
@@ -851,6 +858,346 @@ flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ======================================== bf16: wgmma, hd 64, ping-pong
+
+constexpr int kPpBK = 128;            // keys a K/V tile, query rows an item
+constexpr int kPpTile = kPpBK * 128;  // bytes of a 128 x 64 bf16 tile
+constexpr int kPpStages = 2;          // slots of the K ring and the V ring
+// two consumer warpgroups, then the producer's
+constexpr int kPpThreads = 3 * kThreads;
+// Q ring (2) | K ring | V ring, plus room to align the base to 1024 bytes
+constexpr size_t kPpSmemBytes = (2 + 2 * kPpStages) * (size_t)kPpTile + 1024;
+
+// One work item: 128 query rows [q0, q0 + 128) of head h of batch row b
+// over key tiles kt_begin .. kt_begin + n - 1 of 128 keys. Items run the
+// heaviest q blocks first; the heads of a KV group are neighbours.
+struct PpItem {
+  int h, b, q0, kt_begin, n;
+};
+__device__ __forceinline__ PpItem pp_item(int item, int B, int H, int S,
+                                          int window) {
+  const int nq = (S + kPpBK - 1) / kPpBK;
+  PpItem w;
+  w.q0 = (nq - 1 - item / (B * H)) * kPpBK;
+  w.b = item / H % B;
+  w.h = item % H;
+  w.kt_begin = window > 0 ? max(0, w.q0 - window + 1) / kPpBK : 0;
+  w.n = w.q0 / kPpBK + 1 - w.kt_begin;
+  return w;
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A persistent CTA of three warpgroups walks work items gridDim.x apart.
+// Warpgroup 2 is the producer: one thread issues every TMA copy (Q of an
+// item into a two-slot ring, K and V tiles into kPpStages-slot rings),
+// each slot's copy waiting for the consumers to release it. Warpgroups 0
+// and 1 are the consumers: warpgroup w owns query rows q0 + 64 w .. + 63
+// of the item and all 64 output columns, over the one K/V stream. They
+// take turns on named barriers 1 and 2 to issue their products (ping-pong),
+// so that one's softmax runs while the other's `wgmma`s hold the tensor
+// cores; inside each, step i issues QK^T of tile i with PV of tile i - 1
+// and runs tile i's softmax while PV_{i-1} is in flight.
+__global__ void __launch_bounds__(kPpThreads, 1)
+flash_prefill_pingpong_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              __nv_bfloat16* __restrict__ out, int B, int S,
+                              int H, int KV, int window, float scale,
+                              float softcap) {
+  constexpr int HD = 64;
+  extern __shared__ uint4 smem_raw[];
+  // full: Q (2) | K | V; empty: Q (2) | K | V
+  __shared__ alignas(8) uint64_t bars[2 * (2 + 2 * kPpStages)];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // 2 slots
+  const uint32_t Ks = Qs + 2 * kPpTile;
+  const uint32_t Vs = Ks + kPpStages * kPpTile;
+  const uint32_t bar_qf = smem_addr(&bars[0]), bar_kf = bar_qf + 16,
+                 bar_vf = bar_kf + 8 * kPpStages,
+                 bar_qe = bar_vf + 8 * kPpStages, bar_ke = bar_qe + 16,
+                 bar_ve = bar_ke + 8 * kPpStages;
+  const int items = (S + kPpBK - 1) / kPpBK * B * H, G = H / KV;
+  const int wg = threadIdx.x / kThreads;
+
+  if (threadIdx.x == 0) {
+    // full: the producer's arrival; empty: one arrival a consumer warp
+    for (int i = 0; i < 2 + 2 * kPpStages; ++i) {
+      mbar_init(bar_qf + 8 * i, 1);
+      mbar_init(bar_qe + 8 * i, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ---------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * kThreads) {
+      int it = 0, j = 0;  // K/V tiles and items so far
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+        const PpItem w = pp_item(item, B, H, S, window);
+        const int kvh = w.h / G;
+        const uint32_t qs = j & 1;
+        if (j >= 2) mbar_wait(bar_qe + 8 * qs, ((j >> 1) + 1) & 1);
+        mbar_expect(bar_qf + 8 * qs, kPpTile);
+        tma_tile<HD>(Qs + qs * kPpTile, &tm_q, bar_qf + 8 * qs, w.h, w.q0,
+                     w.b);
+        for (int i = 0; i < w.n; ++i, ++it) {
+          const int slot = it % kPpStages, k0 = (w.kt_begin + i) * kPpBK;
+          const int par = (it / kPpStages + 1) & 1;
+          if (it >= kPpStages) mbar_wait(bar_ke + 8 * slot, par);
+          mbar_expect(bar_kf + 8 * slot, kPpTile);
+          tma_tile<HD>(Ks + slot * kPpTile, &tm_k, bar_kf + 8 * slot, kvh,
+                       k0, w.b);
+          if (it >= kPpStages) mbar_wait(bar_ve + 8 * slot, par);
+          mbar_expect(bar_vf + 8 * slot, kPpTile);
+          tma_tile<HD>(Vs + slot * kPpTile, &tm_v, bar_vf + 8 * slot, kvh,
+                       k0, w.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
+  const size_t q_stride = (size_t)H * HD;
+  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  // a warp's release of a slot: its lane 0, once the warp is done with it
+  auto release = [&](uint32_t bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // this warpgroup's turn to issue products, then the other's
+  auto turn = [&]() { named_sync(1 + wg, 2 * kThreads); };
+  auto pass = [&]() { named_arrive(2 - wg, 2 * kThreads); };
+  auto q_tile = [&](int j) { return Qs + (j & 1) * kPpTile + wg * kWgTile; };
+  auto k_full = [&](int i) {
+    mbar_wait(bar_kf + 8 * (i % kPpStages), (i / kPpStages) & 1);
+  };
+  auto v_full = [&](int i) {
+    mbar_wait(bar_vf + 8 * (i % kPpStages), (i / kPpStages) & 1);
+  };
+
+  // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
+  // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
+  float o[HD / 2];
+  float m[2], l[2];                     // running max of the raw scores;
+                                        // this thread's share of the sum
+  uint32_t ph[8][4], pl[8][4];          // the last tile's P, hi + lo bf16
+
+  // S = Q K^T (64 x 128) of K tile i: four k-steps of 16 along hd
+  auto qk = [&](uint32_t Qw, int i, float (&s)[64]) {
+    const uint32_t Kt = Ks + (i % kPpStages) * kPpTile;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wg_ss(s, wg_desc(Qw + kk * 32), wg_desc(Kt + kk * 32), kk > 0);
+    wg_commit();
+  };
+  // O += P V_i: eight k-steps of 16 keys (16 rows of V, 2048 bytes), P as
+  // hi + lo bf16 A fragments
+  auto pv = [&](int i) {
+    const uint32_t Vt = Vs + (i % kPpStages) * kPpTile;
+#pragma unroll
+    for (int kk = 0; kk < kPpBK / 16; ++kk)
+      wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048));
+#pragma unroll
+    for (int kk = 0; kk < kPpBK / 16; ++kk)
+      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));
+    wg_commit();
+  };
+  // softcap, mask; online softmax per row (4 lanes share a row) of the
+  // tile at key k0 for this warpgroup's rows from q0: s becomes P, alpha
+  // the rescale of the rows' sums
+  auto softmax = [&](int q0, int k0, float (&s)[64], float (&alpha)[2]) {
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s[e] = tanhf(s[e] * cap_in) * softcap;
+    }
+    // the tile crosses the diagonal, the window edge or the end of S:
+    // element e's column 8 (e / 4) + e % 2 (less 2t, which the bounds
+    // take) is visible to row r iff lo[r] < column <= hi[r]
+    if (k0 + kPpBK - 1 > q0 || k0 + kPpBK > S ||
+        (window > 0 && k0 <= q0 + 63 - window)) {
+      int hi[2], lo[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int diag = q0 - k0 + warp * 16 + g + 8 * r - 2 * t;
+        hi[r] = min(diag, S - 1 - k0 - 2 * t);
+        lo[r] = window > 0 ? diag - window : INT_MIN;
+      }
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int col = (e >> 2) * 8 + (e & 1), r = (e >> 1) & 1;
+        if (col > hi[r] || col <= lo[r]) s[e] = -INFINITY;
+      }
+    }
+    // row maxima and sums in four partial terms each (shorter chains)
+    float mx[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY},
+                      {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};
+#pragma unroll
+    for (int e = 0; e < 64; ++e)
+      mx[(e >> 1) & 1][(e >> 2) & 3] =
+          fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], s[e]);
+    float mc[2];                         // the new max, times c
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[r], x);
+      // a row with no visible key yet keeps alpha = p = 0
+      mc[r] = m_new == -INFINITY ? 0.f : m_new * c;
+      alpha[r] = ex2(fmaf(m[r], c, -mc[r]));
+      m[r] = m_new;
+    }
+    float sum[2][4] = {};
+#pragma unroll
+    for (int e = 0; e < 64; ++e) {
+      const float p = ex2(fmaf(s[e], c, -mc[(e >> 1) & 1]));
+      s[e] = p;
+      sum[(e >> 1) & 1][(e >> 2) & 3] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      l[r] = fmaf(l[r], alpha[r],
+                  (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
+  };
+  // with no product in flight: rescale o, split P into the next PV's A
+  // fragments (k-step kk covers keys 16kk .. 16kk+15)
+  auto rescale_split = [&](const float (&s)[64], const float (&alpha)[2]) {
+#pragma unroll
+    for (int nn = 0; nn < HD / 8; ++nn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o[4 * nn + 2 * r] *= alpha[r];
+        o[4 * nn + 2 * r + 1] *= alpha[r];
+      }
+#pragma unroll
+    for (int kk = 0; kk < kPpBK / 16; ++kk) {
+      const float* p0 = s + 8 * kk;      // 8-column block 2kk
+      const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
+      split_bf16_trunc(p0[0], p0[1], ph[kk][0], pl[kk][0]);
+      split_bf16_trunc(p0[2], p0[3], ph[kk][1], pl[kk][1]);
+      split_bf16_trunc(p1[0], p1[1], ph[kk][2], pl[kk][2]);
+      split_bf16_trunc(p1[2], p1[3], ph[kk][3], pl[kk][3]);
+    }
+  };
+  // O / l[r] = fin[r] in bf16 for item w (the j-th), staged in this
+  // warpgroup's Q tile (its products are done) in the same swizzle, then
+  // stored as whole rows of 8 16-byte chunks; the Q slot is released once
+  // both warpgroups have read it
+  auto store = [&](const PpItem& w, int j, const float (&fin)[2]) {
+    const uint32_t Qw = q_tile(j);
+    const int q0 = w.q0 + 64 * wg;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float inv = fin[r];
+      inv += __shfl_xor_sync(0xffffffffu, inv, 1);
+      inv += __shfl_xor_sync(0xffffffffu, inv, 2);
+      inv = 1.f / fmaxf(inv, 1e-30f);
+      const int row = warp * 16 + g + r * 8;
+#pragma unroll
+      for (int nn = 0; nn < HD / 8; ++nn) {
+        const uint32_t pair = pack_bf16(o[4 * nn + 2 * r] * inv,
+                                        o[4 * nn + 2 * r + 1] * inv);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
+                         Qw + wg_tile_off(row, nn) + 4 * t), "r"(pair));
+      }
+    }
+    named_sync(3 + wg, kThreads);        // this warpgroup's threads only
+    const int tw = threadIdx.x % kThreads;
+#pragma unroll
+    for (int jj = 0; jj < 64 * 8 / kThreads; ++jj) {
+      const int row = tw / 8 + jj * (kThreads / 8), ch = tw % 8;
+      if (q0 + row >= S) break;
+      uint4 chunk;
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(chunk.x), "=r"(chunk.y), "=r"(chunk.z),
+                     "=r"(chunk.w)
+                   : "r"(Qw + wg_tile_off(row, ch)));
+      *reinterpret_cast<uint4*>(out + (size_t)w.b * S * q_stride +
+                                (size_t)(q0 + row) * q_stride +
+                                (size_t)w.h * HD + ch * 8) = chunk;
+    }
+    // the next copy into this slot goes through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    release(bar_qe + 8 * (j & 1));
+  };
+
+  if (wg == 1) pass();                  // warpgroup 0 goes first
+  int it = 0, j = 0;                    // K/V tiles and items so far
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+    const PpItem w = pp_item(item, B, H, S, window);
+    const int q0 = w.q0 + 64 * wg;      // this warpgroup's rows
+    const uint32_t Qw = q_tile(j);
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+    mbar_wait(bar_qf + 8 * (j & 1), (j >> 1) & 1);
+    // Step i scores key tile i and adds tile i - 1's P V; steps 0 (QK^T
+    // alone) and n (PV alone) are peeled off, so that every step between
+    // commits both groups (ptxas serialises the products when it cannot
+    // tell which group a wait leaves in flight)
+    {
+      float s[64], alpha[2];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s[e] = 0.f;
+      k_full(it);
+      turn();
+      wg_fence();
+      qk(Qw, it, s);
+      pass();
+      wg_wait<0>();
+      wg_fence_regs(s);
+      release(bar_ke + 8 * (it % kPpStages));
+      softmax(q0, w.kt_begin * kPpBK, s, alpha);
+      rescale_split(s, alpha);
+    }
+    for (int i = 1; i < w.n; ++i) {
+      float s[64], alpha[2];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s[e] = 0.f;
+      k_full(it + i);
+      v_full(it + i - 1);
+      turn();
+      wg_fence();
+      qk(Qw, it + i, s);
+      pv(it + i - 1);
+      pass();
+      wg_wait<1>();                     // S_i is in; PV_{i-1} runs on
+      wg_fence_regs(s);
+      release(bar_ke + 8 * ((it + i) % kPpStages));
+      softmax(q0, (w.kt_begin + i) * kPpBK, s, alpha);
+      wg_wait<0>();                     // PV_{i-1} is done with o and P
+      wg_fence_regs(o);
+      wg_fence_regs(ph);
+      wg_fence_regs(pl);
+      release(bar_ve + 8 * ((it + i - 1) % kPpStages));
+      rescale_split(s, alpha);
+    }
+    it += w.n;                          // step n: PV_{n-1} alone
+    v_full(it - 1);
+    turn();
+    wg_fence();
+    pv(it - 1);
+    pass();
+    wg_wait<0>();
+    wg_fence_regs(o);
+    release(bar_ve + 8 * ((it - 1) % kPpStages));
+    store(w, j, l);
+  }
+  if (wg == 0) turn();  // warpgroup 1's last pass
+}
+
 // ============================================================ fp32: CUDA cores
 
 // Shared layout (floats): Qt (HD, BQ) | Kt (HD, BK) | Vs (BK, HD) | Pt (BK, BQ)
@@ -1068,15 +1415,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a (B, S, N, HD) bf16 tensor for tma_tile.
+// The map of a (B, S, N, HD) bf16 tensor for tma_tile, boxes of `rows`
+// rows.
 template <int HD>
-bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N) {
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N,
+              int rows = kBK) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)N, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * N, 2ull * HD * N * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBK, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
@@ -1107,6 +1456,33 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The bf16 hd-64 route: maps of q, k and v in 128-row boxes, then one
+// persistent CTA an SM (or one an item, where there are fewer).
+cudaError_t launch_pingpong(const void* q, const void* k, const void* v,
+                            void* out, int B, int S, int H, int KV,
+                            int window, float softcap, cudaStream_t stream) {
+  const long long items = (long long)B * H * ((S + kPpBK - 1) / kPpBK);
+  CUtensorMap tq, tk, tv;
+  if (items > INT_MAX || !tile_map<64>(&tq, q, B, S, H, kPpBK) ||
+      !tile_map<64>(&tk, k, B, S, KV, kPpBK) ||
+      !tile_map<64>(&tv, v, B, S, KV, kPpBK))
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_prefill_pingpong_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kPpSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_prefill_pingpong_kernel<<<grid, kPpThreads, kPpSmemBytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, S, H, KV, window,
+      1.0f / sqrtf(64.f), softcap);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -1122,9 +1498,8 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16 && hd == 64)
-    return (int)launch<bf16>(flash_prefill_wgmma_kernel, kWgSmemBytes,
-                             kThreads, H, q, k, v, out, B, S, H, KV, hd,
-                             window, softcap, s);
+    return (int)launch_pingpong(q, k, v, out, B, S, H, KV, window, softcap,
+                                s);
   if (dtype == kBFloat16 && hd == 128)
     return (int)launch_wide<128, kWide128Heads>(q, k, v, out, B, S, H, KV,
                                                 window, softcap, s);
