@@ -10,8 +10,9 @@ phase raises, and the script exits nonzero:
   3. kernels  each CUDA kernel against its plain PyTorch version at the
               serve path's shapes (bf16 and fp32) and on small edge cases
               (window, softcap, ragged lengths; for flash_prefill S around
-              the 16-row warp and 64-row tile edges, a window of one tile
-              and one crossing a tile edge, hd 128; for flash_decode C = 1,
+              the 16-row warp and 64-row tile edges and at 128 and 255, G 3
+              and G 1, a window of one tile and one crossing a tile edge,
+              hd 128; for flash_decode C = 1,
               C below the split count, splits wholly under the -1e9 bias,
               C not a multiple of the splits; hymba-1.5b's GQA group of 5
               with a window that binds; for paged decode: page 8 and hd 128,
@@ -44,7 +45,10 @@ phase raises, and the script exits nonzero:
               exceeds the device time), and device time alone from
               ``torch.profiler`` (``device_ms``), beside the bound (bytes or
               operations over the card's peak rates); flash_prefill and
-              flash_decode in fp32 as well as bf16;
+              flash_decode in fp32 as well as bf16, flash_prefill's kernel
+              as the profiler sees it held to its plan, and flash_prefill
+              at hymba-1.5b's heads with its window of 256 beside SDPA
+              with the boolean mask;
   4. model    full-width tinyllama-1.1b (22 layers, bf16): prefill of 8 x 512
               tokens plus 8 decode steps with the kernels on and off, and
               the same 8 steps through the page pool (``paged_admit`` +
@@ -402,6 +406,7 @@ SSD_HEADS = {"mamba2-130m": (24, 64, 128), "hymba-1.5b": (50, 64, 16)}
 # (b, s, h, p, n, chunk)
 SSD_NARROW = ((2, 64, 2, 16, 8, 32), (2, 45, 3, 16, 8, 16))
 HYMBA_H, HYMBA_KV = 25, 5   # hymba-1.5b attention heads: GQA group 5
+HYMBA_WINDOW = 256          # its sliding window
 # each of the dense and the paged tinyllama serve loops and the mamba2
 # loop (20 s until the script neared its time limit)
 SERVE_SECONDS = 10
@@ -1289,13 +1294,21 @@ def attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs, errs, dt):
     nbytes = esz * (2 * B * PROMPT * H * HD + 2 * B * PROMPT * KV * HD)
     pairs = PROMPT * (PROMPT + 1) // 2            # causal (query, key) pairs
     b_ms, b_by = bound(nbytes, 4 * B * H * pairs * HD, dt)
+    # the kernel the plan picks at this head dim, as the profiler sees it
+    # (None: no whole trace, logged)
+    seen = kernels_seen(torch, fp.flash_prefill_bshd, pres[0])
+    want = fp.launch_plan(HD, dt)[0]
+    if seen is not None and (len(seen) != 1 or want not in seen[0]):
+        raise AssertionError(f"flash_prefill serve shape {name}: kernels "
+                             f"{seen}, planned {want}")
     rows.append(dict(name="flash_prefill", route="cuda", dtype=name,
                      source="src/repro_torch/kernels/csrc/flash_prefill.cu",
                      replaces="src/repro/kernels/flash_prefill.py:88",
                      max_abs_err=errs[("prefill", dt)], ms=t_k, plain_ms=t_p,
                      bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
                      device_ms=device_ms(torch, fp.flash_prefill_bshd, pres),
-                     library_device_ms=device_ms(torch, sdpa, sdpa_pre)))
+                     library_device_ms=device_ms(torch, sdpa, sdpa_pre),
+                     kernel=seen))
     return rows
 
 
@@ -1526,7 +1539,8 @@ def head_step_ab(torch, fd, fp, gen):
     whisper-tiny's (G 1 / hd 64) serve shapes (``--ab``): held to their
     plain versions and timed (``prefill_row``, ``decode_row``: beside SDPA
     and the bound), with the kernel each checkout launches as the profiler
-    sees it. At each decode step also the device time by split count (and
+    sees it (the prefill's must be the one its plan names). At each decode
+    step also the device time by split count (and
     tile, ``step_sweep``) where the checkout plans the tensor-core step
     route there, and the yardstick of the tensor-core chunk kernel called
     with ck = 1 (G live rows of its 64) at 4 and 9 splits."""
@@ -1582,7 +1596,8 @@ def ab_phase(torch):
     timed beside SDPA and the bound; both chunk forms at the wide-head and
     G-3 fused ticks (``wide_chunk_ab``); flash_prefill and the decode step
     at gemma-2b's, internvl2-26b's and granite's serve shapes
-    (``head_step_ab``); then
+    (``head_step_ab``); flash_prefill with a window at hymba-1.5b's heads
+    and at hd 32 (``window_ab``); then
     paged_decode's two forms (``paged_ab``) and ssd_scan at both SSM serve
     shapes (``ssd_ab``) (``--ab``: one checkout per process, so a parent
     and a change compare in one call)."""
@@ -1621,6 +1636,8 @@ def ab_phase(torch):
         rows += wide_chunk_ab(torch, fd, gen)
     rows += head_step_ab(torch, fd, fp,
                          torch.Generator(device=DEVICE).manual_seed(4))
+    rows += window_ab(torch, fp, pre_inputs,
+                      torch.Generator(device=DEVICE).manual_seed(5))
     return (rows + paged_ab(torch, torch.Generator(device=DEVICE).manual_seed(1))
             + ssd_ab(torch, torch.Generator(device=DEVICE).manual_seed(2)))
 
@@ -1654,7 +1671,10 @@ def kernel_phase(torch):
         ("hymba heads G=5", (B, HYMBA_KV, HYMBA_H // HYMBA_KV, HD, CAP), 0.0,
          True))
     pre_edges = tuple(((2, s, 8, 2, HD), 0, 0.0)
-                      for s in (1, 15, 16, 17, 40, 127, 129)) + (
+                      for s in (1, 15, 16, 17, 40, 127, 128, 129, 255)) + (
+        ((2, 127, 15, 5, HD), 0, 0.0),          # G 3 (granite's group)
+        ((3, 255, 6, 6, HD), 0, 0.0),           # G 1 (whisper's)
+        ((2, 300, 24, 8, HD), 32, 30.0),        # G 3, window, softcap
         ((2, 130, 8, 2, HD), 8, 30.0),
         ((2, 200, 8, 2, HD), 64, 0.0),          # window of one tile
         ((1, 300, 8, 2, HD), 100, 0.0),         # window crossing a tile edge
@@ -1703,6 +1723,17 @@ def kernel_phase(torch):
     for dt in (torch.bfloat16, torch.float32):
         rows += attention_timing(torch, F, fd, fp, dec_inputs, pre_inputs,
                                  errs, dt)
+    hy = window_prefill_row(
+        torch, fp, lambda: pre_inputs(B, PROMPT, HYMBA_H, HYMBA_KV, HD,
+                                      torch.bfloat16), HYMBA_WINDOW)[0]
+    log(f"  flash_prefill  bfloat16  hymba-1.5b's heads, window "
+        f"{HYMBA_WINDOW}: kernel {hy['ms']:.4f} (device "
+        f"{ms4(hy['device_ms'])})  plain {hy['plain_ms']:.4f}  SDPA with a "
+        f"boolean mask {hy['library_ms']:.4f} (device "
+        f"{ms4(hy['library_device_ms'])})  bound {hy['bound_ms']:.4f} "
+        f"({hy['bound_by']})")
+    next(r for r in rows if r["name"] == "flash_prefill").update(
+        {f"hymba_{k}": v for k, v in hy.items()})
     rows.append(dict(name="flash_decode_chunk", route="cuda",
                      source="src/repro_torch/kernels/csrc/"
                             "flash_decode_chunk.cu",
@@ -4125,6 +4156,64 @@ def sdpa_causal(q, k, v):
                                           enable_gqa=True)
 
 
+def hd32_inputs(torch, gen):
+    """A maker of flash_prefill's inputs at the reference kernel test's
+    hd-32 shape (B 2, S 128, 4 heads on 4 KV heads), bf16."""
+    return lambda: tuple(
+        torch.randn((2, 128, 4, 32), generator=gen, device=DEVICE).to(
+            torch.bfloat16) for _ in range(3))
+
+
+def window_ab(torch, fp, pre_inputs, gen):
+    """flash_prefill of the imported ``repro_torch`` in bf16 with a window
+    (``--ab``): at hymba-1.5b's heads (window 256) and at the hd-32 test
+    shape (window 32), held to the plain version, timed beside SDPA with
+    the boolean mask (``window_prefill_row``), with the kernel the
+    profiler sees held to the checkout's plan."""
+    bf, rows = torch.bfloat16, []
+    for tag, hd, w, make in (
+            ("hymba serve", HD, HYMBA_WINDOW,
+             lambda: pre_inputs(B, PROMPT, HYMBA_H, HYMBA_KV, HD, bf)),
+            ("hd32 test", 32, 32, hd32_inputs(torch, gen))):
+        row, sets = window_prefill_row(torch, fp, make, w)
+        label = f"flash_prefill {tag} shape hd {hd} window {w}"
+        fn = lambda q, k, v, w=w: fp.flash_prefill_bshd(  # noqa: E731
+            q, k, v, window=w)
+        err = check(f"{label} bfloat16", fn(*sets[0]),
+                    fp.flash_prefill_plain(*sets[0], window=w), bf)
+        seen = kernels_seen(torch, fn, sets[0])
+        want = fp.launch_plan(hd, bf)[0]
+        if seen is not None and (len(seen) != 1 or want not in seen[0]):
+            raise AssertionError(f"{label}: kernels {seen}, planned {want}")
+        log(f"  {label}: {seen}, device {ms4(row['device_ms'])} ms, SDPA "
+            f"device {ms4(row['library_device_ms'])}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})")
+        rows.append(dict(name="flash_prefill", shape=tag, hd=hd, window=w,
+                         kernel=seen, max_abs_err=err, **row))
+    return rows
+
+
+def window_prefill_row(torch, fp, make, w):
+    """flash_prefill in bf16 with a window of ``w`` on the inputs ``make()``
+    draws (q (B,S,H,hd), k, v (B,S,KV,hd)), rotated through more than 3x
+    the L2 size, beside SDPA with the (S, S) boolean mask. The bound reads
+    q, k, v and writes out once; its operations are QK^T and PV over the
+    pairs the window leaves. Returns (row, the rotated sets)."""
+    first = make()
+    sets = rotated(first, make, ())
+    b, s, h, hd = first[0].shape
+    kv = first[1].shape[2]
+    mask = fp.causal_window_mask(s, w, torch.device(DEVICE))
+    return timed_row(
+        torch, lambda q, k, v: fp.flash_prefill_bshd(q, k, v, window=w),
+        lambda q, k, v: fp.flash_prefill_plain(q, k, v, window=w), sets,
+        2 * 2 * b * s * (h + kv) * hd, 4 * b * h * int(mask.sum()) * hd,
+        torch.bfloat16,
+        library=(sdpa_mask, [tuple(t.transpose(1, 2).contiguous()
+                                   for t in st) + (mask,) for st in sets])
+    ), sets
+
+
 def prefill_row(torch, fp, mk, heads, dt):
     """flash_prefill in ``dt`` at one config's prefill (``mk`` =
     ``head_inputs``' makers, ``heads`` = (query heads, KV heads, head
@@ -4331,21 +4420,8 @@ def head_kernel_rows(torch, fd, fp, pd, gen, heads, tag, hd32=False,
                 + 4 * int(((lengths + PAGE - 1) // PAGE).sum()) + 4 * B,
                 4 * H_ * live * HD_, dt)
         if dt == torch.bfloat16 and hd32:
-            S32, w = 128, 32
-            make = lambda: tuple(                           # noqa: E731
-                torch.randn((2, S32, 4, 32), generator=gen,
-                            device=DEVICE).to(dt) for _ in range(3))
-            sets = rotated(make(), make, ())
-            mask = fp.causal_window_mask(S32, w, torch.device(DEVICE))
-            pairs = int(mask.sum())
-            res["hd32"] = timed_row(
-                torch, lambda q, k, v: fp.flash_prefill_bshd(q, k, v,
-                                                             window=w),
-                lambda q, k, v: fp.flash_prefill_plain(q, k, v, window=w),
-                sets, esz * 4 * 2 * S32 * 4 * 32, 4 * 2 * 4 * pairs * 32, dt,
-                library=(sdpa_mask, [
-                    tuple(t.transpose(1, 2).contiguous() for t in st)
-                    + (mask,) for st in sets]))
+            res["hd32"] = window_prefill_row(torch, fp,
+                                             hd32_inputs(torch, gen), 32)[0]
         for key, r in res.items():
             lib = ("no single library call" if r["library_ms"] is None else
                    f"SDPA {r['library_ms']:.4f} (device "

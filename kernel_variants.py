@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Variants of the pipelined ``wgmma`` prefill and the tensor-core decode
 step (both templates on the head dim), each built from this checkout's
-sources with one text patch, timed on the card at gemma-2b's (hd 256) and
-internvl2-26b's (G 6 / hd 128) serve shapes and held to the plain version:
-what the source notes of ``csrc/flash_prefill.cu`` and
+sources with one text patch, timed on the card and held to the plain
+version: what the source notes of ``csrc/flash_prefill.cu`` and
 ``csrc/flash_decode_step.cu`` report as tried and as diagnostics (a
 ``diag`` variant computes a wrong result on purpose, to time the kernel
-without one of its parts). The decode step's body lives in
-``csrc/decode_step.cuh``: its variants patch that header, and each builds
-``flash_decode_step.cu`` beside its own copy.
+without one of its parts). The prefill is timed at gemma-2b's (hd 256)
+and internvl2-26b's (G 6 / hd 128) serve shapes and at the three hd-64
+ones: tinyllama-1.1b's (32 heads on 4 KV heads), granite-moe's (24 on 8)
+and whisper-tiny's decoder (6 on 6); the decode step at the first two.
+The decode step's body lives in ``csrc/decode_step.cuh``: its variants
+patch that header, and each builds ``flash_decode_step.cu`` beside its
+own copy.
 
-    python3 kernel_variants.py        # from the repository root, one card
+    python3 kernel_variants.py                 # from the repository root
+    python3 kernel_variants.py --hd 64         # the hd-64 shapes alone
+    git archive <commit> | tar -x -C build/<name>
+    python3 kernel_variants.py --hd 64 --parent build/<name>
 
-Device ms per call come from chip_smoke's ``device_ms`` (the profiler's
-kernel time over inputs rotated through more than 3x the L2 size); the
-prefill at B 8, S 512; the decode step at B 8, C 576, by split count.
-Prints ptxas's registers and spills of each prefill variant's pipelined
-kernels, one line a variant and shape, and the card's name and power
-limit. Builds go to ``build/kernel_variants/`` (ignored by git).
+``--parent`` adds an earlier checkout's hd-64 route as it was (rows
+``<name>_as_committed``) and, where that route is the `cp.async` kernel
+``flash_prefill_wgmma_kernel``, its diagnostics. Device ms per call come
+from chip_smoke's ``device_ms`` (the profiler's kernel time over inputs
+rotated through more than 3x the L2 size); the prefill at B 8, S 512;
+the decode step at B 8, C 576, by split count. Prints ptxas's registers
+and spills of each prefill variant's kernels, one line a variant and
+shape, and the card's name and power limit. Builds go to
+``build/kernel_variants/`` (ignored by git).
 """
 import argparse
 import ctypes
@@ -52,7 +61,8 @@ def in_region(text, start, end, old, new):
     return text[:i] + sub(text[i:j], old, new) + text[j:]
 
 
-PP = "// " + "=" * 40 + " bf16: wgmma, hd 64, ping-pong"
+FP32 = "// " + "=" * 60 + " fp32: CUDA cores"
+WIDE = "flash_prefill_wide_kernel(const"
 
 
 def prefill_variants(src):
@@ -66,7 +76,7 @@ def prefill_variants(src):
         rescale_split only (the hd-64 kernel has the same lines)."""
         i = text.index("  auto rescale_split = [&]")
         return text[:i] + sub(text[i:], old, new)
-    stores = src[src.index("  // O / l in bf16, staged"):src.index(PP)]
+    stores = src[src.index("  // O / l in bf16, staged"):src.index(FP32)]
     direct = """  if (wg == 1 && !two) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -116,15 +126,6 @@ def prefill_variants(src):
         "            \"l\"(wg_desc(Kt + at)), \"r\"(kk > 0 ? 1 : 0));\n"
         "      else\n"
         "        wg_ss(s, wg_desc(Qw + at), wg_desc(Kt + at), kk > 0);\n")
-    pp = lambda old, new: in_region(src, PP, "// " + "=" * 60,  # noqa
-                                    old, new)
-    to_wide = lambda ctas: sub(sub(  # noqa: E731
-        src, "  return HD == 128 && kHeads == 1 ? 2 : 1;",
-        f"  return HD == 64 ? {ctas} : HD == 128 && kHeads == 1 ? 2 : 1;"),
-        "    return (int)launch_pingpong(q, k, v, out, B, S, H, KV, window, "
-        "softcap,\n                                s);",
-        "    return (int)launch_wide<64, 1>(q, k, v, out, B, S, H, KV, "
-        "window, softcap, s);")
     wide = {
         "two_heads_a_cta_at_hd128": sub(
             src, "constexpr int kWide128Heads = 1;",
@@ -142,36 +143,38 @@ def prefill_variants(src):
             "alpha[0] != 1.f || alpha[1] != 1.f))\n"),
         "4_byte_stores": src.replace(stores, direct),
     }
-    # diagnostics: wrong results on purpose, to time the kernel without a
-    # part
+    # diagnostics, at every head dim: wrong results on purpose, to time the
+    # kernel without one of its parts
     diags = {
-        "diag_no_pv": lambda t: sub(t, "    qk(i, s);\n    pv(i - 1);",
-                          "    qk(i, s);\n    wg_commit();"),
-        "diag_no_lo_term": lambda t: sub(
-            t, "#pragma unroll\n    for (int kk = 0; kk < 4; ++kk)\n"
+        "diag_no_pv": in_region(src, WIDE, FP32, "pv(i - 1);",
+                                "wg_commit();"),
+        "diag_no_lo_term": sub(
+            src, "#pragma unroll\n    for (int kk = 0; kk < 4; ++kk)\n"
                  "      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048, kWgTile));\n",
             ""),
-        "diag_no_softmax": lambda t: sub(
-            t, "  auto softmax = [&](int i, float (&s)[32], "
+        "diag_no_softmax": sub(
+            src, "  auto softmax = [&](int i, float (&s)[32], "
                  "float (&alpha)[2]) {\n",
             "  auto softmax = [&](int i, float (&s)[32], "
             "float (&alpha)[2]) {\n    alpha[0] = alpha[1] = 1.f;\n"
             "    if (i >= 0) return;\n"),
         # K and V never copied after the first K tile (no wait for them):
         # the products and softmax run on stale tiles
-        "diag_no_copies": lambda t: sub(sub(
-            t, "    __syncthreads();\n    if (threadIdx.x != 0) return;\n",
+        "diag_no_copies": sub(sub(
+            src, "    __syncthreads();\n    if (threadIdx.x != 0) return;\n",
             "    __syncthreads();\n    if (i >= 0) return;\n"),
             "    if (i < n) mbar_wait(bar_k + 8 * (i & 1), (i >> 1) & 1);\n"
             "    if (i > 0) mbar_wait(",
             "    if (i == 0) mbar_wait(bar_k, 0);\n    if (i < 0) mbar_wait("),
     }
-    wide.update({n: f(src) for n, f in diags.items()})
-    wide_start = "flash_prefill_wide_kernel(const"
-    # the wide kernel's masked tiles by two bounds a row, as the ping-pong
-    # kernel's
-    bounds = lambda text: in_region(in_region(  # noqa: E731
-        text, wide_start, PP,
+    # hd 64: the step as at hd 128 (QK^T_i with PV_{i-1}, softmax under PV),
+    # other CTA counts an SM, and masked tiles by two bounds a row
+    overlapped = lambda text: sub(  # noqa: E731
+        text, "    if constexpr (HD == 64) {", "    if constexpr (HD == 0) {")
+    ctas = lambda text, n: sub(  # noqa: E731
+        text, "  return HD == 64 ? 4 :", f"  return HD == 64 ? {n} :")
+    bounds = in_region(in_region(
+        src, WIDE, FP32,
         "    const bool masked = tile_needs_mask(q0, k0, S, window);\n"
         "    float mx[2] = {-INFINITY, -INFINITY};\n",
         "    const bool masked = tile_needs_mask(q0, k0, S, window);\n"
@@ -180,144 +183,51 @@ def prefill_variants(src):
         "    for (int r = 0; r < 2; ++r) {\n"
         "      const int diag = q0 - k0 + warp * 16 + g + 8 * r - 2 * t;\n"
         "      hi[r] = min(diag, S - 1 - k0 - 2 * t);\n"
-        "      lo[r] = window > 0 ? diag - window : INT_MIN;\n    }\n"),
-        wide_start, PP,
+        "      lo[r] = window > 0 ? diag - window : -(1 << 30);\n    }\n"),
+        WIDE, FP32,
         "      if (masked && !visible(q0 + warp * 16 + g + ((e >> 1) & 1) * 8,"
         "\n                             k0 + (e >> 2) * 8 + 2 * t + (e & 1), "
         "S, window))\n",
         "      if (masked && ((e >> 2) * 8 + (e & 1) > hi[(e >> 1) & 1] ||\n"
         "                     (e >> 2) * 8 + (e & 1) <= lo[(e >> 1) & 1]))\n")
-    wide_mask = (
-        "      if (masked && !visible(q0 + warp * 16 + g + ((e >> 1) & 1) * 8,\n"
-        "                             k0 + (e >> 2) * 8 + 2 * t + (e & 1), S, "
-        "window))\n        x = -INFINITY;\n")
-    # the mask in a loop of its own, taken only on a tile that needs it
-    mask_loop = lambda text: in_region(in_region(  # noqa: E731
-        text, wide_start, PP, wide_mask, ""), wide_start, PP,
-        "      s[e] = x;\n      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);"
-        "\n    }\n",
-        "      s[e] = x;\n    }\n    if (masked) {\n#pragma unroll\n"
-        "      for (int e = 0; e < 32; ++e)\n"
-        "        if (!visible(q0 + warp * 16 + g + ((e >> 1) & 1) * 8,\n"
-        "                     k0 + (e >> 2) * 8 + 2 * t + (e & 1), S, window))"
-        "\n          s[e] = -INFINITY;\n    }\n#pragma unroll\n"
-        "    for (int e = 0; e < 32; ++e)\n"
-        "      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);\n")
-    # row maxima and sums in four partial terms each
-    partial_loops = lambda text: in_region(in_region(  # noqa: E731
-        text, wide_start, PP,
-        "      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);\n    }\n",
-        "      mq[(e >> 1) & 1][(e >> 2) & 3] =\n"
-        "          fmaxf(mq[(e >> 1) & 1][(e >> 2) & 3], x);\n    }\n"
-        "#pragma unroll\n    for (int r = 0; r < 2; ++r)\n"
-        "      mx[r] = fmaxf(fmaxf(mq[r][0], mq[r][1]), "
-        "fmaxf(mq[r][2], mq[r][3]));\n"), wide_start, PP,
-        "      s[e] = p;\n      l[(e >> 1) & 1] += p;\n    }\n",
-        "      s[e] = p;\n      sq[(e >> 1) & 1][(e >> 2) & 3] += p;\n    }\n"
-        "#pragma unroll\n    for (int r = 0; r < 2; ++r)\n"
-        "      l[r] += (sq[r][0] + sq[r][1]) + (sq[r][2] + sq[r][3]);\n"
-        )
-    partial = lambda text: in_region(  # noqa: E731
-        partial_loops(text), wide_start, PP,
-        "    float mx[2] = {-INFINITY, -INFINITY};\n",
-        "    float mx[2], sq[2][4] = {}, mq[2][4];\n#pragma unroll\n"
-        "    for (int e = 0; e < 8; ++e) mq[e / 4][e % 4] = -INFINITY;\n")
     hd64 = {
-        # the wide kernel's template at hd 64: its diagnostics at 4 CTAs an
-        # SM, and its softmax with the mask in a loop of its own or with
-        # partial row maxima and sums
-        **{f"diag_wide64_{n[5:]}": f(to_wide(4)) for n, f in diags.items()},
-        # PV_{i-1} waited for before QK^T_i is issued: P and S never live
-        # together, fewer registers, more CTAs an SM
-        **{f"wide_kernel_at_hd64_{n}_ctas_serial": in_region(
-            to_wide(n), wide_start, PP,
-            "    qk(i, s);\n    pv(i - 1);\n"
-            "    wg_wait<1>();                       // S_i is in; PV_{i-1} "
-            "runs on\n    wg_fence_regs(s);\n    softmax(i, s, alpha);\n"
-            "    wg_wait<0>();                       // PV_{i-1} is done with "
-            "o and P\n    wg_fence_regs(o);\n    wg_fence_regs(ph);\n"
-            "    wg_fence_regs(pl);\n",
-            "    pv(i - 1);\n    wg_wait<0>();\n    wg_fence_regs(o);\n"
-            "    wg_fence_regs(ph);\n    wg_fence_regs(pl);\n    wg_fence();\n"
-            "    qk(i, s);\n    wg_wait<0>();\n    wg_fence_regs(s);\n"
-            "    softmax(i, s, alpha);\n") for n in (4, 5)},
-        "wide_kernel_at_hd64_4_ctas_mask_loop": mask_loop(to_wide(4)),
-        "wide_kernel_at_hd64_4_ctas_partial_sums": partial(to_wide(4)),
-        "wide_kernel_at_hd64_3_ctas_partial_sums": partial(to_wide(3)),
-        # the wide kernel's template at hd 64, at 1, 3 and 4 CTAs an SM
-        **{f"wide_kernel_at_hd64_{n}_ctas": to_wide(n) for n in (1, 3, 4)},
-        **{f"wide_kernel_at_hd64_{n}_ctas_bounds_mask": bounds(to_wide(n))
-           for n in (3, 4)},
-        "pp_3_stages": sub(src, "constexpr int kPpStages = 2;",
-                           "constexpr int kPpStages = 3;"),
-        # the consumers issue their products in no set order
-        "pp_no_turns": pp(
-            "  auto turn = [&]() { named_sync(1 + wg, 2 * kThreads); };\n"
-            "  auto pass = [&]() { named_arrive(2 - wg, 2 * kThreads); };\n",
-            "  auto turn = [&]() {};\n  auto pass = [&]() {};\n"),
-        # one CTA an item, not one persistent CTA an SM
-        "pp_one_item_a_cta": sub(
-            src, "  const int grid = (int)(items < sms ? items : sms);",
-            "  const int grid = (int)items;"),
-        "pp_no_setmaxnreg": in_region(
-            pp("    asm volatile(\"setmaxnreg.dec.sync.aligned.u32 24;\\n\");"
-               "\n", ""), PP, "// " + "=" * 60,
-            "  asm volatile(\"setmaxnreg.inc.sync.aligned.u32 240;\\n\");\n",
-            ""),
-        "diag_pp_no_exp": pp(
-            "      const float p = ex2(fmaf(s[e], c, -mc[(e >> 1) & 1]));",
-            "      const float p = fmaf(s[e], c, -mc[(e >> 1) & 1]);"),
-        # each element of a masked tile tested against its query and key
-        # (``visible``), as the hd-128 and 256 kernel does
-        "pp_mask_per_element": pp(
-            "        if (col > hi[r] || col <= lo[r]) s[e] = -INFINITY;\n",
-            "        if (!visible(q0 + warp * 16 + g + 8 * r, k0 + col + 2 * t,"
-            " S, window))\n          s[e] = -INFINITY;\n"),
-        # the accumulator of QK^T left as the last round left it (its first
-        # k-step overwrites it)
-        "pp_no_zeroed_scores": pp(
-            "#pragma unroll\n      for (int e = 0; e < 64; ++e) s[e] = 0.f;\n",
-            ""),
-        "diag_pp_no_softmax": pp(
-            "  auto softmax = [&](int q0, int k0, float (&s)[64], "
-            "float (&alpha)[2]) {\n",
-            "  auto softmax = [&](int q0, int k0, float (&s)[64], "
-            "float (&alpha)[2]) {\n    alpha[0] = alpha[1] = 1.f;\n"
-            "    if (k0 >= -S) return;\n"),
-        "diag_pp_no_lo_term": pp(
-            "#pragma unroll\n    for (int kk = 0; kk < kPpBK / 16; ++kk)\n"
-            "      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));\n", ""),
-        "diag_pp_no_pv": pp("      qk(Qw, it + i, s);\n      pv(it + i - 1);",
-                            "      qk(Qw, it + i, s);\n      wg_commit();"),
+        "overlapped_step_at_hd64": overlapped(src),
+        "overlapped_step_at_hd64_3_ctas": ctas(overlapped(src), 3),
+        "hd64_at_3_ctas": ctas(src, 3),
+        "hd64_at_5_ctas": ctas(src, 5),
+        "hd64_bounds_mask": bounds,
     }
     return {"as_committed": (src, (64, 128, 256)),
             **{n: (t, (128, 256)) for n, t in wide.items()},
+            **{n: (t, (64, 128, 256)) for n, t in diags.items()},
             **{n: (t, (64,)) for n, t in hd64.items()}}
 
 
-def parent_wgmma_variants(src):
-    """name -> (flash_prefill.cu text, (64,)): the `cp.async` hd-64 kernel
-    ``flash_prefill_wgmma_kernel`` of an earlier checkout as it was, and its
-    diagnostics (wrong results on purpose): no softmax, no lo term, no PV,
-    no copies after the first K tile."""
-    start = "flash_prefill_wgmma_kernel(const"
-    end = "// " + "=" * 49 + " bf16: wgmma, hd 128, 256"
-    soft = src[src.index("    // softcap, mask; online softmax per row",
-                         src.index(start)):
-               src.index("    // O += P V, P as hi + lo bf16 A fragments",
-                         src.index(start))]
-    lo = ("#pragma unroll\n    for (int kk = 0; kk < 4; ++kk) wg_rs(o, "
-          "pl[kk], wg_desc(Vt + kk * 2048));\n")
-    hi = lo.replace("pl[kk]", "ph[kk]")
-    out = {
-        "parent_wgmma_kernel": src,
-        "parent_diag_no_softmax": in_region(src, start, end, soft, ""),
-        "parent_diag_no_lo_term": in_region(src, start, end, lo, ""),
-        "parent_diag_no_pv": in_region(src, start, end, hi + lo, ""),
-        "parent_diag_no_copies": in_region(
-            src, start, end, "    if (kt + 1 < kt_end) {             // "
-            "prefetch the next key tile", "    if (false) {"),
-    }
+def checkout_variants(name, src):
+    """name -> (flash_prefill.cu text, (64,)) for an earlier checkout's
+    source ``src``: as it is and, where its hd-64 route is the `cp.async`
+    kernel ``flash_prefill_wgmma_kernel``, that kernel's diagnostics
+    (wrong results on purpose): no softmax, no lo term, no PV, no copies
+    after the first K tile."""
+    out = {f"{name}_as_committed": src}
+    if "launch<bf16>(flash_prefill_wgmma_kernel" in src:
+        start = "flash_prefill_wgmma_kernel(const"
+        end = "// " + "=" * 49 + " bf16: wgmma, hd 128, 256"
+        soft = src[src.index("    // softcap, mask; online softmax per row",
+                             src.index(start)):
+                   src.index("    // O += P V, P as hi + lo bf16 A fragments",
+                             src.index(start))]
+        lo = ("#pragma unroll\n    for (int kk = 0; kk < 4; ++kk) wg_rs(o, "
+              "pl[kk], wg_desc(Vt + kk * 2048));\n")
+        hi = lo.replace("pl[kk]", "ph[kk]")
+        out.update({
+            f"{name}_diag_no_softmax": in_region(src, start, end, soft, ""),
+            f"{name}_diag_no_lo_term": in_region(src, start, end, lo, ""),
+            f"{name}_diag_no_pv": in_region(src, start, end, hi + lo, ""),
+            f"{name}_diag_no_copies": in_region(
+                src, start, end, "    if (kt + 1 < kt_end) {             // "
+                "prefetch the next key tile", "    if (false) {"),
+        })
     return {n: (t, (64,)) for n, t in out.items()}
 
 
@@ -370,9 +280,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hd", type=int, action="append",
                     help="only the shapes of this head dim (repeatable)")
-    ap.add_argument("--parent", type=Path,
-                    help="an earlier checkout whose hd-64 `cp.async` "
-                         "kernel and its diagnostics are timed too")
+    ap.add_argument("--parent", type=Path, action="append", default=[],
+                    help="an earlier checkout (unpacked into a directory "
+                         "whose name tags its rows) whose hd-64 route is "
+                         "timed too, with the `cp.async` kernel's "
+                         "diagnostics where that is its route; repeatable")
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import torch
@@ -390,9 +302,10 @@ def main():
     pre = {n: v for n, v in prefill_variants(
         (CSRC / "flash_prefill.cu").read_text()).items() if hds & set(v[1])}
     csrc = {n: CSRC for n in pre}
-    if args.parent is not None and 64 in hds:
-        pcsrc = args.parent / "src" / "repro_torch" / "kernels" / "csrc"
-        par = parent_wgmma_variants((pcsrc / "flash_prefill.cu").read_text())
+    for parent in args.parent if 64 in hds else ():
+        pcsrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
+        par = checkout_variants(parent.name,
+                                (pcsrc / "flash_prefill.cu").read_text())
         pre.update(par)
         csrc.update({n: pcsrc for n in par})
     dec = (decode_variants((CSRC / "decode_step.cuh").read_text())

@@ -18,41 +18,66 @@
 // products (~8.7 us on the bf16 tensor cores). Both are near, so the
 // products have to run on the tensor cores for the bytes to set the pace.
 //
-// bf16 at hd 64 (the serve path), FlashAttention-2-shaped on `wgmma`: one
-// CTA, one warpgroup of 4 warps, per (b, head, 64-query tile). QK^T runs as
-// `wgmma` m64n64k16 with Q and K read from shared memory; PV as m64n64k16
-// with P in registers (the QK^T accumulator layout is the A-fragment
-// layout, so the probabilities never return to shared memory) and V read
-// from shared memory, transposed by the tensor cores. Each warp keeps the
-// running (m, l) of its 16 rows and their 16 x 64 fp32 output slice in
-// registers. `wgmma` rather than `mma.sync`: with `mma.sync` every warp
-// reads the whole K and V tile from shared memory for its own 16 rows,
-// where the warpgroup reads it once; the `mma.sync` form of this kernel
-// took about a third longer at the serve shape on the H100.
-// Q, K and V stay bf16 in shared memory in the 128-byte swizzle, loaded
-// with `cp.async` into a double-buffered K/V ring: the next key tile's copy
-// is in flight while this one's products run. P enters PV as two bf16
-// terms, its rounding and the residual's (hi + lo, 16 mantissa bits; PV's
-// products double, QK^T's do not): a single bf16 P moves an output by up to
-// 2^-9 of its size, which at |out| in [2, 4) flips its bf16 rounding by one
-// ulp (0.0156) against the plain version's fp32 P, past the 1e-2 absolute
-// tolerance; two terms leave the error at fp32's order. Key tiles wholly
-// above the causal frontier or before the window are never loaded, and the
-// mask is evaluated only on tiles that cross the diagonal, the window edge
-// or the ragged end of S. The grid runs the q-tile index in reverse, so the
-// heaviest causal tiles start first and the light ones fill the tail. The
-// kernel keeps 4 CTAs on each SM at 128 registers a thread; a spill there
-// serialises the `wgmma`s, so it holds no more state than it needs. Tried
-// on the H100 and left out: K/V tiles shared by two heads of a GQA group
-// (no gain: one batch row's K/V, 0.5 MB at the serve shape, stays in the
-// 50 MB L2, so the repeated tile loads hit L2) and a persistent grid that
-// prefetches the next tile's Q (slower: its extra state spills).
+// bf16 at hd 64 (the serve path: tinyllama-1.1b's 32 query heads on 4 KV
+// heads, granite-moe's G 3, whisper-tiny's decoder G 1, hymba-1.5b's G 5
+// with a window of 256) runs `flash_prefill_wide_kernel<64, 1>` below: one
+// warpgroup and one head a CTA, tiles copied by TMA, four CTAs an SM. At hd
+// 64 a key tile's products are short (QK^T four m64n64k16 k-steps, PV eight
+// with P's lo term), so a CTA's time goes to its chain of waits (copies,
+// products, softmax and rescale of a tile, in turn), and the SM hides one
+// CTA's waits behind the other three's work. For four CTAs to fit, a
+// thread keeps within 128 registers: the hd-64 step lets PV_{i-1} finish
+// before QK^T_i starts, so P and S are never live together (125 registers,
+// no spill), where the hd-128 order (softmax under PV) spills 84 bytes at
+// four CTAs. P enters PV as two bf16 terms, its rounding and the
+// residual's (hi + lo, 16 mantissa bits): a single bf16 P moves an output
+// by up to 2^-9 of its size, which at |out| in [2, 4) flips its bf16
+// rounding by one ulp (0.0156) against the plain version's fp32 P, past
+// the 1e-2 absolute tolerance; two terms leave the error at fp32's order.
+// Measured (device ms, tinyllama / granite / whisper at B 8, S 512;
+// NVIDIA H100 80GB HBM3 at 700.00 W; `kernel_variants.py --hd 64 --parent`,
+// one call): this kernel 0.0399-0.0402 / 0.0311-0.0313 / 0.0126-0.0127;
+// with the hd-128 step order 0.0411-0.0414 / 0.0324 / 0.0123 (128
+// registers, 84 bytes spilled), the same at three CTAs 0.0430 /
+// 0.0330-0.0332 / 0.0118-0.0122 (162 registers); this order at three CTAs
+// 0.0447-0.0450 / 0.0339-0.0340 / 0.0124 (150), at five 0.0420-0.0421 /
+// 0.0325-0.0330 / 0.0124-0.0128 (96, 56 bytes spilled); masked tiles by
+// two bounds a row 0.0474-0.0477 / 0.0363-0.0364 / 0.0150-0.0151. With
+// wrong results, to see where the time goes (tinyllama): no softmax
+// 0.0313-0.0314, no PV 0.0346-0.0347, no lo term 0.0350-0.0351, no copies
+// after the first K tile 0.0369-0.0370. The kernel it replaced, the
+// one-warpgroup `flash_prefill_wgmma_kernel` with `cp.async` copies and a
+// __syncthreads a tile (four CTAs an SM, 128 registers), ran 0.0523 /
+// 0.0399-0.0405 / 0.0156 (tinyllama: no softmax 0.0410, no lo term
+// 0.0454-0.0455, no PV 0.0428-0.0431, no copies 0.0425-0.0426). Tried and
+// left out, a ping-pong kernel (`flash_prefill_pingpong_kernel` of commit
+// 5e2cceb: `git archive 5e2cceb | tar -x -C build/pingpong`, then
+// `kernel_variants.py --hd 64 --parent build/pingpong`, and that
+// checkout's own kernel_variants.py for its variants): one persistent CTA
+// an SM of three warpgroups, a producer warpgroup issuing every TMA copy
+// into rings whose slots the consumers release through mbarriers, two
+// consumer warpgroups on the 64-row halves of a 128-query item over one
+// stream of 128-key tiles (QK^T m64n128k16), taking turns on named
+// barriers to issue their products and running tile i's softmax under
+// PV_{i-1}, registers moved by setmaxnreg (240 for the consumers, 24 for
+// the producer; 168 at entry, no spill): 0.0463-0.0464 / 0.0372-0.0373 /
+// 0.0157. Its eight consumer warps an SM cannot hide a softmax that takes
+// as long as the other warpgroup's products (tinyllama: no softmax
+// 0.0310-0.0339; its turns saved 2%; without setmaxnreg 0.0588-0.0590;
+// one CTA an item 0.0604-0.0608; three-slot rings no change).
+// Key tiles wholly above the causal frontier or before the window
+// are never loaded, and the mask is evaluated only on tiles that cross the
+// diagonal, the window edge or the ragged end of S. The grid runs the
+// q-tile index in reverse, so the heaviest causal tiles start first and
+// the light ones fill the tail.
 //
-// bf16 at hd 32 (no config; the reference kernel test's shape): the same
-// design on `mma.sync.m16n8k16` fed by `ldmatrix`, each warp owning 16
-// query rows and keeping its Q fragments in registers.
+// bf16 at hd 32 (no config; the reference kernel test's shape): one CTA of
+// four warps per (b, head, 64-query tile) on `mma.sync.m16n8k16` fed by
+// `ldmatrix`, each warp owning 16 query rows and keeping its Q fragments
+// in registers, K and V copied by `cp.async` into two-tile rings, P as hi
+// + lo bf16 terms.
 //
-// bf16 at hd 128 and 256, `flash_prefill_wide_kernel<HD, kHeads>`. At
+// bf16 at hd 64, 128 and 256, `flash_prefill_wide_kernel<HD, kHeads>`. At
 // gemma-2b's prefill (B 8, S 512, 8 query heads on one KV head of hd 256)
 // what bounds it is bytes, barely: q, k, v and out are 37.7 MB (11.3 us at
 // 3.35 TB/s) against 8.6 GFLOP of causal QK^T and PV, 8.7 us on the bf16
@@ -76,12 +101,13 @@
 //   CTA (99,328 bytes, one an SM at 226 registers; two an SM cap them at
 //   128 and spill 312 bytes) has its warpgroups meet at a barrier every
 //   key tile.
-// - Softmax overlaps the products. Step i issues QK^T of key tile i and
-//   then PV of tile i - 1, waits for QK^T alone (`wgmma.wait_group 1`),
-//   and runs tile i's mask and exponentials while PV_{i-1} is in flight;
-//   only the rescale of the accumulator waits for it. P splits into its
-//   hi + lo terms with hi truncated (split_bf16_trunc): one conversion a
-//   pair.
+// - Softmax overlaps the products (at hd 128 and 256; at hd 64 PV_{i-1}
+//   is done before QK^T_i, see above). Step i issues QK^T of key tile i
+//   and then PV of tile i - 1, waits for QK^T alone (`wgmma.wait_group
+//   1`), and runs tile i's mask and exponentials while PV_{i-1} is in
+//   flight; only the rescale of the accumulator waits for it. P splits
+//   into its hi + lo terms with hi truncated (split_bf16_trunc): one
+//   conversion a pair.
 // - The tensor memory accelerator copies every tile: one thread starts Q
 //   and the first K tile, then at each step K_{i+1} and V_i, each tile as
 //   HD / 64 boxes that land in the `wgmma` swizzle, with rows at or past S
@@ -128,7 +154,6 @@
 // 64-query tile) walks the same key tiles on the CUDA cores, Q, K, V and
 // the probabilities in shared memory as fp32, register-tiled 4x8 micro
 // tiles, the same heaviest-first grid.
-#include <climits>
 #include <cuda.h>  // CUtensorMap (its encoder is looked up at run time)
 
 #include "wgmma.cuh"
@@ -357,175 +382,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// ============================================================ bf16: wgmma
-// (the products and their descriptors are in wgmma.cuh)
-
-// Start the copy of rows [r0, r0+64) of a (S, stride) bf16 slab with 64
-// columns into a swizzled tile at shared address `dst`; rows at or past S
-// are zero-filled.
-__device__ __forceinline__ void issue_wg_tile(uint32_t dst,
-                                              const __nv_bfloat16* base,
-                                              size_t stride, int r0, int S) {
-  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
-    const int r = i / 8, c = i % 8;
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4),
-               base + (size_t)(ok ? r0 + r : 0) * stride + c * 8, ok);
-  }
-}
-
-// Q | K ring (2) | V ring (2), plus room to align the base to 1024 bytes
-constexpr size_t kWgSmemBytes = 5 * kWgTile + 1024;
-
-__global__ void __launch_bounds__(kThreads, 4)
-flash_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int S, int H,
-                           int KV, int window, float scale, float softcap) {
-  constexpr int HD = 64;
-  extern __shared__ uint4 smem_raw[];
-  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t Ks = Qs + kWgTile;          // 2 tiles
-  const uint32_t Vs = Ks + 2 * kWgTile;      // 2 tiles
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
-  const size_t q_stride = (size_t)H * HD, kv_stride = (size_t)KV * HD;
-  const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)kvh * HD;
-
-  const int n_tiles = (S + kBK - 1) / kBK;
-  const int kt_end = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
-  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
-
-  issue_wg_tile(Qs, qb, q_stride, q0, S);
-  issue_wg_tile(Ks, kb, kv_stride, kt_begin * kBK, S);
-  issue_wg_tile(Vs, vb, kv_stride, kt_begin * kBK, S);
-  cp_async_commit();
-
-  // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
-  // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
-  float o[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
-  float l[2] = {0.f, 0.f};              // this thread's share of the sum
-  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
-  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int buf = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) {             // prefetch the next key tile
-      issue_wg_tile(Ks + (buf ^ 1) * kWgTile, kb, kv_stride, (kt + 1) * kBK,
-                    S);
-      issue_wg_tile(Vs + (buf ^ 1) * kWgTile, vb, kv_stride, (kt + 1) * kBK,
-                    S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    // cp.async wrote the tiles through the generic proxy; wgmma reads them
-    // through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const uint32_t Kt = Ks + buf * kWgTile, Vt = Vs + buf * kWgTile;
-    const int k0 = kt * kBK;
-
-    // S = Q K^T (64 x 64): four k-steps of 16 along hd, 32 bytes each
-    float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wg_ss(s, wg_desc(Qs + kk * 32), wg_desc(Kt + kk * 32), kk > 0);
-    wg_commit();
-    wg_wait0();
-    wg_fence_regs(s);
-
-    // softcap, mask; online softmax per row (4 lanes share a row)
-    const bool masked = tile_needs_mask(q0, k0, S, window);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float x = s[i];
-      if (softcap > 0.f) x = tanhf(x * cap_in) * softcap;
-      if (masked && !visible(q0 + warp * 16 + g + ((i >> 1) & 1) * 8,
-                             k0 + (i >> 2) * 8 + 2 * t + (i & 1), S, window))
-        x = -INFINITY;
-      s[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-    }
-    float mc[2];                       // the new max, times c
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // a row with no visible key yet keeps alpha = p = 0
-      mc[r] = m_new == -INFINITY ? 0.f : m_new * c;
-      const float alpha = ex2(fmaf(m[r], c, -mc[r]));
-      m[r] = m_new;
-      l[r] *= alpha;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n + 2 * r] *= alpha;
-        o[4 * n + 2 * r + 1] *= alpha;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float p = ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]));
-      s[i] = p;
-      l[(i >> 1) & 1] += p;
-    }
-
-    // O += P V, P as hi + lo bf16 A fragments; k-step kk covers keys
-    // 16kk .. 16kk+15: 16 rows of V, 2048 bytes
-    uint32_t ph[4][4], pl[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* p0 = s + 8 * kk;      // 8-column block 2kk
-      const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
-      split_bf16(p0[0], p0[1], ph[kk][0], pl[kk][0]);
-      split_bf16(p0[2], p0[3], ph[kk][1], pl[kk][1]);
-      split_bf16(p1[0], p1[1], ph[kk][2], pl[kk][2]);
-      split_bf16(p1[2], p1[3], ph[kk][3], pl[kk][3]);
-    }
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048));
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));
-    wg_commit();
-    wg_wait0();
-    wg_fence_regs(o);
-    __syncthreads();                   // this buffer is refilled next round
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = 1.f / fmaxf(l[r], 1e-30f);
-    const int qi = q0 + warp * 16 + g + r * 8;
-    if (qi >= S) continue;
-    __nv_bfloat16* orow = out + (size_t)b * S * q_stride +
-                          (size_t)qi * q_stride + (size_t)h * HD + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[4 * n + 2 * r] * l[r], o[4 * n + 2 * r + 1] * l[r]);
-  }
-}
-
-// ================================================= bf16: wgmma, hd 128, 256
+// ============================================= bf16: wgmma, hd 64, 128, 256
 
 // Query heads of a CTA at hd 128, one warpgroup each (chosen by
 // measuring, see the note above; hd 256 takes two): 2 shares each K/V tile
@@ -542,11 +399,11 @@ template <int HD, int kHeads>
 constexpr size_t wide_smem_bytes() {
   return (kHeads + 4) * (size_t)wide_tile<HD>() + 1024;
 }
-// the launch bounds' CTAs an SM: what the shared memory and 255 registers
-// a thread allow (two one-head CTAs at hd 128; else one)
+// the launch bounds' CTAs an SM: four at hd 64 (128 registers a thread),
+// two one-head CTAs at hd 128; else one
 template <int HD, int kHeads>
 __host__ __device__ constexpr int wide_min_ctas() {
-  return HD == 128 && kHeads == 1 ? 2 : 1;
+  return HD == 64 ? 4 : HD == 128 && kHeads == 1 ? 2 : 1;
 }
 
 // Two fp32 values as bf16 pairs hi + lo, as split_bf16 (wgmma.cuh) but with
@@ -566,14 +423,8 @@ __device__ __forceinline__ void split_bf16_trunc(float x0, float x1,
 // each in the 128-byte swizzle of a `wgmma` sub-tile (wgmma.cuh): the map
 // (B, S, N, HD) -> (HD, N, S, B) with boxes (64, 1, 64, 1), rows at or past
 // S zero-filled by the hardware.
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count = 1) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count));
-}
-// one arrival (a consumer's release of a ring slot)
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
 }
 // this thread's arrival (the barrier's one), expecting `bytes` of copies
 // to complete on `bar`
@@ -804,15 +655,30 @@ flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     refill(i);
     arrive(i);
     wg_fence();
-    qk(i, s);
-    pv(i - 1);
-    wg_wait<1>();                       // S_i is in; PV_{i-1} runs on
-    wg_fence_regs(s);
-    softmax(i, s, alpha);
-    wg_wait<0>();                       // PV_{i-1} is done with o and P
-    wg_fence_regs(o);
-    wg_fence_regs(ph);
-    wg_fence_regs(pl);
+    if constexpr (HD == 64) {
+      // four CTAs an SM: PV_{i-1} is done before QK^T_i starts, so P and
+      // S are never live together and 128 registers hold a thread
+      pv(i - 1);
+      wg_wait<0>();
+      wg_fence_regs(o);
+      wg_fence_regs(ph);
+      wg_fence_regs(pl);
+      wg_fence();
+      qk(i, s);
+      wg_wait<0>();
+      wg_fence_regs(s);
+      softmax(i, s, alpha);
+    } else {
+      qk(i, s);
+      pv(i - 1);
+      wg_wait<1>();                     // S_i is in; PV_{i-1} runs on
+      wg_fence_regs(s);
+      softmax(i, s, alpha);
+      wg_wait<0>();                     // PV_{i-1} is done with o and P
+      wg_fence_regs(o);
+      wg_fence_regs(ph);
+      wg_fence_regs(pl);
+    }
     rescale_split(s, alpha);
   }
   arrive(n);                            // step n: PV_{n-1} alone
@@ -856,346 +722,6 @@ flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
                               (size_t)(q0 + row) * q_stride + (size_t)h * HD +
                               ch * 8) = chunk;
   }
-}
-
-// ======================================== bf16: wgmma, hd 64, ping-pong
-
-constexpr int kPpBK = 128;            // keys a K/V tile, query rows an item
-constexpr int kPpTile = kPpBK * 128;  // bytes of a 128 x 64 bf16 tile
-constexpr int kPpStages = 2;          // slots of the K ring and the V ring
-// two consumer warpgroups, then the producer's
-constexpr int kPpThreads = 3 * kThreads;
-// Q ring (2) | K ring | V ring, plus room to align the base to 1024 bytes
-constexpr size_t kPpSmemBytes = (2 + 2 * kPpStages) * (size_t)kPpTile + 1024;
-
-// One work item: 128 query rows [q0, q0 + 128) of head h of batch row b
-// over key tiles kt_begin .. kt_begin + n - 1 of 128 keys. Items run the
-// heaviest q blocks first; the heads of a KV group are neighbours.
-struct PpItem {
-  int h, b, q0, kt_begin, n;
-};
-__device__ __forceinline__ PpItem pp_item(int item, int B, int H, int S,
-                                          int window) {
-  const int nq = (S + kPpBK - 1) / kPpBK;
-  PpItem w;
-  w.q0 = (nq - 1 - item / (B * H)) * kPpBK;
-  w.b = item / H % B;
-  w.h = item % H;
-  w.kt_begin = window > 0 ? max(0, w.q0 - window + 1) / kPpBK : 0;
-  w.n = w.q0 / kPpBK + 1 - w.kt_begin;
-  return w;
-}
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// A persistent CTA of three warpgroups walks work items gridDim.x apart.
-// Warpgroup 2 is the producer: one thread issues every TMA copy (Q of an
-// item into a two-slot ring, K and V tiles into kPpStages-slot rings),
-// each slot's copy waiting for the consumers to release it. Warpgroups 0
-// and 1 are the consumers: warpgroup w owns query rows q0 + 64 w .. + 63
-// of the item and all 64 output columns, over the one K/V stream. They
-// take turns on named barriers 1 and 2 to issue their products (ping-pong),
-// so that one's softmax runs while the other's `wgmma`s hold the tensor
-// cores; inside each, step i issues QK^T of tile i with PV of tile i - 1
-// and runs tile i's softmax while PV_{i-1} is in flight.
-__global__ void __launch_bounds__(kPpThreads, 1)
-flash_prefill_pingpong_kernel(const __grid_constant__ CUtensorMap tm_q,
-                              const __grid_constant__ CUtensorMap tm_k,
-                              const __grid_constant__ CUtensorMap tm_v,
-                              __nv_bfloat16* __restrict__ out, int B, int S,
-                              int H, int KV, int window, float scale,
-                              float softcap) {
-  constexpr int HD = 64;
-  extern __shared__ uint4 smem_raw[];
-  // full: Q (2) | K | V; empty: Q (2) | K | V
-  __shared__ alignas(8) uint64_t bars[2 * (2 + 2 * kPpStages)];
-  const uint32_t Qs = (smem_addr(smem_raw) + 1023) & ~1023u;  // 2 slots
-  const uint32_t Ks = Qs + 2 * kPpTile;
-  const uint32_t Vs = Ks + kPpStages * kPpTile;
-  const uint32_t bar_qf = smem_addr(&bars[0]), bar_kf = bar_qf + 16,
-                 bar_vf = bar_kf + 8 * kPpStages,
-                 bar_qe = bar_vf + 8 * kPpStages, bar_ke = bar_qe + 16,
-                 bar_ve = bar_ke + 8 * kPpStages;
-  const int items = (S + kPpBK - 1) / kPpBK * B * H, G = H / KV;
-  const int wg = threadIdx.x / kThreads;
-
-  if (threadIdx.x == 0) {
-    // full: the producer's arrival; empty: one arrival a consumer warp
-    for (int i = 0; i < 2 + 2 * kPpStages; ++i) {
-      mbar_init(bar_qf + 8 * i, 1);
-      mbar_init(bar_qe + 8 * i, 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 2) {  // ---------------------------------------------- producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 2 * kThreads) {
-      int it = 0, j = 0;  // K/V tiles and items so far
-      for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
-        const PpItem w = pp_item(item, B, H, S, window);
-        const int kvh = w.h / G;
-        const uint32_t qs = j & 1;
-        if (j >= 2) mbar_wait(bar_qe + 8 * qs, ((j >> 1) + 1) & 1);
-        mbar_expect(bar_qf + 8 * qs, kPpTile);
-        tma_tile<HD>(Qs + qs * kPpTile, &tm_q, bar_qf + 8 * qs, w.h, w.q0,
-                     w.b);
-        for (int i = 0; i < w.n; ++i, ++it) {
-          const int slot = it % kPpStages, k0 = (w.kt_begin + i) * kPpBK;
-          const int par = (it / kPpStages + 1) & 1;
-          if (it >= kPpStages) mbar_wait(bar_ke + 8 * slot, par);
-          mbar_expect(bar_kf + 8 * slot, kPpTile);
-          tma_tile<HD>(Ks + slot * kPpTile, &tm_k, bar_kf + 8 * slot, kvh,
-                       k0, w.b);
-          if (it >= kPpStages) mbar_wait(bar_ve + 8 * slot, par);
-          mbar_expect(bar_vf + 8 * slot, kPpTile);
-          tma_tile<HD>(Vs + slot * kPpTile, &tm_v, bar_vf + 8 * slot, kvh,
-                       k0, w.b);
-        }
-      }
-    }
-    return;
-  }
-
-  // ---------------------------------------------------------- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // accumulator row / column pair
-  const size_t q_stride = (size_t)H * HD;
-  const float c = softcap > 0.f ? kLog2e : scale * kLog2e;
-  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
-  // a warp's release of a slot: its lane 0, once the warp is done with it
-  auto release = [&](uint32_t bar) {
-    if (lane == 0) mbar_arrive(bar);
-  };
-  // this warpgroup's turn to issue products, then the other's
-  auto turn = [&]() { named_sync(1 + wg, 2 * kThreads); };
-  auto pass = [&]() { named_arrive(2 - wg, 2 * kThreads); };
-  auto q_tile = [&](int j) { return Qs + (j & 1) * kPpTile + wg * kWgTile; };
-  auto k_full = [&](int i) {
-    mbar_wait(bar_kf + 8 * (i % kPpStages), (i / kPpStages) & 1);
-  };
-  auto v_full = [&](int i) {
-    mbar_wait(bar_vf + 8 * (i % kPpStages), (i / kPpStages) & 1);
-  };
-
-  // accumulator element 4n + e: row warp*16 + g + (e / 2) * 8, column
-  // 8n + 2t + e % 2 (the mma.sync layout, per 8-column block n)
-  float o[HD / 2];
-  float m[2], l[2];                     // running max of the raw scores;
-                                        // this thread's share of the sum
-  uint32_t ph[8][4], pl[8][4];          // the last tile's P, hi + lo bf16
-
-  // S = Q K^T (64 x 128) of K tile i: four k-steps of 16 along hd
-  auto qk = [&](uint32_t Qw, int i, float (&s)[64]) {
-    const uint32_t Kt = Ks + (i % kPpStages) * kPpTile;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wg_ss(s, wg_desc(Qw + kk * 32), wg_desc(Kt + kk * 32), kk > 0);
-    wg_commit();
-  };
-  // O += P V_i: eight k-steps of 16 keys (16 rows of V, 2048 bytes), P as
-  // hi + lo bf16 A fragments
-  auto pv = [&](int i) {
-    const uint32_t Vt = Vs + (i % kPpStages) * kPpTile;
-#pragma unroll
-    for (int kk = 0; kk < kPpBK / 16; ++kk)
-      wg_rs(o, ph[kk], wg_desc(Vt + kk * 2048));
-#pragma unroll
-    for (int kk = 0; kk < kPpBK / 16; ++kk)
-      wg_rs(o, pl[kk], wg_desc(Vt + kk * 2048));
-    wg_commit();
-  };
-  // softcap, mask; online softmax per row (4 lanes share a row) of the
-  // tile at key k0 for this warpgroup's rows from q0: s becomes P, alpha
-  // the rescale of the rows' sums
-  auto softmax = [&](int q0, int k0, float (&s)[64], float (&alpha)[2]) {
-    if (softcap > 0.f) {
-#pragma unroll
-      for (int e = 0; e < 64; ++e) s[e] = tanhf(s[e] * cap_in) * softcap;
-    }
-    // the tile crosses the diagonal, the window edge or the end of S:
-    // element e's column 8 (e / 4) + e % 2 (less 2t, which the bounds
-    // take) is visible to row r iff lo[r] < column <= hi[r]
-    if (k0 + kPpBK - 1 > q0 || k0 + kPpBK > S ||
-        (window > 0 && k0 <= q0 + 63 - window)) {
-      int hi[2], lo[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int diag = q0 - k0 + warp * 16 + g + 8 * r - 2 * t;
-        hi[r] = min(diag, S - 1 - k0 - 2 * t);
-        lo[r] = window > 0 ? diag - window : INT_MIN;
-      }
-#pragma unroll
-      for (int e = 0; e < 64; ++e) {
-        const int col = (e >> 2) * 8 + (e & 1), r = (e >> 1) & 1;
-        if (col > hi[r] || col <= lo[r]) s[e] = -INFINITY;
-      }
-    }
-    // row maxima and sums in four partial terms each (shorter chains)
-    float mx[2][4] = {{-INFINITY, -INFINITY, -INFINITY, -INFINITY},
-                      {-INFINITY, -INFINITY, -INFINITY, -INFINITY}};
-#pragma unroll
-    for (int e = 0; e < 64; ++e)
-      mx[(e >> 1) & 1][(e >> 2) & 3] =
-          fmaxf(mx[(e >> 1) & 1][(e >> 2) & 3], s[e]);
-    float mc[2];                         // the new max, times c
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-      const float m_new = fmaxf(m[r], x);
-      // a row with no visible key yet keeps alpha = p = 0
-      mc[r] = m_new == -INFINITY ? 0.f : m_new * c;
-      alpha[r] = ex2(fmaf(m[r], c, -mc[r]));
-      m[r] = m_new;
-    }
-    float sum[2][4] = {};
-#pragma unroll
-    for (int e = 0; e < 64; ++e) {
-      const float p = ex2(fmaf(s[e], c, -mc[(e >> 1) & 1]));
-      s[e] = p;
-      sum[(e >> 1) & 1][(e >> 2) & 3] += p;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      l[r] = fmaf(l[r], alpha[r],
-                  (sum[r][0] + sum[r][1]) + (sum[r][2] + sum[r][3]));
-  };
-  // with no product in flight: rescale o, split P into the next PV's A
-  // fragments (k-step kk covers keys 16kk .. 16kk+15)
-  auto rescale_split = [&](const float (&s)[64], const float (&alpha)[2]) {
-#pragma unroll
-    for (int nn = 0; nn < HD / 8; ++nn)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        o[4 * nn + 2 * r] *= alpha[r];
-        o[4 * nn + 2 * r + 1] *= alpha[r];
-      }
-#pragma unroll
-    for (int kk = 0; kk < kPpBK / 16; ++kk) {
-      const float* p0 = s + 8 * kk;      // 8-column block 2kk
-      const float* p1 = s + 8 * kk + 4;  // 8-column block 2kk + 1
-      split_bf16_trunc(p0[0], p0[1], ph[kk][0], pl[kk][0]);
-      split_bf16_trunc(p0[2], p0[3], ph[kk][1], pl[kk][1]);
-      split_bf16_trunc(p1[0], p1[1], ph[kk][2], pl[kk][2]);
-      split_bf16_trunc(p1[2], p1[3], ph[kk][3], pl[kk][3]);
-    }
-  };
-  // O / l[r] = fin[r] in bf16 for item w (the j-th), staged in this
-  // warpgroup's Q tile (its products are done) in the same swizzle, then
-  // stored as whole rows of 8 16-byte chunks; the Q slot is released once
-  // both warpgroups have read it
-  auto store = [&](const PpItem& w, int j, const float (&fin)[2]) {
-    const uint32_t Qw = q_tile(j);
-    const int q0 = w.q0 + 64 * wg;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float inv = fin[r];
-      inv += __shfl_xor_sync(0xffffffffu, inv, 1);
-      inv += __shfl_xor_sync(0xffffffffu, inv, 2);
-      inv = 1.f / fmaxf(inv, 1e-30f);
-      const int row = warp * 16 + g + r * 8;
-#pragma unroll
-      for (int nn = 0; nn < HD / 8; ++nn) {
-        const uint32_t pair = pack_bf16(o[4 * nn + 2 * r] * inv,
-                                        o[4 * nn + 2 * r + 1] * inv);
-        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
-                         Qw + wg_tile_off(row, nn) + 4 * t), "r"(pair));
-      }
-    }
-    named_sync(3 + wg, kThreads);        // this warpgroup's threads only
-    const int tw = threadIdx.x % kThreads;
-#pragma unroll
-    for (int jj = 0; jj < 64 * 8 / kThreads; ++jj) {
-      const int row = tw / 8 + jj * (kThreads / 8), ch = tw % 8;
-      if (q0 + row >= S) break;
-      uint4 chunk;
-      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                   : "=r"(chunk.x), "=r"(chunk.y), "=r"(chunk.z),
-                     "=r"(chunk.w)
-                   : "r"(Qw + wg_tile_off(row, ch)));
-      *reinterpret_cast<uint4*>(out + (size_t)w.b * S * q_stride +
-                                (size_t)(q0 + row) * q_stride +
-                                (size_t)w.h * HD + ch * 8) = chunk;
-    }
-    // the next copy into this slot goes through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncwarp();
-    release(bar_qe + 8 * (j & 1));
-  };
-
-  if (wg == 1) pass();                  // warpgroup 0 goes first
-  int it = 0, j = 0;                    // K/V tiles and items so far
-  for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
-    const PpItem w = pp_item(item, B, H, S, window);
-    const int q0 = w.q0 + 64 * wg;      // this warpgroup's rows
-    const uint32_t Qw = q_tile(j);
-#pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
-    m[0] = m[1] = -INFINITY;
-    l[0] = l[1] = 0.f;
-    mbar_wait(bar_qf + 8 * (j & 1), (j >> 1) & 1);
-    // Step i scores key tile i and adds tile i - 1's P V; steps 0 (QK^T
-    // alone) and n (PV alone) are peeled off, so that every step between
-    // commits both groups (ptxas serialises the products when it cannot
-    // tell which group a wait leaves in flight)
-    {
-      float s[64], alpha[2];
-#pragma unroll
-      for (int e = 0; e < 64; ++e) s[e] = 0.f;
-      k_full(it);
-      turn();
-      wg_fence();
-      qk(Qw, it, s);
-      pass();
-      wg_wait<0>();
-      wg_fence_regs(s);
-      release(bar_ke + 8 * (it % kPpStages));
-      softmax(q0, w.kt_begin * kPpBK, s, alpha);
-      rescale_split(s, alpha);
-    }
-    for (int i = 1; i < w.n; ++i) {
-      float s[64], alpha[2];
-#pragma unroll
-      for (int e = 0; e < 64; ++e) s[e] = 0.f;
-      k_full(it + i);
-      v_full(it + i - 1);
-      turn();
-      wg_fence();
-      qk(Qw, it + i, s);
-      pv(it + i - 1);
-      pass();
-      wg_wait<1>();                     // S_i is in; PV_{i-1} runs on
-      wg_fence_regs(s);
-      release(bar_ke + 8 * ((it + i) % kPpStages));
-      softmax(q0, (w.kt_begin + i) * kPpBK, s, alpha);
-      wg_wait<0>();                     // PV_{i-1} is done with o and P
-      wg_fence_regs(o);
-      wg_fence_regs(ph);
-      wg_fence_regs(pl);
-      release(bar_ve + 8 * ((it + i - 1) % kPpStages));
-      rescale_split(s, alpha);
-    }
-    it += w.n;                          // step n: PV_{n-1} alone
-    v_full(it - 1);
-    turn();
-    wg_fence();
-    pv(it - 1);
-    pass();
-    wg_wait<0>();
-    wg_fence_regs(o);
-    release(bar_ve + 8 * ((it - 1) % kPpStages));
-    store(w, j, l);
-  }
-  if (wg == 0) turn();  // warpgroup 1's last pass
 }
 
 // ============================================================ fp32: CUDA cores
@@ -1375,8 +901,7 @@ flash_prefill_simt_kernel(const float* __restrict__ q,
 
 // ============================================================ launch
 
-// `heads` CTAs along x: one a query head, or at hd 128 and 256 in bf16 one
-// a pair of heads of a KV head (KV * ceil(G / 2)) where the CTA takes two.
+// `heads` CTAs along x: one a query head (hd 32 in bf16, fp32).
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int threads, int heads,
                    const void* q, const void* k, const void* v, void* out,
@@ -1415,17 +940,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a (B, S, N, HD) bf16 tensor for tma_tile, boxes of `rows`
-// rows.
+// The map of a (B, S, N, HD) bf16 tensor for tma_tile.
 template <int HD>
-bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N,
-              int rows = kBK) {
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)N, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * N, 2ull * HD * N * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBK, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
@@ -1434,7 +957,7 @@ bool tile_map(CUtensorMap* map, const void* base, int B, int S, int N,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The bf16 hd-128 and hd-256 route: maps of q, k and v, then
+// The bf16 hd-64, hd-128 and hd-256 route: maps of q, k and v, then
 // KV * ceil(G / kHeads) CTAs along x.
 template <int HD, int kHeads>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
@@ -1456,33 +979,6 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The bf16 hd-64 route: maps of q, k and v in 128-row boxes, then one
-// persistent CTA an SM (or one an item, where there are fewer).
-cudaError_t launch_pingpong(const void* q, const void* k, const void* v,
-                            void* out, int B, int S, int H, int KV,
-                            int window, float softcap, cudaStream_t stream) {
-  const long long items = (long long)B * H * ((S + kPpBK - 1) / kPpBK);
-  CUtensorMap tq, tk, tv;
-  if (items > INT_MAX || !tile_map<64>(&tq, q, B, S, H, kPpBK) ||
-      !tile_map<64>(&tk, k, B, S, KV, kPpBK) ||
-      !tile_map<64>(&tv, v, B, S, KV, kPpBK))
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_prefill_pingpong_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kPpSmemBytes);
-  if (err != cudaSuccess) return err;
-  const int grid = (int)(items < sms ? items : sms);
-  flash_prefill_pingpong_kernel<<<grid, kPpThreads, kPpSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), B, S, H, KV, window,
-      1.0f / sqrtf(64.f), softcap);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace repro_torch
 
@@ -1498,8 +994,8 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16 && hd == 64)
-    return (int)launch_pingpong(q, k, v, out, B, S, H, KV, window, softcap,
-                                s);
+    return (int)launch_wide<64, 1>(q, k, v, out, B, S, H, KV, window,
+                                   softcap, s);
   if (dtype == kBFloat16 && hd == 128)
     return (int)launch_wide<128, kWide128Heads>(q, k, v, out, B, S, H, KV,
                                                 window, softcap, s);

@@ -163,18 +163,6 @@ __device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64x128 fp32; scale_d 0 overwrites) += A (smem, K-major) * B (smem,
-// K-major: 128 rows of B, 8-row groups 1024 bytes apart)
-__device__ __forceinline__ void wg_ss(float (&d)[64], uint64_t a, uint64_t b,
-                                      int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D64_OPS(d)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
 // d += A (registers: this warp's 16 rows, the mma.sync A fragment) *
 // B (smem, MN-major): m64n64k16, m64n128k16 or m64n256k16 by the width of
 // d (hd / 2 accumulators a thread; element 4n + e is row warp*16 + lane/4

@@ -8,10 +8,10 @@ TPU wrapper's relayout to (B,KV,G,S,hd) and padding of S exist only for
 the TPU's tiling and are gone. CPU tensors take the plain version; CUDA
 tensors launch the kernel or raise. The kernel dispatches on dtype and
 head size (``launch_plan`` mirrors it): bf16 runs its products on the
-tensor cores with fp32 accumulation (``wgmma``: at hd 64 with the
-ping-pong kernel, at hd 128 with the pipelined kernel one head a CTA, at
-hd 256 with it two heads a CTA; ``mma.sync`` at hd 32), fp32 keeps fp32
-products on the CUDA cores.
+tensor cores with fp32 accumulation (``wgmma`` with the pipelined kernel:
+at hd 64 one head a CTA and four CTAs an SM, at hd 128 one head a CTA, at
+hd 256 two heads a CTA; ``mma.sync`` at hd 32), fp32 keeps fp32 products
+on the CUDA cores.
 ``flash_prefill_bshd.launches`` counts kernel launches (never
 plain-version calls).
 """
@@ -36,25 +36,19 @@ SM_SMEM_BYTES = 233_472         # shared memory of one H100 SM (228 KB)
 SM_THREADS = 2048               # resident threads of one H100 SM
 BQ = 64                         # query rows of a CTA, keys of a K/V tile
 WG_TILE = 64 * 128              # bytes of one swizzled 64 x 64 bf16 tile
-PP_TILE = 128 * 128             # bytes of one swizzled 128 x 64 bf16 tile
-PP_STAGES = 2                   # slots of the hd-64 route's K and V rings
 
 
 def launch_plan(hd: int, dtype: torch.dtype) -> Tuple[str, int, int]:
     """(kernel, threads, query heads a CTA) of one launch, as
-    ``flash_prefill_launch`` dispatches: bf16 at hd 64 on the ping-pong
-    ``wgmma`` kernel (one persistent CTA an SM: two consumer warpgroups on
-    the 64-row halves of a 128-query item of one head, a producer
-    warpgroup issuing the TMA copies); bf16 at hd 128 and 256 on the
-    pipelined ``wgmma`` kernel (softmax under the previous tile's PV), one
-    warpgroup a query head: one head a CTA at hd 128 (two CTAs an SM), two
+    ``flash_prefill_launch`` dispatches: bf16 at hd 64, 128 and 256 on the
+    pipelined ``wgmma`` kernel, one warpgroup a query head: one head a CTA
+    at hd 64 (four CTAs an SM, each step's PV done before its QK^T) and at
+    hd 128 (two CTAs an SM, softmax under the previous tile's PV), two
     heads of a KV head a CTA at hd 256 (the grid has KV * ceil(G / 2) CTAs
     along the heads); bf16 at hd 32 on ``mma.sync``; fp32 on the CUDA
     cores."""
     if dtype == torch.bfloat16:
-        if hd == 64:
-            return "flash_prefill_pingpong_kernel", 384, 1
-        if hd == 128:
+        if hd in (64, 128):
             return "flash_prefill_wide_kernel", 128, 1
         if hd == 256:
             return "flash_prefill_wide_kernel", 256, 2
@@ -64,14 +58,11 @@ def launch_plan(hd: int, dtype: torch.dtype) -> Tuple[str, int, int]:
 
 def smem_bytes(hd: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one CTA of ``launch_plan``'s kernel: the
-    ping-pong kernel a two-slot ring of 128-row Q tiles and ``PP_STAGES``
-    slots of 128-row K and V tiles; the pipelined ``wgmma`` kernel a
-    swizzled Q tile per head (hd / 64 sub-tiles) and two-tile K and V
-    rings; both plus 1024 bytes of alignment; ``mma.sync`` five tiles in
-    rows of hd + 8 bf16; fp32 Q^T, K^T, V and P^T tiles."""
+    pipelined ``wgmma`` kernel a swizzled Q tile per head (hd / 64
+    sub-tiles) and two-tile K and V rings, plus 1024 bytes of alignment;
+    ``mma.sync`` five tiles in rows of hd + 8 bf16; fp32 Q^T, K^T, V and
+    P^T tiles."""
     kernel, _, heads = launch_plan(hd, dtype)
-    if kernel == "flash_prefill_pingpong_kernel":
-        return (2 + 2 * PP_STAGES) * PP_TILE + 1024
     if kernel == "flash_prefill_simt_kernel":
         return 4 * (3 * hd * BQ + BQ * BQ)
     if kernel == "flash_prefill_mma_kernel":
@@ -80,12 +71,14 @@ def smem_bytes(hd: int, dtype: torch.dtype) -> int:
 
 
 def ctas_per_sm(hd: int, dtype: torch.dtype) -> int:
-    """CTAs of ``launch_plan``'s kernel that the launch counts on sharing
-    one SM: the ping-pong kernel's persistent grid is one CTA an SM; the
-    pipelined kernel's launch bounds ask for two one-head CTAs at hd 128
-    and one two-head CTA at hd 256; the others need one."""
+    """CTAs an SM that the launch bounds of ``launch_plan``'s kernel ask
+    for (``wide_min_ctas`` in csrc/flash_prefill.cu): the pipelined kernel
+    four at hd 64 and two at hd 128, one two-head CTA at hd 256; the
+    others one."""
     kernel, _, heads = launch_plan(hd, dtype)
-    return 2 if kernel == "flash_prefill_wide_kernel" and heads == 1 else 1
+    if kernel != "flash_prefill_wide_kernel" or heads != 1:
+        return 1
+    return 4 if hd == 64 else 2
 
 
 def causal_window_mask(S: int, window: int, device) -> torch.Tensor:

@@ -381,9 +381,9 @@ PREFILL_CASES = [
     (1, 200, 5, 1, 128, 0, 30.0),
     (2, 200, 12, 2, 128, 32, 30.0),
     (2, 1, 12, 2, 128, 0, 0.0),
-    # the bf16 hd-64 route (128-query items, 128-key tiles, two consumer
-    # warpgroups): S at the 128-key tile edges, odd groups (G 3 and 5) and
-    # G 1, windows of 32 and 128 that cross a 128-key tile, with a softcap
+    # the bf16 hd-64 route (the pipelined kernel, each step's PV done before
+    # its QK^T): S 128 and 255; S 1, 127, 129 and 255 at G 1, 3 and 5;
+    # windows of 32 and 128 that cross a tile edge, with a softcap
     (2, 128, 4, 2, 64, 0, 0.0),
     (2, 255, 4, 2, 64, 0, 0.0),
     (2, 1, 6, 6, 64, 0, 0.0),
@@ -416,16 +416,15 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, S, H, KV, hd, window,
 @pytest.mark.parametrize("dtype,hd,kernel", [
     (torch.bfloat16, 256, "flash_prefill_wide_kernel"),
     (torch.float32, 256, "flash_prefill_simt_kernel"),
-    (torch.bfloat16, 64, "flash_prefill_pingpong_kernel"),
+    (torch.bfloat16, 64, "flash_prefill_wide_kernel"),
     (torch.bfloat16, 128, "flash_prefill_wide_kernel"),
     (torch.float32, 128, "flash_prefill_simt_kernel"),
     (torch.bfloat16, 32, "flash_prefill_mma_kernel"),
 ])
 def test_flash_prefill_runs_the_planned_kernel(cuda, dtype, hd, kernel):
     """The profiler sees flash_prefill launch the kernel ``launch_plan``
-    names: at hd 128 and 256 the pipelined ``wgmma`` kernel in bf16 and the
-    CUDA-core one in fp32; at hd 64 in bf16 the ping-pong one; at hd 32 in
-    bf16 the ``mma.sync`` one."""
+    names: at hd 64, 128 and 256 the pipelined ``wgmma`` kernel in bf16 and
+    the CUDA-core one in fp32; at hd 32 in bf16 the ``mma.sync`` one."""
     assert fp.launch_plan(hd, dtype)[0] == kernel
     rng = np.random.default_rng(7)
     q = _randn(rng, (2, 130, 8, hd), dtype, cuda)

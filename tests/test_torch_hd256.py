@@ -306,7 +306,7 @@ def test_decode_step_above_the_step_route_still_raises():
 PREFILL_PLANS = {
     # (hd, dtype) -> (kernel, threads, query heads a CTA, shared bytes)
     (32, "bfloat16"): ("flash_prefill_mma_kernel", 128, 1, 25_600),
-    (64, "bfloat16"): ("flash_prefill_pingpong_kernel", 384, 1, 99_328),
+    (64, "bfloat16"): ("flash_prefill_wide_kernel", 128, 1, 41_984),
     (128, "bfloat16"): ("flash_prefill_wide_kernel", 128, 1, 82_944),
     (256, "bfloat16"): ("flash_prefill_wide_kernel", 256, 2, 197_632),
     (32, "float32"): ("flash_prefill_simt_kernel", 128, 1, 40_960),
@@ -321,9 +321,9 @@ def test_prefill_launch_plan_mirrors_the_dispatch(hd, dtype):
     """``launch_plan`` and ``smem_bytes`` of flash_prefill at every head dim
     it is built for, in both dtypes, as ``flash_prefill_launch``
     dispatches: every CTA within one H100 block (the bf16 pipelined route:
-    at hd 128 Q of one head and two-tile K and V rings of 16 KB tiles, at
-    hd 256 Q of two heads and rings of 32 KB tiles, 1 KB of alignment), and
-    ``check_args`` passes there."""
+    at hd 64 and 128 Q of one head and two-tile K and V rings of 8 and 16
+    KB tiles, at hd 256 Q of two heads and rings of 32 KB tiles, 1 KB of
+    alignment), and ``check_args`` passes there."""
     dt = getattr(torch, dtype)
     kernel, threads, heads, smem = PREFILL_PLANS[hd, dtype]
     assert fp.launch_plan(hd, dt) == (kernel, threads, heads)
@@ -333,25 +333,20 @@ def test_prefill_launch_plan_mirrors_the_dispatch(hd, dtype):
 
 
 # (hd, dtype) -> CTAs an SM the plan counts on
-PREFILL_CTAS = {(128, "bfloat16"): 2}
+PREFILL_CTAS = {(64, "bfloat16"): 4, (128, "bfloat16"): 2}
 
 
 @pytest.mark.parametrize("hd,dtype", sorted(PREFILL_PLANS))
 def test_prefill_smem_fits_the_ctas_an_sm_the_plan_assumes(hd, dtype):
-    """The CTAs an SM that flash_prefill's plan counts on (the hd-64
-    route's persistent grid is one CTA an SM; two one-head CTAs at hd 128)
-    fit one H100 SM: their shared memory, with the 1 KB the card reserves
-    for each CTA, and their threads. At hd 64 the ping-pong CTA is 2 + 2 *
-    ``PP_STAGES`` 16 KB tiles: two Q slots of 128 rows and the K and V
-    rings."""
+    """The CTAs an SM that flash_prefill's launch bounds ask for (four
+    one-head CTAs of the pipelined kernel at hd 64, two at hd 128) fit one
+    H100 SM: their shared memory, with the 1 KB the card reserves for each
+    CTA, and their threads."""
     dt = getattr(torch, dtype)
     ctas = fp.ctas_per_sm(hd, dt)
     assert ctas == PREFILL_CTAS.get((hd, dtype), 1)
     assert ctas * (fp.smem_bytes(hd, dt) + 1024) <= fp.SM_SMEM_BYTES
     assert ctas * fp.launch_plan(hd, dt)[1] <= fp.SM_THREADS
-    if hd == 64 and dt == torch.bfloat16:
-        assert fp.smem_bytes(hd, dt) == (2 + 2 * fp.PP_STAGES) * 128 * 128 \
-            + 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
