@@ -169,8 +169,9 @@ def prefill_variants(src):
     }
     # hd 64: the step as at hd 128 (QK^T_i with PV_{i-1}, softmax under PV),
     # other CTA counts an SM, and masked tiles by two bounds a row
-    overlapped = lambda text: sub(  # noqa: E731
-        text, "    if constexpr (HD == 64) {", "    if constexpr (HD == 0) {")
+    overlapped = lambda text: sub(sub(  # noqa: E731
+        text, "    if constexpr (HD == 64) {", "    if constexpr (HD == 0) {"),
+        "    if constexpr (HD != 64) refill(i);\n", "    refill(i);\n")
     ctas = lambda text, n: sub(  # noqa: E731
         text, "  return HD == 64 ? 4 :", f"  return HD == 64 ? {n} :")
     bounds = in_region(in_region(
@@ -190,7 +191,21 @@ def prefill_variants(src):
         "S, window))\n",
         "      if (masked && ((e >> 2) * 8 + (e & 1) > hi[(e >> 1) & 1] ||\n"
         "                     (e >> 2) * 8 + (e & 1) <= lo[(e >> 1) & 1]))\n")
+    # the next tiles' copies started before this step's products are issued
+    early_copies = sub(sub(
+        src, "    if constexpr (HD != 64) refill(i);\n", "    refill(i);\n"),
+        "      qk(i, s);\n      refill(i);\n", "      qk(i, s);\n")
+    # PV_{i-1} waited for before QK^T_i is issued
+    serial = sub(
+        early_copies, "      pv(i - 1);\n      qk(i, s);\n      wg_wait<0>();\n"
+        "      wg_fence_regs(o);\n      wg_fence_regs(ph);\n"
+        "      wg_fence_regs(pl);\n      wg_fence_regs(s);\n",
+        "      pv(i - 1);\n      wg_wait<0>();\n      wg_fence_regs(o);\n"
+        "      wg_fence_regs(ph);\n      wg_fence_regs(pl);\n      wg_fence();\n"
+        "      qk(i, s);\n      wg_wait<0>();\n      wg_fence_regs(s);\n")
     hd64 = {
+        "hd64_serial_issue": serial,
+        "hd64_early_copies": early_copies,
         "overlapped_step_at_hd64": overlapped(src),
         "overlapped_step_at_hd64_3_ctas": ctas(overlapped(src), 3),
         "hd64_at_3_ctas": ctas(src, 3),

@@ -26,10 +26,11 @@
 // with P's lo term), so a CTA's time goes to its chain of waits (copies,
 // products, softmax and rescale of a tile, in turn), and the SM hides one
 // CTA's waits behind the other three's work. For four CTAs to fit, a
-// thread keeps within 128 registers: the hd-64 step lets PV_{i-1} finish
-// before QK^T_i starts, so P and S are never live together (125 registers,
-// no spill), where the hd-128 order (softmax under PV) spills 84 bytes at
-// four CTAs. P enters PV as two bf16 terms, its rounding and the
+// thread keeps within 128 registers: the hd-64 step issues PV_{i-1} and
+// QK^T_i back to back and waits for both before the softmax, so the
+// softmax never holds P beside S (127 registers, no spill), where the
+// hd-128 order (softmax under PV) spills 84 bytes at four CTAs; the next
+// tiles' copies start once the step's products are issued. P enters PV as two bf16 terms, its rounding and the
 // residual's (hi + lo, 16 mantissa bits): a single bf16 P moves an output
 // by up to 2^-9 of its size, which at |out| in [2, 4) flips its bf16
 // rounding by one ulp (0.0156) against the plain version's fp32 P, past
@@ -101,8 +102,8 @@
 //   CTA (99,328 bytes, one an SM at 226 registers; two an SM cap them at
 //   128 and spill 312 bytes) has its warpgroups meet at a barrier every
 //   key tile.
-// - Softmax overlaps the products (at hd 128 and 256; at hd 64 PV_{i-1}
-//   is done before QK^T_i, see above). Step i issues QK^T of key tile i
+// - Softmax overlaps the products (at hd 128 and 256; at hd 64 it runs
+//   after PV_{i-1} and QK^T_i, see above). Step i issues QK^T of key tile i
 //   and then PV of tile i - 1, waits for QK^T alone (`wgmma.wait_group
 //   1`), and runs tile i's mask and exponentials while PV_{i-1} is in
 //   flight; only the rescale of the accumulator waits for it. P splits
@@ -531,7 +532,8 @@ flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   // through two-tile rings. Step i starts with a barrier (every warp is
   // done with step i - 1's products, so the buffers of K_{i-1} and V_{i-2}
   // are free), one thread starts K_{i+1} and V_i into them, and every
-  // thread waits for K_i and V_{i-1}. Steps 0 (QK^T alone) and n (PV
+  // thread waits for K_i and V_{i-1} (at hd 64 the barrier and the copies
+  // come after the wait and the step's products are issued). Steps 0 (QK^T alone) and n (PV
   // alone) are peeled off, so that every step between commits both groups
   // unconditionally: ptxas serialises the products when it cannot tell
   // which group a wait leaves in flight.
@@ -652,20 +654,21 @@ flash_prefill_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
     float s[32], alpha[2];
 #pragma unroll
     for (int e = 0; e < 32; ++e) s[e] = 0.f;
-    refill(i);
+    if constexpr (HD != 64) refill(i);
     arrive(i);
     wg_fence();
     if constexpr (HD == 64) {
-      // four CTAs an SM: PV_{i-1} is done before QK^T_i starts, so P and
-      // S are never live together and 128 registers hold a thread
+      // four CTAs an SM: PV_{i-1} and QK^T_i run back to back and are
+      // waited for together, so the softmax never holds P beside S and
+      // 128 registers hold a thread; the next tiles' copies start once
+      // the products are issued
       pv(i - 1);
+      qk(i, s);
+      refill(i);
       wg_wait<0>();
       wg_fence_regs(o);
       wg_fence_regs(ph);
       wg_fence_regs(pl);
-      wg_fence();
-      qk(i, s);
-      wg_wait<0>();
       wg_fence_regs(s);
       softmax(i, s, alpha);
     } else {

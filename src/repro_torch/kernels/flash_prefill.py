@@ -42,7 +42,8 @@ def launch_plan(hd: int, dtype: torch.dtype) -> Tuple[str, int, int]:
     """(kernel, threads, query heads a CTA) of one launch, as
     ``flash_prefill_launch`` dispatches: bf16 at hd 64, 128 and 256 on the
     pipelined ``wgmma`` kernel, one warpgroup a query head: one head a CTA
-    at hd 64 (four CTAs an SM, each step's PV done before its QK^T) and at
+    at hd 64 (four CTAs an SM, each step's PV and QK^T waited for together
+    before its softmax) and at
     hd 128 (two CTAs an SM, softmax under the previous tile's PV), two
     heads of a KV head a CTA at hd 256 (the grid has KV * ceil(G / 2) CTAs
     along the heads); bf16 at hd 32 on ``mma.sync``; fp32 on the CUDA

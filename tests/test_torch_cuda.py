@@ -381,8 +381,9 @@ PREFILL_CASES = [
     (1, 200, 5, 1, 128, 0, 30.0),
     (2, 200, 12, 2, 128, 32, 30.0),
     (2, 1, 12, 2, 128, 0, 0.0),
-    # the bf16 hd-64 route (the pipelined kernel, each step's PV done before
-    # its QK^T): S 128 and 255; S 1, 127, 129 and 255 at G 1, 3 and 5;
+    # the bf16 hd-64 route (the pipelined kernel, each step's PV and QK^T
+    # waited for together): S 128 and 255; S 1, 127, 129 and 255 at G 1, 3
+    # and 5;
     # windows of 32 and 128 that cross a tile edge, with a softcap
     (2, 128, 4, 2, 64, 0, 0.0),
     (2, 255, 4, 2, 64, 0, 0.0),
