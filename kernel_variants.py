@@ -73,7 +73,7 @@ def prefill_variants(src):
 
     def in_rescale_split(text, old, new):
         """``text`` with ``old`` replaced inside the wide kernel's
-        rescale_split only (the hd-64 kernel has the same lines)."""
+        rescale_split only."""
         i = text.index("  auto rescale_split = [&]")
         return text[:i] + sub(text[i:], old, new)
     stores = src[src.index("  // O / l in bf16, staged"):src.index(FP32)]

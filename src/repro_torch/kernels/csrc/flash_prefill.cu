@@ -30,30 +30,34 @@
 // QK^T_i back to back and waits for both before the softmax, so the
 // softmax never holds P beside S (127 registers, no spill), where the
 // hd-128 order (softmax under PV) spills 84 bytes at four CTAs; the next
-// tiles' copies start once the step's products are issued. P enters PV as two bf16 terms, its rounding and the
-// residual's (hi + lo, 16 mantissa bits): a single bf16 P moves an output
-// by up to 2^-9 of its size, which at |out| in [2, 4) flips its bf16
-// rounding by one ulp (0.0156) against the plain version's fp32 P, past
-// the 1e-2 absolute tolerance; two terms leave the error at fp32's order.
+// tiles' copies start once the step's products are issued. P enters PV
+// as two bf16 terms, its rounding and the residual's (hi + lo, 16
+// mantissa bits): a single bf16 P moves an output by up to 2^-9 of its
+// size, which at |out| in [2, 4) flips its bf16 rounding by one ulp
+// (0.0156) against the plain version's fp32 P, past the 1e-2 absolute
+// tolerance; two terms leave the error at fp32's order.
 // Measured (device ms, tinyllama / granite / whisper at B 8, S 512;
 // NVIDIA H100 80GB HBM3 at 700.00 W; `kernel_variants.py --hd 64 --parent`,
-// one call): this kernel 0.0399-0.0402 / 0.0311-0.0313 / 0.0126-0.0127;
-// with the hd-128 step order 0.0411-0.0414 / 0.0324 / 0.0123 (128
-// registers, 84 bytes spilled), the same at three CTAs 0.0430 /
-// 0.0330-0.0332 / 0.0118-0.0122 (162 registers); this order at three CTAs
-// 0.0447-0.0450 / 0.0339-0.0340 / 0.0124 (150), at five 0.0420-0.0421 /
-// 0.0325-0.0330 / 0.0124-0.0128 (96, 56 bytes spilled); masked tiles by
-// two bounds a row 0.0474-0.0477 / 0.0363-0.0364 / 0.0150-0.0151. With
-// wrong results, to see where the time goes (tinyllama): no softmax
-// 0.0313-0.0314, no PV 0.0346-0.0347, no lo term 0.0350-0.0351, no copies
-// after the first K tile 0.0369-0.0370. The kernel it replaced, the
-// one-warpgroup `flash_prefill_wgmma_kernel` with `cp.async` copies and a
-// __syncthreads a tile (four CTAs an SM, 128 registers), ran 0.0523 /
-// 0.0399-0.0405 / 0.0156 (tinyllama: no softmax 0.0410, no lo term
-// 0.0454-0.0455, no PV 0.0428-0.0431, no copies 0.0425-0.0426). Tried and
-// left out, a ping-pong kernel (`flash_prefill_pingpong_kernel` of commit
-// 5e2cceb: `git archive 5e2cceb | tar -x -C build/pingpong`, then
-// `kernel_variants.py --hd 64 --parent build/pingpong`, and that
+// one call): this kernel 0.0383-0.0391 / 0.0300-0.0301 / 0.0116; with the
+// copies started before the products 0.0388-0.0390 / 0.0303-0.0304 /
+// 0.0121 (125 registers); with PV_{i-1} waited for before QK^T_i is issued
+// 0.0396-0.0398 / 0.0310-0.0311 / 0.0124-0.0125 (125); with the hd-128
+// step order 0.0409-0.0410 / 0.0324 / 0.0123-0.0124 (128 registers, 84
+// bytes spilled), the same at three CTAs 0.0427-0.0429 / 0.0331 /
+// 0.0117-0.0118 (162 registers); this order at three CTAs 0.0427-0.0428 /
+// 0.0330-0.0331 / 0.0115 (150), at five 0.0454-0.0455 / 0.0352-0.0354 /
+// 0.0141-0.0142 (96, 56 bytes spilled); masked tiles by two bounds a row
+// 0.0461-0.0462 / 0.0355-0.0357 / 0.0144. With wrong results, to see where
+// the time goes (tinyllama): no softmax 0.0300-0.0307, no PV 0.0318-0.0343,
+// no lo term 0.0339-0.0340, no copies after the first K tile 0.0361. The
+// kernel it replaced, the one-warpgroup `flash_prefill_wgmma_kernel` with
+// `cp.async` copies and a __syncthreads a tile (four CTAs an SM, 128
+// registers), ran 0.0519-0.0520 / 0.0402-0.0404 / 0.0154 (tinyllama: no
+// softmax 0.0408-0.0409, no lo term 0.0453-0.0455, no PV 0.0428, no copies
+// 0.0425-0.0426).
+// Tried and left out, a ping-pong kernel (`flash_prefill_pingpong_kernel`
+// of commit 5e2cceb: `git archive 5e2cceb | tar -x -C build/pingpong`,
+// then `kernel_variants.py --hd 64 --parent build/pingpong`, and that
 // checkout's own kernel_variants.py for its variants): one persistent CTA
 // an SM of three warpgroups, a producer warpgroup issuing every TMA copy
 // into rings whose slots the consumers release through mbarriers, two
@@ -61,14 +65,14 @@
 // stream of 128-key tiles (QK^T m64n128k16), taking turns on named
 // barriers to issue their products and running tile i's softmax under
 // PV_{i-1}, registers moved by setmaxnreg (240 for the consumers, 24 for
-// the producer; 168 at entry, no spill): 0.0463-0.0464 / 0.0372-0.0373 /
-// 0.0157. Its eight consumer warps an SM cannot hide a softmax that takes
-// as long as the other warpgroup's products (tinyllama: no softmax
+// the producer; 168 at entry, no spill): 0.0462-0.0464 / 0.0374-0.0386 /
+// 0.0156-0.0158. Its eight consumer warps an SM cannot hide a softmax that
+// takes as long as the other warpgroup's products (tinyllama: no softmax
 // 0.0310-0.0339; its turns saved 2%; without setmaxnreg 0.0588-0.0590;
-// one CTA an item 0.0604-0.0608; three-slot rings no change).
-// Key tiles wholly above the causal frontier or before the window
-// are never loaded, and the mask is evaluated only on tiles that cross the
-// diagonal, the window edge or the ragged end of S. The grid runs the
+// one CTA an item 0.0604-0.0608; three-slot rings no change). Key tiles
+// wholly above the causal frontier or before the window are never loaded,
+// and the mask is evaluated only on tiles that cross the diagonal, the
+// window edge or the ragged end of S. The grid runs the
 // q-tile index in reverse, so the heaviest causal tiles start first and
 // the light ones fill the tail.
 //
