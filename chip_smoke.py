@@ -230,7 +230,7 @@ phase raises, and the script exits nonzero:
               sharing, dense chunked), launches per step asserted; the
               gemma-2b 6/12/18
               ladder through the InfAdapter loop (dense FIFO, paged +
-              sharing and ``chunked``, 10 s each; served, rejected,
+              sharing and ``chunked``, 6 s each; served, rejected,
               launches, memory_allocated after close); both chunk forms
               at yi-6b's fused tick (hd 128: 32 query heads on 4 KV
               heads), against the plain versions, timed beside SDPA and
@@ -257,7 +257,7 @@ phase raises, and the script exits nonzero:
               launches per step asserted on the ladder's L8 rung
               (GRAPH_DEPTH); the 8/16/32 ladder through the
               InfAdapter loop (dense FIFO, paged + sharing, ``chunked``,
-              10 s each; none rejected), ``memory_allocated`` per load and,
+              6 s each; none rejected), ``memory_allocated`` per load and,
               after each close and a collection, back at the loop's start
               within CLOSE_MARGIN (every closing loop of phase 14 too);
  16. train    the training path (no kernel of the port: it runs with
@@ -275,12 +275,12 @@ phase raises, and the script exits nonzero:
               steps at the tiny-LM example's optimizer (its 512-token
               vocabulary) held to its "learned" criterion; resume from a
               checkpoint bitwise; at 2 layers in fp32 one train step card
-              = CPU and microbatches 2 = 1; the paper's LSTM for 40 of
+              = CPU and microbatches 2 = 1; the paper's LSTM for 30 of
               the example's 300 steps (loss falls, a CPU twin's first 20
               losses, one
               step's kernels and busy share, MAE and under-prediction of
               LSTM, MovingMax and their ensemble), then the InfAdapter
-              loop with it as the forecaster for 10 s on the dense
+              loop with it as the forecaster for 6 s on the dense
               full-width ladder (served, rejected, decisions);
  18. whisper  the encoder-decoder family: whisper-tiny at its
               published size (4 + 4 layers, d_model 384, 6 heads of hd 64
@@ -307,7 +307,7 @@ phase raises, and the script exits nonzero:
               vs eager at GRAPH_DEPTH layers; its 8/16/48 ladder served
               text-only (as the reference's engine serves it) through the
               InfAdapter loop, dense FIFO, paged + sharing and
-              ``chunked``, 10 s each, every close back at its start;
+              ``chunked``, 6 s each, every close back at its start;
  20. resnet   the paper's ResNet family (cuDNN convolutions, no port
               kernel; none may launch) at 224 x 224 in fp32, TF32 off:
               each variant's logits card vs CPU at B 2, then ms, images/s
@@ -440,7 +440,7 @@ FAB_SERVE_SECONDS, FAB_FAIL_AT = 15, 5.0
 # EVAL_SLO_MS; the trace is scaled so that its base (EVAL_BASE req/s) is
 # EVAL_BASE_SHARE of what the L22 rung sustains at the full budget
 EVAL_SECONDS, EVAL_INTERVAL = 20, 5.0
-EVAL_REPLAY_SECONDS = 10    # the replay launcher's engine run
+EVAL_REPLAY_SECONDS = 6     # the replay launcher's engine run
 EVAL_T0, EVAL_BASE, EVAL_BASE_SHARE = 595, 40.0, 0.5
 EVAL_BUDGET, EVAL_SLO_MS = 3, 2000.0
 EVAL_CONTROLLERS = ("InfAdapter", "MS+", "VPA+", "INFaaS", "Cocktail")
@@ -450,10 +450,12 @@ EVAL_CONTROLLERS = ("InfAdapter", "MS+", "VPA+", "INFaaS", "Cocktail")
 # are path smokes (completions, preemptions, launches).
 TAIL_MIN_REQUESTS = 100
 # dense-config phase: gemma-2b's attention heads (8 query heads on one KV
-# head of hd 256), the serve loop of its paged and chunked engines
+# head of hd 256), the serve loop of its paged and chunked engines (the
+# side loops of phases 14, 15, 19 and 16 run 6 s: path smokes, so that
+# the whole script keeps room under a chip run's 1200 s)
 GEMMA = "gemma-2b"
 GEMMA_H, GEMMA_KV, GEMMA_HD = 8, 1, 256
-GEMMA_SIDE_SECONDS = 10
+GEMMA_SIDE_SECONDS = 6
 GEMMA_GRAPH_DEPTH = 6       # replay vs eager on the ladder's first rung
 # yi-6b's attention heads (32 query heads on 4 KV heads of hd 128): the
 # chunk forms' hd-128 tensor-core instance at its fused tick
@@ -465,7 +467,7 @@ YI_H, YI_KV, YI_HD = 32, 4, 128
 # 1536 and 512 terms in other orders)
 GRANITE = "granite-moe-3b-a800m"
 GRANITE_H, GRANITE_KV, GRANITE_HD = 24, 8, 64
-MOE_SERVE_SECONDS = 10
+MOE_SERVE_SECONDS = 6
 MOE_REL_TOL = 1e-4
 # the MoE and VLM phases replay their steps against eager on the ladders'
 # 8-layer rungs (gemma-2b on its 6-layer one): at L32 / L48 an eager step
@@ -487,7 +489,7 @@ FP32_CPU_REL_TOL = 1e-4
 INTERNVL = "internvl2-26b"
 INTERNVL_H, INTERNVL_KV, INTERNVL_HD = 48, 8, 128
 INTERNVL_PREFIX = 256
-VLM_SERVE_SECONDS = 10
+VLM_SERVE_SECONDS = 6
 # ResNet phase: the paper's five variants at 224 x 224 in fp32 (TF32 off),
 # card vs CPU at RESNET_TWIN_B images within RESNET_REL_TOL of the logits'
 # largest magnitude, timed at each of RESNET_BATCHES
@@ -507,7 +509,7 @@ CLOSE_MARGIN = 0.1e9
 # TRAIN_LOSS_RTOL: fp32 sums in other orders); the paper's LSTM, a CPU
 # twin of 20 steps within LSTM_REL_TOL, then the InfAdapter loop with it
 # as the forecaster. Step counts keep the phase near 150 s: the LSTM runs
-# 40 of the example's 300 steps (a step takes 0.4-0.5 s on an H100 80GB
+# 30 of the example's 300 steps (a step takes 0.4-0.5 s on an H100 80GB
 # HBM3 at 700 W, launch-bound), the learning run 60
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_B, TRAIN_S = 8, 512
@@ -519,8 +521,8 @@ TRAIN_WARMUP, TRAIN_TIMED, LEARN_STEPS = 3, 10, 60
 LEARN_VOCAB = 512
 TWIN_LAYERS, TWIN_B, TWIN_S = 2, 2, 64
 TWIN_PARAM_ATOL, TRAIN_LOSS_RTOL = 1e-5, 1e-5
-LSTM_STEPS, LSTM_TWIN_STEPS, LSTM_REL_TOL = 40, 20, 1e-4
-LSTM_SERVE_SECONDS = 10
+LSTM_STEPS, LSTM_TWIN_STEPS, LSTM_REL_TOL = 30, 20, 1e-4
+LSTM_SERVE_SECONDS = 6
 DEVICE = "cuda"
 
 
